@@ -13,6 +13,11 @@ Layout mapping (flax kernel -> torch weight):
 - ``mlp_in``/``mlp_out``/``lm_head`` (in, out) -> Linear (out, in)
 - LayerNorm ``scale``/``bias`` -> ``weight``/``bias``
 - ``tok_embed/embedding`` and ``pos_embed`` copy as they are.
+
+``flax_named_parameters`` lists a model's parameters in the flax
+flatten order (sorted keys at every level), the leaf order of the JAX
+package's bucket planner. ``grads_to_flax`` and ``buckets_to_flax``
+carry gradients and flat optimizer buckets across for the tests.
 """
 
 from __future__ import annotations
@@ -33,6 +38,66 @@ def _t(a: np.ndarray) -> torch.Tensor:
 
 def _n(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def flax_path(name: str) -> tuple[str, ...]:
+    """The flax parameter path of a state-dict name
+    (``block0.attn.query.weight`` -> ("block0", "attn", "query",
+    "kernel"))."""
+    parts = name.split(".")
+    if parts == ["pos_embed"]:
+        return ("pos_embed",)
+    if parts == ["tok_embed", "weight"]:
+        return ("tok_embed", "embedding")
+    *mod, leaf = parts
+    if mod[-1] in _LAYERNORMS + ("ln_final",):
+        return (*mod, "scale" if leaf == "weight" else "bias")
+    return (*mod, "kernel")
+
+
+def flax_named_parameters(model: torch.nn.Module
+                          ) -> list[tuple[str, torch.nn.Parameter]]:
+    """(name, parameter) pairs in the flax flatten order."""
+    return sorted(model.named_parameters(), key=lambda kv: flax_path(kv[0]))
+
+
+def flax_leaf(name: str, t: torch.Tensor, n_heads: int) -> np.ndarray:
+    """One state-dict tensor in its flax layout (numpy)."""
+    w = _n(t)
+    proj = flax_path(name)[-2:][0]
+    if proj in _QKV:                                   # (H*Dh, d)
+        return w.T.reshape(w.shape[1], n_heads, -1).copy()
+    if proj == "out":                                  # (d, H*Dh)
+        return w.T.reshape(n_heads, -1, w.shape[0]).copy()
+    if proj in ("mlp_in", "mlp_out", "lm_head"):
+        return w.T.copy()
+    return w
+
+
+def grads_to_flax(model: torch.nn.Module, n_heads: int) -> dict:
+    """The model's ``.grad``s as a flax-shaped tree (None grads as
+    zeros)."""
+    return torch_to_flax(
+        {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+         for n, p in model.named_parameters()}, n_heads)
+
+
+def buckets_to_flax(buffers, plan, names: list[str], n_heads: int
+                    ) -> list[np.ndarray]:
+    """Flat bucket buffers of the port (each leaf in its torch layout)
+    -> the JAX package's buffers for the same plan (each leaf in its
+    flax layout), padding kept. ``names`` are the plan's leaves' names in
+    its order."""
+    out = []
+    for buf, b in zip(buffers, plan.buckets):
+        flat = _n(buf).copy()
+        for s in b.slots:
+            piece = torch.from_numpy(flat[s.offset:s.offset + s.size]
+                                     .reshape(s.shape).copy())
+            flat[s.offset:s.offset + s.size] = flax_leaf(
+                names[s.leaf], piece, n_heads).reshape(-1)
+        out.append(flat)
+    return out
 
 
 def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
@@ -64,30 +129,11 @@ def torch_to_flax(state_dict: dict[str, torch.Tensor], n_heads: int
                   ) -> dict:
     """Inverse of `flax_to_torch`; ``n_heads`` splits the attention
     projections back into (heads, head_dim)."""
-    params: dict = {
-        "tok_embed": {"embedding": _n(state_dict["tok_embed.weight"])},
-        "pos_embed": _n(state_dict["pos_embed"]),
-        "ln_final": {"scale": _n(state_dict["ln_final.weight"]),
-                     "bias": _n(state_dict["ln_final.bias"])},
-        "lm_head": {"kernel": _n(state_dict["lm_head.weight"]).T.copy()},
-    }
-    blocks = sorted({k.split(".", 1)[0] for k in state_dict
-                     if _BLOCK.match(k.split(".", 1)[0])})
-    for name in blocks:
-        blk: dict = {}
-        for ln in _LAYERNORMS:
-            blk[ln] = {"scale": _n(state_dict[f"{name}.{ln}.weight"]),
-                       "bias": _n(state_dict[f"{name}.{ln}.bias"])}
-        attn: dict = {}
-        for proj in _QKV:
-            w = _n(state_dict[f"{name}.attn.{proj}.weight"])   # (H*Dh, d)
-            attn[proj] = {"kernel": w.T.reshape(w.shape[1], n_heads, -1)
-                          .copy()}
-        w = _n(state_dict[f"{name}.attn.out.weight"])          # (d, H*Dh)
-        attn["out"] = {"kernel": w.T.reshape(n_heads, -1, w.shape[0]).copy()}
-        blk["attn"] = attn
-        for mlp in ("mlp_in", "mlp_out"):
-            blk[mlp] = {"kernel": _n(state_dict[f"{name}.{mlp}.weight"])
-                        .T.copy()}
-        params[name] = blk
+    params: dict = {}
+    for name, t in state_dict.items():
+        *path, leaf = flax_path(name)
+        node = params
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = flax_leaf(name, t, n_heads)
     return params

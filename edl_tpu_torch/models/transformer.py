@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense and eval only (port of
-``edl_tpu.models.transformer``).
+"""Decoder-only transformer LM, dense, for serving and training (port
+of ``edl_tpu.models.transformer``), and its loss ``lm_loss_fn``.
 
 Parameters are fp32 and computation runs in ``cfg.dtype`` (bf16 by
 default), as in the flax model: every projection casts its input and its
@@ -15,6 +15,11 @@ reference on a card, TF32 must be off
 State-dict names mirror the flax parameter tree (``block0.attn.query``,
 ``ln_final``, ``lm_head`` ...); ``edl_tpu_torch.bridge`` converts between
 the two.
+
+Training is ``module.train()`` (flax's ``train=True``): with
+``dropout == 0``, which is what ``lm_train`` runs, it computes exactly
+what eval does. Dropout in training, remat and the streamed-vocab loss
+(``lm_loss_fused``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ class TransformerConfig:
     n_layers: int = 6
     d_ff: int = 2048
     max_len: int = 2048
-    dropout: float = 0.0     # eval only: dropout is the identity
+    dropout: float = 0.0     # > 0 raises in training (not ported yet)
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False
     # "auto" = the flash kernel when the input is on CUDA and the
@@ -58,7 +63,8 @@ class TransformerConfig:
                 "a device mesh comes with the multi-GPU slice")
         if self.remat:
             raise NotImplementedError(
-                "remat belongs to training, which is not ported yet")
+                "remat (per-block activation checkpointing) is not ported "
+                "yet (ROADMAP Queue 1 item 6)")
         if self.attention not in ("auto", "flash", "dense"):
             raise ValueError(f"unknown attention={self.attention!r} "
                              "(auto|flash|dense)")
@@ -181,6 +187,10 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if self.training and cfg.dropout > 0:
+            raise NotImplementedError(
+                "dropout in training is not ported yet (flax nn.Dropout; "
+                "ROADMAP Queue 1 item 6)")
         s = tokens.shape[1]
         x = F.embedding(tokens.long(), self.tok_embed.weight).to(cfg.dtype)
         x = x + self.pos_embed[None, :s].to(cfg.dtype)
@@ -188,3 +198,15 @@ class Transformer(nn.Module):
             x = block(x)
         x = self.ln_final(x)
         return self.lm_head(x.float())
+
+
+def lm_loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Causal LM loss for {'tokens': (B, S)} batches: next-token cross
+    entropy from an fp32 log-softmax, with the perplexity in the aux."""
+    tokens = batch["tokens"]
+    logits = model(tokens)[:, :-1]
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+    loss = -ll.mean()
+    return loss, {"ppl": torch.exp(loss.detach())}

@@ -3,8 +3,9 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``ops/_build/lib<name>-<digest>.so`` (a directory git ignores); the
-digest covers the source and the flags, so an edited source never loads
-a stale library. No PyTorch headers are included, so a build takes
+digest covers the source and its own flags (``flags(name)``: the common
+ones plus ``SOURCE_FLAGS[name]``), so an edited source or flag never
+loads a stale library. No PyTorch headers are included, so a build takes
 seconds. A failed build raises: there is no fallback to a plain version.
 """
 
@@ -24,6 +25,13 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source on top of NVCC_FLAGS. The fused Adam update is
+# held bit for bit against its unfused PyTorch version: no contraction
+# into fma, IEEE division and square root, no flush to zero.
+SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
+    "adam_fp32": ("-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+                  "-ftz=false"),
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}   # guarded-by: _lock
@@ -41,9 +49,14 @@ def nvcc() -> str:
     return found
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -51,7 +64,7 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
     out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

@@ -1,0 +1,50 @@
+"""Train step builder (port of ``edl_tpu.train.step``).
+
+``make_train_step(loss_fn)`` returns ``step(state, batch) -> (state,
+metrics)``: the forward through ``loss_fn(model, batch) -> (loss, aux)``,
+``loss.backward()``, then ``state.apply_gradients()`` (the fused
+optimizer's seam). Metrics stay device tensors: the step never reads a
+value back, so the host keeps queueing work; the loop reads them at its
+log points only.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+LossFn = Callable[..., tuple[torch.Tensor, dict]]
+
+
+def make_train_step(loss_fn: LossFn, loss_scale: bool = False,
+                    comm=None) -> Callable:
+    """Build a step from ``loss_fn(model, batch) -> (loss, aux)``.
+
+    The JAX package's ``donate`` has no counterpart (the step updates in
+    place). ``loss_scale`` (fp16 dynamic loss scaling) and ``comm`` (the
+    bucketed gradient reduction) are not ported yet.
+    """
+    if loss_scale:
+        raise NotImplementedError(
+            "dynamic loss scaling (fp16, train/amp.py) is not ported yet "
+            "(ROADMAP Queue 1 item 4)")
+    if comm is not None:
+        raise NotImplementedError(
+            "the comm train step (train/comm.py) is not ported yet "
+            "(ROADMAP Queue 1 item 11)")
+
+    def step(state, batch):
+        for _, p in state.params:
+            p.grad = None
+        loss, aux = loss_fn(state.model, batch)
+        loss.backward()
+        # BatchNorm statistics live in the module's buffers and were
+        # updated by the forward: nothing to fold into the state
+        aux.pop("batch_stats", None)
+        state = state.apply_gradients()
+        return state, {"loss": loss.detach(),
+                       **{k: v.detach() for k, v in aux.items()}}
+
+    return step
+

@@ -33,6 +33,33 @@ ENV_VARS: dict[str, str] = {
     "EDL_TPU_SERVE_SHED_MS": "normal-class queue-delay budget (ms) for "
                              "overload shedding; <=0 disables the "
                              "delay-based shed rule",
+    # trainer environment (collective/job_env.TrainerEnv)
+    "EDL_TPU_JOB_ID": "job identifier shared by every pod of one job",
+    "EDL_TPU_POD_ID": "this pod's unique id within the job",
+    "EDL_TPU_RANK": "trainer rank within the elastic world",
+    "EDL_TPU_WORLD_SIZE": "elastic world size (launcher pod count)",
+    "EDL_TPU_COORDINATOR": "distributed coordinator endpoint",
+    "EDL_TPU_CLUSTER_JSON": "serialized Cluster doc handed to trainers",
+    "EDL_TPU_CLUSTER_VERSION": "cluster generation the trainer launched "
+                               "into",
+    "EDL_TPU_STORE_ENDPOINTS": "coordination store endpoints",
+    "EDL_TPU_SLICES": "multi-slice topology: number of slices",
+    "EDL_TPU_SLICE_ID": "this trainer's slice index (rank-contiguous)",
+    # train loop (train/loop.LoopConfig)
+    "EDL_TPU_NUM_EPOCHS": "epochs to train",
+    "EDL_TPU_LOG_EVERY": "log metrics every N steps",
+    "EDL_TPU_CHECKPOINT_PATH": "checkpoint directory root",
+    "EDL_TPU_PROFILE_DIR": "profiler trace output directory",
+    "EDL_TPU_PREFETCH_BATCHES": "host->device prefetch depth",
+    "EDL_TPU_LOADER_WORKERS": "mp input-plane worker processes (0 = inline)",
+    "EDL_TPU_COMM_BUCKET_MB": "gradient reduction bucket size MiB "
+                              "(0 = one fused reduction)",
+    "EDL_TPU_DCN_COMPRESS": "cross-slice gradient wire format: off | topk "
+                            "| int8",
+    "EDL_TPU_FUSED_OPT": "fused optimizer path: off | fp32 | int8 | fp8",
+    "EDL_TPU_OPT_QUANT": "override the resident-moment codec of the fused "
+                         "optimizer: off | int8 | fp8 (empty = what "
+                         "EDL_TPU_FUSED_OPT implies)",
 }
 
 
