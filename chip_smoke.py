@@ -14,14 +14,21 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              shapes, strided q/k/v and the serving and training shapes
              (bounds: K1 2e-5 fp32 / 3e-2 bf16 as
              tests/test_flash_attention.py; K2/K3 5e-5 fp32 /
-             3e-2 x max(1, max |ref|) bf16); K5 (fused Adam) bit for bit
-             over 3 steps of a 4 MiB and a ragged bucket, the fused
-             optimizer's gate, and (in the timing phase) two steps over
-             every bucket of the base config's plan;
+             3e-2 x max(1, max |ref|) bf16); bit for bit: K5 (fused Adam)
+             over 3 steps of a 4 MiB and a ragged bucket, K4 (momentum-SGD),
+             K6 (quantized momentum-SGD, int8 and fp8) and K7 (quantized
+             Adam, int8 and fp8) over 3 steps of a 4 MiB, a ragged, an
+             all-zero and a pinned-abs-max bucket with wd 0 and 1e-4
+             (p, moments, quantized payloads and scales), the fused
+             optimizer's gate (every optimizer x quant mode), and (in the
+             timing phase) two steps over every bucket of the main paths'
+             plans: the base LM's (K5, K7) and ResNet50_vd's (K4, K6);
 3. timing  — each kernel at its main path's shape: its time, its plain
              version's, one PyTorch library call computing the same
-             function (timed only, never used by the port), and the
-             least time the card could take for the work;
+             function (timed only, never used by the port; none for K6/K7),
+             and the least time the card could take for the work. The
+             optimizer kernels are timed over one step of their plan with
+             the host queued ahead of the card (device time);
 4. serve   — the transformer LM teacher at the repo's base config
              (bench.py's: vocab 32768, d_model 1024, 16 heads, 8 layers,
              d_ff 4096, S 1024, bf16 activations, fp32 params; seeded
@@ -30,8 +37,8 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              of 400 requests. Launch counters are set to 0 just before
              and read just after; the answers are held against the same
              weights with plain dense attention;
-5. forward — where one 8-row predict's time goes: the flash launches
-             and lm_head timed with CUDA events inside real forwards;
+5. forward — where one 8-row predict's time goes: the flash launches and
+             lm_head timed with CUDA events inside real forwards;
 6. train   — the port's lm_train.main at the base config, 16 rows a
              step, 20 steps (--bf16 --fused-opt fp32): step time, the
              forward / backward / optimizer split, launches per step
@@ -39,7 +46,22 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              falling; then one step of flash against dense attention on
              the trained weights, and each layer's dq from that step
              against the exact (fp64) gradient: K3's, and the one the
-             JAX package's row term rowsum(dO*O), with O in bf16, gives.
+             JAX package's row term rowsum(dO*O), with O in bf16, gives;
+7. train_int8 — the same lm_train run with --fused-opt int8: exactly one
+             K7 per bucket a step beside K1-K3, the loss finite and
+             falling and within 0.25 x the fp32 run's improvement of its
+             last loss, the optimizer state >= 1.8x smaller;
+8. train_resnet — the port's imagenet_train.main at bench.py's ResNet
+             config (ResNet50_vd, bf16, 224 px, 1000 classes, 128 images
+             a step, 2 epochs of 5 synthetic shards of 256 rows) with
+             --fused-opt fp32 (one K4 per bucket a step), a profiled
+             window of 3 more steps (device busy and idle share, the
+             kernels that take the time), then --fused-opt int8 (one K6
+             per bucket a step) on the same shards from the same init:
+             step time, images/s, the split, peak memory, eval acc1/acc5,
+             the last epoch's mean loss below the first step's and the
+             first epoch's, the int8 run within the envelope of the fp32
+             run and its state >= 1.8x smaller.
 
 The line before the last lists every ported kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -48,6 +70,7 @@ The line before the last lists every ported kernel; the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -71,6 +94,12 @@ KERNELS = (
      "edl_tpu/ops/flash_attention.py:212"),
     ("adam_fp32", "edl_tpu_torch/ops/csrc/adam_fp32.cu",
      "edl_tpu/ops/opt_kernels.py:216"),
+    ("sgdm_fp32", "edl_tpu_torch/ops/csrc/sgdm.cu",
+     "edl_tpu/ops/opt_kernels.py:194"),
+    ("sgdm_q", "edl_tpu_torch/ops/csrc/sgdm.cu",
+     "edl_tpu/ops/opt_kernels.py:202"),
+    ("adam_q", "edl_tpu_torch/ops/csrc/adam_q.cu",
+     "edl_tpu/ops/opt_kernels.py:227"),
 )
 
 # The card's published peaks (H100 SXM data sheet, dense).
@@ -127,6 +156,30 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms_queued(fn, iters: int, warmup: int = 3) -> tuple[float, bool]:
+    """Device ms of one ``fn()`` with the host ahead of the card: a sleep
+    kernel holds the stream while the host enqueues ``iters`` calls, so
+    the launches run back to back and the events time the kernels, not
+    the host's launch loop. A stream holds about a thousand pending
+    launches before the host blocks: keep ``iters`` x the launches of one
+    call under that. Returns (ms, host_bound): host_bound is True when
+    the sleep ended before the host had enqueued every call (the time
+    then includes idle gaps and is an upper bound)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)      # ~0.1 s at the H100's clocks
+    start.record()
+    for _ in range(iters):
+        fn()
+    host_bound = start.query()          # the sleep already ended
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, bool(host_bound)
 
 
 def attention_bound_ms(b, s, h, d, dtype, causal) -> tuple[float, str]:
@@ -483,8 +536,13 @@ def phase_timing_adam(ok_mod, fo, gen) -> tuple[dict, int]:
                             fused=True)
     turns: dict[str, list[float]] = {"kernel": [], "library": []}
     for _ in range(3):
-        turns["kernel"].append(time_ms(kernel_step, iters=10))
-        turns["library"].append(time_ms(lib.step, iters=10))
+        for key, fn in (("kernel", kernel_step), ("library", lib.step)):
+            ms, host_bound = time_ms_queued(fn, iters=10)
+            if host_bound:
+                fail("adam_fp32: the host could not queue the timed "
+                     "launches ahead of the card")
+            turns[key].append(ms)
+    host_paced_ms = time_ms(kernel_step, iters=10)
     plain_ms = time_ms(plain_step, iters=3, warmup=1)
     padded = plan.padded_elems()
     bound_ms = 28 * padded / PEAK_BYTES_S * 1e3
@@ -494,6 +552,8 @@ def phase_timing_adam(ok_mod, fo, gen) -> tuple[dict, int]:
     emit({"phase": "timing", "kernel": "adam_fp32", "buckets": plan.n_buckets,
           "padded_elems": padded, "per": "optimizer step (all buckets)",
           "ms_turns": turns["kernel"], "library_ms_turns": turns["library"],
+          "timing": "device: launches queued behind a sleep kernel",
+          "ms_host_paced": host_paced_ms,
           "library": "torch.optim.AdamW(fused=True)", **out})
     del lib, state, model
     torch.cuda.empty_cache()
@@ -818,42 +878,36 @@ def row_term_check(fa, caught: list) -> None:
              f"(bound {ONE_STEP_GRAD_REL})")
 
 
-def phase_train(fa, ok_mod) -> dict:
-    """The port's lm_train.main on the card at the base config. Each step
-    is timed on the host clock between two synchronizes, and its forward,
-    backward and optimizer with CUDA events (lm_train's loss function and
-    TrainState.apply_gradients wrapped for the run); launch counts are
-    read around every step. Then one step of flash against dense
-    attention on the trained weights and the first batch."""
+def event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def run_probed(module, main_fn, argv: list, counters: dict) -> dict:
+    """``main_fn(argv)`` with ``module.make_train_step`` and
+    TrainState.apply_gradients wrapped for the run: each step is timed on
+    the host clock between two synchronizes, its forward (the loss
+    function), backward and optimizer with CUDA events; ``counters``
+    ({name: wrapper}) are set to 0 just before the run and read around
+    every step and just after. Returns the steps, the last state, the
+    first batch, what main printed, its code, wall time and peak memory."""
     import contextlib
     import io
-    import tempfile
-    from dataclasses import replace as dc_replace
 
-    from edl_tpu_torch.examples import lm_train
-    from edl_tpu_torch.models import transformer as tr
-    from edl_tpu_torch.models.transformer import Transformer, lm_loss_fn
     from edl_tpu_torch.train import state as state_lib
-
-    counters = (fa.flash_attention_lse, fa.flash_bwd_dkdv, fa.flash_bwd_dq,
-                ok_mod.adam_fp32)
-    names = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "adam_fp32")
-
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
 
     steps: list[dict] = []
     ev: dict = {}
     seen: dict = {}
-    make_step = lm_train.make_train_step
+    make_step = module.make_train_step
     apply_gradients = state_lib.TrainState.apply_gradients
+    names = list(counters)
 
     def timed_make(loss_fn, **kw):
-        def timed_loss(model, batch):
+        def timed_loss(*args):
             ev["fwd0"] = event()
-            out = loss_fn(model, batch)
+            out = loss_fn(*args)
             ev["fwd1"] = event()
             return out
 
@@ -863,15 +917,15 @@ def phase_train(fa, ok_mod) -> dict:
             if "batch" not in seen:
                 seen["batch"] = {k: v.clone() for k, v in batch.items()}
             torch.cuda.synchronize()
-            c0 = [c.launches for c in counters]
+            c0 = [counters[n].launches for n in names]
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             steps.append({"ms": (t1 - t0) * 1e3, "events": dict(ev),
-                          "launches": [c.launches - n
-                                       for c, n in zip(counters, c0)],
-                          "loss": metrics["loss"]})
+                          "launches": {n: counters[n].launches - c
+                                       for n, c in zip(names, c0)},
+                          "loss": float(metrics["loss"])})
             seen["state"] = state
             return state, metrics
         return timed_step
@@ -882,26 +936,76 @@ def phase_train(fa, ok_mod) -> dict:
         ev["opt1"] = event()
         return out
 
-    out = io.StringIO()
+    printed = io.StringIO()
+    module.make_train_step = timed_make
+    state_lib.TrainState.apply_gradients = timed_apply
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(printed):
+            rc = main_fn(argv)
+        wall_s = time.monotonic() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        module.make_train_step = make_step
+        state_lib.TrainState.apply_gradients = apply_gradients
+    out = printed.getvalue()
+    print(out, end="", flush=True)
+    return {"rc": rc, "printed": out, "steps": steps, "seen": seen,
+            "launches": launches, "wall_s": wall_s,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def step_summary(steps: list[dict]) -> dict:
+    """Median and range of the timed steps' host ms, and the median
+    forward / backward / optimizer split by CUDA events."""
+    timed = steps[TIMED_FROM_STEP - 1:]
+    ms = [st["ms"] for st in timed]
+
+    def span(a, b):
+        return float(np.median([st["events"][a].elapsed_time(
+            st["events"][b]) for st in timed]))
+
+    return {"step_ms_median": float(np.median(ms)), "step_ms_min": min(ms),
+            "step_ms_max": max(ms),
+            "timed_steps": f"{TIMED_FROM_STEP}-{len(steps)}",
+            "breakdown_ms_median": {"forward": span("fwd0", "fwd1"),
+                                    "backward": span("fwd1", "opt0"),
+                                    "optimizer": span("opt0", "opt1")}}
+
+
+def check_launches(steps: list[dict], want: dict, what: str) -> None:
+    for i, st in enumerate(steps):
+        if st["launches"] != want:
+            fail(f"{what} step {i + 1} launched {st['launches']}, want "
+                 f"{want}")
+
+
+def phase_train(fa, ok_mod) -> dict:
+    """The port's lm_train.main on the card at the base config (fp32
+    fused Adam, K5). Then one step of flash against dense attention on
+    the trained weights and the first batch. Returns the launches and
+    the losses."""
+    from dataclasses import replace as dc_replace
+    import tempfile
+
+    from edl_tpu_torch.examples import lm_train
+    from edl_tpu_torch.models import transformer as tr
+    from edl_tpu_torch.models.transformer import Transformer, lm_loss_fn
+    from edl_tpu_torch.train.fused_opt import opt_state_bytes
+
+    counters = {"flash_fwd": fa.flash_attention_lse,
+                "flash_bwd_dkdv": fa.flash_bwd_dkdv,
+                "flash_bwd_dq": fa.flash_bwd_dq, "adam_fp32": ok_mod.adam_fp32,
+                "adam_q": ok_mod.adam_q}
     with tempfile.TemporaryDirectory() as data_dir:
-        lm_train.make_train_step = timed_make
-        state_lib.TrainState.apply_gradients = timed_apply
-        try:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            for c in counters:
-                c.launches = 0
-            t0 = time.monotonic()
-            with contextlib.redirect_stdout(out):
-                rc = lm_train.main(["--data-dir", data_dir, *TRAIN_ARGV])
-            wall_s = time.monotonic() - t0
-            launches = {n: c.launches for n, c in zip(names, counters)}
-        finally:
-            lm_train.make_train_step = make_step
-            state_lib.TrainState.apply_gradients = apply_gradients
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    printed = out.getvalue()
-    print(printed, end="", flush=True)
+        run = run_probed(lm_train, lm_train.main,
+                         ["--data-dir", data_dir, *TRAIN_ARGV], counters)
+    steps, seen, launches = run["steps"], run["seen"], run["launches"]
+    printed, rc = run["printed"], run["rc"]
     final = [ln for ln in printed.splitlines()
              if ln.startswith("final_eval_loss=")]
     if rc != 0 or not final:
@@ -910,37 +1014,22 @@ def phase_train(fa, ok_mod) -> dict:
 
     state = seen["state"]
     n_buckets = len(state.opt_state.p)
-    want = [8, 8, 8, n_buckets]
-    for i, st in enumerate(steps):
-        if st["launches"] != want:
-            fail(f"step {i + 1} launched {dict(zip(names, st['launches']))}"
-                 f", want {dict(zip(names, want))}")
-    losses = [float(st["loss"]) for st in steps]
-    timed = steps[TIMED_FROM_STEP - 1:]
-    ms = [st["ms"] for st in timed]
-
-    def span(a, b):
-        return float(np.median([st["events"][a].elapsed_time(
-            st["events"][b]) for st in timed]))
-
+    want = {"flash_fwd": 8, "flash_bwd_dkdv": 8, "flash_bwd_dq": 8,
+            "adam_fp32": n_buckets, "adam_q": 0}
+    check_launches(steps, want, "lm_train")
+    losses = [st["loss"] for st in steps]
+    summary = step_summary(steps)
     cfg = state.model.cfg
     b, s = 16, cfg.max_len
     result = {"phase": "train", "argv": TRAIN_ARGV, "steps": len(steps),
               "params": sum(p.numel() for p in state.model.parameters()),
-              "buckets": n_buckets, "wall_s": wall_s,
-              "step_ms_median": float(np.median(ms)),
-              "step_ms_min": min(ms), "step_ms_max": max(ms),
-              "timed_steps": f"{TIMED_FROM_STEP}-{len(steps)}",
-              "tokens_per_s": b * s / (float(np.median(ms)) / 1e3),
-              "breakdown_ms_median": {
-                  "forward": span("fwd0", "fwd1"),
-                  "backward": span("fwd1", "opt0"),
-                  "optimizer": span("opt0", "opt1")},
+              "buckets": n_buckets, "wall_s": run["wall_s"], **summary,
+              "tokens_per_s": b * s / (summary["step_ms_median"] / 1e3),
               "loss_first": losses[0], "loss_last": losses[-1],
               "losses": losses, "final_eval_loss": final_eval_loss,
-              "peak_gib": peak_gib,
-              "launches_per_step": dict(zip(names, want)),
-              "launches": launches}
+              "peak_gib": run["peak_gib"],
+              "opt_state_bytes": opt_state_bytes(state.opt_state),
+              "launches_per_step": want, "launches": launches}
     emit(result)
     if not all(np.isfinite(losses)) or not np.isfinite(final_eval_loss):
         fail(f"non-finite loss: {losses}, eval {final_eval_loss}")
@@ -1000,7 +1089,502 @@ def phase_train(fa, ok_mod) -> dict:
     row_term_check(fa, caught)
     del caught
     torch.cuda.empty_cache()
-    return launches
+    return {k: v for k, v in launches.items() if v}, result
+
+
+# -- momentum-SGD (K4), quantized momentum-SGD (K6), quantized Adam (K7) ---
+
+# (counter name, optimizer, quant) of every case held against its plain
+# version; K5 (adam, off) has its own phase above
+OPT_KINDS = (("sgdm_fp32", "sgdm", "off"), ("sgdm_q", "sgdm", "int8"),
+             ("sgdm_q", "sgdm", "fp8"), ("adam_q", "adam", "int8"),
+             ("adam_q", "adam", "fp8"))
+# (label, payload, padded): a 4 MiB bucket, a ragged one whose padding
+# must stay zero, an all-zero one (scales 1.0), and one whose abs-max is a
+# single pinned element (x / scale lands on the codec's edge, 127 or 448)
+OPT_BUCKETS = (("4MiB", 1 << 20, 1 << 20), ("ragged", 127_539, 127_616),
+               ("zero", 0, 4096), ("pinned_amax", 65_536, 65_536))
+# bytes an element each kernel must move: K4 p, g, m read and p, m
+# written; K6 p, g read, p written, q, rq read and written; K7 the same
+# with four int8 planes
+OPT_BOUND_BYTES = {"sgdm_fp32": 20, "sgdm_q": 16, "adam_q": 20}
+
+
+def opt_moments(ok_mod, opt: str, quant: str, p: torch.Tensor) -> list:
+    def zero():
+        if quant == "off":
+            return torch.zeros_like(p)
+        return ok_mod.zero_plane(p.numel(), quant, device=p.device)
+    return [zero()] if opt == "sgdm" else [zero(), zero()]
+
+
+def opt_step(ok_mod, opt: str, quant: str, p, g, moments, scalars,
+             wd: float, plain: bool) -> None:
+    """One bucket step: the kernel (through the bucket function), or the
+    plain version on the same device."""
+    lr, c1, c2 = scalars
+    if opt == "sgdm":
+        if plain:
+            ok_mod._sgdm_plain(p, g, moments[0], lr, 0.9, wd, quant)
+        else:
+            ok_mod.sgdm_bucket(p, g, moments[0], lr, mu=0.9, wd=wd,
+                               quant=quant)
+    elif plain:
+        ok_mod._adam_plain(p, g, *moments, lr, c1, c2, 0.9, 0.999, 1e-8,
+                           wd, quant)
+    else:
+        ok_mod.adam_bucket(p, g, *moments, lr, c1, c2, b1=0.9, b2=0.999,
+                           eps=1e-8, wd=wd, quant=quant)
+
+
+def opt_tensors(p, moments) -> list:
+    out = [p]
+    for m in moments:
+        out.extend(m if isinstance(m, tuple) else (m,))   # a QPlane
+    return out
+
+
+def phase_kernels_opt(ok_mod, fo, gen) -> dict:
+    """K4, K6 and K7 against their plain versions on the card, bit for
+    bit (p, the fp32 moment or both QPlanes' payloads and scales) over 3
+    steps of each of OPT_BUCKETS, with wd 0 and 1e-4. Returns {name:
+    (0.0, checks)}: any difference fails."""
+    txs = {"sgdm": fo.fused_sgd(lambda step: 0.1 * (step + 1) / 3),
+           "adam": fo.fused_adam(lambda step: 3e-4 * (step + 1) / 3)}
+    checks = {name: 0 for name, _, _ in OPT_KINDS}
+    for label, payload, padded in OPT_BUCKETS:
+        def bucket(std):
+            x = torch.zeros(padded, device="cuda")
+            if payload:
+                x[:payload] = torch.randn(payload, generator=gen,
+                                          device="cuda") * std
+            if label == "pinned_amax":
+                x[payload // 3] = -40 * std
+            return x
+        p0 = bucket(0.1)
+        grads = [bucket(0.02) for _ in range(3)]
+        for name, opt, quant in OPT_KINDS:
+            for wd in (0.0, 1e-4):
+                kern = (p0.clone(), opt_moments(ok_mod, opt, quant, p0))
+                plain = (p0.clone(), opt_moments(ok_mod, opt, quant, p0))
+                for step, g in enumerate(grads):
+                    scalars = txs[opt].scalars(step)
+                    for side, is_plain in ((kern, False), (plain, True)):
+                        opt_step(ok_mod, opt, quant, side[0], g, side[1],
+                                 scalars, wd, is_plain)
+                    torch.cuda.synchronize()
+                    a, b = opt_tensors(*kern), opt_tensors(*plain)
+                    bitwise = all(fo.bitwise_equal(x, y)
+                                  for x, y in zip(a, b))
+                    pad_zero = all(not t[payload:].any().item()
+                                   for t in a if t.dim() == 1)
+                    err = (kern[0] - plain[0]).abs().max().item()
+                    scales = [t.item() for t in a if t.dim() == 0]
+                    emit({"phase": "kernels", "kernel": name, "quant": quant,
+                          "bucket": label, "size": [payload, padded],
+                          "wd": wd, "step": step, "bitwise": bitwise,
+                          "padding_zero": pad_zero, "p_max_abs_err": err,
+                          "scales": scales, "ok": bitwise and pad_zero})
+                    if not (bitwise and pad_zero):
+                        fail(f"{name} ({quant}) differs from its plain "
+                             f"version on the {label} bucket, wd {wd}, "
+                             f"step {step}: p err {err}, padding zero "
+                             f"{pad_zero}")
+                    checks[name] += 1
+    return {name: (0.0, n) for name, n in checks.items()}
+
+
+def plan_world(ok_mod, fo, model, tx, gen):
+    """The fused optimizer's plan over ``model``'s parameters (flax
+    flatten order), its parameter buckets and one step of random
+    gradients packed into buckets."""
+    from edl_tpu_torch.bridge import flax_named_parameters
+
+    named = flax_named_parameters(model)
+    plan = tx.plan(named)
+    state = tx.init(named)
+    for _, prm in named:
+        prm.grad = torch.randn(prm.shape, generator=gen,
+                               device="cuda") * 1e-3
+    g_bufs = fo._grad_buckets(plan, [x for _, x in named],
+                              [x.grad for _, x in named])
+    return named, plan, state, g_bufs
+
+
+def plan_bitwise(ok_mod, fo, name, opt, quant, tx, p_bufs, g_bufs,
+                 wd) -> int:
+    """2 steps of the kernel over every bucket of a plan against the
+    plain version, bit for bit. Returns the buckets checked."""
+    kern = [(p.clone(), opt_moments(ok_mod, opt, quant, p)) for p in p_bufs]
+    plain = [(p.clone(), opt_moments(ok_mod, opt, quant, p))
+             for p in p_bufs]
+    for step in range(2):
+        scalars = tx.scalars(step)
+        for i, g in enumerate(g_bufs):
+            for side, is_plain in ((kern, False), (plain, True)):
+                opt_step(ok_mod, opt, quant, side[i][0], g, side[i][1],
+                         scalars, wd, is_plain)
+    torch.cuda.synchronize()
+    differ = [i for i in range(len(p_bufs))
+              if not all(fo.bitwise_equal(x, y) for x, y in
+                         zip(opt_tensors(*kern[i]), opt_tensors(*plain[i])))]
+    emit({"phase": "kernels", "kernel": name, "quant": quant,
+          "plan_buckets": len(p_bufs),
+          "largest_bucket": max(p.numel() for p in p_bufs), "steps": 2,
+          "bitwise": not differ, "buckets_differing": differ})
+    if differ:
+        fail(f"{name} ({quant}) differs from its plain version on buckets "
+             f"{differ} of the plan")
+    del kern, plain
+    torch.cuda.empty_cache()
+    return len(p_bufs)
+
+
+def time_plan(ok_mod, name, opt, quant, tx, p_bufs, g_bufs, wd,
+              library=None) -> dict:
+    """One optimizer step over every bucket of a plan: the kernel and the
+    library call in turns (3 turns of 10 steps), the plain version over 3
+    steps, and the bound from the bytes the kernel must move."""
+    moments = [opt_moments(ok_mod, opt, quant, p) for p in p_bufs]
+    scalars = tx.scalars(0)
+
+    def step(plain):
+        for p, g, m in zip(p_bufs, g_bufs, moments):
+            opt_step(ok_mod, opt, quant, p, g, m, scalars, wd, plain)
+
+    turns: dict[str, list[float]] = {"kernel": [], "library": []}
+    host_bound = False
+    # stream entries of one step: a launch per bucket, or a memset and
+    # three passes per bucket for the quantized kernels
+    entries = len(p_bufs) * (1 if quant == "off" else 4)
+    iters = max(2, min(10, 800 // entries))
+    for _ in range(3):
+        ms, hb = time_ms_queued(lambda: step(False), iters=iters)
+        turns["kernel"].append(ms)
+        host_bound |= hb
+        if library is not None:
+            ms, hb = time_ms_queued(library, iters=10)
+            turns["library"].append(ms)
+            host_bound |= hb
+    host_paced_ms = time_ms(lambda: step(False), iters=10)
+    plain_ms = time_ms(lambda: step(True), iters=3, warmup=1)
+    padded = sum(p.numel() for p in p_bufs)
+    out = {"ms": float(np.mean(turns["kernel"])), "plain_ms": plain_ms,
+           "bound_ms": OPT_BOUND_BYTES[name] * padded / PEAK_BYTES_S * 1e3,
+           "bound_by": "bytes",
+           "library_ms": (float(np.mean(turns["library"]))
+                          if library is not None else None)}
+    emit({"phase": "timing", "kernel": name, "quant": quant,
+          "buckets": len(p_bufs), "padded_elems": padded,
+          "per": "optimizer step (all buckets)",
+          "ms_turns": turns["kernel"], "library_ms_turns": turns["library"],
+          "timing": "device: launches queued behind a sleep kernel",
+          "queued_steps": iters, "host_bound": host_bound,
+          "ms_host_paced": host_paced_ms, **out})
+    if host_bound:
+        fail(f"{name}: the host could not queue the timed launches ahead "
+             "of the card")
+    return out
+
+
+def phase_timing_sgdm(ok_mod, fo, gen) -> tuple[dict, dict]:
+    """K4 and K6 over every bucket of ResNet50_vd's plan: 2 steps bit for
+    bit against the plain version (K4, K6 int8 and fp8), then one step's
+    time (K4; K6 int8, imagenet_train's quantized path), K4 beside
+    torch.optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True) (timed
+    only, never used by the port). Returns (timings, checks)."""
+    from edl_tpu_torch.models.resnet import ResNet50_vd
+
+    model = ResNet50_vd(num_classes=1000, dtype=torch.bfloat16,
+                        device="cuda", seed=0)
+    tx = fo.fused_sgd(0.1, 0.9, 1e-4)
+    named, plan, state, g_bufs = plan_world(ok_mod, fo, model, tx, gen)
+    checks = {"sgdm_fp32": plan_bitwise(ok_mod, fo, "sgdm_fp32", "sgdm",
+                                        "off", tx, state.p, g_bufs, 1e-4)}
+    checks["sgdm_q"] = sum(plan_bitwise(ok_mod, fo, "sgdm_q", "sgdm", q, tx,
+                                        state.p, g_bufs, 1e-4)
+                           for q in ("int8", "fp8"))
+    lib = torch.optim.SGD([x for _, x in named], lr=0.1, momentum=0.9,
+                          weight_decay=1e-4, fused=True)
+    timing = {"sgdm_fp32": time_plan(ok_mod, "sgdm_fp32", "sgdm", "off", tx,
+                                     state.p, g_bufs, 1e-4, lib.step),
+              "sgdm_q": time_plan(ok_mod, "sgdm_q", "sgdm", "int8", tx,
+                                  state.p, g_bufs, 1e-4)}
+    emit({"phase": "timing", "plan": "ResNet50_vd", "params": sum(
+        x.numel() for _, x in named), "buckets": plan.n_buckets,
+        "library": "torch.optim.SGD(momentum=0.9, weight_decay=1e-4, "
+                   "fused=True)"})
+    del lib, state, model, named, g_bufs
+    torch.cuda.empty_cache()
+    return timing, checks
+
+
+def phase_timing_adam_q(ok_mod, fo, gen) -> tuple[dict, int]:
+    """K7 over every bucket of the base LM config's plan: 2 steps bit for
+    bit against the plain version (int8 and fp8 m), then one step's time
+    (int8, lm_train's quantized path). No PyTorch call computes a
+    quantized-moment Adam: library_ms is null. Returns (timing,
+    checks)."""
+    from edl_tpu_torch.models.transformer import Transformer
+
+    model = Transformer(base_config(), device="cuda", seed=0)
+    tx = fo.fused_adam(3e-4, weight_decay=0.01)
+    named, plan, state, g_bufs = plan_world(ok_mod, fo, model, tx, gen)
+    checks = sum(plan_bitwise(ok_mod, fo, "adam_q", "adam", q, tx, state.p,
+                              g_bufs, 0.01) for q in ("int8", "fp8"))
+    timing = time_plan(ok_mod, "adam_q", "adam", "int8", tx, state.p,
+                       g_bufs, 0.01)
+    del state, model, named, g_bufs
+    torch.cuda.empty_cache()
+    return timing, checks
+
+
+# The quantized run of a path ends within this relative envelope of its
+# fp32 run (the JAX package's convergence_smoke bar):
+# |loss_fp32 - loss_quant| <= ENVELOPE * (loss at step 1 - loss_fp32),
+# with at least STATE_CUT x fewer optimizer-state bytes.
+ENVELOPE = 0.25
+STATE_CUT = 1.8
+
+
+def envelope_check(what: str, fp32: dict, quant: dict) -> dict:
+    improvement = fp32["losses"][0] - fp32["loss_last"]
+    delta = abs(fp32["loss_last"] - quant["loss_last"])
+    cut = fp32["opt_state_bytes"] / quant["opt_state_bytes"]
+    out = {"phase": f"{what}_quant_vs_fp32", "loss_step1": fp32["losses"][0],
+           "loss_fp32": fp32["loss_last"], "loss_quant": quant["loss_last"],
+           "delta": delta, "improvement": improvement,
+           "delta_rel": delta / improvement if improvement > 0 else None,
+           "envelope": ENVELOPE, "opt_state_bytes_fp32":
+           fp32["opt_state_bytes"],
+           "opt_state_bytes_quant": quant["opt_state_bytes"],
+           "state_cut": cut, "state_cut_min": STATE_CUT}
+    emit(out)
+    if not (improvement > 0 and delta <= ENVELOPE * improvement):
+        fail(f"{what}: the quantized run ends at {quant['loss_last']}, "
+             f"{delta} from fp32's {fp32['loss_last']}, outside "
+             f"{ENVELOPE} x the improvement {improvement}")
+    if cut < STATE_CUT:
+        fail(f"{what}: optimizer state cut {cut} < {STATE_CUT}")
+    return out
+
+
+def phase_train_int8(fa, ok_mod, fp32: dict) -> dict:
+    """lm_train with the train phase's argv but --fused-opt int8: exactly
+    8 K1, 8 K2, 8 K3 and one K7 per bucket each step; the loss finite and
+    falling and within the envelope of the train phase's fp32 run."""
+    import tempfile
+
+    from edl_tpu_torch.examples import lm_train
+    from edl_tpu_torch.train.fused_opt import opt_state_bytes
+
+    argv = [("int8" if a == "fp32" else a) for a in TRAIN_ARGV]
+    counters = {"flash_fwd": fa.flash_attention_lse,
+                "flash_bwd_dkdv": fa.flash_bwd_dkdv,
+                "flash_bwd_dq": fa.flash_bwd_dq, "adam_fp32": ok_mod.adam_fp32,
+                "adam_q": ok_mod.adam_q}
+    with tempfile.TemporaryDirectory() as data_dir:
+        run = run_probed(lm_train, lm_train.main,
+                         ["--data-dir", data_dir, *argv], counters)
+    if run["rc"] != 0 or "final_eval_loss=" not in run["printed"]:
+        fail(f"lm_train.main --fused-opt int8 returned {run['rc']}")
+    state = run["seen"]["state"]
+    n_buckets = len(state.opt_state.p)
+    want = {"flash_fwd": 8, "flash_bwd_dkdv": 8, "flash_bwd_dq": 8,
+            "adam_fp32": 0, "adam_q": n_buckets}
+    check_launches(run["steps"], want, "lm_train --fused-opt int8")
+    losses = [st["loss"] for st in run["steps"]]
+    summary = step_summary(run["steps"])
+    result = {"phase": "train_int8", "argv": argv, "steps": len(losses),
+              "buckets": n_buckets, "wall_s": run["wall_s"], **summary,
+              "tokens_per_s": 16 * 1024 / (summary["step_ms_median"] / 1e3),
+              "loss_first": losses[0], "loss_last": losses[-1],
+              "losses": losses, "peak_gib": run["peak_gib"],
+              "opt_state_bytes": opt_state_bytes(state.opt_state),
+              "launches_per_step": want, "launches": run["launches"]}
+    emit(result)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"lm_train int8: losses {losses} not finite and falling")
+    envelope_check("train_int8", fp32, result)
+    del state, run
+    torch.cuda.empty_cache()
+    return {k: v for k, v in result["launches"].items() if v}
+
+
+# imagenet_train at bench.py's ResNet config (bench.py:75-76): ResNet50_vd,
+# bf16 activations, 224 px, 1000 classes, 128 images a step, momentum-SGD
+# (lr 0.1, warmup 1 epoch), no augmentation, on 5 synthetic shards of 256
+# rows (1,280 rows: 10 steps an epoch), 3 epochs. 1,280 images of 1,000
+# classes are first memorized: the loader reshuffles each epoch, so a
+# step late in an epoch holds images seen longer ago than one early in
+# it, and the per-step loss climbs within each epoch at lr 0.1 (step 11
+# 6.62, step 20 7.10, above step 1's 7.00) while the epoch means fall.
+# The same run with fp32 activations follows that climb within 0.0064,
+# so it is not bf16's (RESNET_BF16_ATOL below checks it every run). In a
+# third epoch every step stays below step 1: the check is that, and the
+# epoch means falling.
+RESNET_ARGV = ["--model", "ResNet50_vd", "--bf16", "--image-size", "224",
+               "--num-classes", "1000", "--batch-size", "128", "--no-augment",
+               "--warmup-epochs", "1", "--epochs", "3",
+               "--rows-per-file", "256"]
+RESNET_SHARDS = 5
+RESNET_STEPS_PER_EPOCH = 10
+PROFILED_STEPS = 3
+# per-step losses of the bf16 run against the same run with fp32
+# activations: a tenth of the climb within an epoch (measured 0.0064 over
+# 30 steps, H100 80GB HBM3 at 700 W)
+RESNET_BF16_ATOL = 0.05
+
+
+def profile_steps(classification, state, batch) -> dict:
+    """PROFILED_STEPS more steps of imagenet_train's step (its default
+    label smoothing) on the run's trained state and first batch, first
+    timed on the host clock, then under torch.profiler: the device time a
+    step takes (one stream, so kernels do not overlap), its idle share of
+    the unprofiled step (the profiler slows the host, so the profiled wall
+    time would overstate it), and the kernels that take the most device
+    time. A device time above the step is no idle share: it is reported
+    as null with the two numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = classification.make_classification_step(1000, smoothing=0.1)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILED_STEPS):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the device's own rows (kernels, memsets, copies), not the host ops
+    # that launched them
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3 / PROFILED_STEPS
+    out = {"phase": "profile_resnet", "steps": PROFILED_STEPS,
+           "wall_ms_per_step": wall_ms / PROFILED_STEPS,
+           "device_busy_ms_per_step": busy_ms,
+           "step_ms_unprofiled": step_ms,
+           # None: no device time seen, or more than the step (not measured)
+           "device_idle_share": (1 - busy_ms / step_ms
+                                 if 0 < busy_ms <= step_ms else None),
+           "top_kernels": [{"name": e.key[:120], "calls": e.count
+                            // PROFILED_STEPS,
+                            "ms_per_step": device_us(e) / 1e3
+                            / PROFILED_STEPS}
+                           for e in sorted(kernels, key=device_us,
+                                           reverse=True)[:20]]}
+    emit(out)
+    return out
+
+
+def resnet_run(imagenet_train, classification, opt_state_bytes,
+               counters: dict, argv: list, name: str, kernel: str) -> dict:
+    """One imagenet_train.main run at ``argv``: exactly one launch of
+    ``kernel`` per bucket each step and no other counted launch, the loss
+    finite, the epoch means falling and no step of the last epoch above
+    step 1's loss."""
+    run = run_probed(classification, imagenet_train.main, argv, counters)
+    if run["rc"] != 0 or "final_acc1=" not in run["printed"]:
+        fail(f"imagenet_train {name} returned {run['rc']} and printed "
+             f"{run['printed']!r}")
+    blog_dir = argv[argv.index("--benchmark-log") + 1]
+    with open(os.path.join(blog_dir, "log_0.json")) as f:
+        final = json.load(f)["final"]
+    state = run["seen"]["state"]
+    n_buckets = len(state.opt_state.p)
+    want = {n: (n_buckets if n == kernel else 0) for n in counters}
+    check_launches(run["steps"], want, f"imagenet_train {name}")
+    losses = [st["loss"] for st in run["steps"]]
+    epochs = [float(np.mean(losses[i:i + RESNET_STEPS_PER_EPOCH]))
+              for i in range(0, len(losses), RESNET_STEPS_PER_EPOCH)]
+    summary = step_summary(run["steps"])
+    result = {"phase": f"train_resnet_{name}", "argv": argv,
+              "steps": len(losses),
+              "params": sum(p.numel() for p in state.model.parameters()),
+              "buckets": n_buckets, "wall_s": run["wall_s"], **summary,
+              "images_per_s": 128 / (summary["step_ms_median"] / 1e3),
+              "loader_examples_per_s_epoch": final["examples_per_sec"],
+              "loss_first": losses[0], "loss_last": losses[-1],
+              "epoch_mean_losses": epochs,
+              "last_epoch_max": max(losses[-RESNET_STEPS_PER_EPOCH:]),
+              "losses": losses, "eval_acc1": final["acc1"],
+              "eval_acc5": final["acc5"], "peak_gib": run["peak_gib"],
+              "opt_state_bytes": opt_state_bytes(state.opt_state),
+              "launches_per_step": want, "launches": run["launches"]}
+    emit(result)
+    if not (all(np.isfinite(losses)) and len(epochs) >= 3
+            and all(b < a for a, b in zip(epochs, epochs[1:]))
+            and result["last_epoch_max"] < losses[0]):
+        fail(f"imagenet_train {name}: losses {losses} not finite, the "
+             f"epoch means {epochs} not falling, or a step of the last "
+             "epoch not below step 1's")
+    result["seen"] = run["seen"]
+    return result
+
+
+def phase_train_resnet(ok_mod) -> tuple[dict, dict]:
+    """The port's imagenet_train.main at RESNET_ARGV with --fused-opt fp32
+    (K4), then int8 (K6), then fp32 with fp32 activations, on the same
+    shards from the same init: step time and images/s, the forward /
+    backward / optimizer split, peak memory, exactly one K4 (K6) per
+    bucket each step, the loss finite and falling, eval acc1/acc5; the
+    int8 run within the envelope of the fp32 run with at least STATE_CUT x
+    fewer optimizer-state bytes; the bf16 run's per-step losses within
+    RESNET_BF16_ATOL of the fp32-activation run's."""
+    import tempfile
+
+    from edl_tpu_torch.examples import imagenet_train
+    from edl_tpu_torch.train import classification
+    from edl_tpu_torch.train.fused_opt import opt_state_bytes
+
+    counters = {"sgdm_fp32": ok_mod.sgdm_fp32, "sgdm_q": ok_mod.sgdm_q}
+    fp32_activations = [a for a in RESNET_ARGV if a != "--bf16"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as data_dir:
+        for name, argv, mode, kernel in (
+                ("fp32", RESNET_ARGV, "fp32", "sgdm_fp32"),
+                ("int8", RESNET_ARGV, "int8", "sgdm_q"),
+                ("fp32_activations", fp32_activations, "fp32",
+                 "sgdm_fp32")):
+            argv = ["--data-dir", data_dir, *argv, "--fused-opt", mode,
+                    "--benchmark-log", os.path.join(data_dir, name)]
+            if not runs:
+                argv += ["--make-synthetic", str(RESNET_SHARDS)]
+            run = resnet_run(imagenet_train, classification,
+                             opt_state_bytes, counters, argv, name, kernel)
+            seen = run.pop("seen")
+            if name == "fp32":
+                run["profile"] = profile_steps(
+                    classification, seen["state"], seen["batch"])
+            runs[name] = run
+            del seen
+            torch.cuda.empty_cache()
+    envelope_check("train_resnet", runs["fp32"], runs["int8"])
+    gap = float(np.max(np.abs(np.subtract(
+        runs["fp32"]["losses"], runs["fp32_activations"]["losses"]))))
+    emit({"phase": "train_resnet_bf16_vs_fp32_activations",
+          "max_abs_loss_gap": gap, "atol": RESNET_BF16_ATOL})
+    if not gap <= RESNET_BF16_ATOL:
+        fail(f"ResNet bf16 run's losses {gap} from the fp32-activation "
+             f"run's, above {RESNET_BF16_ATOL}")
+    launches = {f"train_resnet_{m}": {k: v for k, v in r["launches"].items()
+                                      if v} for m, r in runs.items()
+                if m != "fp32_activations"}
+    return launches, runs
 
 
 def main() -> int:
@@ -1034,21 +1618,33 @@ def main() -> int:
     errs = phase_kernels(fa, gen)
     errs.update(phase_kernels_bwd(fa, gen))
     errs.update(phase_kernels_adam(ok_mod, fo, gen))
+    errs.update(phase_kernels_opt(ok_mod, fo, gen))
     timing = {"flash_fwd": phase_timing(fa, gen)}
     timing.update(phase_timing_train(fa, gen))
     timing["adam_fp32"], plan_checks = phase_timing_adam(ok_mod, fo, gen)
     errs["adam_fp32"] = (0.0, errs["adam_fp32"][1] + plan_checks)
+    sgdm_timing, sgdm_checks = phase_timing_sgdm(ok_mod, fo, gen)
+    timing.update(sgdm_timing)
+    timing["adam_q"], adam_q_checks = phase_timing_adam_q(ok_mod, fo, gen)
+    sgdm_checks["adam_q"] = adam_q_checks
+    for name, n in sgdm_checks.items():
+        errs[name] = (0.0, errs[name][1] + n)
     serve, model, dense, predict = phase_serve(fa)
     launches = {"serve": {"flash_fwd": serve["flash_launches"]}}
     phase_forward(fa, model, dense, predict)
     del model, dense, predict
     torch.cuda.empty_cache()
-    launches["train"] = phase_train(fa, ok_mod)
+    launches["train"], lm_fp32 = phase_train(fa, ok_mod)
+    launches["train_int8"] = phase_train_int8(fa, ok_mod, lm_fp32)
+    resnet_launches, _ = phase_train_resnet(ok_mod)
+    launches.update(resnet_launches)
     emit({"seconds": time.monotonic() - t_start, "card": card})
 
     kernels = []
     for name, source, replaces in KERNELS:
         by_path = {path: n[name] for path, n in launches.items() if name in n}
+        if not by_path:
+            fail(f"{name} was launched on no path")
         for path, n in by_path.items():
             if n <= 0:
                 fail(f"{name} was launched {n} times on the {path} path")

@@ -1,5 +1,5 @@
-"""Weights bridge between the flax transformer's parameter tree and the
-port's ``state_dict``.
+"""Weights bridge between the flax models' variable trees and the port's
+``state_dict``s: the transformer LM and the ResNet family.
 
 ``flax_to_torch`` takes the flax ``params`` as nested dicts of numpy
 arrays (partitioned boxes already unboxed) and returns a ``state_dict``
@@ -14,9 +14,19 @@ Layout mapping (flax kernel -> torch weight):
 - LayerNorm ``scale``/``bias`` -> ``weight``/``bias``
 - ``tok_embed/embedding`` and ``pos_embed`` copy as they are.
 
+ResNet (``flax_variables_to_torch`` / ``torch_to_flax_variables``): the
+flax ``{"params", "batch_stats"}`` tree <-> a ``state_dict`` with the
+BatchNorm buffers, module names as flax's:
+- Conv ``kernel`` HWIO <-> ``weight`` OIHW;
+- Dense ``kernel`` (in, out) <-> ``weight`` (out, in), ``bias`` as is;
+- BatchNorm ``scale``/``bias`` <-> ``weight``/``bias``, and the
+  ``batch_stats`` ``mean``/``var`` <-> ``running_mean``/``running_var``.
+
 ``flax_named_parameters`` lists a model's parameters in the flax
-flatten order (sorted keys at every level), the leaf order of the JAX
-package's bucket planner. ``grads_to_flax`` and ``buckets_to_flax``
+flatten order (sorted keys at every level: ``BottleneckBlock_10`` comes
+before ``BottleneckBlock_2``), the leaf order of the JAX package's
+bucket planner, which the fused optimizer's buckets (and so every
+quantization scale) follow. ``grads_to_flax`` and ``buckets_to_flax``
 carry gradients and flat optimizer buckets across for the tests.
 """
 
@@ -40,19 +50,32 @@ def _n(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+_STATS = {"running_mean": "mean", "running_var": "var"}
+
+
+def _is_norm(module: str) -> bool:
+    """A normalization layer's name: the transformer's ``ln_*``, the
+    ResNet's ``stem_norm*``, ``BatchNorm_*`` and ``norm_shortcut``."""
+    return module.startswith("ln_") or "norm" in module.lower()
+
+
 def flax_path(name: str) -> tuple[str, ...]:
-    """The flax parameter path of a state-dict name
+    """The flax variable path of a state-dict name
     (``block0.attn.query.weight`` -> ("block0", "attn", "query",
-    "kernel"))."""
+    "kernel"); ``BottleneckBlock_0.BatchNorm_1.running_var`` ->
+    ("BottleneckBlock_0", "BatchNorm_1", "var"), a ``batch_stats``
+    leaf)."""
     parts = name.split(".")
     if parts == ["pos_embed"]:
         return ("pos_embed",)
     if parts == ["tok_embed", "weight"]:
         return ("tok_embed", "embedding")
     *mod, leaf = parts
-    if mod[-1] in _LAYERNORMS + ("ln_final",):
-        return (*mod, "scale" if leaf == "weight" else "bias")
-    return (*mod, "kernel")
+    if leaf in _STATS:
+        return (*mod, _STATS[leaf])
+    if leaf == "weight":
+        return (*mod, "scale" if _is_norm(mod[-1]) else "kernel")
+    return (*mod, leaf)
 
 
 def flax_named_parameters(model: torch.nn.Module
@@ -61,17 +84,21 @@ def flax_named_parameters(model: torch.nn.Module
     return sorted(model.named_parameters(), key=lambda kv: flax_path(kv[0]))
 
 
-def flax_leaf(name: str, t: torch.Tensor, n_heads: int) -> np.ndarray:
-    """One state-dict tensor in its flax layout (numpy)."""
+def flax_leaf(name: str, t: torch.Tensor,
+              n_heads: int | None = None) -> np.ndarray:
+    """One state-dict tensor in its flax layout (numpy). ``n_heads``
+    splits the transformer's attention projections."""
     w = _n(t)
-    proj = flax_path(name)[-2:][0]
-    if proj in _QKV:                                   # (H*Dh, d)
+    path = flax_path(name)
+    if path[-1] != "kernel":
+        return w
+    if path[-2] in _QKV:                               # (H*Dh, d)
         return w.T.reshape(w.shape[1], n_heads, -1).copy()
-    if proj == "out":                                  # (d, H*Dh)
+    if path[-2] == "out":                              # (d, H*Dh)
         return w.T.reshape(n_heads, -1, w.shape[0]).copy()
-    if proj in ("mlp_in", "mlp_out", "lm_head"):
-        return w.T.copy()
-    return w
+    if w.ndim == 4:                                    # OIHW -> HWIO
+        return w.transpose(2, 3, 1, 0).copy()
+    return w.T.copy()                                  # (out, in) -> (in, out)
 
 
 def grads_to_flax(model: torch.nn.Module, n_heads: int) -> dict:
@@ -82,8 +109,8 @@ def grads_to_flax(model: torch.nn.Module, n_heads: int) -> dict:
          for n, p in model.named_parameters()}, n_heads)
 
 
-def buckets_to_flax(buffers, plan, names: list[str], n_heads: int
-                    ) -> list[np.ndarray]:
+def buckets_to_flax(buffers, plan, names: list[str],
+                    n_heads: int | None = None) -> list[np.ndarray]:
     """Flat bucket buffers of the port (each leaf in its torch layout)
     -> the JAX package's buffers for the same plan (each leaf in its
     flax layout), padding kept. ``names`` are the plan's leaves' names in
@@ -137,3 +164,45 @@ def torch_to_flax(state_dict: dict[str, torch.Tensor], n_heads: int
             node = node.setdefault(key, {})
         node[leaf] = flax_leaf(name, t, n_heads)
     return params
+
+
+def _flat(tree: dict, prefix: tuple = ()) -> list[tuple[tuple, np.ndarray]]:
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.extend(_flat(v, prefix + (k,)))
+        else:
+            out.append((prefix + (k,), np.asarray(v)))
+    return out
+
+
+def flax_variables_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """flax ResNet ``{"params", "batch_stats"}`` (nested dicts of numpy)
+    -> state_dict with the BatchNorm buffers."""
+    torch_leaf = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                  "mean": "running_mean", "var": "running_var"}
+    sd = {}
+    for collection in ("params", "batch_stats"):
+        for path, arr in _flat(variables.get(collection, {})):
+            *mod, leaf = path
+            if leaf == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            sd[".".join((*mod, torch_leaf[leaf]))] = _t(arr)
+    return sd
+
+
+def torch_to_flax_variables(state_dict: dict[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`flax_variables_to_torch`: ``{"params": ...,
+    "batch_stats": ...}`` as nested dicts of numpy."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        *path, leaf = flax_path(name)
+        collection = ("batch_stats" if name.rsplit(".", 1)[-1] in _STATS
+                      else "params")
+        node = out[collection]
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = flax_leaf(name, t)
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out

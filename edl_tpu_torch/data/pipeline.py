@@ -1,6 +1,7 @@
 """Sharded, deterministic input pipeline (trimmed copy of
 ``edl_tpu.data.pipeline``: ``epoch_indices``, ``FileSource``,
-``materialize_batch`` and ``DataLoader`` inline, with batch transforms).
+``materialize_batch`` and ``DataLoader`` inline, with batch transforms,
+and the host image transforms ``random_flip_lr``/``random_crop``).
 
 The same (seed, epoch, rank, world) gives the same batches, bit for bit,
 as the JAX package's loader:
@@ -277,3 +278,33 @@ class DataLoader:
     def __call__(self, epoch: int) -> Iterator[dict[str, np.ndarray]]:
         # TrainLoop's data_fn signature.
         return self.epoch(epoch)
+
+
+# -- host-side image augmentation (the JAX loader's batch transforms) -------
+
+def random_flip_lr(batch: dict, rng: np.random.Generator,
+                   key: str = "image") -> dict:
+    """Per-sample horizontal flip with p=0.5 (NHWC)."""
+    imgs = batch[key]
+    flip = rng.random(len(imgs)) < 0.5
+    out = imgs.copy()
+    out[flip] = out[flip, :, ::-1]
+    return {**batch, key: out}
+
+
+def random_crop(batch: dict, rng: np.random.Generator, *, pad: int = 4,
+                key: str = "image") -> dict:
+    """Pad-and-random-crop (NHWC): reflect padding, then each image's
+    (y, x) window, picked by one gather over a sliding-window view. The
+    draws (ys, then xs) and windows are the JAX loader's."""
+    imgs = batch[key]
+    n, h, w, c = imgs.shape
+    padded = np.pad(imgs, ((0, 0), (pad, pad), (pad, pad), (0, 0)),
+                    mode="reflect")
+    ys = rng.integers(0, 2 * pad + 1, size=n)
+    xs = rng.integers(0, 2 * pad + 1, size=n)
+    windows = np.lib.stride_tricks.sliding_window_view(
+        padded, (h, w), axis=(1, 2))          # (n, 2p+1, 2p+1, c, h, w)
+    out = np.ascontiguousarray(
+        windows[np.arange(n), ys, xs].transpose(0, 2, 3, 1))
+    return {**batch, key: out}

@@ -5,7 +5,8 @@ Same flags, defaults and log lines as the JAX package's entry point,
 plus ``--device`` (``cuda`` unless the caller asks for ``cpu``). The
 step runs the transformer with the flash kernels (forward K1, backward
 K2/K3) on a card and, with ``--fused-opt fp32``, one fused Adam kernel
-(K5) pass per parameter bucket; ``--fused-opt off`` takes
+(K5) pass per parameter bucket, or with ``--fused-opt int8|fp8`` the
+quantized-moment Adam (K7); ``--fused-opt off`` takes
 ``torch.optim.AdamW``. The flags this slice does not carry exit before
 any work, naming the ROADMAP item that brings them.
 
@@ -139,8 +140,9 @@ def main(argv=None) -> int:
                         help="fused optimizer path (train/fused_opt.py; "
                              "default $EDL_TPU_FUSED_OPT, else off): "
                              "fp32 = one kernel pass per bucket (off = "
-                             "torch.optim.AdamW); int8/fp8 are not "
-                             "ported yet")
+                             "torch.optim.AdamW); int8/fp8 also hold the "
+                             "moments quantized with error-feedback "
+                             "residuals (opt state bytes halve)")
     parser.add_argument("--remat", choices=("off", "on", "auto"),
                         default="off",
                         help="per-block activation checkpointing: on = "
@@ -198,9 +200,6 @@ def main(argv=None) -> int:
     if fused_opt not in ("off", "fp32", "int8", "fp8"):
         raise SystemExit(f"EDL_TPU_FUSED_OPT must be off|fp32|int8|fp8, "
                          f"got {fused_opt!r}")
-    if fused_opt in ("int8", "fp8"):
-        raise SystemExit(_unported(f"--fused-opt {fused_opt} (quantized "
-                                   "resident moments)", 7))
     if args.make_synthetic and rank == 0:
         make_synthetic_shards(args.data_dir, args.make_synthetic,
                               args.rows_per_file, args.seq_len, args.vocab,
@@ -299,6 +298,13 @@ def _unported(what: str, item: int) -> str:
 
 def _refuse_unported(args) -> None:
     """Exit, before any work, on a flag this slice does not carry."""
+    if args.fp16 and args.fused_opt in ("int8", "fp8"):
+        raise SystemExit(
+            "--fused-opt int8/fp8 is not supported with --fp16: on a "
+            "non-finite step the loss-scaler rolls the state back, but "
+            "quantized moments would still carry the overflowed "
+            "requantization residuals. Use --fused-opt fp32 (bitwise, "
+            "rollback-safe) or bf16/fp32 activations.")
     refused = [
         (args.moe, "--moe (mixture-of-experts blocks and dispatch)", 14),
         (args.fsdp or args.mesh == "fsdp", "--mesh fsdp (sharded params)",
@@ -309,8 +315,6 @@ def _refuse_unported(args) -> None:
         (args.comm_bucket_mb not in (None, 0, 0.0),
          "--comm-bucket-mb (the bucketed gradient reduction)", 11),
         (args.fp16, "--fp16 (dynamic loss scaling)", 4),
-        (args.fused_opt in ("int8", "fp8"),
-         f"--fused-opt {args.fused_opt} (quantized resident moments)", 7),
         (args.fused_loss, "--fused-loss (the streamed-vocab loss)", 14),
         (args.remat != "off", f"--remat {args.remat}", 6),
         (bool(args.ckpt_dir), "--ckpt-dir (checkpoints)", 8),

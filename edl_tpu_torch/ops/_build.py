@@ -3,8 +3,9 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``ops/_build/lib<name>-<digest>.so`` (a directory git ignores); the
-digest covers the source and its own flags (``flags(name)``: the common
-ones plus ``SOURCE_FLAGS[name]``), so an edited source or flag never
+digest covers the source, the shared headers ``csrc/*.cuh`` and the
+source's own flags (``flags(name)``: the common ones plus
+``SOURCE_FLAGS[name]``), so an edited source, header or flag never
 loads a stale library. No PyTorch headers are included, so a build takes
 seconds. A failed build raises: there is no fallback to a plain version.
 """
@@ -25,12 +26,14 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Flags of one source on top of NVCC_FLAGS. The fused Adam update is
-# held bit for bit against its unfused PyTorch version: no contraction
-# into fma, IEEE division and square root, no flush to zero.
+# Flags of one source on top of NVCC_FLAGS. The fused optimizer updates
+# are held bit for bit against their unfused PyTorch versions: no
+# contraction into fma, IEEE division and square root, no flush to zero.
+_BITWISE = ("-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false")
 SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
-    "adam_fp32": ("-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-                  "-ftz=false"),
+    "adam_fp32": _BITWISE,
+    "sgdm": _BITWISE,
+    "adam_q": _BITWISE,
 }
 
 _lock = threading.Lock()
@@ -56,6 +59,7 @@ def flags(name: str) -> tuple[str, ...]:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -3,33 +3,47 @@
 
 A bucket is one flat fp32 buffer of several parameters, padded to a
 multiple of 128 elements (``train/comm.plan_buckets(align=128)``); the
-zero padding is a fixed point of both updates. ``_adam_math`` and
-``_sgdm_math`` are the single source of the arithmetic, in the JAX
+zero padding is a fixed point of both updates. ``_sgdm_math`` and
+``_adam_math`` are the single source of the arithmetic, in the JAX
 package's expression order; the bucket functions update ``p`` and the
 moments IN PLACE (the JAX package returns new arrays) and return them.
 
+Quantized resident moments (``quant='int8'``/``'fp8'``): between steps a
+moment plane lives as a :class:`QPlane` — the symmetric quantization of
+the moment (int8, or float8 e4m3 bits viewed as int8) and of its rounding
+residual, each with one fp32 scale per bucket. The scales are 0-dim fp32
+tensors on the bucket's device, rewritten in place, so a step never reads
+them back to the host. Adam's second moment always rides the fp8 codec
+(``V_QUANT``).
+
 Dispatch is by the tensors' device, never by a fallback:
 
-- a CPU tensor runs the plain version (``_adam_math``/``_sgdm_math``);
-- a CUDA tensor launches the kernel or raises: Adam(W) runs K5
-  (``csrc/adam_fp32.cu``, built at first use by ``ops/_build.py``;
-  ``adam_fp32.launches`` counts its launches). Momentum-SGD's kernel
-  (K4) and the quantized moments (``quant='int8'/'fp8'``, K6/K7) are not
-  ported yet and raise NotImplementedError (ROADMAP Queue 1 item 7).
+- a CPU tensor runs the plain version (``_sgdm_plain``/``_adam_plain``:
+  the math above with ``_dq2``/``_rq2`` around it);
+- a CUDA tensor launches the kernel or raises, each built at first use by
+  ``ops/_build.py``: momentum-SGD runs K4 (``sgdm_fp32``,
+  ``csrc/sgdm.cu``) or K6 (``sgdm_q``, same file), Adam(W) runs K5
+  (``adam_fp32``, ``csrc/adam_fp32.cu``) or K7 (``adam_q``,
+  ``csrc/adam_q.cu``). Each launcher counts its calls in ``.launches``;
+  K6 and K7 are three passes on one stream per call (``csrc/quant.cuh``).
 
 The scalars lr, c1 = 1 - b1^t and c2 = 1 - b2^t are host floats. The
-plain version makes them 0-dim fp32 tensors on the bucket's device: a
-Python-float divisor would make a CUDA division a multiplication by its
-reciprocal, one rounding away from the kernel's IEEE division.
+plain version makes them, and the codecs' constants, 0-dim fp32 tensors on
+the bucket's device: a Python-float divisor would make a CUDA division a
+multiplication by its reciprocal, one rounding away from the kernel's IEEE
+division.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from edl_tpu_torch.ops import _build
+from edl_tpu_torch.ops.pack import (_const, dequantize_int8, quantize_int8,
+                                    symmetric_scale)
 
 _LANE = 128         # buckets are padded to a multiple of this
 
@@ -37,16 +51,101 @@ OPTIMIZERS = ("sgdm", "adam")
 QUANT_MODES = ("off", "int8", "fp8")
 
 
-def _unported_quant(quant: str):
-    return NotImplementedError(
-        f"quantized resident moments (quant={quant!r}: the QPlane codec "
-        "and kernels K6/K7) are not ported yet (ROADMAP Queue 1 item 7)")
+# -- fp8 plane codec (rides the int8 wire) ----------------------------------
+
+FP8_MAX = 448.0     # float8_e4m3fn finite max
+_FP8 = torch.float8_e4m3fn
+
+
+def _fp8_scale(x: torch.Tensor) -> torch.Tensor:
+    amax = x.abs().max()
+    return torch.where(amax > 0, amax / _const(FP8_MAX, x), _const(1.0, x))
+
+
+def _quantize_fp8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (x.float() / scale).to(_FP8).view(torch.int8)
+
+
+def _dequantize_fp8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.view(_FP8).float() * scale.float()
+
+
+# -- quantized moment plane --------------------------------------------------
+
+# Adam's second moment always uses the fp8-e4m3 codec: v spans many
+# orders of magnitude under a square root, where a linear int8 grid
+# zero-floors small entries (the JAX package's reasoning, V_QUANT there).
+V_QUANT = "fp8"
+
+
+class QPlane(NamedTuple):
+    """One moment plane at rest: value payload + error-feedback residual.
+
+    q/rq are int8 (fp8 mode: float8 e4m3 bits viewed as int8); scale and
+    rscale are 0-dim fp32 tensors on the plane's device, updated in place.
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    rq: torch.Tensor
+    rscale: torch.Tensor
+
+
+def _dq2(q, scale, rq, rscale, quant: str) -> torch.Tensor:
+    """Reassemble the full-precision moment: payload + residual."""
+    if quant == "int8":
+        return dequantize_int8(q, scale) + dequantize_int8(rq, rscale)
+    return _dequantize_fp8(q, scale) + _dequantize_fp8(rq, rscale)
+
+
+def _rq2(m: torch.Tensor, quant: str) -> tuple:
+    """Requantize an updated moment; the rounding error becomes the new
+    residual (itself quantized)."""
+    if quant == "int8":
+        scale = symmetric_scale(m)
+        q = quantize_int8(m, scale)
+        r = m - dequantize_int8(q, scale)
+        rscale = symmetric_scale(r)
+        rq = quantize_int8(r, rscale)
+    else:
+        scale = _fp8_scale(m)
+        q = _quantize_fp8(m, scale)
+        r = m - _dequantize_fp8(q, scale)
+        rscale = _fp8_scale(r)
+        rq = _quantize_fp8(r, rscale)
+    return q, scale, rq, rscale
+
+
+def quant_plane(m: torch.Tensor, quant: str) -> QPlane:
+    """Full-precision moment -> resident QPlane."""
+    return QPlane(*_rq2(m.float(), quant))
+
+
+def dequant_plane(plane: QPlane, quant: str) -> torch.Tensor:
+    """Resident QPlane -> full-precision moment (payload + residual)."""
+    return _dq2(*plane, quant)
+
+
+def zero_plane(n: int, quant: str,
+               device: str | torch.device = "cpu") -> QPlane:
+    """Quantized zero moment (exact: both codecs encode zero as q=0,
+    scale=1)."""
+    del quant
+    return QPlane(q=torch.zeros(n, dtype=torch.int8, device=device),
+                  scale=torch.ones((), dtype=torch.float32, device=device),
+                  rq=torch.zeros(n, dtype=torch.int8, device=device),
+                  rscale=torch.ones((), dtype=torch.float32, device=device))
+
+
+def _store(plane: QPlane, new: tuple) -> None:
+    for dst, src in zip(plane, new):
+        dst.copy_(src)
 
 
 # -- optimizer math (the single source of truth) ----------------------------
 # Expression order matters: it is the JAX package's, so the plain version
 # differs from JAX only where XLA contracts a multiply-add into an fma,
-# and the CUDA kernel (no contraction) matches the plain version bitwise.
+# and the CUDA kernels (no contraction) match the plain version bitwise.
 
 
 def _sgdm_math(p, g, m, lr, mu: float, wd: float):
@@ -75,6 +174,53 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+def _sgdm_plain(p, g, m_state, lr: float, mu: float, wd: float,
+                quant: str) -> None:
+    """The plain version of one momentum-SGD bucket step, in place, on
+    any device."""
+    m = m_state if quant == "off" else _dq2(*m_state, quant)
+    p_new, m_new = _sgdm_math(p, g, m, _scalar(lr, p), mu, wd)
+    p.copy_(p_new)
+    if quant == "off":
+        m_state.copy_(m_new)
+    else:
+        _store(m_state, _rq2(m_new, quant))
+
+
+def _adam_plain(p, g, m_state, v_state, lr: float, c1: float, c2: float,
+                b1: float, b2: float, eps: float, wd: float,
+                quant: str) -> None:
+    """The plain version of one Adam(W) bucket step, in place, on any
+    device."""
+    if quant == "off":
+        m, v = m_state, v_state
+    else:
+        m, v = _dq2(*m_state, quant), _dq2(*v_state, V_QUANT)
+    p_new, m_new, v_new = _adam_math(
+        p, g, m, v, _scalar(lr, p), _scalar(c1, p), _scalar(c2, p), b1, b2,
+        eps, wd)
+    p.copy_(p_new)
+    if quant == "off":
+        m_state.copy_(m_new)
+        v_state.copy_(v_new)
+    else:
+        _store(m_state, _rq2(m_new, quant))
+        _store(v_state, _rq2(v_new, V_QUANT))
+
+
+# -- argument checks ---------------------------------------------------------
+
+
+def _check_quant(quant: str) -> None:
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} needs contiguous 16-byte aligned buckets")
+
+
 def _check_bucket(name: str, *bufs: torch.Tensor) -> None:
     p = bufs[0]
     for t in bufs:
@@ -85,45 +231,161 @@ def _check_bucket(name: str, *bufs: torch.Tensor) -> None:
                              + " ".join(str(tuple(b.shape)) for b in bufs))
         if t.device != p.device:
             raise ValueError(f"{name}: buckets on different devices")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} needs contiguous 16-byte aligned "
-                             "buckets")
+        _check_aligned(name, t)
     if p.numel() % _LANE:
         raise ValueError(f"{name}: bucket length {p.numel()} is not a "
                          f"multiple of {_LANE}")
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("adam_fp32")
-    if lib.edl_cuda_error_string.restype is not ctypes.c_char_p:
-        lib.edl_adam_fp32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-            + [ctypes.c_float] * 9 + [ctypes.c_int, ctypes.c_void_p])
-        lib.edl_adam_fp32.restype = ctypes.c_int
+def _check_plane(name: str, p: torch.Tensor, plane) -> None:
+    if not isinstance(plane, QPlane):
+        raise TypeError(f"{name}: a quantized moment is a QPlane, got "
+                        f"{type(plane).__name__}")
+    for t in (plane.q, plane.rq):
+        if t.dtype != torch.int8 or t.shape != p.shape:
+            raise ValueError(f"{name}: QPlane payloads must be int8 of the "
+                             f"bucket's shape {tuple(p.shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        _check_aligned(name, t)
+    for t in (plane.scale, plane.rscale):
+        if t.dtype != torch.float32 or t.dim() != 0:
+            raise ValueError(f"{name}: QPlane scales must be 0-dim fp32")
+    if any(t.device != p.device for t in plane):
+        raise ValueError(f"{name}: QPlane and bucket on different devices")
+
+
+# -- the CUDA launchers ------------------------------------------------------
+
+_P, _F, _I, _L = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, \
+    ctypes.c_longlong
+# C signature of each kernel library's entry point
+_SIGNATURES = {
+    "adam_fp32": ("edl_adam_fp32", [_P] * 4 + [_L] + [_F] * 9 + [_I, _P]),
+    "sgdm": ("edl_sgdm_fp32", [_P] * 3 + [_L] + [_F] * 3 + [_I, _P]),
+    "sgdm_q": ("edl_sgdm_q", [_P] * 8 + [_L] + [_F] * 3 + [_I, _I, _P]),
+    "adam_q": ("edl_adam_q", [_P] * 12 + [_L] + [_F] * 9 + [_I, _I, _P]),
+}
+_SOURCE = {"adam_fp32": "adam_fp32", "sgdm": "sgdm", "sgdm_q": "sgdm",
+           "adam_q": "adam_q"}
+
+
+_entries: dict[str, tuple] = {}
+
+
+def _entry(kind: str):
+    """The C entry point of ``kind`` (its library built at first use) and
+    the library's error-string function."""
+    entry = _entries.get(kind)
+    if entry is None:
+        lib = _build.load(_SOURCE[kind])
+        fn_name, argtypes = _SIGNATURES[kind]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
         lib.edl_cuda_error_string.argtypes = [ctypes.c_int]
         lib.edl_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+        entry = _entries[kind] = (fn, lib.edl_cuda_error_string)
+    return entry
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream of ``device`` (where a launch goes)."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(kind: str, name: str, device: torch.device, *args) -> None:
+    fn, err_string = _entry(kind)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, _stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + err_string(err).decode())
+
+
+# Scratch of K6/K7 (m' staged in fp32 between passes, and the abs-max
+# words), one per (device, stream): launches on one stream run in order,
+# so every bucket reuses it. Grown to the largest bucket seen, never
+# shrunk.
+_workspaces: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, floats: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, _stream(device))
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < floats:
+        ws = (torch.empty(floats, dtype=torch.float32, device=device),
+              torch.empty(4, dtype=torch.int32, device=device))
+        _workspaces[key] = ws
+    return ws
+
+
+def sgdm_fp32(p, g, m, lr: float, *, mu: float, wd: float) -> None:
+    """Launch K4 on one bucket: p and m rewritten in place."""
+    _check_bucket("sgdm_fp32", p, g, m)
+    _launch("sgdm", "sgdm_fp32", p.device, p.data_ptr(), g.data_ptr(),
+            m.data_ptr(), p.numel(), float(lr), float(mu), float(wd),
+            int(bool(wd)))
+    sgdm_fp32.launches += 1
+
+
+def sgdm_q(p, g, plane: QPlane, lr: float, *, mu: float, wd: float,
+           quant: str) -> None:
+    """Launch K6 on one bucket (three passes): p and the QPlane (payloads
+    and scales) rewritten in place."""
+    _check_bucket("sgdm_q", p, g)
+    _check_plane("sgdm_q", p, plane)
+    if quant not in ("int8", "fp8"):
+        raise ValueError(f"sgdm_q takes quant int8 or fp8, got {quant!r}")
+    work, amax = _workspace(p.device, p.numel())
+    _launch("sgdm_q", "sgdm_q", p.device, p.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in plane), work.data_ptr(),
+            amax.data_ptr(), p.numel(), float(lr), float(mu), float(wd),
+            int(bool(wd)), int(quant == "fp8"))
+    sgdm_q.launches += 1
 
 
 def adam_fp32(p, g, m, v, lr: float, c1: float, c2: float, *, b1: float,
               b2: float, eps: float, wd: float) -> None:
     """Launch K5 on one bucket: p, m, v rewritten in place."""
     _check_bucket("adam_fp32", p, g, m, v)
-    lib = _library()
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.edl_adam_fp32(
-            p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-            p.numel(), float(lr), float(c1), float(c2), float(b1),
-            float(1 - b1), float(b2), float(1 - b2), float(eps), float(wd),
-            int(bool(wd)), stream)
-    if err != 0:
-        raise RuntimeError("adam_fp32 launch failed: "
-                           + lib.edl_cuda_error_string(err).decode())
+    _launch("adam_fp32", "adam_fp32", p.device, p.data_ptr(), g.data_ptr(),
+            m.data_ptr(), v.data_ptr(), p.numel(), float(lr), float(c1),
+            float(c2), float(b1), float(1 - b1), float(b2), float(1 - b2),
+            float(eps), float(wd), int(bool(wd)))
     adam_fp32.launches += 1
 
 
+def adam_q(p, g, m_plane: QPlane, v_plane: QPlane, lr: float, c1: float,
+           c2: float, *, b1: float, b2: float, eps: float, wd: float,
+           quant: str) -> None:
+    """Launch K7 on one bucket (three passes): p and both QPlanes
+    rewritten in place; m on ``quant``'s codec, v on ``V_QUANT``'s."""
+    _check_bucket("adam_q", p, g)
+    _check_plane("adam_q", p, m_plane)
+    _check_plane("adam_q", p, v_plane)
+    if quant not in ("int8", "fp8"):
+        raise ValueError(f"adam_q takes quant int8 or fp8, got {quant!r}")
+    work, amax = _workspace(p.device, 2 * p.numel())
+    _launch("adam_q", "adam_q", p.device, p.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in m_plane),
+            *(t.data_ptr() for t in v_plane), work.data_ptr(),
+            amax.data_ptr(), p.numel(), float(lr), float(c1), float(c2),
+            float(b1), float(1 - b1), float(b2), float(1 - b2), float(eps),
+            float(wd), int(bool(wd)), int(quant == "fp8"))
+    adam_q.launches += 1
+
+
+sgdm_fp32.launches = 0
+sgdm_q.launches = 0
 adam_fp32.launches = 0
+adam_q.launches = 0
+
+
+# -- per-bucket public entry points ------------------------------------------
 
 
 def adam_bucket(p, g, m_state, v_state, lr: float, c1: float, c2: float, *,
@@ -131,23 +393,27 @@ def adam_bucket(p, g, m_state, v_state, lr: float, c1: float, c2: float, *,
                 quant: str = "off"):
     """Fused Adam(W) update of one bucket, in place.
 
+    m_state/v_state: fp32 buffers (quant='off') or :class:`QPlane`s.
     c1/c2 are the bias-correction denominators (1 - b^t), precomputed by
     the caller so the kernel and the plain version consume identical
     scalars. Returns (p, m_state, v_state).
     """
-    if quant != "off":
-        raise _unported_quant(quant)
+    _check_quant(quant)
+    hyper = dict(b1=b1, b2=b2, eps=eps, wd=wd)
     if p.device.type == "cuda":
-        adam_fp32(p, g, m_state, v_state, lr, c1, c2, b1=b1, b2=b2,
-                  eps=eps, wd=wd)
+        if quant == "off":
+            adam_fp32(p, g, m_state, v_state, lr, c1, c2, **hyper)
+        else:
+            adam_q(p, g, m_state, v_state, lr, c1, c2, quant=quant, **hyper)
     elif p.device.type == "cpu":
-        _check_bucket("adam_bucket", p, g, m_state, v_state)
-        pn, mn, vn = _adam_math(p, g, m_state, v_state, _scalar(lr, p),
-                                _scalar(c1, p), _scalar(c2, p), b1, b2,
-                                eps, wd)
-        p.copy_(pn)
-        m_state.copy_(mn)
-        v_state.copy_(vn)
+        if quant == "off":
+            _check_bucket("adam_bucket", p, g, m_state, v_state)
+        else:
+            _check_bucket("adam_bucket", p, g)
+            _check_plane("adam_bucket", p, m_state)
+            _check_plane("adam_bucket", p, v_state)
+        _adam_plain(p, g, m_state, v_state, lr, c1, c2, quant=quant,
+                    **hyper)
     else:
         raise ValueError(f"adam_bucket runs on cpu or cuda, not {p.device}")
     return p, m_state, v_state
@@ -155,17 +421,24 @@ def adam_bucket(p, g, m_state, v_state, lr: float, c1: float, c2: float, *,
 
 def sgdm_bucket(p, g, m_state, lr: float, *, mu: float, wd: float,
                 quant: str = "off"):
-    """Fused momentum-SGD update of one bucket, in place. Returns
-    (p, m_state). Only the plain version is ported: a CUDA bucket raises
-    until kernel K4 comes."""
-    if quant != "off":
-        raise _unported_quant(quant)
-    if p.device.type != "cpu":
-        raise NotImplementedError(
-            "the momentum-SGD kernel (K4) is not ported yet (ROADMAP Queue 1 "
-            "item 7); on a card there is no quiet plain fallback")
-    _check_bucket("sgdm_bucket", p, g, m_state)
-    pn, mn = _sgdm_math(p, g, m_state, _scalar(lr, p), mu, wd)
-    p.copy_(pn)
-    m_state.copy_(mn)
+    """Fused momentum-SGD update of one bucket, in place.
+
+    m_state: fp32 buffer (quant='off') or :class:`QPlane`. Returns
+    (p, m_state).
+    """
+    _check_quant(quant)
+    if p.device.type == "cuda":
+        if quant == "off":
+            sgdm_fp32(p, g, m_state, lr, mu=mu, wd=wd)
+        else:
+            sgdm_q(p, g, m_state, lr, mu=mu, wd=wd, quant=quant)
+    elif p.device.type == "cpu":
+        if quant == "off":
+            _check_bucket("sgdm_bucket", p, g, m_state)
+        else:
+            _check_bucket("sgdm_bucket", p, g)
+            _check_plane("sgdm_bucket", p, m_state)
+        _sgdm_plain(p, g, m_state, lr, mu, wd, quant)
+    else:
+        raise ValueError(f"sgdm_bucket runs on cpu or cuda, not {p.device}")
     return p, m_state

@@ -1,13 +1,19 @@
-"""Fused optimizer: one kernel pass per parameter bucket (port of
-``edl_tpu.train.fused_opt`` for ``quant='off'``).
+"""Fused optimizer: one kernel call per parameter bucket (port of
+``edl_tpu.train.fused_opt``).
 
 Parameters are packed into the same flat, dtype-grouped, 128-padded
 buckets as the JAX package (``train/comm.plan_buckets``) and each
-bucket's whole Adam(W) update runs as one kernel pass
-(``ops/opt_kernels.adam_bucket``: K5 on a card, the plain version on the
-CPU). Momentum-SGD is ported as plain math only (its kernel K4 comes
-later), and the quantized moment modes (``int8``/``fp8``) raise
-NotImplementedError (ROADMAP Queue 1 item 7).
+bucket's whole momentum-SGD or Adam(W) update runs as one kernel call
+(``ops/opt_kernels.sgdm_bucket``/``adam_bucket``: K4/K5 with fp32
+moments, K6/K7 with quantized ones, on a card; the plain version on the
+CPU).
+
+Resident moment formats (``quant``): ``off`` keeps fp32 bucket buffers;
+``int8``/``fp8`` keep each moment plane as a ``QPlane`` (the quantized
+moment and its quantized error-feedback residual, one fp32 scale each per
+bucket, on the device): 2 bytes an element instead of 4. The scales
+follow the buckets, so the buckets follow the JAX package's leaf order
+(the flax flatten order, ``bridge.flax_named_parameters``).
 
 Design (the port's, recorded in PERF.md): the parameters LIVE in the
 bucket buffers. ``init`` packs them (a bucket of one leaf without
@@ -51,7 +57,8 @@ class FusedOptState(NamedTuple):
 
     count: optimizer steps taken (host int; Adam bias correction and the
        schedule's input).
-    m, v: per-bucket fp32 moment buffers (v is () for momentum-SGD).
+    m, v: per-bucket moments: fp32 buffers (quant='off') or QPlanes
+       (v is () for momentum-SGD).
     p: per-bucket fp32 buffers the parameters live in (views of them are
        the module's parameters).
     """
@@ -82,8 +89,6 @@ class FusedOptimizer:
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be one of {QUANT_MODES}, "
                              f"got {quant!r}")
-        if quant != "off":
-            raise ok._unported_quant(quant)
         if bucket_mb <= 0:
             raise ValueError(f"bucket_mb must be > 0, got {bucket_mb}")
         self.optimizer = optimizer
@@ -117,8 +122,13 @@ class FusedOptimizer:
             for leaf, view in zip(leaves,
                                   comm_lib.unpack_buckets(p_bufs, plan)):
                 leaf.data = view
-        m = tuple(torch.zeros_like(b) for b in p_bufs)
-        v = (tuple(torch.zeros_like(b) for b in p_bufs)
+        def zero(b):
+            if self.quant == "off":
+                return torch.zeros_like(b)
+            return ok.zero_plane(b.numel(), self.quant, device=b.device)
+
+        m = tuple(zero(b) for b in p_bufs)
+        v = (tuple(zero(b) for b in p_bufs)
              if self.optimizer == "adam" else ())
         return FusedOptState(count=0, m=m, v=v, p=p_bufs)
 
@@ -190,8 +200,8 @@ def _check_views(leaves, p_bufs, plan) -> None:
 def fused_sgd(learning_rate: ScheduleOrFloat, momentum: float = 0.9,
               weight_decay: float = 0.0, *, quant: str = "off",
               bucket_mb: float = 4.0) -> FusedOptimizer:
-    """Fused momentum-SGD (the plain version only: a card raises until
-    kernel K4 is ported)."""
+    """Fused momentum-SGD: optax.chain(add_decayed_weights(wd),
+    sgd(lr, momentum))'s update in its expression order."""
     return FusedOptimizer("sgdm", learning_rate, momentum=momentum,
                           weight_decay=weight_decay, quant=quant,
                           bucket_mb=bucket_mb)
@@ -222,10 +232,19 @@ def make_fused_tx(optimizer: str, learning_rate: ScheduleOrFloat,
 
 
 def opt_state_bytes(opt_state: FusedOptState) -> int:
-    """Resident optimizer-state bytes: the moment buffers (the parameter
-    buffers are the model's own weights)."""
+    """Resident optimizer-state bytes: the moment buffers, or every tensor
+    of their QPlanes (the parameter buffers are the model's own weights).
+    The quantized modes must cut it >= 1.8x."""
     return sum(t.numel() * t.element_size()
-               for t in (*opt_state.m, *opt_state.v))
+               for t in _moment_tensors(opt_state))
+
+
+def _moment_tensors(state: FusedOptState) -> list[torch.Tensor]:
+    """Every moment buffer, or every tensor of every QPlane."""
+    out = []
+    for moment in (*state.m, *state.v):
+        out.extend(moment if isinstance(moment, ok.QPlane) else (moment,))
+    return out
 
 
 # -- parity gate -------------------------------------------------------------
@@ -250,8 +269,9 @@ def _gate_world(seed: int = 0, device: str | torch.device = "cpu"):
 
 def _run_fused(tx: FusedOptimizer, params, grads, steps: int,
                plain: bool = False) -> FusedOptState:
-    """``steps`` fused steps in place; ``plain`` runs ``_adam_math`` on
-    each bucket instead of ``adam_bucket``."""
+    """``steps`` fused steps in place; ``plain`` runs each bucket's plain
+    version (``_sgdm_plain``/``_adam_plain``) on the same device instead
+    of ``sgdm_bucket``/``adam_bucket``."""
     state = tx.init(params)
     for _ in range(steps):
         if not plain:
@@ -260,36 +280,55 @@ def _run_fused(tx: FusedOptimizer, params, grads, steps: int,
         lr, c1, c2 = tx.scalars(state.count)
         g_bufs = _grad_buckets(tx.plan(params), _leaves(params), grads)
         with torch.no_grad():
-            for p, g, m, v in zip(state.p, g_bufs, state.m, state.v):
-                pn, mn, vn = ok._adam_math(
-                    p, g, m, v,
-                    ok._scalar(lr, p), ok._scalar(c1, p), ok._scalar(c2, p),
-                    tx.b1, tx.b2, tx.eps, tx.weight_decay)
-                p.copy_(pn)
-                m.copy_(mn)
-                v.copy_(vn)
+            for i, g in enumerate(g_bufs):
+                if tx.optimizer == "sgdm":
+                    ok._sgdm_plain(state.p[i], g, state.m[i], lr,
+                                   tx.momentum, tx.weight_decay, tx.quant)
+                else:
+                    ok._adam_plain(state.p[i], g, state.m[i], state.v[i],
+                                   lr, c1, c2, tx.b1, tx.b2, tx.eps,
+                                   tx.weight_decay, tx.quant)
         state = state._replace(count=state.count + 1)
     return state
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same dtype, shape and bits (fp32 compared as int32, so -0.0 and
+    +0.0 differ and a NaN equals its own bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
 
 def update_parity_gate(seed: int = 0, steps: int = 3, lr: float = 0.1,
                        wd: float = 1e-4,
                        device: str | torch.device = "cuda") -> dict:
-    """The kernel-vs-plain half of the JAX package's gate: fused fp32
-    Adam through ``adam_bucket`` (K5 on a card) against ``_adam_math`` on
-    the same device, over ``steps`` steps of the gate world, bitwise
-    (params and both moments). Momentum-SGD and the quantized modes join
-    with their kernels."""
+    """The kernel-vs-plain half of the JAX package's gate: for every
+    optimizer x quant mode, the fused update through ``sgdm_bucket``/
+    ``adam_bucket`` (K4-K7 on a card) against each bucket's plain version
+    on the same device, over ``steps`` steps of the gate world, bitwise
+    (params, moments, quantized payloads and scales)."""
     report: dict = {"steps": steps, "device": str(device)}
-    states = []
-    for plain in (False, True):
-        params, grads = _gate_world(seed, device)
-        tx = fused_adam(lr, weight_decay=wd, bucket_mb=0.05)
-        states.append(_run_fused(tx, params, grads, steps, plain=plain))
-    kern, ref = states
-    report["buckets"] = len(kern.p)
-    report["adam_off_kernel_bitwise"] = all(
-        torch.equal(a, b) for a, b in zip(kern.p + kern.m + kern.v,
-                                          ref.p + ref.m + ref.v))
-    report["ok"] = report["adam_off_kernel_bitwise"]
+    for opt in OPTIMIZERS:
+        for quant in QUANT_MODES:
+            states = []
+            for plain in (False, True):
+                params, grads = _gate_world(seed, device)
+                if opt == "sgdm":
+                    tx = fused_sgd(lr, 0.9, wd, quant=quant, bucket_mb=0.05)
+                else:
+                    tx = fused_adam(lr, weight_decay=wd, quant=quant,
+                                    bucket_mb=0.05)
+                states.append(_run_fused(tx, params, grads, steps,
+                                         plain=plain))
+            kern, ref = states
+            report["buckets"] = len(kern.p)
+            report[f"{opt}_{quant}_kernel_bitwise"] = all(
+                bitwise_equal(a, b) for a, b in zip(
+                    [*kern.p, *_moment_tensors(kern)],
+                    [*ref.p, *_moment_tensors(ref)]))
+    report["ok"] = all(v for k, v in report.items()
+                       if k.endswith("_bitwise"))
     return report

@@ -51,6 +51,15 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
                           eps=eps, weight_decay=weight_decay)
 
 
+def sgd(learning_rate, momentum: float = 0.9,
+        weight_decay: float = 0.0) -> TorchOptimizer:
+    """torch.optim.SGD for optax.chain(add_decayed_weights(wd),
+    sgd(lr, momentum)): the same update (g + wd p into the momentum,
+    p - lr m), rounded in another order."""
+    return TorchOptimizer(torch.optim.SGD, learning_rate, momentum=momentum,
+                          weight_decay=weight_decay, nesterov=False)
+
+
 @dataclass
 class TrainState:
     """The module, the (name, parameter) list the optimizer follows, the

@@ -1,11 +1,15 @@
 """Train step builder (port of ``edl_tpu.train.step``).
 
 ``make_train_step(loss_fn)`` returns ``step(state, batch) -> (state,
-metrics)``: the forward through ``loss_fn(model, batch) -> (loss, aux)``,
-``loss.backward()``, then ``state.apply_gradients()`` (the fused
-optimizer's seam). Metrics stay device tensors: the step never reads a
-value back, so the host keeps queueing work; the loop reads them at its
-log points only.
+metrics)``: the forward through ``loss_fn(model, batch) -> (loss, aux)``
+(``loss_fn(model, batch, step)`` with ``with_step=True``, for losses
+that draw per-step randomness as the JAX package's do from
+``state.step``), ``loss.backward()``, then ``state.apply_gradients()``
+(the fused optimizer's seam). BatchNorm statistics are module buffers
+that the train-mode forward updates in place, so the JAX package's
+``aux["batch_stats"]`` has nothing to fold. Metrics stay device tensors:
+the step never reads a value back, so the host keeps queueing work; the
+loop reads them at its log points only.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ LossFn = Callable[..., tuple[torch.Tensor, dict]]
 
 
 def make_train_step(loss_fn: LossFn, loss_scale: bool = False,
-                    comm=None) -> Callable:
+                    comm=None, with_step: bool = False) -> Callable:
     """Build a step from ``loss_fn(model, batch) -> (loss, aux)``.
 
     The JAX package's ``donate`` has no counterpart (the step updates in
@@ -37,7 +41,8 @@ def make_train_step(loss_fn: LossFn, loss_scale: bool = False,
     def step(state, batch):
         for _, p in state.params:
             p.grad = None
-        loss, aux = loss_fn(state.model, batch)
+        loss, aux = (loss_fn(state.model, batch, state.step) if with_step
+                     else loss_fn(state.model, batch))
         loss.backward()
         # BatchNorm statistics live in the module's buffers and were
         # updated by the forward: nothing to fold into the state

@@ -57,6 +57,8 @@ ENV_VARS: dict[str, str] = {
     "EDL_TPU_DCN_COMPRESS": "cross-slice gradient wire format: off | topk "
                             "| int8",
     "EDL_TPU_FUSED_OPT": "fused optimizer path: off | fp32 | int8 | fp8",
+    "EDL_TPU_AUGMENT_DEVICE": "crop/flip/normalize on the device "
+                              "(imagenet_train; refused until ported)",
     "EDL_TPU_OPT_QUANT": "override the resident-moment codec of the fused "
                          "optimizer: off | int8 | fp8 (empty = what "
                          "EDL_TPU_FUSED_OPT implies)",

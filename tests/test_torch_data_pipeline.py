@@ -86,3 +86,20 @@ def test_unported_and_bad_settings_raise(shard_files, monkeypatch):
         list(tpipe.DataLoader(src, 1000, num_workers=0).epoch(0))
     empty = src.batch(np.array([], dtype=np.int64))
     assert empty["tokens"].shape == (0, 16)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_image_transforms_match_jax(seed):
+    """random_flip_lr and random_crop draw and cut as the JAX loader's
+    do: the same generator state gives the same pixels, bit for bit."""
+    imgs = np.random.default_rng(9).normal(size=(6, 10, 12, 3)).astype(
+        np.float16)
+    for jt, tt in ((jpipe.random_flip_lr, tpipe.random_flip_lr),
+                   (jpipe.random_crop, tpipe.random_crop)):
+        want = jt({"image": imgs, "label": np.arange(6)},
+                  np.random.default_rng(seed))
+        got = tt({"image": imgs, "label": np.arange(6)},
+                 np.random.default_rng(seed))
+        assert got["image"].dtype == imgs.dtype
+        np.testing.assert_array_equal(got["image"], want["image"])
+        np.testing.assert_array_equal(got["label"], want["label"])

@@ -1,10 +1,9 @@
 """The port's fused optimizer (ops/opt_kernels.py, train/comm.py bucket
 planner, train/fused_opt.py) and the unfused AdamW against the JAX
-package's.
+package's (the quantized moments: tests/test_torch_opt_quant.py).
 
-On the CPU the bucket update runs its plain version (`_adam_math`); the
-CUDA kernel K5 is held against it bit for bit on the card by
-chip_smoke.py. Tolerances:
+On the CPU the bucket updates run their plain versions; the CUDA kernels
+K4-K7 are held against them bit for bit on the card by chip_smoke.py. Tolerances:
 - the update math: rtol 1e-6 / atol 1e-8 against the jitted XLA
   expressions — same expression order, but XLA contracts a multiply-add
   into one fma (one rounding instead of two, ~1 ulp);
@@ -222,6 +221,8 @@ def test_update_parity_gate_runs_on_the_cpu():
     (chip_smoke.py) one side is K5."""
     report = tfo.update_parity_gate(device="cpu")
     assert report["ok"] and report["adam_off_kernel_bitwise"]
+    assert all(report[f"{o}_{q}_kernel_bitwise"] for o in ("sgdm", "adam")
+               for q in ("off", "int8", "fp8"))
 
 
 def test_fused_scalars_follow_the_jax_package():
@@ -237,24 +238,30 @@ def test_fused_scalars_follow_the_jax_package():
                                    rel=1e-6)
 
 
-@pytest.mark.parametrize("quant", ["int8", "fp8"])
-def test_quantized_moments_raise(quant):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tfo.make_fused_tx("adam", 1e-3, quant)
-    z = torch.zeros(128)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tok.adam_bucket(z, z, z, z, 1e-3, 0.1, 0.1, b1=0.9, b2=0.999,
-                        eps=1e-8, wd=0.0, quant=quant)
-
-
-def test_sgdm_runs_plain_on_the_cpu_and_refuses_a_card():
+@pytest.mark.parametrize("quant", ["off", "int8", "fp8"])
+def test_buckets_run_plain_on_the_cpu_and_refuse_other_devices(quant):
+    """A CPU bucket runs the plain version (here: the same as calling it
+    directly); a bucket on any device but cpu or cuda raises (on cuda the
+    kernel launches or raises: no quiet fallback)."""
     p, g, m = (torch.from_numpy(a) for a in _buffers(seed=2)[:3])
-    want = tok._sgdm_math(p, g, m, torch.tensor(0.1), 0.9, 1e-4)
-    tok.sgdm_bucket(p, g, m, 0.1, mu=0.9, wd=1e-4)
-    assert torch.equal(p, want[0]) and torch.equal(m, want[1])
+    if quant == "off":
+        state, ref = m.clone(), m.clone()
+    else:
+        state = tok.quant_plane(m, quant)
+        ref = tok.QPlane(*(t.clone() for t in state))
+    p_ref = p.clone()
+    tok._sgdm_plain(p_ref, g, ref, 0.1, 0.9, 1e-4, quant)
+    tok.sgdm_bucket(p, g, state, 0.1, mu=0.9, wd=1e-4, quant=quant)
+    assert torch.equal(p, p_ref)
+    for a, b in zip(state if quant != "off" else [state],
+                    ref if quant != "off" else [ref]):
+        assert torch.equal(a, b)
     meta = torch.empty(128, device="meta")
-    with pytest.raises(NotImplementedError, match="K4"):
-        tok.sgdm_bucket(meta, meta, meta, 0.1, mu=0.9, wd=0.0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tok.sgdm_bucket(meta, meta, meta, 0.1, mu=0.9, wd=0.0, quant=quant)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tok.adam_bucket(meta, meta, meta, meta, 1e-3, 0.1, 0.1, b1=0.9,
+                        b2=0.999, eps=1e-8, wd=0.0, quant=quant)
 
 
 def test_bucket_checks_and_state_bytes():
@@ -269,11 +276,13 @@ def test_bucket_checks_and_state_bytes():
 
 
 def test_build_flags_are_per_source_and_in_the_digest(monkeypatch):
-    """K5 alone is built without fma contraction; its library's name
-    (the digest) changes with its own flags, and no other source's."""
+    """The optimizer kernels alone are built without fma contraction; a
+    library's name (the digest) changes with its own flags, and no other
+    source's."""
     from edl_tpu_torch.ops import _build
 
-    assert "-fmad=false" in _build.flags("adam_fp32")
+    for name in ("adam_fp32", "sgdm", "adam_q"):
+        assert "-fmad=false" in _build.flags(name)
     assert _build.flags("flash_fwd") == _build.NVCC_FLAGS
     adam, fwd = (_build.library_path(n) for n in ("adam_fp32", "flash_fwd"))
     monkeypatch.setitem(_build.SOURCE_FLAGS, "adam_fp32", ("-fmad=true",))
@@ -281,7 +290,8 @@ def test_build_flags_are_per_source_and_in_the_digest(monkeypatch):
     assert _build.library_path("flash_fwd") == fwd
 
 
-@pytest.mark.parametrize("source", ["adam_fp32", "flash_bwd"])
+@pytest.mark.parametrize("source", ["adam_fp32", "flash_bwd", "sgdm",
+                                    "adam_q"])
 def test_kernel_build_failure_raises(monkeypatch, tmp_path, source):
     """A build that cannot run raises: no fallback to a plain version."""
     from edl_tpu_torch.ops import _build
@@ -292,3 +302,20 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path, source):
     with pytest.raises((RuntimeError, OSError)):
         _build.load(source)
     assert not list(tmp_path.glob("*.so"))
+
+
+def test_shared_header_is_in_the_digest(monkeypatch, tmp_path):
+    """sgdm.cu and adam_q.cu include csrc/quant.cuh: an edited header
+    must not load a library built from the old one."""
+    import shutil
+
+    from edl_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in ("sgdm", "adam_q")}
+    with open(csrc / "quant.cuh", "a") as f:
+        f.write("// edited\n")
+    for name, path in before.items():
+        assert _build.library_path(name) != path

@@ -93,5 +93,5 @@ def test_get_model_and_seeded_init():
     a = Transformer(cfg, device="cpu", seed=5).state_dict()
     b = Transformer(cfg, device="cpu", seed=5).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(AttributeError):
-        get_model("ResNet50")
+    with pytest.raises(AttributeError):      # not ported yet (item 13)
+        get_model("VGG16")
