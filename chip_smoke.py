@@ -23,12 +23,17 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              optimizer's gate (every optimizer x quant mode), and (in the
              timing phase) two steps over every bucket of the main paths'
              plans: the base LM's (K5, K7) and ResNet50_vd's (K4, K6);
+             K8 (the int8 gradient pack: q and the scale's bits) on the
+             CPU tests' grid, a 4 MiB shard and every compressed bucket
+             of ResNet50_vd's comm plan at world 2 filled with one real
+             step's gradients;
 3. timing  — each kernel at its main path's shape: its time, its plain
              version's, one PyTorch library call computing the same
-             function (timed only, never used by the port; none for K6/K7),
-             and the least time the card could take for the work. The
-             optimizer kernels are timed over one step of their plan with
-             the host queued ahead of the card (device time);
+             function (timed only, never used by the port; none for
+             K6/K7/K8), and the least time the card could take for the
+             work. The optimizer kernels and K8 are timed over one step of
+             their plan with the host queued ahead of the card (device
+             time);
 4. serve   — the transformer LM teacher at the repo's base config
              (bench.py's: vocab 32768, d_model 1024, 16 heads, 8 layers,
              d_ff 4096, S 1024, bf16 activations, fp32 params; seeded
@@ -61,7 +66,20 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              step time, images/s, the split, peak memory, eval acc1/acc5,
              the last epoch's mean loss below the first step's and the
              first epoch's, the int8 run within the envelope of the fp32
-             run and its state >= 1.8x smaller.
+             run and its state >= 1.8x smaller;
+9. train_resnet_world — imagenet_train.main at the same config over a
+             world of two ranks sharing the card (this script re-entered
+             with --world-worker, gloo, every collective staged through
+             host memory; 64 images a rank), --fused-opt fp32, from the
+             same init on the same shards: --dcn-compress int8 and
+             --comm-bucket-mb 4 (bucketed dense). Per step and rank:
+             exactly one K8 per compressed bucket (none dense) and one K4
+             per optimizer bucket; step and reduction times; the ranks'
+             final states bitwise equal; the loss finite with falling
+             epoch means; the int8 run within 0.25 x the dense run's
+             improvement; the int8 wire <= 0.26 x the fp32 leg's bytes;
+             loss_parity_gate on ResNet50_vd (3 steps, bitwise dense, int8
+             loss delta <= 5e-3).
 
 The line before the last lists every ported kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -100,6 +118,8 @@ KERNELS = (
      "edl_tpu/ops/opt_kernels.py:202"),
     ("adam_q", "edl_tpu_torch/ops/csrc/adam_q.cu",
      "edl_tpu/ops/opt_kernels.py:227"),
+    ("pack_int8", "edl_tpu_torch/ops/csrc/pack.cu",
+     "edl_tpu/ops/pack.py:86"),
 )
 
 # The card's published peaks (H100 SXM data sheet, dense).
@@ -1587,6 +1607,448 @@ def phase_train_resnet(ok_mod) -> tuple[dict, dict]:
     return launches, runs
 
 
+# -- K8 (the int8 gradient pack) ---------------------------------------------
+
+# K8 must move 5 B an element (the fp32 shard read once, its int8 payload
+# written once); this design reads the shard twice: 9 B.
+PACK_BOUND_BYTES = 5
+PACK_DESIGN_BYTES = 9
+
+
+def pack_grid(gen) -> dict[str, torch.Tensor]:
+    """The CPU tests' shards (tests/test_torch_pack.py: lengths 1 to
+    4099, all-zero, a pinned abs-max, exact half-steps, subnormals beside
+    a normal abs-max and alone) and a 4 MiB shard, on the card."""
+    rng = np.random.default_rng(0)
+    grid = {f"len{n}": rng.normal(size=n) for n in (1, 127, 128, 200, 4099)}
+    grid["zero"] = np.zeros(300)
+    pinned = rng.normal(0, 0.1, size=1000)
+    pinned[333] = -4.0
+    grid["pinned_amax"] = pinned
+    grid["half_steps_1"] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5,
+                            -125.5, 3.5]
+    grid["half_steps_2"] = [-254.0, 1.0, 3.0, 5.0, -1.0, -3.0, 7.0, 251.0]
+    grid["subnormals"] = [1e-40, -3e-39, 1e-45, 5e-39, 0.75, -1.0, 0.0]
+    grid["all_subnormal"] = [1e-40, -3e-39, 2e-45, 5e-39]
+    shards = {k: torch.tensor(np.asarray(v, np.float32), device="cuda")
+              for k, v in grid.items()}
+    shards["4MiB"] = torch.randn(1 << 20, generator=gen, device="cuda")
+    return shards
+
+
+def pack_bitwise(pack_mod, name: str, x: torch.Tensor) -> None:
+    """K8 against its plain version on the same shard: q and the scale's
+    bits equal, or the run fails."""
+    q, scale = pack_mod.pack_int8(x)
+    pq, pscale = pack_mod._pack_plain(x)
+    torch.cuda.synchronize()
+    bitwise = (torch.equal(q, pq)
+               and torch.equal(scale.view(torch.int32),
+                               pscale.view(torch.int32)))
+    emit({"phase": "kernels", "kernel": "pack_int8", "shard": name,
+          "elems": x.numel(), "scale": scale.item(), "bitwise": bitwise,
+          "q_differing": int((q != pq).sum().item()), "ok": bitwise})
+    if not bitwise:
+        fail(f"pack_int8 differs from its plain version on {name}: scale "
+             f"{scale.item()!r} vs {pscale.item()!r}")
+
+
+def resnet_comm_buckets(gen, world: int = 2) -> list[torch.Tensor]:
+    """Every compressed bucket of ResNet50_vd's comm plan at ``world``
+    ranks (4 MiB, int8), filled with one real step's gradients: one rank's
+    share of RESNET_ARGV's batch (128 / world images of 224 px, bf16
+    activations), smoothed cross-entropy, the step's 1/W scaling."""
+    from edl_tpu_torch.bridge import flax_named_parameters
+    from edl_tpu_torch.models.resnet import ResNet50_vd
+    from edl_tpu_torch.train import classification, comm
+
+    model = ResNet50_vd(num_classes=1000, dtype=torch.bfloat16,
+                        device="cuda", seed=0)
+    named = flax_named_parameters(model)
+    rows = 128 // world
+    images = torch.randn((rows, 224, 224, 3), generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (rows,), generator=gen, device="cuda")
+    loss = classification.soft_cross_entropy(
+        model(images), classification.smoothed_labels(labels, 1000, 0.1))
+    loss.backward()
+    grads = [p.grad * (1.0 / world) for _, p in named]
+    plan = comm.plan_buckets([p for _, p in named], 4.0, align=world)
+    config = comm.CommConfig(compress="int8")
+    bufs = [buf for buf, b in zip(comm.pack_buckets(grads, plan),
+                                  plan.buckets)
+            if comm._needs_residual(b, 1, world, config)]
+    emit({"phase": "kernels", "kernel": "pack_int8",
+          "plan": f"ResNet50_vd comm plan at world {world}",
+          "buckets": plan.n_buckets, "compressed": len(bufs),
+          "elems": sum(b.numel() for b in bufs), "loss": loss.item()})
+    del model, named, grads
+    return bufs
+
+
+def phase_kernels_pack(pack_mod, gen) -> tuple[dict, list[torch.Tensor]]:
+    """K8 against its plain version, bit for bit: the CPU tests' grid, a
+    4 MiB shard and every compressed bucket of ResNet50_vd's comm plan at
+    world 2 with one real step's gradients; a bf16 shard and a strided one
+    refused. Returns ({"pack_int8": (0.0, checks)}, the plan's buckets)."""
+    checks = 0
+    for name, x in pack_grid(gen).items():
+        pack_bitwise(pack_mod, name, x)
+        checks += 1
+    for bad, err in ((torch.ones(8, device="cuda", dtype=torch.bfloat16),
+                      TypeError),
+                     (torch.ones(16, device="cuda")[::2], ValueError)):
+        try:
+            pack_mod.pack_int8(bad)
+        except err:
+            checks += 1
+        else:
+            fail(f"pack_int8 took a {bad.dtype} strided={bad.stride()} shard")
+    bufs = resnet_comm_buckets(gen)
+    for i, buf in enumerate(bufs):
+        pack_bitwise(pack_mod, f"ResNet50_vd bucket {i}", buf)
+        checks += 1
+    return {"pack_int8": (0.0, checks)}, bufs
+
+
+def phase_timing_pack(pack_mod, bufs: list[torch.Tensor]) -> dict:
+    """K8 over one step of ResNet50_vd's compressed buckets at world 2:
+    device time with the host queued ahead (the mean of 3 turns), the
+    host-paced time and the plain version's. No PyTorch call computes
+    the same function: library_ms is null."""
+    def step(plain: bool):
+        for buf in bufs:
+            (pack_mod._pack_plain if plain else pack_mod.pack_int8)(buf)
+
+    # stream entries of one call: a memset and two kernels
+    iters = max(2, min(10, 800 // (3 * len(bufs))))
+    turns, host_bound = [], False
+    for _ in range(3):
+        ms, hb = time_ms_queued(lambda: step(False), iters=iters)
+        turns.append(ms)
+        host_bound |= hb
+    host_paced_ms = time_ms(lambda: step(False), iters=10)
+    plain_ms = time_ms(lambda: step(True), iters=3, warmup=1)
+    elems = sum(b.numel() for b in bufs)
+    out = {"ms": float(np.mean(turns)), "plain_ms": plain_ms,
+           "bound_ms": PACK_BOUND_BYTES * elems / PEAK_BYTES_S * 1e3,
+           "bound_by": "bytes", "library_ms": None}
+    emit({"phase": "timing", "kernel": "pack_int8", "buckets": len(bufs),
+          "elems": elems, "per": "one step's compressed buckets",
+          "ms_turns": turns, "queued_steps": iters,
+          "timing": "device: launches queued behind a sleep kernel",
+          "host_bound": host_bound, "ms_host_paced": host_paced_ms,
+          "design_bytes_ms": PACK_DESIGN_BYTES * elems / PEAK_BYTES_S * 1e3,
+          **out})
+    if host_bound:
+        fail("pack_int8: the host could not queue the timed launches ahead "
+             "of the card")
+    return out
+
+
+# -- train_resnet_world: imagenet_train over two ranks on one card -----------
+
+# Two ranks share cuda:0 (NCCL refuses two ranks on one card): gloo
+# between them, every collective staged through host memory. Each rank is
+# this script re-entered with --world-worker.
+WORLD = 2
+WORLD_RUNS = (("int8", ["--dcn-compress", "int8"]),
+              ("dense", ["--comm-bucket-mb", "4"]))
+WORLD_TIMEOUT_S = 420
+GATE_ENVELOPE = 5e-3
+DCN_CUT_MAX = 0.26      # the int8 wire's bytes against the fp32 leg's
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_world(run: str, argv: list, out_dir: Path) -> list[dict]:
+    """WORLD ranks of ``run`` as processes of this script, all on cuda:0,
+    meeting at a TCP store on 127.0.0.1. A rank that exits non-zero, or
+    any rank still running after WORLD_TIMEOUT_S, fails the run; every
+    rank is stopped before this returns. Returns each rank's JSON."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs = []
+    try:
+        for rank in range(WORLD):
+            env = dict(os.environ, EDL_TPU_RANK=str(rank),
+                       EDL_TPU_WORLD_SIZE=str(WORLD),
+                       EDL_TPU_COORDINATOR=coordinator)
+            with open(out_dir / f"{run}.rank{rank}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--world-worker", run, str(out_dir), json.dumps(argv)],
+                    env=env, stdout=log, stderr=subprocess.STDOUT,
+                    cwd=str(HERE)))
+        deadline = time.monotonic() + WORLD_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if (time.monotonic() > deadline
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for rank in range(WORLD):
+            tail = (out_dir / f"{run}.rank{rank}.log").read_text()[-3000:]
+            print(f"--- {run} rank {rank} (exit {codes[rank]}) ---\n{tail}",
+                  file=sys.stderr, flush=True)
+        fail(f"train_resnet_world {run}: ranks exited {codes} (negative: "
+             f"killed at the {WORLD_TIMEOUT_S} s limit or by a peer's "
+             "failure)")
+    return [json.loads((out_dir / f"{run}.rank{r}.json").read_text())
+            for r in range(WORLD)]
+
+
+def world_train(argv: list) -> dict:
+    """One rank of imagenet_train.main(argv): each step timed on the host
+    clock between two synchronizes, its reduction with CUDA events, K8's
+    and K4's launches counted (set to 0 just before the run, read just
+    after); the final state's digest."""
+    import hashlib
+
+    from edl_tpu_torch.examples import imagenet_train
+    from edl_tpu_torch.ops import opt_kernels as ok_mod
+    from edl_tpu_torch.ops import pack as pack_mod
+    from edl_tpu_torch.train import comm
+
+    counters = {"pack_int8": pack_mod.pack_int8,
+                "sgdm_fp32": ok_mod.sgdm_fp32}
+    steps: list[dict] = []
+    seen: dict = {}
+    step_fn, reduce_fn = comm.CommTrainStep._step, comm.CommTrainStep._reduce
+
+    def timed_reduce(self, grads):
+        e0 = event()
+        out = reduce_fn(self, grads)
+        seen["reduce"] = (e0, event())
+        return out
+
+    def timed_step(self, state, batch):
+        torch.cuda.synchronize()
+        c0 = {n: c.launches for n, c in counters.items()}
+        t0 = time.perf_counter()
+        state, metrics = step_fn(self, state, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        e0, e1 = seen["reduce"]
+        steps.append({"ms": (t1 - t0) * 1e3,
+                      "reduce_ms": e0.elapsed_time(e1),
+                      "launches": {n: c.launches - c0[n]
+                                   for n, c in counters.items()},
+                      "loss": float(metrics["loss"])})
+        seen["state"], seen["step"] = state, self
+        return state, metrics
+
+    comm.CommTrainStep._step = timed_step
+    comm.CommTrainStep._reduce = timed_reduce
+    try:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.monotonic()
+        rc = imagenet_train.main(argv)
+        wall_s = time.monotonic() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        comm.CommTrainStep._step = step_fn
+        comm.CommTrainStep._reduce = reduce_fn
+    state, step = seen["state"], seen["step"]
+    digest = hashlib.sha256()
+    for name, t in state.model.state_dict().items():
+        digest.update(name.encode())
+        digest.update(t.detach().cpu().numpy().tobytes())
+    off = replace(step.config, compress="off")
+    return {"rc": rc, "wall_s": wall_s, "steps": steps,
+            "launches": launches, "digest": digest.hexdigest(),
+            "comm_buckets": step.plan.n_buckets,
+            "compressed_buckets": sum(
+                comm._needs_residual(b, step.chips, step.n_slices,
+                                     step.config)
+                for b in step.plan.buckets),
+            "opt_buckets": len(state.opt_state.p), "stats": step.stats(),
+            "topology": [step.n_slices, step.chips],
+            "fp32_leg_bytes": comm.dcn_bytes_per_step(step.plan, off,
+                                                      WORLD, 1)}
+
+
+def world_gate() -> dict:
+    """loss_parity_gate on ResNet50_vd at world 2 over 3 steps (int8,
+    imagenet_train's schedule and fused fp32 SGD, a seeded batch of 128
+    images, this rank's 64), under the default algorithms."""
+    from edl_tpu_torch.examples import imagenet_train
+    from edl_tpu_torch.models.resnet import ResNet50_vd
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.train import classification as cls
+    from edl_tpu_torch.train import comm
+    from edl_tpu_torch.train.fused_opt import make_fused_tx
+
+    args = imagenet_train._parser().parse_args(["--data-dir", "-",
+                                                *RESNET_ARGV])
+    schedule = imagenet_train.build_schedule(args, RESNET_STEPS_PER_EPOCH)
+
+    def state_fn():
+        model = ResNet50_vd(num_classes=1000, dtype=torch.bfloat16,
+                            device="cuda", seed=0)
+        return cls.create_state(model, make_fused_tx(
+            "sgdm", schedule, "fp32", momentum=0.9, weight_decay=1e-4))
+
+    def loss_fn(model, batch):
+        model.train()
+        logits = model(batch["image"])
+        targets = cls.smoothed_labels(batch["label"], 1000, 0.1)
+        return cls.soft_cross_entropy(logits, targets), {}
+
+    rng = np.random.default_rng(1)
+    rows, r = 128 // WORLD, distributed.rank()
+    images = rng.normal(size=(128, 224, 224, 3)).astype(np.float32)
+    labels = rng.integers(0, 1000, size=128).astype(np.int32)
+    batch = {"image": torch.from_numpy(images[r * rows:(r + 1) * rows]),
+             "label": torch.from_numpy(labels[r * rows:(r + 1) * rows])}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    config = comm.CommConfig(compress="int8")
+    return comm.loss_parity_gate(loss_fn, state_fn, batch, config=config,
+                                 steps=3, envelope=GATE_ENVELOPE)
+
+
+def world_worker(run: str, out_dir: str, argv_json: str) -> int:
+    """One rank (the EDL_TPU_* env names it) of a train_resnet_world run:
+    join the world over gloo, run, write this rank's JSON."""
+    sys.path.insert(0, str(HERE))
+    from edl_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = distributed.init_from_env(backend="gloo")
+    torch.cuda.set_device(distributed.rank_device("cuda", env.rank))
+    result = (world_gate() if run == "gate"
+              else world_train(json.loads(argv_json)))
+    result.update(rank=env.rank, card=torch.cuda.current_device(),
+                  backend="gloo")
+    Path(out_dir, f"{run}.rank{env.rank}.json").write_text(
+        json.dumps(result))
+    distributed.shutdown()
+    return 0
+
+
+def world_summary(name: str, ranks: list[dict], blog_dir: Path) -> dict:
+    """The gates of one world training run, each fatal: exactly one K8
+    per compressed bucket a step on each rank (none in the dense run),
+    one K4 per optimizer bucket a step, the ranks' final states bitwise
+    equal, the loss finite with falling epoch means and the last epoch
+    below step 1."""
+    for rk in ranks:
+        want = {"pack_int8": rk["compressed_buckets"] if name == "int8"
+                else 0, "sgdm_fp32": rk["opt_buckets"]}
+        for i, st in enumerate(rk["steps"]):
+            if st["launches"] != want:
+                fail(f"world {name} rank {rk['rank']} step {i + 1} "
+                     f"launched {st['launches']}, want {want}")
+        if rk["rc"] != 0 or len(rk["steps"]) != 3 * RESNET_STEPS_PER_EPOCH:
+            fail(f"world {name} rank {rk['rank']}: rc {rk['rc']}, "
+                 f"{len(rk['steps'])} steps")
+    if len({rk["digest"] for rk in ranks}) != 1:
+        fail(f"world {name}: the ranks' final states differ "
+             f"({[rk['digest'][:16] for rk in ranks]})")
+    r0 = ranks[0]
+    losses = [st["loss"] for st in r0["steps"]]
+    epochs = [float(np.mean(losses[i:i + RESNET_STEPS_PER_EPOCH]))
+              for i in range(0, len(losses), RESNET_STEPS_PER_EPOCH)]
+    timed = r0["steps"][TIMED_FROM_STEP - 1:]
+    step_ms = float(np.median([st["ms"] for st in timed]))
+    with open(blog_dir / "log_0.json") as f:
+        blog = json.load(f)
+    result = {"phase": f"train_resnet_world_{name}", "world": WORLD,
+              "backend": "gloo (both ranks on cuda:0, staged through host "
+                         "memory)",
+              "steps": len(losses), "wall_s": [rk["wall_s"] for rk in ranks],
+              "step_ms_median": step_ms,
+              "step_ms_min": min(st["ms"] for st in timed),
+              "step_ms_max": max(st["ms"] for st in timed),
+              "reduce_ms_median": float(np.median(
+                  [st["reduce_ms"] for st in timed])),
+              "timed_steps": f"{TIMED_FROM_STEP}-{len(losses)}",
+              "images_per_s": 128 / (step_ms / 1e3),
+              "loss_first": losses[0], "loss_last": losses[-1],
+              "epoch_mean_losses": epochs, "losses": losses,
+              "last_epoch_max": max(losses[-RESNET_STEPS_PER_EPOCH:]),
+              "eval_acc1": blog["final"].get("acc1"),
+              "eval_acc5": blog["final"].get("acc5"),
+              "comm_buckets": r0["comm_buckets"],
+              "compressed_buckets": r0["compressed_buckets"],
+              "opt_buckets": r0["opt_buckets"], "topology": r0["topology"],
+              "stats": r0["stats"], "fp32_leg_bytes": r0["fp32_leg_bytes"],
+              "benchmark_log_keys": sorted(blog),
+              "launches": {n: sum(rk["launches"][n] for rk in ranks)
+                           for n in r0["launches"]},
+              "launches_per_step_per_rank": r0["steps"][0]["launches"],
+              "digest": r0["digest"]}
+    emit(result)
+    if not (all(np.isfinite(losses)) and len(epochs) == 3
+            and all(b < a for a, b in zip(epochs, epochs[1:]))
+            and epochs[-1] < losses[0]):
+        fail(f"world {name}: losses {losses} not finite, or the epoch "
+             f"means {epochs} not falling below step 1's")
+    return result
+
+
+def phase_train_resnet_world() -> dict:
+    """imagenet_train at RESNET_ARGV over a world of two ranks on one
+    card (gloo), --fused-opt fp32, from the same init on the same shards:
+    --dcn-compress int8 (K8 on every compressed bucket) and
+    --comm-bucket-mb 4 (bucketed dense); then loss_parity_gate on
+    ResNet50_vd. Gates: world_summary's for each run; the int8 run's last
+    loss within ENVELOPE x the dense run's improvement; the gate bitwise
+    dense with an int8 loss delta <= GATE_ENVELOPE; the int8 wire's bytes
+    <= DCN_CUT_MAX x the same plan's fp32 leg. Returns each run's
+    launches."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, flags in WORLD_RUNS:
+            argv = ["--data-dir", str(tmp / "data"), *RESNET_ARGV,
+                    "--fused-opt", "fp32", *flags, "--benchmark-log",
+                    str(tmp / name)]
+            if not runs:
+                argv += ["--make-synthetic", str(RESNET_SHARDS)]
+            runs[name] = world_summary(name, spawn_world(name, argv, tmp),
+                                       tmp / name)
+        gate = spawn_world("gate", [], tmp)[0]
+    int8, dense = runs["int8"], runs["dense"]
+    improvement = dense["loss_first"] - dense["loss_last"]
+    delta = abs(int8["loss_last"] - dense["loss_last"])
+    cut = int8["stats"]["dcn_bytes_per_step"] / int8["fp32_leg_bytes"]
+    out = {"phase": "train_resnet_world_gates", "gate": gate,
+           "int8_vs_dense": {"loss_dense": dense["loss_last"],
+                             "loss_int8": int8["loss_last"], "delta": delta,
+                             "improvement": improvement,
+                             "envelope": ENVELOPE},
+           "dcn_bytes_per_step": int8["stats"]["dcn_bytes_per_step"],
+           "fp32_leg_bytes": int8["fp32_leg_bytes"], "dcn_cut": cut,
+           "dcn_cut_max": DCN_CUT_MAX}
+    emit(out)
+    if not (improvement > 0 and delta <= ENVELOPE * improvement):
+        fail(f"world int8 run ends at {int8['loss_last']}, {delta} from the "
+             f"dense run's {dense['loss_last']}, outside {ENVELOPE} x "
+             f"{improvement}")
+    if not (gate["bitwise_dense"]
+            and gate["max_loss_delta"] <= GATE_ENVELOPE):
+        fail(f"loss_parity_gate on ResNet50_vd: {gate}")
+    if not cut <= DCN_CUT_MAX:
+        fail(f"int8 wire {cut} x the fp32 leg's bytes, above {DCN_CUT_MAX}")
+    return {f"train_resnet_world_{n}": {k: v for k, v in r["launches"].items()
+                                        if v} for n, r in runs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -1598,6 +2060,7 @@ def main() -> int:
     from edl_tpu_torch.ops import _build
     from edl_tpu_torch.ops import flash_attention as fa
     from edl_tpu_torch.ops import opt_kernels as ok_mod
+    from edl_tpu_torch.ops import pack as pack_mod
     from edl_tpu_torch.train import fused_opt as fo
 
     # fp32 products in full fp32, as the reference computes them
@@ -1619,6 +2082,8 @@ def main() -> int:
     errs.update(phase_kernels_bwd(fa, gen))
     errs.update(phase_kernels_adam(ok_mod, fo, gen))
     errs.update(phase_kernels_opt(ok_mod, fo, gen))
+    pack_errs, pack_bufs = phase_kernels_pack(pack_mod, gen)
+    errs.update(pack_errs)
     timing = {"flash_fwd": phase_timing(fa, gen)}
     timing.update(phase_timing_train(fa, gen))
     timing["adam_fp32"], plan_checks = phase_timing_adam(ok_mod, fo, gen)
@@ -1627,6 +2092,8 @@ def main() -> int:
     timing.update(sgdm_timing)
     timing["adam_q"], adam_q_checks = phase_timing_adam_q(ok_mod, fo, gen)
     sgdm_checks["adam_q"] = adam_q_checks
+    timing["pack_int8"] = phase_timing_pack(pack_mod, pack_bufs)
+    del pack_bufs
     for name, n in sgdm_checks.items():
         errs[name] = (0.0, errs[name][1] + n)
     serve, model, dense, predict = phase_serve(fa)
@@ -1638,6 +2105,7 @@ def main() -> int:
     launches["train_int8"] = phase_train_int8(fa, ok_mod, lm_fp32)
     resnet_launches, _ = phase_train_resnet(ok_mod)
     launches.update(resnet_launches)
+    launches.update(phase_train_resnet_world())
     emit({"seconds": time.monotonic() - t_start, "card": card})
 
     kernels = []
@@ -1663,4 +2131,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--world-worker"]:
+        sys.exit(world_worker(*sys.argv[2:5]))
     sys.exit(main())

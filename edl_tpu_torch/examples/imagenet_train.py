@@ -1,5 +1,6 @@
 """Flagship classification trainer: ResNet50_vd over file-backed npz
-shards, on one device (port of ``edl_tpu.examples.imagenet_train``).
+shards, on one card or data parallel over a world of ranks (port of
+``edl_tpu.examples.imagenet_train``).
 
 Same flags, defaults, log lines and ``final_acc1=`` as the JAX package's
 entry point, plus ``--device`` (``cuda`` unless the caller asks for
@@ -11,10 +12,28 @@ loader's flip/crop transforms, and a top-1/top-5 eval over ``val.npz``
 after each epoch. The flags this slice does not carry exit before any
 work, naming the ROADMAP item that brings them.
 
+A world of ranks comes from the launcher's env (``EDL_TPU_RANK``,
+``EDL_TPU_WORLD_SIZE``, ``EDL_TPU_COORDINATOR``; rank r trains on
+``cuda:{r % device_count}``, NCCL between cards, gloo on the CPU) and
+needs the manual gradient path: ``--dcn-compress off|topk|int8`` and/or
+``--comm-bucket-mb`` (or their env knobs) build ``train/comm``'s
+``CommTrainStep`` (bucketed reductions; int8 runs kernel K8 on a card).
+The JAX package's other multi-process path, the SPMD step with
+global-batch BatchNorm statistics, is not ported, so a world above one
+without them exits. Rank 0 writes the synthetic shards (the others wait
+at a barrier), logs, and writes the benchmark log with the step's wire
+accounting.
+
   python -m edl_tpu_torch.examples.imagenet_train --device cpu \\
       --make-synthetic 2 --data-dir "$(mktemp -d)" --rows-per-file 32 \\
       --model ResNetTiny --image-size 32 --num-classes 10 \\
       --batch-size 16 --epochs 2 --fused-opt fp32 --no-augment
+
+  # two ranks on the CPU (gloo), one process each, sharing one data dir
+  # and a coordinator port that is free on this host ($PORT):
+  EDL_TPU_RANK=$R EDL_TPU_WORLD_SIZE=2 EDL_TPU_COORDINATOR=127.0.0.1:$PORT \\
+      python -m edl_tpu_torch.examples.imagenet_train ... --device cpu \\
+      --data-dir "$D" --dcn-compress int8
 """
 
 from __future__ import annotations
@@ -39,6 +58,7 @@ from edl_tpu_torch.train.benchlog import BenchmarkLog
 from edl_tpu_torch.train.classification import (create_state,
                                                 make_classification_step,
                                                 make_eval_step)
+from edl_tpu_torch.train.comm import CommConfig
 from edl_tpu_torch.train.fused_opt import make_fused_tx
 from edl_tpu_torch.train.loop import LoopConfig, TrainLoop
 from edl_tpu_torch.utils import config
@@ -144,11 +164,15 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--weight-decay", type=float, default=1e-4)
     parser.add_argument("--dcn-compress", choices=("off", "topk", "int8"),
                         default=None,
-                        help="cross-slice gradient wire format (not "
-                             "ported yet)")
+                        help="cross-slice gradient wire format of the "
+                             "manual gradient path (default "
+                             "$EDL_TPU_DCN_COMPRESS, else off); a flat "
+                             "world with compression treats every rank "
+                             "as a slice")
     parser.add_argument("--comm-bucket-mb", type=float, default=None,
-                        help="bucketed gradient reduction (not ported "
-                             "yet)")
+                        help="bucket target of the manual gradient path "
+                             "in MiB (default $EDL_TPU_COMM_BUCKET_MB; "
+                             "4 when only --dcn-compress is given)")
     parser.add_argument("--fused-opt",
                         choices=("off", "fp32", "int8", "fp8"),
                         default=None,
@@ -209,9 +233,23 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     loop_cfg = from_env(LoopConfig, num_epochs=args.epochs)
     _refuse_unported_env(loop_cfg)
-    env = distributed.init_from_env()
-    world = max(1, env.world_size)
-    rank = max(0, env.rank)
+    # the manual gradient path: CLI > env (LoopConfig binding) > off. A
+    # compressed wire implies bucketing (default 4 MiB target).
+    dcn_compress = (args.dcn_compress if args.dcn_compress is not None
+                    else loop_cfg.dcn_compress)
+    comm_bucket_mb = (args.comm_bucket_mb
+                      if args.comm_bucket_mb is not None
+                      else loop_cfg.comm_bucket_mb)
+    comm_cfg = None
+    if dcn_compress != "off" or comm_bucket_mb > 0:
+        comm_cfg = CommConfig(bucket_mb=comm_bucket_mb or 4.0,
+                              compress=dcn_compress)
+    env = TrainerEnv.from_environ()
+    if env.world_size > 1 and comm_cfg is None:
+        raise SystemExit(_unported(
+            f"a world above 1 (EDL_TPU_WORLD_SIZE={env.world_size}) without "
+            "--dcn-compress/--comm-bucket-mb (the SPMD step with "
+            "global-batch BatchNorm statistics)", 10))
     # Fused optimizer path: CLI > env (LoopConfig binding) > off;
     # EDL_TPU_OPT_QUANT overrides just the resident-moment codec.
     fused_opt = (args.fused_opt if args.fused_opt is not None
@@ -225,12 +263,20 @@ def main(argv=None) -> int:
     if fused_opt not in ("off", "fp32", "int8", "fp8"):
         raise SystemExit(f"EDL_TPU_FUSED_OPT must be off|fp32|int8|fp8, "
                          f"got {fused_opt!r}")
+    world = max(1, env.world_size)
+    rank = max(0, env.rank)
+    device = distributed.rank_device(device, rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    distributed.init_from_env(env, device=device)
     if args.make_synthetic and rank == 0:
         make_synthetic_shards(args.data_dir, args.make_synthetic,
                               args.rows_per_file, args.image_size,
                               args.num_classes, args.seed,
                               signal=args.synthetic_signal,
                               label_noise=args.synthetic_label_noise)
+    if args.make_synthetic:
+        distributed.barrier()   # the others must not list a half-written dir
 
     val_path = os.path.join(args.data_dir, "val.npz")
     if args.batch_size % world:
@@ -248,9 +294,9 @@ def main(argv=None) -> int:
                         seed=args.seed, transforms=transforms,
                         num_workers=0)
     steps_per_epoch = loader.steps_per_epoch()
-    log.info("world=%d rank=%d devices=%d format=%s shards=%d samples=%d "
-             "steps/epoch=%d", world, rank, 1, args.data_format, len(files),
-             len(source), steps_per_epoch)
+    log.info("world=%d rank=%d device=%s format=%s shards=%d samples=%d "
+             "steps/epoch=%d", world, rank, device, args.data_format,
+             len(files), len(source), steps_per_epoch)
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = zoo.get_model(args.model)(num_classes=args.num_classes,
@@ -270,7 +316,11 @@ def main(argv=None) -> int:
     state = create_state(model, tx)
     step = make_classification_step(
         args.num_classes, smoothing=args.label_smoothing,
-        mixup_alpha=args.mixup_alpha, seed=args.seed)
+        mixup_alpha=args.mixup_alpha, seed=args.seed, comm=comm_cfg,
+        topology=distributed.slice_topology(env))
+    if comm_cfg is not None:
+        log.info("manual gradient path: bucket=%.1fMiB compress=%s",
+                 comm_cfg.bucket_mb, comm_cfg.compress)
     eval_step = make_eval_step()
 
     eval_batches = None
@@ -295,15 +345,20 @@ def main(argv=None) -> int:
         rate = steps_per_epoch * local_bs / max(elapsed, 1e-9)
         results = {"examples_per_sec": rate}
         if eval_batches is not None:
-            accs, n = {"acc1": 0.0, "acc5": 0.0}, 0
-            for hb in eval_batches():
+            # rank r evaluates batches r, r + W, ...; the world's means
+            sums = torch.zeros(3, dtype=torch.float64, device=device)
+            for i, hb in enumerate(eval_batches()):
+                if i % world != rank:
+                    continue
                 ev = eval_step(state, {
                     "image": torch.as_tensor(hb["image"], device=device),
                     "label": torch.as_tensor(hb["label"], device=device)})
-                for k in accs:
-                    accs[k] += float(ev[k])
-                n += 1
-            results.update({k: v / max(n, 1) for k, v in accs.items()})
+                sums += torch.stack([ev["acc1"].double(),
+                                     ev["acc5"].double(),
+                                     torch.ones((), dtype=torch.float64,
+                                                device=device)])
+            acc1, acc5, n = distributed.all_reduce(sums).tolist()
+            results.update(acc1=acc1 / max(n, 1), acc5=acc5 / max(n, 1))
         blog.epoch(epoch, **results)
         epoch_t0[0] = time.perf_counter()
         return results
@@ -311,6 +366,8 @@ def main(argv=None) -> int:
     loop = TrainLoop(step, state, device=device, config=loop_cfg,
                      eval_fn=eval_fn)
     status = loop.run(loader.epoch)
+    if comm_cfg is not None:
+        blog.extra(**step.stats())  # bucket plan + wire accounting
     if rank == 0 and args.benchmark_log:
         blog.write(args.benchmark_log, rank)
     final = blog.finalize().get("final", {})
@@ -318,6 +375,7 @@ def main(argv=None) -> int:
              {k: round(v, 4) for k, v in final.items()})
     if final:
         print(f"final_acc1={final.get('acc1', float('nan')):.4f}")
+    distributed.shutdown()
     return 0
 
 
@@ -333,10 +391,6 @@ def _refuse_unported(args) -> None:
          "input planes)", 8),
         (bool(args.augment_device),
          "--augment-device (crop/flip/normalize on the device)", 8),
-        (args.dcn_compress not in (None, "off"),
-         f"--dcn-compress {args.dcn_compress}", 11),
-        (args.comm_bucket_mb not in (None, 0, 0.0),
-         "--comm-bucket-mb (the bucketed gradient reduction)", 11),
         (args.dgc_sparsity > 0, "--dgc-sparsity (deep gradient "
          "compression)", 11),
         (bool(args.teachers), "--teachers (distill mode)", 12),
@@ -352,18 +406,10 @@ def _refuse_unported(args) -> None:
     for hit, what, item in refused:
         if hit:
             raise SystemExit(_unported(what, item))
-    world = TrainerEnv.from_environ().world_size
-    if world > 1:
-        raise SystemExit(_unported(
-            f"a world above 1 (EDL_TPU_WORLD_SIZE={world})", 10))
 
 
 def _refuse_unported_env(cfg: LoopConfig) -> None:
     """The same refusals for the env knobs that would turn them on."""
-    if cfg.dcn_compress != "off" or cfg.comm_bucket_mb > 0:
-        raise SystemExit(_unported(
-            "EDL_TPU_DCN_COMPRESS / EDL_TPU_COMM_BUCKET_MB (the bucketed "
-            "gradient reduction)", 11))
     if cfg.loader_workers > 0:
         raise SystemExit(_unported("EDL_TPU_LOADER_WORKERS > 0 (the mp "
                                    "loader)", 8))

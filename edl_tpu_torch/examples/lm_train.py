@@ -28,6 +28,7 @@ import torch
 
 from edl_tpu_torch import resolve_device
 from edl_tpu_torch.bridge import flax_named_parameters
+from edl_tpu_torch.collective.job_env import TrainerEnv
 from edl_tpu_torch.data.pipeline import DataLoader, FileSource
 from edl_tpu_torch.models.transformer import (Transformer, TransformerConfig,
                                               lm_loss_fn)
@@ -321,6 +322,8 @@ def _refuse_unported(args) -> None:
         ((args.loader_workers or 0) > 0,
          "--loader-workers > 0 (the mp loader)", 8),
         (bool(args.profile), "--profile (torch.profiler)", 8),
+        (TrainerEnv.from_environ().world_size > 1,
+         "a world above 1 for lm_train (EDL_TPU_WORLD_SIZE > 1)", 11),
     ]
     for hit, what, item in refused:
         if hit:

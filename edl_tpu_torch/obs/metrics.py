@@ -1,5 +1,6 @@
-"""Fixed-bucket histogram and stats-source registry (trimmed copy of
-``edl_tpu.obs.metrics``: what the teacher server calls).
+"""Fixed-bucket histogram, counter and stats-source registry (trimmed
+copy of ``edl_tpu.obs.metrics``: what the teacher server and the comm
+train step call).
 
 Fixed edges, not a reservoir: two cumulative snapshots difference
 exactly into a windowed histogram, and quantiles never drift under load.
@@ -80,13 +81,46 @@ class Histogram:
         return items[-1][0]
 
 
+class Counter:
+    """Monotonic cumulative count. Thread-safe; the lock is a leaf."""
+
+    __slots__ = ("name", "help", "_lock", "_v")
+
+    def __init__(self, name: str = "", help: str = ""):  # noqa: A002
+        self.name = name
+        self.help = help
+        self._lock = threading.Lock()
+        self._v = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError("counters only go up")
+        with self._lock:
+            self._v += n
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._v
+
+
 class Registry:
-    """Per-process aggregator of ``stats() -> dict`` sources."""
+    """Per-process aggregator of named counters and ``stats() -> dict``
+    sources."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._sources: dict[int, tuple[str, Callable[[], dict | None]]] = {}
+        self._counters: dict[str, Counter] = {}
         self._ids = itertools.count(1)
+
+    def counter(self, name: str, help: str = "") -> Counter:  # noqa: A002
+        """The counter named ``name``, created on first use."""
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = Counter(name, help)
+            return c
 
     def register_stats(self, kind: str,
                        fn: Callable[[], dict | None]) -> int:
@@ -123,6 +157,11 @@ class Registry:
 
 
 _REGISTRY = Registry()
+
+
+def registry() -> Registry:
+    """The process-wide registry."""
+    return _REGISTRY
 
 
 def register_stats(kind: str, fn: Callable[[], dict | None]) -> int:

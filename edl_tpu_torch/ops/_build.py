@@ -27,13 +27,15 @@ ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Flags of one source on top of NVCC_FLAGS. The fused optimizer updates
-# are held bit for bit against their unfused PyTorch versions: no
-# contraction into fma, IEEE division and square root, no flush to zero.
+# and the int8 pack are held bit for bit against their plain PyTorch
+# versions: no contraction into fma, IEEE division and square root, no
+# flush to zero.
 _BITWISE = ("-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false")
 SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
     "adam_fp32": _BITWISE,
     "sgdm": _BITWISE,
     "adam_q": _BITWISE,
+    "pack": _BITWISE,
 }
 
 _lock = threading.Lock()

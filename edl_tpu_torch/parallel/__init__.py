@@ -1,1 +1,2 @@
-"""Parallel attention of the port (dense reference only, so far)."""
+"""The world of ranks (``distributed``), its slice topology and process
+groups (``mesh``), and the dense ring-attention reference."""

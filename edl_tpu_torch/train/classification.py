@@ -5,7 +5,9 @@ port of ``edl_tpu.train.classification``.
 ``train/step.py`` for {'image', 'label'} batches: the model's forward in
 train mode (BatchNorm statistics update the module's buffers), soft
 cross-entropy against (smoothed, optionally mixed) one-hot targets, and
-the optimizer step through ``TrainState.apply_gradients``.
+the optimizer step through ``TrainState.apply_gradients`` (with
+``comm``, the manual gradient path of ``train/comm.py`` over the joined
+world).
 ``make_eval_step`` runs the model in eval mode (running statistics) and
 returns top-1/top-5 accuracy. The distill steps (``make_distill_step``,
 ``make_sparse_distill_step``) come with the student side (ROADMAP Queue 1
@@ -64,12 +66,12 @@ def mixup_rng(seed: int, step: int) -> np.random.Generator:
 
 
 def make_classification_step(num_classes: int, *, smoothing: float = 0.0,
-                             mixup_alpha: float = 0.0,
-                             seed: int = 0) -> Callable:
+                             mixup_alpha: float = 0.0, seed: int = 0,
+                             comm=None, topology=None) -> Callable:
     """``step(state, batch) -> (state, metrics)`` for {'image', 'label'}
     batches; metrics hold the loss and the batch's top-1 accuracy as
-    device tensors. The JAX package's ``comm``/``mesh``/``topology`` (the
-    bucketed gradient reduction) come with ROADMAP Queue 1 item 11."""
+    device tensors. ``comm``/``topology`` route the gradient reduction
+    through the manual bucketed path (see ``make_train_step``)."""
 
     def loss_fn(model: torch.nn.Module, batch: dict,
                 step: int) -> tuple[torch.Tensor, dict]:
@@ -83,7 +85,8 @@ def make_classification_step(num_classes: int, *, smoothing: float = 0.0,
         return soft_cross_entropy(logits, targets), {
             "acc1": accuracy_topk(logits.detach(), batch["label"], 1)}
 
-    return make_train_step(loss_fn, with_step=True)
+    return make_train_step(loss_fn, with_step=True, comm=comm,
+                           topology=topology)
 
 
 def make_eval_step() -> Callable:

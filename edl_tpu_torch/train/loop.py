@@ -5,7 +5,9 @@ over epochs from the resume cursor (``TrainStatus``): each batch is
 placed on the loop's device (a pinned, non-blocking host-to-device copy
 on a card), stepped, and counted; every ``log_every_steps`` the metrics
 are read back (the loop's only host sync), logged and handed to the
-hooks; after each epoch ``eval_fn(state, epoch)`` runs.
+hooks; after each epoch ``eval_fn(state, epoch)`` runs. In a world of
+several ranks (``parallel/distributed``) the status counts the world,
+the step's metrics are already the world's means, and only rank 0 logs.
 
 Not ported yet, and raising when asked for: checkpoints (``ckpt_dir``,
 ROADMAP Queue 1 item 8), the profiler window (``profile_dir``, item 8),
@@ -23,6 +25,7 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
+from edl_tpu_torch.parallel import distributed
 from edl_tpu_torch.train.state import TrainStatus
 from edl_tpu_torch.utils.config import field
 from edl_tpu_torch.utils.logging import get_logger
@@ -84,7 +87,8 @@ class TrainLoop:
         self.config = config or LoopConfig()
         self.eval_fn = eval_fn
         self.hooks = hooks or []
-        self.status = TrainStatus(world_size=1)
+        self.status = TrainStatus(world_size=distributed.world_size())
+        self.is_leader = distributed.rank() == 0
 
     def _place(self, batch: dict) -> dict:
         """Host numpy -> tensors on the device: pinned and non-blocking on
@@ -106,7 +110,8 @@ class TrainLoop:
             self.status.step_in_epoch = 0
             if self.eval_fn is not None:
                 results = self.eval_fn(self.state, epoch)
-                log.info("eval epoch %d: %s", epoch, _fmt(results))
+                if self.is_leader:
+                    log.info("eval epoch %d: %s", epoch, _fmt(results))
         return self.status
 
     def _run_epoch(self, epoch: int, batches: Iterable) -> None:
@@ -124,8 +129,9 @@ class TrainLoop:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 rate = window_samples / max(
                     time.perf_counter() - window_start, 1e-9)
-                log.info("epoch %d step %d: %s %.1f samples/s",
-                         epoch, self.status.step, _fmt(metrics), rate)
+                if self.is_leader:
+                    log.info("epoch %d step %d: %s %.1f samples/s",
+                             epoch, self.status.step, _fmt(metrics), rate)
                 for hook in self.hooks:
                     hook(self, epoch, self.status.step, metrics)
                 window_start = time.perf_counter()

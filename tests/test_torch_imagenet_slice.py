@@ -189,8 +189,7 @@ def test_imagenet_train_mixup_and_benchmark_log(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--data-format", "jpeg"], 8), (["--data-format", "packed"], 8),
-    (["--augment-device", "1"], 8), (["--dcn-compress", "int8"], 11),
-    (["--comm-bucket-mb", "4"], 11), (["--dgc-sparsity", "0.9"], 11),
+    (["--augment-device", "1"], 8), (["--dgc-sparsity", "0.9"], 11),
     (["--teachers", "localhost:1"], 12), (["--ckpt-dir", "ckpt"], 8),
     (["--ckpt-steps", "5"], 8), (["--loader-workers", "2"], 8),
     (["--profile", "trace"], 8), (["--model", "VGG16"], 13)])
@@ -204,7 +203,7 @@ def test_unported_flags_exit_before_any_work(tmp_path, flags, item):
 
 @pytest.mark.parametrize("env,value,item", [
     ("EDL_TPU_WORLD_SIZE", "2", 10), ("EDL_TPU_AUGMENT_DEVICE", "1", 8),
-    ("EDL_TPU_DCN_COMPRESS", "topk", 11), ("EDL_TPU_LOADER_WORKERS", "2", 8)])
+    ("EDL_TPU_LOADER_WORKERS", "2", 8)])
 def test_unported_env_exits_before_any_work(tmp_path, monkeypatch, env,
                                             value, item):
     monkeypatch.setenv(env, value)

@@ -42,9 +42,11 @@ from edl_tpu_torch.ops import opt_kernels as tok
 from edl_tpu_torch.parallel import distributed
 from edl_tpu_torch.train import fused_opt as tfo
 from edl_tpu_torch.train import lr as tlr
+from edl_tpu_torch.train.comm import CommConfig, CommTrainStep
 from edl_tpu_torch.train.loop import LoopConfig, TrainLoop
 from edl_tpu_torch.train.state import TrainState
 from edl_tpu_torch.train.step import make_train_step
+from edl_tpu_torch.utils.exceptions import EdlError
 
 SMALL = dict(vocab_size=256, d_model=64, n_heads=2, n_layers=2, d_ff=128,
              max_len=128)
@@ -224,11 +226,21 @@ def test_quantized_moments_refuse_fp16_with_the_jax_message(tmp_path,
     assert not data_dir.exists()
 
 
-def test_world_of_one_only(monkeypatch):
+def test_world_of_two_needs_a_coordinator(monkeypatch):
     assert distributed.init_from_env().world_size == 1
     monkeypatch.setenv("EDL_TPU_WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        distributed.init_from_env()
+    with pytest.raises(EdlError, match="EDL_TPU_COORDINATOR"):
+        distributed.init_from_env(device="cpu")
+    assert not distributed.is_initialized()
+
+
+def test_lm_train_refuses_a_world_above_one(tmp_path, monkeypatch):
+    """lm_train's world comes with item 11; it exits before any work."""
+    monkeypatch.setenv("EDL_TPU_WORLD_SIZE", "2")
+    data_dir = tmp_path / "never-written"
+    with pytest.raises(SystemExit, match="item 11"):
+        lm_train.main(["--data-dir", str(data_dir), *TINY_ARGV])
+    assert not data_dir.exists()
 
 
 @pytest.mark.parametrize("kw,item", [({"ckpt_dir": "c"}, 8),
@@ -242,8 +254,8 @@ def test_unported_loop_options_raise(kw, item):
 def test_step_options_and_dropout_raise():
     with pytest.raises(NotImplementedError, match="item 4"):
         make_train_step(lm_loss_fn, loss_scale=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_train_step(lm_loss_fn, comm=object())
+    step = make_train_step(lm_loss_fn, comm=CommConfig(compress="int8"))
+    assert isinstance(step, CommTrainStep) and step.config.compress == "int8"
     model = Transformer(TransformerConfig(**SMALL, dropout=0.1),
                         device="cpu")
     toks = torch.zeros((1, 128), dtype=torch.int32)
