@@ -7,14 +7,20 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 
 1. build   — the card's name and power limit (nvidia-smi), then every
              kernel under edl_tpu_torch/ops/csrc built with nvcc for sm_90a
-             (one nvcc per source, started together);
+             (one nvcc per source, started together); for the flash
+             backward, each kernel's registers and spills (ptxas) and its
+             wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
+             built SASS (cuobjdump): each bf16 body must hold both, spill
+             nothing and never write a register a wgmma in flight reads;
 2. kernels — each kernel against its plain PyTorch version on the card,
              on the same inputs: K1 (flash forward) and K2/K3 (flash
              backward, with and without a dlse cotangent) over a grid of
              shapes, strided q/k/v and the serving and training shapes
              (bounds: K1 2e-5 fp32 / 3e-2 bf16 as
              tests/test_flash_attention.py; K2/K3 5e-5 fp32 /
-             3e-2 x max(1, max |ref|) bf16); bit for bit: K5 (fused Adam)
+             3e-2 x max(1, max |ref|) bf16; K3 then K2 twice, bit for bit,
+             on the training shape, a strided and a ragged case); bit for
+             bit: K5 (fused Adam)
              over 3 steps of a 4 MiB and a ragged bucket, K4 (momentum-SGD),
              K6 (quantized momentum-SGD, int8 and fp8) and K7 (quantized
              Adam, int8 and fp8) over 3 steps of a 4 MiB, a ragged, an
@@ -31,7 +37,9 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              version's, one PyTorch library call computing the same
              function (timed only, never used by the port; none for
              K6/K7/K8), and the least time the card could take for the
-             work. The optimizer kernels and K8 are timed over one step of
+             work; for K2 and K3 also their sum beside the library call
+             (SDPA's whole backward) and each one's TFLOP/s over the
+             products it computes. The optimizer kernels and K8 are timed over one step of
              their plan with the host queued ahead of the card (device
              time);
 4. serve   — the transformer LM teacher at the repo's base config
@@ -89,6 +97,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -227,6 +236,122 @@ def qkv_case(case: dict, gen) -> tuple:
                              dtype=torch.float32).to(dt) for _ in range(3))
 
 
+def kernel_name(mangled: str) -> str:
+    """The readable name of a kernel from its mangled symbol, e.g.
+    dkdv_wgmma_kernel<64>: the length-prefixed identifier that ends in
+    "kernel", with its integer template arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        ident = mangled[m.end():m.end() + int(m.group())]
+        if ident.endswith("kernel"):
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[m.end() + len(ident):])
+            if args is None:
+                return ident
+            return ident + "<" + ",".join(re.findall(r"Li(\d+)E", args[1])) + ">"
+    return mangled
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{kernel: {"registers", "spill_bytes"}} from a ptxas -v log."""
+    out: dict[str, dict] = {}
+    name = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = kernel_name(m[1])
+            out[name] = {}
+        elif name is not None:
+            if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                              ln):
+                out[name]["spill_bytes"] = int(m[1]) + int(m[2])
+            if m := re.search(r"Used (\d+) registers", ln):
+                out[name]["registers"] = int(m[1])
+    return out
+
+
+def sass_functions(sass: str) -> dict[str, list[tuple[int, str]]]:
+    """{kernel: [(address, instruction)]} from cuobjdump --dump-sass."""
+    out: dict[str, list] = {}
+    ins = None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            ins = out.setdefault(kernel_name(ln.split("Function :")[1].strip()),
+                                 [])
+        elif ins is not None:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+            if m:
+                ins.append((int(m[1], 16), m[2]))
+    return out
+
+
+def wgmma_a_hazards(ins: list[tuple[int, str]]) -> list[tuple[str, str]]:
+    """Writes that may clobber a register an HGMMA (wgmma) reads as its A
+    operand while the product may still read it: (1) between the HGMMA
+    and the first wait (WARPGROUP.DEPBAR) after it, following a loop's
+    back edge when the wait comes in the next turn; (2) later in a loop
+    whose earlier turns the HGMMA reads the register from unwritten (a
+    value from before the loop). ptxas has been seen to do (2)."""
+    def writes(text, regs):
+        m = re.match(r"(?:@!?U?P\w+ )?(?!HGMMA)[A-Z][\w.]* (R\d+)\b", text)
+        return m is not None and m[1] in regs
+
+    backs = [(a, int(m[1], 16)) for a, t in ins
+             if (m := re.search(r"\bBRA (0x[0-9a-f]+)", t))
+             and int(m[1], 16) < a]
+    found = []
+    for a0, t0 in ins:
+        m = re.match(r"HGMMA\.\S+ R\d+, R(\d+),", t0)
+        if not m:
+            continue
+        regs = {f"R{int(m[1]) + i}" for i in range(4)}
+        loops = [(b, h) for b, h in backs if h < a0 < b]
+        b, h = min(loops) if loops else (None, None)
+        dep = next((a for a, t in ins if a > a0 and "DEPBAR" in t), None)
+        if dep is not None and (b is None or dep < b):
+            path = [(a, t) for a, t in ins if a0 < a < dep]
+        elif b is not None:
+            dep = next(a for a, t in ins if a > h and "DEPBAR" in t)
+            path = [(a, t) for a, t in ins if a0 < a <= b or h <= a < dep]
+        else:
+            path = []
+        found += [(hex(a), t) for a, t in path if writes(t, regs)]
+        if b is not None and not any(writes(t, regs) for a, t in ins
+                                     if h <= a < a0):
+            found += [(hex(a), t) for a, t in ins
+                      if a0 < a <= b and writes(t, regs)]
+    return found
+
+
+def flash_bwd_build(build, log: str) -> dict:
+    """What the bf16 backward bodies were built into: per kernel of
+    flash_bwd, its registers and spills (ptxas), its count of wgmma
+    (HGMMA) and TMA load (UTMALDG) instructions in the SASS of the built
+    library (cuobjdump), and the writes that may clobber a wgmma's A
+    operand in flight (wgmma_a_hazards). Fails unless each wgmma body
+    holds both instructions, spills nothing and has no such write."""
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(build.library_path("flash_bwd"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    kernels = ptxas_kernels(log)
+    for name, ins in sass_functions(sass).items():
+        kernels.setdefault(name, {}).update(
+            HGMMA=sum("HGMMA" in t for _, t in ins),
+            UTMALDG=sum("UTMALDG" in t for _, t in ins),
+            a_operand_hazards=wgmma_a_hazards(ins)[:4])
+    wgmma = {n: k for n, k in kernels.items() if "wgmma" in n}
+    ok = bool(wgmma) and all(k.get("HGMMA") and k.get("UTMALDG")
+                             and k.get("spill_bytes") == 0
+                             and not k.get("a_operand_hazards")
+                             for k in wgmma.values())
+    report = {"kernels": kernels, "ok": ok}
+    if not ok:
+        emit({"phase": "build", "flash_bwd": report})
+        fail(f"flash_bwd's bf16 bodies lack HGMMA/UTMALDG, spill, or may "
+             f"clobber a wgmma operand in flight: {wgmma}")
+    return report
+
+
 def phase_kernels(fa, gen) -> dict:
     """K1 vs its plain version on the card; returns {"flash_fwd":
     (max abs error, checks)}."""
@@ -306,20 +431,22 @@ def bwd_atol(ref: torch.Tensor) -> float:
 
 def phase_kernels_bwd(fa, gen) -> dict:
     """K2 and K3 against the plain `_bwd_blockwise` on the card, with
-    and without a dlse cotangent; returns {name: (max abs error,
-    checks)}."""
+    and without a dlse cotangent; on the training shape, a strided and a
+    ragged case also K3 then K2 twice, bit for bit. Returns {name: (max
+    abs error, checks)}."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [dict(b=2, s=s, h=4, d=d, dtype=dt, causal=c)
              for dt in (f32, bf16) for c in (True, False)
              for s in (128, 384, 1024) for d in (64, 128)]
     cases += [dict(b=2, s=1024, h=4, d=32, dtype=dt, causal=True)
               for dt in (f32, bf16)]
-    cases += [dict(b=2, s=200, h=3, d=64, dtype=f32, causal=True),
-              dict(b=2, s=200, h=3, d=64, dtype=bf16, causal=False),
+    ragged = dict(b=2, s=200, h=3, d=64, dtype=bf16, causal=False)
+    strided = dict(b=2, s=256, h=4, d=64, dtype=bf16, causal=True, fused=True)
+    cases += [dict(b=2, s=200, h=3, d=64, dtype=f32, causal=True), ragged,
               dict(b=2, s=256, h=4, d=64, dtype=f32, causal=True, fused=True),
-              dict(b=2, s=256, h=4, d=64, dtype=bf16, causal=True,
-                   fused=True),
-              TRAIN]
+              strided, TRAIN]
+    # the cases run twice, K3 then K2, and held bit for bit between runs
+    twice = {id(TRAIN), id(ragged), id(strided)}
     worst = {"flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
     checks = 0
     for case in cases:
@@ -356,7 +483,32 @@ def phase_kernels_bwd(fa, gen) -> dict:
                                           errs["dk"], errs["dv"])
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
             checks += 1
+            if with_dlse and id(case) in twice:
+                bwd_deterministic(fa, case, q, k, v, do, lse, dlse, scale)
+                checks += 1
     return {n: (e, checks) for n, e in worst.items()}
+
+
+def bwd_deterministic(fa, case, q, k, v, do, lse, dlse, scale) -> None:
+    """K3 then K2, twice on the same inputs: dq, rt, dk and dv must be
+    bitwise equal between the runs (each gradient element is written by
+    one block, its sums in a fixed order)."""
+    runs = []
+    for _ in range(2):
+        dq, rt = fa.flash_bwd_dq(q, k, v, do, lse, dlse, scale=scale,
+                                 causal=case["causal"])
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, rt, scale=scale,
+                                   causal=case["causal"])
+        runs.append((dq, rt, dk, dv))
+    torch.cuda.synchronize()
+    same = {n: torch.equal(a, b)
+            for n, a, b in zip(("dq", "rt", "dk", "dv"), *runs)}
+    emit({"phase": "kernels", "kernel": "flash_bwd_dkdv+dq",
+          "shape": list(q.shape), "strided": bool(case.get("fused")),
+          "causal": case["causal"], "bitwise_repeat": same,
+          "ok": all(same.values())})
+    if not all(same.values()):
+        fail(f"flash backward is not deterministic on {case}: {same}")
 
 
 def phase_kernels_adam(ok_mod, fo, gen) -> dict:
@@ -414,6 +566,19 @@ def bwd_products_ms(products: int, b, s, h, d, dtype, causal) -> float:
     return products * 2 * b * h * d * pairs / PEAK_FLOPS_S[dtype] * 1e3
 
 
+# Block products each backward computes: K2 S, dP, dV, dK; K3 S and dP
+# in each of its two sweeps, then dS K; SDPA's backward recomputes S and
+# dP once for dQ, dK and dV together.
+BWD_PRODUCTS = {"flash_bwd_dkdv": 4, "flash_bwd_dq": 5, "sdpa_bwd": 5}
+
+
+def bwd_tflops(products: int, ms: float, b, s, h, d, causal) -> float:
+    """Achieved TFLOP/s of ``products`` block products over the visible
+    (query, key) pairs in ``ms``."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return products * 2 * b * h * d * pairs / (ms * 1e-3) / 1e12
+
+
 def bwd_bound_ms(kernel: str, b, s, h, d, dtype, causal) -> tuple:
     """Least time of one K2 (4 products: S, dP, dV, dK) or K3 (3: S, dP,
     dQ) launch: each input read once, each output written once, over the
@@ -463,17 +628,23 @@ def phase_timing_train(fa, gen) -> dict:
         q, k, v, lse, do, blk=fa._fit_block(s, 512), scale=scale,
         causal=causal), iters=3, warmup=1)
     library_ms = float(np.mean(turns["sdpa_bwd"]))
+    tflops = {n: bwd_tflops(p, float(np.mean(turns[n])), b, s, h, d, causal)
+              for n, p in BWD_PRODUCTS.items()}
     out = {}
     for n in ("flash_bwd_dkdv", "flash_bwd_dq"):
         bound_ms, bound_by = bwd_bound_ms(n, b, s, h, d, dt, causal)
         out[n] = {"ms": float(np.mean(turns[n])), "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by,
-                  "library_ms": library_ms}
+                  "library_ms": library_ms, "tflops": tflops[n],
+                  "products": BWD_PRODUCTS[n]}
     fwd_bound, _ = attention_bound_ms(b, s, h, d, dt, causal)
     emit({"phase": "timing", "shape": [b, s, h, d], "dtype": "bfloat16",
           "causal": causal, "ms_turns": turns,
           "flash_fwd_ms_train_shape": float(np.mean(turns["flash_fwd"])),
           "flash_fwd_bound_ms_train_shape": fwd_bound,
+          "flash_bwd_ms_train_shape": out["flash_bwd_dkdv"]["ms"]
+                                      + out["flash_bwd_dq"]["ms"],
+          "library_ms": library_ms, "tflops": tflops,
           "plain_bwd_ms": plain_ms,
           "flash_bwd_dq_row_term_sweep_ms_at_peak": bwd_products_ms(
               2, b, s, h, d, dt, causal),
@@ -2075,7 +2246,8 @@ def main() -> int:
           "kernels": {n: {"seconds": r["seconds"],
                           "ptxas": [ln.strip() for ln in r["log"].splitlines()
                                     if "registers" in ln or "spill" in ln]}
-                      for n, r in built.items()}})
+                      for n, r in built.items()},
+          "flash_bwd": flash_bwd_build(_build, built["flash_bwd"]["log"])})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(fa, gen)

@@ -19,36 +19,70 @@
 // Where a head's keys share one large component and its true dQ is tiny
 // (trained weights, upper layers), the rounding swamped dQ. K3 therefore
 // sums rt = sum_k p dP in fp32 from the same p and dP it uses, in a first
-// sweep over the kv tiles, and hands it to K2.
+// sweep over the kv tiles, and hands it to K2. The shortcut
+// dQ = scale ((p o dP) K - rt (p K)) would save that sweep but subtracts
+// two large sums whose difference is the small dQ: the same cancellation.
 //
-// Design. The TPU program kept a whole (S, D) Q (K2) or K/V (K3) resident
+// Plan. The TPU program kept a whole (S, D) Q (K2) or K/V (K3) resident
 // in VMEM and walked the other side in a sequential grid. Here one thread
-// block owns one (batch*head, 64-row tile) and streams the other side's
+// block owns one (batch*head, 128-row tile) and streams the other side's
 // tiles through shared memory, with the sums in fp32 registers:
-// - K2 keeps a 64-row K/V tile and streams Q/dO tiles, starting, under
+// - K2 keeps a 128-row K/V tile and streams Q/dO tiles, starting, under
 //   the causal mask, at the tile that holds the K/V tile's first row (the
-//   TPU kernel's q_start); only tiles touching the diagonal are masked.
-// - K3 keeps a 64-row Q/dO tile and streams K/V tiles up to the diagonal,
-//   twice (the row term, then dQ).
+//   TPU kernel's q_start); the heaviest kv tiles are scheduled first.
+// - K3 keeps a 128-row Q/dO tile and streams K/V tiles up to the
+//   diagonal, twice: the row term, then dQ; heaviest q tiles first.
 // dQ stays a kernel of its own: adding it atomically inside K2 would make
-// the gradients depend on the order blocks finish in.
-// The score tile is recomputed in each kernel and never reaches device
+// the gradients depend on the order blocks finish in. As it is, each
+// gradient element is written by one block and every sum runs in a fixed
+// order, so the same inputs give the same bits on every launch. The
+// score tile is recomputed in each kernel and never reaches device
 // memory.
 //
-// Two bodies share that plan:
-// - bf16 runs on the tensor cores (4 warps, each owning 16 rows of the
-//   resident tile): every product is mma.sync m16n8k16 with fp32
-//   accumulation, fragments loaded with ldmatrix from padded tiles; p and
-//   dS are rounded to bf16 as the A operand of the second products, as in
-//   FlashAttention-2. At D = 128, K2 streams 32-row Q/dO tiles instead of
-//   64: its dK and dV accumulators (2 x 64 fp32 a thread) plus two 16x64
-//   score tiles would not fit the 255 registers of a thread, and halving
-//   the score tiles (16 + 16 fp32) keeps everything in registers.
-// - fp32 runs on the CUDA cores in fp32 FMA, to stay within 5e-5 of the
-//   fp32 reference (TF32 would not): 256 threads as a 16x16 grid, each
-//   owning 4x4 of the score tile and 4 rows x D/16 columns of the sums.
-// Tile loads are synchronous; cp.async/TMA pipelining and wgmma are the
-// next steps.
+// bf16 (dkdv_wgmma_kernel, dq_wgmma_kernel) runs on the Hopper tensor
+// cores, with the pieces of hopper.cuh:
+// - A block is two consumer warpgroups, each owning 64 rows of the
+//   resident tile, and a producer warpgroup whose first warp issues the
+//   copies (setmaxnreg gives its registers to the consumers: 40 against
+//   232). The producer fills a ring of shared-memory stages with TMA
+//   copies of the streamed tiles: one tensor map per input over its
+//   (B, S, H, D) view and strides, so a strided view of a fused qkv
+//   projection is no special case, and rows past S read as zero. K2's
+//   stages also carry the tile's lse and rt, copied with cp.async, as
+//   they are strided scalars. An mbarrier per stage says "full", another
+//   "empty"; the copies of the next stages run while the consumers
+//   compute on this one.
+// - Every product is wgmma with fp32 accumulators. The first two of a
+//   tile (K2: S^T = K Q^T, dP^T = V dO^T; K3: S = Q K^T, dP = dO V^T)
+//   read both operands from shared memory, K-major in the 128-byte
+//   swizzle TMA wrote (64-byte at D = 32; D = 128 as two 64-column
+//   halves), and are committed as two groups, so that p = exp(S...)
+//   runs while dP still computes. p and dS are formed in registers,
+//   rounded to bf16 only as the A operand of the second products (K2:
+//   dV += p^T dO, dK += dS^T Q; K3: dQ += dS K), whose B is the same
+//   streamed tile read MN-major. The second products are waited for
+//   after the next tile's first ones are issued.
+// - A warpgroup issues its products on every tile, also on one that the
+//   causal mask hides from all of its rows (p and dS come out 0 there):
+//   wgmmas under a branch, or waits that cover a group only on some
+//   paths, make ptxas serialize them.
+// - exp is one ex2.approx with log2(e) folded into scale and lse; the
+//   causal and ragged mask runs only on tiles that cross the diagonal or
+//   S (a body compiled apart from the unmasked one).
+// - At D = 128, K2 streams 32-row Q/dO tiles, so the dK and dV
+//   accumulators (2 x 64 fp32 a thread) and the score tiles fit in
+//   registers; otherwise 64 rows.
+// - The gradients leave through shared memory as whole 16-byte row
+//   pieces.
+// A register that an in-flight wgmma reads as its A operand must keep its
+// value until the wait that covers it; ptxas has been seen to hand such a
+// register to another value (an A operand loaded once before the loop
+// was overwritten inside it). chip_smoke.py's build phase reads the SASS
+// and fails on any such write.
+// fp32 (dkdv_fma_kernel, dq_fma_kernel) runs on the CUDA cores in fp32
+// FMA, to stay within 5e-5 of the fp32 reference (TF32 would not): 64-row
+// tiles, 256 threads as a 16x16 grid, each owning 4x4 of the score tile
+// and 4 rows x D/16 columns of the sums, synchronous tile loads.
 //
 // Bounds on an H100 SXM at the training shape (B=16, S=1024, H=16, D=64,
 // causal, bf16), counting each input read once and each output written
@@ -66,10 +100,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BT = 64;              // rows of a resident or streamed tile
+constexpr int BT = 64;              // rows of an fp32 resident or streamed tile
 
 struct Strides {                    // (batch, seq, head) strides in elements
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
@@ -388,37 +425,68 @@ dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16: wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int TC_WARPS = 4;                 // 16 resident rows each
-constexpr int TC_THREADS = 32 * TC_WARPS;
-constexpr int TC_PAD = 8;                   // keeps ldmatrix rows conflict-free
+constexpr int WG_ROWS = 64;                       // rows a consumer warpgroup owns
+constexpr int CONSUMERS = 2;                      // consumer warpgroups a block
+constexpr int TILE_ROWS = CONSUMERS * WG_ROWS;    // resident rows a block
+constexpr int WG_THREADS = 128;
+constexpr int TC_THREADS = (CONSUMERS + 1) * WG_THREADS;  // + the producer's
+constexpr int CONSUMER_WARPS = CONSUMERS * WG_THREADS / 32;
+// Registers a thread after setmaxnreg: the producer warpgroup only issues
+// copies; 40 x 128 + 232 x 256 fits the 65,536 of a SM.
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// A bf16 tile of ROWS x D as TMA lands it: column blocks of COLS columns
+// (D itself up to 64, else two halves of 64), each ROWS rows of ROW_BYTES
+// swizzled across ROW_BYTES, one block after the other.
+template <int D, int ROWS>
+struct Tile {
+  static constexpr int COLS = D < 64 ? D : 64;
+  static constexpr int ROW_BYTES = COLS * 2;
+  static constexpr int BLOCK_BYTES = ROWS * ROW_BYTES;
+  static constexpr int BYTES = ROWS * D * 2;
+
+  // TMA the (batch b, head h) rows row0.. of `map` into dst.
+  static __device__ __forceinline__ void load(uint8_t* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int h, int row0,
+                                              int b) {
+#pragma unroll
+    for (int c = 0; c < D / COLS; ++c)
+      hopper::tma_load_4d(dst + c * BLOCK_BYTES, map, bar, c * COLS, h, row0, b);
+  }
+
+  // K-major operand: rows row0..row0+63 (or the B tile's n rows), k-step kk
+  // of the head dim.
+  static __device__ __forceinline__ uint64_t k_desc(const uint8_t* t, int row0,
+                                                    int kk) {
+    const int col = kk * 16;
+    return hopper::desc_k<ROW_BYTES>(t + (col / COLS) * BLOCK_BYTES
+                                     + row0 * ROW_BYTES + (col % COLS) * 2);
+  }
+
+  // MN-major B: rows 16kk..16kk+15 as the k of the product, all D columns
+  // as its n.
+  static __device__ __forceinline__ uint64_t mn_desc(const uint8_t* t, int kk) {
+    return hopper::desc_mn<ROW_BYTES>(t + kk * 16 * ROW_BYTES, BLOCK_BYTES);
+  }
+};
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a * b, a 16x16 (row), b 16x8 (col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// A consumer warp is done with ring stage `bar`.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) hopper::mbar_arrive(bar);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -426,182 +494,104 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The accumulators of n-tiles 2kk and 2kk+1 as the A fragment of k-step kk.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+// k-step kk of an accumulator (column chunks 2kk, 2kk+1) as a bf16 A operand.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&acc)[R],
+                                         int kk) {
+  a[0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
+  a[1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+  a[2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+  a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
 }
 
-// Copy ROWS rows of D bf16 (row r at base + r * stride) into a padded
-// shared tile, 16 bytes a thread; rows at or past S read as zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* base,
-                                          long long stride, int row0, int S,
-                                          int tid) {
-  constexpr int VPR = D / 8;   // 16-byte vectors per row
-  constexpr int LD = D + TC_PAD;
-  for (int i = tid; i < ROWS * VPR; i += TC_THREADS) {
-    const int r = i / VPR, c8 = (i % VPR) * 8;
-    const int s = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) val = *reinterpret_cast<const uint4*>(base + s * stride + c8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c8) = val;
-  }
+// 2^x in one MUFU.EX2; x <= 0 here (lse bounds every score), and a result
+// below the fp32 normal range flushes to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Store one accumulator row pair (rows r0, r0 + 8 of 16) as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, int b, int S,
-                                           int H, int h, int r0, int tq,
-                                           const float (&acc)[D / 8][4]) {
-  if (r0 < S) {
-    uint32_t* op = reinterpret_cast<uint32_t*>(
-        out + (((long long)b * S + r0) * H + h) * D + 2 * tq);
+// p = exp(s * scale - lse) in place of a score tile, as exp2(s * c2 - lse2)
+// with c2 = scale * log2(e) and lse2 = lse * log2(e), over a warpgroup's
+// 64 rows x N columns; this thread's columns are col0 + 8i + 2(lane%4)
+// (+1) and its rows row0 (registers 4i + 0, 1), row0 + 8 (4i + 2, 3).
+// K2 (ROW_LSE false) holds S^T: rows are kv, columns q, and each column
+// has its lse (lse[] from shared memory, by column within the tile); an
+// element is visible where q >= kv. K3 (ROW_LSE true) holds S: rows are
+// q with their lse l0, l1, columns kv; visible where kv <= q. MASK: the
+// tile crosses the diagonal or S, so each element is tested.
+template <bool MASK, bool ROW_LSE, int N>
+__device__ __forceinline__ void probs(float (&sacc)[N / 2], const float* lse,
+                                      float l0, float l1, float c2, int col0,
+                                      int row0, int S, int causal) {
+  const int tq4 = threadIdx.x & 3;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) op[nt * 4] = pack_bf16(acc[nt][0], acc[nt][1]);
-  }
-  if (r0 + 8 < S) {
-    uint32_t* op = reinterpret_cast<uint32_t*>(
-        out + (((long long)b * S + r0 + 8) * H + h) * D + 2 * tq);
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) op[nt * 4] = pack_bf16(acc[nt][2], acc[nt][3]);
-  }
-}
-
-// Q/dO rows K2 streams a tile: 32 at D = 128 (registers), else 64.
-template <int D>
-__host__ __device__ constexpr int k2_q_rows() { return D > 64 ? 32 : 64; }
-
-template <int D>
-constexpr size_t dkdv_mma_smem_bytes() {
-  return size_t(2 * BT + 2 * k2_q_rows<D>()) * (D + TC_PAD) * sizeof(__nv_bfloat16)
-         + 2 * k2_q_rows<D>() * sizeof(float);
-}
-
-// K2, bf16: one block per (64-row kv tile, batch*head); warp w owns kv
-// rows 16w..16w+15 of the tile.
-template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ rt,
-                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                int S, int H, Strides st, float scale, int causal) {
-  constexpr int LD = D + TC_PAD;
-  constexpr int BQ = k2_q_rows<D>();
-  constexpr int KSTEPS = D / 16;     // k-steps of the D-deep products
-  constexpr int SNT = BQ / 8;        // n-tiles of S^T, dP^T (q columns)
-  constexpr int QSTEPS = BQ / 16;    // k-steps of the q-deep products
-  constexpr int DNT = D / 8;         // n-tiles of dK, dV
-  extern __shared__ uint4 tc_smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [BT][LD]
-  __nv_bfloat16* Vs = Ks + BT * LD;                               // [BT][LD]
-  __nv_bfloat16* Qs = Vs + BT * LD;                               // [BQ][LD]
-  __nv_bfloat16* Os = Qs + BQ * LD;                               // [BQ][LD]
-  float* lse_s = reinterpret_cast<float*>(Os + BQ * LD);          // [BQ]
-  float* rt_s = lse_s + BQ;                                       // [BQ]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;      // mma fragment coordinates
-  const int lm = lane >> 3, lr = lane & 7;     // ldmatrix: matrix, row
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BT;              // causal: tile 0 is heaviest
-  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
-
-  const __nv_bfloat16* qb = q + b * st.qb + h * st.qh;
-  const __nv_bfloat16* ob = dout + b * st.ob + h * st.oh;
-  load_tile<D, BT>(Ks, k + b * st.kb + h * st.kh, st.ks, k0, S, tid);
-  load_tile<D, BT>(Vs, v + b * st.vb + h * st.vh, st.vs, k0, S, tid);
-
-  float dka[DNT][4], dva[DNT][4];
-#pragma unroll
-  for (int nt = 0; nt < DNT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
-
-  const __nv_bfloat16* ka_row = Ks + (warp * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
-  const __nv_bfloat16* va_row = Vs + (warp * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
-
-  for (int q0 = causal ? k0 : 0; q0 < S; q0 += BQ) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D, BQ>(Qs, qb, st.qs, q0, S, tid);
-    load_tile<D, BQ>(Os, ob, st.os, q0, S, tid);
-    for (int i = tid; i < BQ; i += TC_THREADS) {
-      const int s = q0 + i;
-      const long long r = ((long long)b * S + s) * H + h;
-      lse_s[i] = s < S ? lse[r] : 0.f;
-      rt_s[i] = s < S ? rt[r] : 0.f;
+  for (int i = 0; i < N / 8; ++i) {
+    float2 l = make_float2(l0, l1);
+    if (!ROW_LSE) {
+      l = *reinterpret_cast<const float2*>(lse + 8 * i + 2 * tq4);
+      l = make_float2(l.x * LOG2E, l.y * LOG2E);
     }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x BQ q columns per warp
-    float sacc[SNT][4], pacc[SNT][4];
 #pragma unroll
-    for (int nt = 0; nt < SNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[nt][e] = pacc[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, ka_row + kk * 16);
-      ldsm_x4(va, va_row + kk * 16);
-#pragma unroll
-      for (int nt = 0; nt < SNT; nt += 2) {
-        const int off = ((nt + (lm >> 1)) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8;
-        uint32_t bq[4], bo[4];
-        ldsm_x4(bq, Qs + off);
-        ldsm_x4(bo, Os + off);
-        mma_bf16(sacc[nt], ka, bq[0], bq[1]);
-        mma_bf16(sacc[nt + 1], ka, bq[2], bq[3]);
-        mma_bf16(pacc[nt], va, bo[0], bo[1]);
-        mma_bf16(pacc[nt + 1], va, bo[2], bo[3]);
+    for (int e = 0; e < 4; ++e) {
+      const float lse_e = ROW_LSE ? (e < 2 ? l.x : l.y) : ((e & 1) ? l.y : l.x);
+      float p = exp2_ftz(fmaf(sacc[4 * i + e], c2, -lse_e));
+      if (MASK) {
+        const int col = col0 + 8 * i + 2 * tq4 + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        if (col >= S || (causal && (ROW_LSE ? col > row : col < row))) p = 0.f;
       }
-    }
-
-    // p^T = exp(s * scale - lse), masked; dS^T = p^T (dP^T - rt) scale
-#pragma unroll
-    for (int nt = 0; nt < SNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kr = e < 2 ? kr0 : kr1;
-        const int c = nt * 8 + 2 * tq + (e & 1), col = q0 + c;
-        const bool vis = col < S && !(causal && col < kr);
-        const float p = vis ? expf(sacc[nt][e] * scale - lse_s[c]) : 0.f;
-        sacc[nt][e] = p;
-        pacc[nt][e] = p * (pacc[nt][e] - rt_s[c]) * scale;
-      }
-    }
-
-    // dV += p^T dO and dK += dS^T Q, q as the k dimension
-#pragma unroll
-    for (int kk = 0; kk < QSTEPS; ++kk) {
-      uint32_t pa[4], sa[4];
-      acc_to_a(pa, sacc[2 * kk], sacc[2 * kk + 1]);
-      acc_to_a(sa, pacc[2 * kk], pacc[2 * kk + 1]);
-#pragma unroll
-      for (int nt = 0; nt < DNT; nt += 2) {
-        const int off = (kk * 16 + (lm & 1) * 8 + lr) * LD + (nt + (lm >> 1)) * 8;
-        uint32_t bo[4], bq[4];
-        ldsm_x4_trans(bo, Os + off);
-        ldsm_x4_trans(bq, Qs + off);
-        mma_bf16(dva[nt], pa, bo[0], bo[1]);
-        mma_bf16(dva[nt + 1], pa, bo[2], bo[3]);
-        mma_bf16(dka[nt], sa, bq[0], bq[1]);
-        mma_bf16(dka[nt + 1], sa, bq[2], bq[3]);
-      }
+      sacc[4 * i + e] = p;
     }
   }
+}
 
-  store_rows<D>(dk, b, S, H, h, kr0, tq, dka);
-  store_rows<D>(dv, b, S, H, h, kr0, tq, dva);
+// probs() with the mask tested on each element only where `mask` says
+// the tile needs it.
+template <bool ROW_LSE, int N>
+__device__ __forceinline__ void tile_probs(bool mask, float (&sacc)[N / 2],
+                                           const float* lse, float l0,
+                                           float l1, float c2, int col0,
+                                           int row0, int S, int causal) {
+  if (mask)
+    probs<true, ROW_LSE, N>(sacc, lse, l0, l1, c2, col0, row0, S, causal);
+  else
+    probs<false, ROW_LSE, N>(sacc, lse, l0, l1, c2, col0, row0, S, causal);
+}
+
+// dS = p (dP - rt) scale in place of dP; rt per column (K2: rts[] by
+// column within the tile) or per row (K3: r0, r1), as in probs().
+template <bool ROW_RT, int N>
+__device__ __forceinline__ void grads(const float (&p)[N / 2], float (&pacc)[N / 2],
+                                      const float* rts, float r0, float r1,
+                                      float scale) {
+  const int tq4 = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    float2 r = make_float2(r0, r1);
+    if (!ROW_RT) r = *reinterpret_cast<const float2*>(rts + 8 * i + 2 * tq4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float rt_e = ROW_RT ? (e < 2 ? r.x : r.y) : ((e & 1) ? r.y : r.x);
+      pacc[4 * i + e] = p[4 * i + e] * (pacc[4 * i + e] - rt_e) * scale;
+    }
+  }
+}
+
+// K3's row terms: rt0 (rt1) += sum over this thread's columns of p dP on
+// row0 (row0 + 8).
+template <int N>
+__device__ __forceinline__ void row_terms(const float (&p)[N / 2],
+                                          const float (&pacc)[N / 2],
+                                          float& rt0, float& rt1) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    rt0 = fmaf(p[4 * i + 0], pacc[4 * i + 0], rt0);
+    rt0 = fmaf(p[4 * i + 1], pacc[4 * i + 1], rt0);
+    rt1 = fmaf(p[4 * i + 2], pacc[4 * i + 2], rt1);
+    rt1 = fmaf(p[4 * i + 3], pacc[4 * i + 3], rt1);
+  }
 }
 
 __device__ __forceinline__ float quad_sum(float x) {
@@ -609,170 +599,405 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// S = Q K^T and dP = dO V^T: a warp's 16 q rows x 64 kv columns.
+// Write a warpgroup's 64 x D accumulator (rows row0.. of the (b, h) head)
+// as bf16 rows: through `stage` (64 x D x 2 bytes of shared memory, 16-byte
+// pieces of a row rotated by the row so a warp's writes spread over the
+// banks), then 16 bytes a thread to global memory; rows at or past S are
+// not written. `bar` is the warpgroup's named barrier.
 template <int D>
-__device__ __forceinline__ void dq_mma_scores(float (&sacc)[BT / 8][4],
-                                              float (&pacc)[BT / 8][4],
-                                              const __nv_bfloat16* qa_row,
-                                              const __nv_bfloat16* oa_row,
-                                              const __nv_bfloat16* Ks,
-                                              const __nv_bfloat16* Vs, int lm,
-                                              int lr) {
-  constexpr int LD = D + TC_PAD;
+__device__ __forceinline__ void store_wg(__nv_bfloat16* out, uint8_t* stage,
+                                         const float (&acc)[D / 2], int b, int S,
+                                         int H, int h, int row0, int bar) {
+  constexpr int PIECES = D / 8;                  // 16-byte pieces a row
+  constexpr int ROT = PIECES < 8 ? PIECES : 8;
+  const int wtid = threadIdx.x % WG_THREADS;
+  const int lane = wtid & 31, g = lane >> 2, tq = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < BT / 8; ++nt)
+  for (int half = 0; half < 2; ++half) {
+    const int r = (wtid >> 5) * 16 + g + 8 * half;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) sacc[nt][e] = pacc[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t qa[4], oa[4];
-    ldsm_x4(qa, qa_row + kk * 16);
-    ldsm_x4(oa, oa_row + kk * 16);
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; nt += 2) {
-      const int off = ((nt + (lm >> 1)) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8;
-      uint32_t bk[4], bv[4];
-      ldsm_x4(bk, Ks + off);
-      ldsm_x4(bv, Vs + off);
-      mma_bf16(sacc[nt], qa, bk[0], bk[1]);
-      mma_bf16(sacc[nt + 1], qa, bk[2], bk[3]);
-      mma_bf16(pacc[nt], oa, bv[0], bv[1]);
-      mma_bf16(pacc[nt + 1], oa, bv[2], bv[3]);
-    }
+    for (int i = 0; i < PIECES; ++i)
+      *reinterpret_cast<uint32_t*>(stage + r * D * 2 + ((i ^ (r % ROT)) * 16)
+                                   + tq * 4) =
+          pack_bf16(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
+  }
+  named_sync(bar, WG_THREADS);
+  for (int idx = wtid; idx < WG_ROWS * PIECES; idx += WG_THREADS) {
+    const int r = idx / PIECES, c = idx % PIECES;
+    if (row0 + r < S)
+      *reinterpret_cast<uint4*>(out + (((long long)b * S + row0 + r) * H + h) * D
+                                + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * D * 2 + ((c ^ (r % ROT)) * 16));
   }
 }
 
+// K2's shared memory: K, V (TILE_ROWS rows, resident), a ring of STAGES
+// (Q, dO) tiles of BQ rows and their rows' lse and rt, then the barriers.
+// Tiles start on 1024-byte boundaries (the swizzle's repeat).
 template <int D>
-constexpr size_t dq_mma_smem_bytes() {
-  return size_t(4 * BT) * (D + TC_PAD) * sizeof(__nv_bfloat16);
-}
+struct K2Smem {
+  static constexpr int BQ = D > 64 ? 32 : 64;      // q rows a streamed tile
+  static constexpr int STAGES = D > 64 ? 6 : 8;
+  using KV = Tile<D, TILE_ROWS>;
+  using Q = Tile<D, BQ>;
+  static constexpr int V = KV::BYTES;
+  static constexpr int RING = 2 * KV::BYTES;
+  static constexpr int STAGE = 2 * Q::BYTES;
+  static constexpr int ROWS = RING + STAGES * STAGE;          // float [STAGES][2][BQ]
+  static constexpr int BARS = ROWS + STAGES * 2 * BQ * 4;     // kv, full[], empty[]
+  static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
+};
 
-// K3, bf16: one block per (64-row q tile, batch*head); warp w owns q rows
-// 16w..16w+15 of the tile. Two sweeps over the visible kv tiles: the
-// first sums the row term r = sum_j p dP in fp32 (and writes rt = r - dlse
-// for K2), the second accumulates dQ.
+// K2, bf16: one block per (128-row kv tile, batch*head).
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ dlse,
-              float* __restrict__ rt_out, __nv_bfloat16* __restrict__ dq,
-              int S, int H, Strides st, float scale, int causal) {
-  constexpr int LD = D + TC_PAD;
-  constexpr int SNT = BT / 8;        // n-tiles of S, dP (kv columns)
-  constexpr int KVSTEPS = BT / 16;   // k-steps of dS K
-  constexpr int DNT = D / 8;         // n-tiles of dQ
-  extern __shared__ uint4 tc_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [BT][LD]
-  __nv_bfloat16* Os = Qs + BT * LD;                               // [BT][LD]
-  __nv_bfloat16* Ks = Os + BT * LD;                               // [BT][LD]
-  __nv_bfloat16* Vs = Ks + BT * LD;                               // [BT][LD]
+__global__ void __launch_bounds__(TC_THREADS, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse, const float* __restrict__ rt,
+                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                  int S, int H, float scale, int causal) {
+  using L = K2Smem<D>;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* Ks = smem;
+  uint8_t* Vs = smem + L::V;
+  float* rows = reinterpret_cast<float*>(smem + L::ROWS);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int lm = lane >> 3, lr = lane & 7;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;  // heaviest tiles first
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const int k0 = blockIdx.x * TILE_ROWS;       // causal: tile 0 is heaviest
+  const int q_first = causal ? k0 / BQ : 0;    // the first q tile that sees k0
+  const int n_q = (S + BQ - 1) / BQ;
 
-  load_tile<D, BT>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, S, tid);
-  load_tile<D, BT>(Os, dout + b * st.ob + h * st.oh, st.os, q0, S, tid);
-  const __nv_bfloat16* kb = k + b * st.kb + h * st.kh;
-  const __nv_bfloat16* vb = v + b * st.vb + h * st.vh;
-  const long long r0 = ((long long)b * S + row0) * H + h;
-  const long long r1 = ((long long)b * S + row1) * H + h;
-  const float lse0 = row0 < S ? lse[r0] : 0.f, lse1 = row1 < S ? lse[r1] : 0.f;
-  const __nv_bfloat16* qa_row = Qs + (warp * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
-  const __nv_bfloat16* oa_row = Os + (warp * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
-  const int kv_end = causal ? min(S, q0 + BT) : S;
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);   // the TMA's + each lane's copies
+      hopper::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-  // sweep 1: the row term of rows row0 (e = 0, 1) and row1 (e = 2, 3)
-  float rt0 = 0.f, rt1 = 0.f;
-  for (int k0 = 0; k0 < kv_end; k0 += BT) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D, BT>(Ks, kb, st.ks, k0, S, tid);
-    load_tile<D, BT>(Vs, vb, st.vs, k0, S, tid);
-    __syncthreads();
-    float sacc[SNT][4], pacc[SNT][4];
-    dq_mma_scores<D>(sacc, pacc, qa_row, oa_row, Ks, Vs, lm, lr);
+  if (tid >= CONSUMERS * WG_THREADS) {
+    // producer warpgroup; its first warp streams K, V once, then Q, dO,
+    // lse, rt a stage at a time
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid >= CONSUMERS * WG_THREADS + 32) return;
+    const int lane = tid & 31;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * L::KV::BYTES);
+      L::KV::load(Ks, &tk, kv_full, h, k0, b);
+      L::KV::load(Vs, &tv, kv_full, h, k0, b);
+    }
+    for (int j = q_first, it = 0; j < n_q; ++j, ++it) {
+      const int s = it % STAGES;
+      const int q0 = j * BQ;
+      hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+      uint8_t* st = smem + L::RING + s * L::STAGE;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[s], L::STAGE);
+        L::Q::load(st, &tq, &full[s], h, q0, b);
+        L::Q::load(st + L::Q::BYTES, &tdo, &full[s], h, q0, b);
+      }
+      float* row = rows + s * 2 * BQ;
+      for (int i = lane; i < BQ; i += 32) {
+        const bool valid = q0 + i < S;
+        const long long idx = valid ? ((long long)b * S + q0 + i) * H + h : 0;
+        hopper::cp_async_4(row + i, lse + idx, valid);
+        hopper::cp_async_4(row + BQ + i, rt + idx, valid);
+      }
+      hopper::mbar_arrive_on_copies(&full[s]);
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+
+  // consumer warpgroup wg: kv rows kw..kw+63
+  const int wg = tid / WG_THREADS;
+  const int lane = tid & 31, g = lane >> 2, tq4 = lane & 3;
+  const int kw = k0 + wg * WG_ROWS;
+  const int kr0 = kw + ((tid % WG_THREADS) >> 5) * 16 + g;   // and kr0 + 8
+  const float c2 = scale * LOG2E;
+
+  float dka[D / 2], dva[D / 2], sacc[BQ / 2], pacc[BQ / 2];
 #pragma unroll
-    for (int nt = 0; nt < SNT; ++nt) {
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        const int col = k0 + nt * 8 + 2 * tq + (e & 1);
-        if (col < S && !(causal && col > (lo ? row0 : row1))) {
-          const float pdp = expf(sacc[nt][e] * scale - (lo ? lse0 : lse1)) * pacc[nt][e];
-          if (lo) rt0 += pdp; else rt1 += pdp;
-        }
+  for (int i = 0; i < BQ / 2; ++i) sacc[i] = pacc[i] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  int prev = -1;     // the stage the last tile's dV, dK products may still read
+  for (int j = q_first, it = 0; j < n_q; ++j, ++it) {
+    const int s = it % STAGES;
+    const int q0 = j * BQ;
+    const uint8_t* Qst = smem + L::RING + s * L::STAGE;
+    const uint8_t* Ost = Qst + L::Q::BYTES;
+    hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, 64 kv rows x BQ q columns, as two
+    // groups. Every tile issues them, also one the causal mask hides from
+    // this warpgroup (its p and dS come out 0): wgmmas under a branch
+    // make ptxas serialize them.
+    hopper::fence_regs(sacc);
+    hopper::fence_regs(pacc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss<BQ>(sacc, L::KV::k_desc(Ks, wg * WG_ROWS, kk),
+                           L::Q::k_desc(Qst, 0, kk), kk > 0);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_ss<BQ>(pacc, L::KV::k_desc(Vs, wg * WG_ROWS, kk),
+                           L::Q::k_desc(Ost, 0, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();        // S^T and the last tile's dV, dK
+    hopper::fence_regs(sacc);
+    hopper::fence_regs(dka);
+    hopper::fence_regs(dva);
+    if (prev >= 0) release(&empty[prev], lane);
+
+    // p^T = exp(s * scale - lse) while dP^T finishes, then
+    // dS^T = p^T (dP^T - rt) scale
+    const float* lse_rt = rows + s * 2 * BQ;      // lse, then rt
+    tile_probs<false, BQ>((causal && q0 < kw + WG_ROWS - 1) || q0 + BQ > S,
+                          sacc, lse_rt, 0.f, 0.f, c2, q0, kr0, S, causal);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(pacc);
+    grads<false, BQ>(sacc, pacc, lse_rt + BQ, 0.f, 0.f, scale);
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      acc_to_a(pa[kk], sacc, kk);
+      acc_to_a(sa[kk], pacc, kk);
+    }
+
+    // dV += p^T dO and dK += dS^T Q, q as the k dimension; waited for
+    // after the next tile's first products are issued
+    hopper::fence_regs(dka);
+    hopper::fence_regs(dva);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hopper::wgmma_rs<D>(dva, pa[kk], L::Q::mn_desc(Ost, kk), 1);
+      hopper::wgmma_rs<D>(dka, sa[kk], L::Q::mn_desc(Qst, kk), 1);
+    }
+    hopper::wgmma_commit();
+    prev = s;
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dka);
+  hopper::fence_regs(dva);
+  release(&empty[prev], lane);
+
+  // both warpgroups are done with K and V: their tiles stage the output
+  named_sync(1, CONSUMERS * WG_THREADS);
+  store_wg<D>(dk, Ks + wg * WG_ROWS * D * 2, dka, b, S, H, h, kw, 2 + wg);
+  store_wg<D>(dv, Vs + wg * WG_ROWS * D * 2, dva, b, S, H, h, kw, 2 + wg);
+}
+
+// K3's shared memory: Q, dO (TILE_ROWS rows, resident), a ring of STAGES
+// (K, V) tiles of BK rows, then the barriers.
+template <int D>
+struct K3Smem {
+  static constexpr int BK = 64;                    // kv rows a streamed tile
+  static constexpr int STAGES = D > 64 ? 4 : 8;
+  using QO = Tile<D, TILE_ROWS>;
+  using KV = Tile<D, BK>;
+  static constexpr int O = QO::BYTES;
+  static constexpr int RING = 2 * QO::BYTES;
+  static constexpr int STAGE = 2 * KV::BYTES;
+  static constexpr int BARS = RING + STAGES * STAGE;          // qo, full[], empty[]
+  static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+// K3's S = Q K^T and dP = dO V^T for the kv tile at st: warpgroup wg's
+// 64 q rows x BK kv columns, committed as two groups, S first.
+template <int D>
+__device__ __forceinline__ void dq_scores(float (&sacc)[K3Smem<D>::BK / 2],
+                                          float (&pacc)[K3Smem<D>::BK / 2],
+                                          const uint8_t* Qs, const uint8_t* Os,
+                                          const uint8_t* st, int wg) {
+  using L = K3Smem<D>;
+  hopper::fence_regs(sacc);
+  hopper::fence_regs(pacc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_ss<L::BK>(sacc, L::QO::k_desc(Qs, wg * WG_ROWS, kk),
+                            L::KV::k_desc(st, 0, kk), kk > 0);
+  hopper::wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_ss<L::BK>(pacc, L::QO::k_desc(Os, wg * WG_ROWS, kk),
+                            L::KV::k_desc(st + L::KV::BYTES, 0, kk), kk > 0);
+  hopper::wgmma_commit();
+}
+
+// K3, bf16: one block per (128-row q tile, batch*head). Two sweeps over
+// the visible kv tiles through one ring: the first sums the row term
+// r = sum_j p dP in fp32 (and writes rt = r - dlse for K2), the second
+// accumulates dQ.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse, const float* __restrict__ dlse,
+                float* __restrict__ rt_out, __nv_bfloat16* __restrict__ dq,
+                int S, int H, float scale, int causal) {
+  using L = K3Smem<D>;
+  constexpr int BK = L::BK, STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* Qs = smem;
+  uint8_t* Os = smem + L::O;
+  uint64_t* qo_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = qo_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE_ROWS;  // heaviest first
+  const int kv_end = causal ? min(S, q0 + TILE_ROWS) : S;
+  const int n_kv = (kv_end + BK - 1) / BK;
+
+  if (tid == 0) {
+    hopper::mbar_init(qo_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS * WG_THREADS) {
+    // producer warpgroup; one thread streams Q, dO once, then K, V a stage
+    // at a time, two sweeps
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == CONSUMERS * WG_THREADS) {
+      hopper::mbar_arrive_expect_tx(qo_full, 2 * L::QO::BYTES);
+      L::QO::load(Qs, &tq, qo_full, h, q0, b);
+      L::QO::load(Os, &tdo, qo_full, h, q0, b);
+      for (int it = 0; it < 2 * n_kv; ++it) {
+        const int s = it % STAGES;
+        const int k0 = (it % n_kv) * BK;
+        hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        uint8_t* st = smem + L::RING + s * L::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], L::STAGE);
+        L::KV::load(st, &tk, &full[s], h, k0, b);
+        L::KV::load(st + L::KV::BYTES, &tv, &full[s], h, k0, b);
       }
     }
+    return;
+  }
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+
+  // consumer warpgroup wg: q rows qw..qw+63; this thread's rows row0, row0 + 8
+  const int wg = tid / WG_THREADS;
+  const int lane = tid & 31, g = lane >> 2, tq4 = lane & 3;
+  const int qw = q0 + wg * WG_ROWS;
+  const int row0 = qw + ((tid % WG_THREADS) >> 5) * 16 + g, row1 = row0 + 8;
+  const long long r0 = ((long long)b * S + row0) * H + h;
+  const long long r1 = ((long long)b * S + row1) * H + h;
+  const float lse0 = row0 < S ? lse[r0] * LOG2E : 0.f;
+  const float lse1 = row1 < S ? lse[r1] * LOG2E : 0.f;
+  const float c2 = scale * LOG2E;
+
+  float sacc[BK / 2], pacc[BK / 2], dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sacc[i] = pacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+  hopper::mbar_wait(qo_full, 0);
+  // sweep 1: the row term of rows row0 (e = 0, 1) and row1 (e = 2, 3).
+  // Every tile issues its products, also the one past this warpgroup's
+  // diagonal (its p comes out 0): wgmmas under a branch make ptxas
+  // serialize them.
+  float rt0 = 0.f, rt1 = 0.f;
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it % STAGES;
+    const int k0 = it * BK;
+    hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+    dq_scores<D>(sacc, pacc, Qs, Os, smem + L::RING + s * L::STAGE, wg);
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sacc);
+    tile_probs<true, BK>((causal && k0 + BK - 1 > qw) || k0 + BK > S, sacc,
+                         nullptr, lse0, lse1, c2, k0, row0, S, causal);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(pacc);
+    release(&empty[s], lane);
+    row_terms<BK>(sacc, pacc, rt0, rt1);
   }
   rt0 = quad_sum(rt0);
   rt1 = quad_sum(rt1);
   if (row0 < S) {
     if (dlse != nullptr) rt0 -= dlse[r0];
-    if (tq == 0) rt_out[r0] = rt0;
+    if (tq4 == 0) rt_out[r0] = rt0;
   }
   if (row1 < S) {
     if (dlse != nullptr) rt1 -= dlse[r1];
-    if (tq == 0) rt_out[r1] = rt1;
+    if (tq4 == 0) rt_out[r1] = rt1;
   }
 
-  float dqa[DNT][4];
-#pragma unroll
-  for (int nt = 0; nt < DNT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[nt][e] = 0.f;
+  // sweep 2: dQ += dS K, kv as the k dimension
+  int prev = -1;     // the stage the last tile's dQ product may still read
+  for (int it = n_kv; it < 2 * n_kv; ++it) {
+    const int s = it % STAGES;
+    const int k0 = (it - n_kv) * BK;
+    const uint8_t* st = smem + L::RING + s * L::STAGE;
+    hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+    dq_scores<D>(sacc, pacc, Qs, Os, st, wg);
+    hopper::wgmma_wait<1>();        // S and the last tile's dQ
+    hopper::fence_regs(sacc);
+    hopper::fence_regs(dqa);
+    if (prev >= 0) release(&empty[prev], lane);
 
-  // sweep 2: dQ
-  for (int k0 = 0; k0 < kv_end; k0 += BT) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D, BT>(Ks, kb, st.ks, k0, S, tid);
-    load_tile<D, BT>(Vs, vb, st.vs, k0, S, tid);
-    __syncthreads();
-    float sacc[SNT][4], pacc[SNT][4];
-    dq_mma_scores<D>(sacc, pacc, qa_row, oa_row, Ks, Vs, lm, lr);
+    // p = exp(s * scale - lse) while dP finishes, then dS = p (dP - rt) scale
+    tile_probs<true, BK>((causal && k0 + BK - 1 > qw) || k0 + BK > S, sacc,
+                         nullptr, lse0, lse1, c2, k0, row0, S, causal);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(pacc);
+    grads<true, BK>(sacc, pacc, nullptr, rt0, rt1, scale);
+    uint32_t sa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(sa[kk], pacc, kk);
 
-    // dS = p (dP - rt) scale, p = exp(s * scale - lse), masked
+    hopper::fence_regs(dqa);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < SNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        const int row = lo ? row0 : row1;
-        const int col = k0 + nt * 8 + 2 * tq + (e & 1);
-        const bool vis = col < S && !(causal && col > row);
-        const float p = vis ? expf(sacc[nt][e] * scale - (lo ? lse0 : lse1)) : 0.f;
-        pacc[nt][e] = p * (pacc[nt][e] - (lo ? rt0 : rt1)) * scale;
-      }
-    }
-
-    // dQ += dS K, kv as the k dimension
-#pragma unroll
-    for (int kk = 0; kk < KVSTEPS; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, pacc[2 * kk], pacc[2 * kk + 1]);
-#pragma unroll
-      for (int nt = 0; nt < DNT; nt += 2) {
-        uint32_t bk[4];
-        ldsm_x4_trans(bk, Ks + (kk * 16 + (lm & 1) * 8 + lr) * LD + (nt + (lm >> 1)) * 8);
-        mma_bf16(dqa[nt], sa, bk[0], bk[1]);
-        mma_bf16(dqa[nt + 1], sa, bk[2], bk[3]);
-      }
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hopper::wgmma_rs<D>(dqa, sa[kk], L::KV::mn_desc(st, kk), 1);
+    hopper::wgmma_commit();
+    prev = s;
   }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dqa);
+  release(&empty[prev], lane);
 
-  store_rows<D>(dq, b, S, H, h, row0, tq, dqa);
+  // both warpgroups are done with Q: it stages the output
+  named_sync(1, CONSUMERS * WG_THREADS);
+  store_wg<D>(dq, Qs + wg * WG_ROWS * D * 2, dqa, b, S, H, h, qw, 2 + wg);
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
+
+// Returned when a tensor map cannot be made: this plus its CUresult.
+constexpr int TENSOR_MAP_FAILED = 100000;
 
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
@@ -780,13 +1005,33 @@ int set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
+// The tensor maps of q, k, v and dO, streamed in boxes of q_rows (q, dO)
+// and kv_rows (k, v) rows. Returns 0 or TENSOR_MAP_FAILED + the CUresult.
+template <int D>
+int make_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
+              const void* dout, int B, int S, int H, const Strides& st,
+              int q_rows, int kv_rows) {
+  constexpr int COLS = D < 64 ? D : 64;
+  const void* ptr[4] = {q, k, v, dout};
+  const long long sb[4] = {st.qb, st.kb, st.vb, st.ob};
+  const long long ss[4] = {st.qs, st.ks, st.vs, st.os};
+  const long long sh[4] = {st.qh, st.kh, st.vh, st.oh};
+  for (int i = 0; i < 4; ++i) {
+    const int rows = (i == 1 || i == 2) ? kv_rows : q_rows;
+    if (int err = hopper::encode_bshd_bf16(&m[i], ptr[i], B, S, H, D, sb[i],
+                                           ss[i], sh[i], rows, COLS))
+      return TENSOR_MAP_FAILED + err;
+  }
+  return 0;
+}
+
 template <int D>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* rt, void* dk, void* dv, int B,
                 int S, int H, const Strides& st, float scale, int causal,
                 int dtype, cudaStream_t stream) {
-  const dim3 grid((S + BT - 1) / BT, B * H);
   if (dtype == 0) {
+    const dim3 grid((S + BT - 1) / BT, B * H);
     const size_t smem = fma_smem_floats(D) * sizeof(float);
     if (int err = set_smem(dkdv_fma_kernel<D>, smem)) return err;
     dkdv_fma_kernel<D><<<grid, THREADS, smem, stream>>>(
@@ -795,14 +1040,15 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<float*>(dk), static_cast<float*>(dv), S, H, st, scale,
         causal);
   } else {
-    const size_t smem = dkdv_mma_smem_bytes<D>();
-    if (int err = set_smem(dkdv_mma_kernel<D>, smem)) return err;
-    dkdv_mma_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), lse, rt,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H,
-        st, scale, causal);
+    using L = K2Smem<D>;
+    CUtensorMap m[4];
+    if (int err = make_maps<D>(m, q, k, v, dout, B, S, H, st, L::BQ, TILE_ROWS))
+      return err;
+    if (int err = set_smem(dkdv_wgmma_kernel<D>, L::BYTES)) return err;
+    const dim3 grid((S + TILE_ROWS - 1) / TILE_ROWS, B * H);
+    dkdv_wgmma_kernel<D><<<grid, TC_THREADS, L::BYTES, stream>>>(
+        m[0], m[1], m[2], m[3], lse, rt, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), S, H, scale, causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -812,8 +1058,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* dlse, float* rt, void* dq, int B,
               int S, int H, const Strides& st, float scale, int causal,
               int dtype, cudaStream_t stream) {
-  const dim3 grid((S + BT - 1) / BT, B * H);
   if (dtype == 0) {
+    const dim3 grid((S + BT - 1) / BT, B * H);
     const size_t smem = fma_smem_floats(D) * sizeof(float);
     if (int err = set_smem(dq_fma_kernel<D>, smem)) return err;
     dq_fma_kernel<D><<<grid, THREADS, smem, stream>>>(
@@ -821,13 +1067,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         dlse, rt, static_cast<float*>(dq), S, H, st, scale, causal);
   } else {
-    const size_t smem = dq_mma_smem_bytes<D>();
-    if (int err = set_smem(dq_mma_kernel<D>, smem)) return err;
-    dq_mma_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), lse, dlse, rt,
-        static_cast<__nv_bfloat16*>(dq), S, H, st, scale, causal);
+    using L = K3Smem<D>;
+    CUtensorMap m[4];
+    if (int err = make_maps<D>(m, q, k, v, dout, B, S, H, st, TILE_ROWS, L::BK))
+      return err;
+    if (int err = set_smem(dq_wgmma_kernel<D>, L::BYTES)) return err;
+    const dim3 grid((S + TILE_ROWS - 1) / TILE_ROWS, B * H);
+    dq_wgmma_kernel<D><<<grid, TC_THREADS, L::BYTES, stream>>>(
+        m[0], m[1], m[2], m[3], lse, dlse, rt, static_cast<__nv_bfloat16*>(dq),
+        S, H, scale, causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -841,14 +1089,16 @@ Strides to_strides(const long long* s) {
 
 extern "C" {
 
-// dtype: 0 = fp32 (the FMA bodies), 1 = bf16 (the tensor-core bodies,
-// which need 16-byte aligned rows). strides: 12 values in elements, the
+// dtype: 0 = fp32 (the FMA bodies), 1 = bf16 (the wgmma bodies, whose TMA
+// copies need 16-byte aligned data and (batch, seq, head) strides in
+// multiples of 8 elements). strides: 12 values in elements, the
 // (batch, seq, head) strides of q, k, v and dO in that order; the head
 // dimension is contiguous. lse, dlse (may be null: zero) and rt are
 // (B, S, H) fp32 contiguous: edl_flash_bwd_dq writes rt, which
 // edl_flash_bwd_dkdv then reads. The gradients are (B, S, H, D)
 // contiguous in the input dtype. Each returns a cudaError_t (0 =
-// launched).
+// launched), or TENSOR_MAP_FAILED plus the CUresult when a
+// tensor map cannot be made.
 int edl_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* rt,
                        void* dk, void* dv, int B, int S, int H, int D,
@@ -882,6 +1132,12 @@ int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 const char* edl_cuda_error_string(int err) {
+  if (err >= TENSOR_MAP_FAILED) {
+    static thread_local char msg[80];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             err - TENSOR_MAP_FAILED);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
