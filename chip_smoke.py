@@ -8,19 +8,21 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 1. build   — the card's name and power limit (nvidia-smi), then every
              kernel under edl_tpu_torch/ops/csrc built with nvcc for sm_90a
              (one nvcc per source, started together); for the flash
-             backward, each kernel's registers and spills (ptxas) and its
-             wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
-             built SASS (cuobjdump): each bf16 body must hold both, spill
-             nothing and never write a register a wgmma in flight reads;
+             forward and backward (each library's report under its name),
+             each kernel's registers and spills (ptxas) and its wgmma
+             (HGMMA) and TMA load (UTMALDG) instructions in the built SASS
+             (cuobjdump): each bf16 body must hold both, spill nothing and
+             never write a register a wgmma reads as its A operand before
+             the product (or its loop's next turn) has read it;
 2. kernels — each kernel against its plain PyTorch version on the card,
              on the same inputs: K1 (flash forward) and K2/K3 (flash
              backward, with and without a dlse cotangent) over a grid of
-             shapes, strided q/k/v and the serving and training shapes
-             (bounds: K1 2e-5 fp32 / 3e-2 bf16 as
-             tests/test_flash_attention.py; K2/K3 5e-5 fp32 /
-             3e-2 x max(1, max |ref|) bf16; K3 then K2 twice, bit for bit,
-             on the training shape, a strided and a ragged case); bit for
-             bit: K5 (fused Adam)
+             shapes, strided q/k/v, ragged S, one served row (K1) and the
+             serving and training shapes (bounds: K1 2e-5 fp32 / 3e-2
+             bf16 as tests/test_flash_attention.py; K2/K3 5e-5 fp32 /
+             3e-2 x max(1, max |ref|) bf16; K1 twice, and K3 then K2
+             twice, bit for bit, on the training shape, a strided and a
+             ragged case); bit for bit: K5 (fused Adam)
              over 3 steps of a 4 MiB and a ragged bucket, K4 (momentum-SGD),
              K6 (quantized momentum-SGD, int8 and fp8) and K7 (quantized
              Adam, int8 and fp8) over 3 steps of a 4 MiB, a ragged, an
@@ -28,7 +30,8 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              (p, moments, quantized payloads and scales), the fused
              optimizer's gate (every optimizer x quant mode), and (in the
              timing phase) two steps over every bucket of the main paths'
-             plans: the base LM's (K5, K7) and ResNet50_vd's (K4, K6);
+             plans: the base LM's (K5, K7) and ResNet50_vd's (K4 as one
+             launch over all 24 buckets, K6);
              K8 (the int8 gradient pack: q and the scale's bits) on the
              CPU tests' grid, a 4 MiB shard and every compressed bucket
              of ResNet50_vd's comm plan at world 2 filled with one real
@@ -37,11 +40,14 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              version's, one PyTorch library call computing the same
              function (timed only, never used by the port; none for
              K6/K7/K8), and the least time the card could take for the
-             work; for K2 and K3 also their sum beside the library call
-             (SDPA's whole backward) and each one's TFLOP/s over the
-             products it computes. The optimizer kernels and K8 are timed over one step of
-             their plan with the host queued ahead of the card (device
-             time);
+             work; K1 at the serving (B=8) and training (B=16) shapes
+             beside F.scaled_dot_product_attention, device time queued
+             and host-paced, with its TFLOP/s over its 2 products; for K2
+             and K3 also their sum beside the library call (SDPA's whole
+             backward) and each one's TFLOP/s over the products it
+             computes. The optimizer kernels and K8 are timed over one
+             step of their plan with the host queued ahead of the card
+             (device time);
 4. serve   — the transformer LM teacher at the repo's base config
              (bench.py's: vocab 32768, d_model 1024, 16 heads, 8 layers,
              d_ff 4096, S 1024, bf16 activations, fp32 params; seeded
@@ -67,7 +73,7 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 8. train_resnet — the port's imagenet_train.main at bench.py's ResNet
              config (ResNet50_vd, bf16, 224 px, 1000 classes, 128 images
              a step, 2 epochs of 5 synthetic shards of 256 rows) with
-             --fused-opt fp32 (one K4 per bucket a step), a profiled
+             --fused-opt fp32 (one K4 a step over every bucket), a profiled
              window of 3 more steps (device busy and idle share, the
              kernels that take the time), then --fused-opt int8 (one K6
              per bucket a step) on the same shards from the same init:
@@ -82,7 +88,7 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              same init on the same shards: --dcn-compress int8 and
              --comm-bucket-mb 4 (bucketed dense). Per step and rank:
              exactly one K8 per compressed bucket (none dense) and one K4
-             per optimizer bucket; step and reduction times; the ranks'
+             over every optimizer bucket; step and reduction times; the ranks'
              final states bitwise equal; the loss finite with falling
              epoch means; the int8 run within 0.25 x the dense run's
              improvement; the int8 wire <= 0.26 x the fp32 leg's bytes;
@@ -283,98 +289,158 @@ def sass_functions(sass: str) -> dict[str, list[tuple[int, str]]]:
     return out
 
 
+def sass_operands(text: str) -> tuple[str | None, list[str]]:
+    """(the register an instruction writes, or None; the registers it
+    reads), from its SASS text: the first general register operand,
+    after a predicate destination if there is one (SHFL, LOP3), is the
+    destination of an instruction that writes one (not of HGMMA, whose
+    accumulator it reads too, nor of a store or branch)."""
+    regs = re.findall(r"\bR\d+\b", text)
+    m = re.match(r"(?:@!?U?P\w+ )?(?!HGMMA|ST|BRA)[A-Z][\w.]* "
+                 r"(?:U?P\w+, )?(R\d+)\b", text)
+    if m is None:
+        return None, regs
+    return m[1], regs[1:]
+
+
 def wgmma_a_hazards(ins: list[tuple[int, str]]) -> list[tuple[str, str]]:
     """Writes that may clobber a register an HGMMA (wgmma) reads as its A
-    operand while the product may still read it: (1) between the HGMMA
-    and the first wait (WARPGROUP.DEPBAR) after it, following a loop's
-    back edge when the wait comes in the next turn; (2) later in a loop
+    operand, before the product or a later turn of its loop has read it:
+    (1) on a path from the HGMMA to the wait that covers it. An HGMMA
+    marked gsb0 closes a commit group, and WARPGROUP.DEPBAR.LE gsb0, N
+    returns once at most N groups are pending, so it covers the HGMMA
+    once N groups have closed after the HGMMA's own. The path follows the
+    innermost loop's back edge as well as its exit. (2) Later in a loop
     whose earlier turns the HGMMA reads the register from unwritten (a
-    value from before the loop). ptxas has been seen to do (2)."""
+    value from before the loop), the last write before the back edge, if
+    something else reads its value before the back edge: it was made for
+    another use, and the next turn's product reads it (ptxas has been
+    seen to give a loop-invariant operand's register to another value).
+    A last value that goes unread to the back edge is the next turn's
+    operand (a software-pipelined loop); a register used for something
+    else after the wait that covers the product and then written again
+    is no hazard."""
     def writes(text, regs):
-        m = re.match(r"(?:@!?U?P\w+ )?(?!HGMMA)[A-Z][\w.]* (R\d+)\b", text)
-        return m is not None and m[1] in regs
+        return sass_operands(text)[0] in regs
 
+    at = {a: i for i, (a, _) in enumerate(ins)}
     backs = [(a, int(m[1], 16)) for a, t in ins
              if (m := re.search(r"\bBRA (0x[0-9a-f]+)", t))
              and int(m[1], 16) < a]
     found = []
-    for a0, t0 in ins:
+    for i0, (a0, t0) in enumerate(ins):
         m = re.match(r"HGMMA\.\S+ R\d+, R(\d+),", t0)
         if not m:
             continue
         regs = {f"R{int(m[1]) + i}" for i in range(4)}
-        loops = [(b, h) for b, h in backs if h < a0 < b]
+        loops = [(b, h) for b, h in backs if h <= a0 < b]
         b, h = min(loops) if loops else (None, None)
-        dep = next((a for a, t in ins if a > a0 and "DEPBAR" in t), None)
-        if dep is not None and (b is None or dep < b):
-            path = [(a, t) for a, t in ins if a0 < a < dep]
-        elif b is not None:
-            dep = next(a for a, t in ins if a > h and "DEPBAR" in t)
-            path = [(a, t) for a, t in ins if a0 < a <= b or h <= a < dep]
-        else:
-            path = []
-        found += [(hex(a), t) for a, t in path if writes(t, regs)]
+        todo, seen = [(i0 + 1, int("gsb0" in t0), False)], set()
+        while todo:
+            i, closed, wrapped = todo.pop()
+            while i < len(ins) and (i, closed, wrapped) not in seen:
+                seen.add((i, closed, wrapped))
+                a, t = ins[i]
+                dep = re.search(r"DEPBAR\.LE gsb0, 0x([0-9a-f]+)", t)
+                if dep and closed and closed - 1 >= int(dep[1], 16):
+                    break
+                if writes(t, regs):
+                    found.append((hex(a), t))
+                closed += t.startswith("HGMMA") and "gsb0" in t
+                if a == b and not wrapped and h in at:
+                    todo.append((at[h], closed, True))
+                i += 1
         if b is not None and not any(writes(t, regs) for a, t in ins
                                      if h <= a < a0):
-            found += [(hex(a), t) for a, t in ins
-                      if a0 < a <= b and writes(t, regs)]
-    return found
+            body = [(a, t) for a, t in ins if a0 < a <= b]
+            last = {sass_operands(t)[0]: j for j, (_, t) in enumerate(body)
+                    if sass_operands(t)[0] in regs}
+            for j in sorted(last.values()):
+                a, t = body[j]
+                if any(sass_operands(t)[0] in sass_operands(t2)[1]
+                       for _, t2 in body[j + 1:]):
+                    found.append((hex(a), t))
+    return list(dict.fromkeys(found))
 
 
-def flash_bwd_build(build, log: str) -> dict:
-    """What the bf16 backward bodies were built into: per kernel of
-    flash_bwd, its registers and spills (ptxas), its count of wgmma
-    (HGMMA) and TMA load (UTMALDG) instructions in the SASS of the built
-    library (cuobjdump), and the writes that may clobber a wgmma's A
-    operand in flight (wgmma_a_hazards). Fails unless each wgmma body
-    holds both instructions, spills nothing and has no such write."""
+# The libraries whose bf16 bodies are wgmma fed by TMA: K1, and K2/K3.
+FLASH_LIBS = ("flash_fwd", "flash_bwd")
+
+
+def flash_build(build, logs: dict[str, str]) -> dict:
+    """What the bf16 flash bodies were built into, per library of
+    FLASH_LIBS: per kernel its registers and spills (ptxas), its count of
+    wgmma (HGMMA) and TMA load (UTMALDG) instructions in the SASS of the
+    built library (cuobjdump), and the writes that may clobber a wgmma's
+    A operand (wgmma_a_hazards). Fails unless each library has wgmma
+    bodies and each holds both instructions, spills nothing and has no
+    such write. Returns {library: report}."""
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "--dump-sass",
-                           str(build.library_path("flash_bwd"))],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    kernels = ptxas_kernels(log)
-    for name, ins in sass_functions(sass).items():
-        kernels.setdefault(name, {}).update(
-            HGMMA=sum("HGMMA" in t for _, t in ins),
-            UTMALDG=sum("UTMALDG" in t for _, t in ins),
-            a_operand_hazards=wgmma_a_hazards(ins)[:4])
-    wgmma = {n: k for n, k in kernels.items() if "wgmma" in n}
-    ok = bool(wgmma) and all(k.get("HGMMA") and k.get("UTMALDG")
-                             and k.get("spill_bytes") == 0
-                             and not k.get("a_operand_hazards")
-                             for k in wgmma.values())
-    report = {"kernels": kernels, "ok": ok}
-    if not ok:
-        emit({"phase": "build", "flash_bwd": report})
-        fail(f"flash_bwd's bf16 bodies lack HGMMA/UTMALDG, spill, or may "
-             f"clobber a wgmma operand in flight: {wgmma}")
-    return report
+    reports, bad = {}, {}
+    for lib in FLASH_LIBS:
+        sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                               str(build.library_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        kernels = ptxas_kernels(logs[lib])
+        for name, ins in sass_functions(sass).items():
+            kernels.setdefault(name, {}).update(
+                HGMMA=sum("HGMMA" in t for _, t in ins),
+                UTMALDG=sum("UTMALDG" in t for _, t in ins),
+                a_operand_hazards=wgmma_a_hazards(ins)[:4])
+        wgmma = {n: k for n, k in kernels.items() if "wgmma" in n}
+        ok = bool(wgmma) and all(k.get("HGMMA") and k.get("UTMALDG")
+                                 and k.get("spill_bytes") == 0
+                                 and not k.get("a_operand_hazards")
+                                 for k in wgmma.values())
+        reports[lib] = {"kernels": kernels, "ok": ok}
+        if not ok:
+            bad[lib] = wgmma
+    if bad:
+        emit({"phase": "build", **reports})
+        fail(f"bf16 flash bodies lack HGMMA/UTMALDG, spill, or may clobber "
+             f"a wgmma operand: {bad}")
+    return reports
 
 
 def phase_kernels(fa, gen) -> dict:
-    """K1 vs its plain version on the card; returns {"flash_fwd":
-    (max abs error, checks)}."""
+    """K1 vs its plain version on the card, over a grid of shapes, a
+    strided (fused qkv) case, bf16 ragged cases (S = 200, causal and
+    not), one served row (B=1), a negative scale and the serving and
+    training shapes; on
+    the training shape, the strided and the ragged causal case also two
+    launches, o and lse bit for bit. Returns {"flash_fwd": (max abs
+    error, checks)}."""
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [dict(b=2, s=s, h=4, d=d, dtype=dt, causal=c)
-             for dt in (torch.float32, torch.bfloat16)
+             for dt in (f32, bf16)
              for c in (True, False) for s in (128, 384, 1024)
              for d in (64, 128)]
     cases += [dict(b=2, s=1024, h=4, d=32, dtype=dt, causal=True)
-              for dt in (torch.float32, torch.bfloat16)]
-    cases += [dict(b=2, s=200, h=3, d=64, dtype=torch.float32, causal=True),
-              dict(b=2, s=256, h=4, d=64, dtype=torch.bfloat16, causal=True,
-                   fused=True),
-              MAIN]
-    worst = 0.0
+              for dt in (f32, bf16)]
+    strided = dict(b=2, s=256, h=4, d=64, dtype=bf16, causal=True, fused=True)
+    ragged = [dict(b=2, s=200, h=3, d=64, dtype=bf16, causal=c)
+              for c in (True, False)]
+    # a negative scale takes the bf16 body's softmax that forms s * scale
+    # first (the max of s is the max of the scores only for scale > 0)
+    cases += [dict(b=2, s=200, h=3, d=64, dtype=f32, causal=True), strided,
+              *ragged, dict(b=1, s=1024, h=16, d=64, dtype=bf16, causal=True),
+              dict(b=2, s=384, h=4, d=64, dtype=bf16, causal=True,
+                   scale=-0.125),
+              MAIN, TRAIN]
+    # the cases run twice and held bit for bit between the launches
+    twice = {id(TRAIN), id(strided), id(ragged[0])}
+    worst, checks = 0.0, 0
     for case in cases:
         b, s, h, d, dt = case["b"], case["s"], case["h"], case["d"], \
             case["dtype"]
         q, k, v = qkv_case(case, gen)
-        scale = 1.0 / d ** 0.5
+        scale = case.get("scale", 1.0 / d ** 0.5)
         o_ref, lse_ref = fa._fwd_blockwise(
             q, k, v, blk=fa._fit_block(s, 512), scale=scale,
             causal=case["causal"])
-        o, lse = fa.flash_attention_lse(q, k, v, causal=case["causal"])
+        o, lse = fa.flash_attention_lse(q, k, v, causal=case["causal"],
+                                        scale=scale)
         torch.cuda.synchronize()
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
@@ -384,43 +450,90 @@ def phase_kernels(fa, gen) -> dict:
         emit({"phase": "kernels", "kernel": "flash_fwd",
               "shape": [b, s, h, d], "dtype": str(dt).split(".")[-1],
               "causal": case["causal"], "strided": bool(case.get("fused")),
-              "err_o": err_o, "err_lse": err_lse, "atol": ATOL[dt],
-              "ok": ok})
+              "scale": scale, "err_o": err_o, "err_lse": err_lse,
+              "atol": ATOL[dt], "ok": ok})
         if not ok:
             fail(f"flash_fwd disagrees with its plain version on {case}: "
                  f"o {err_o}, lse {err_lse}, bound {ATOL[dt]}")
         worst = max(worst, err_o, err_lse)
-    return {"flash_fwd": (worst, len(cases))}
+        checks += 1
+        if id(case) in twice:
+            fwd_deterministic(fa, case, q, k, v, o, lse)
+            checks += 1
+    return {"flash_fwd": (worst, checks)}
+
+
+def fwd_deterministic(fa, case, q, k, v, o, lse) -> None:
+    """K1 launched again on the same inputs: o and lse must be bitwise
+    equal to the first launch's (one block writes each row, its sums in
+    a fixed order)."""
+    o2, lse2 = fa.flash_attention_lse(q, k, v, causal=case["causal"])
+    torch.cuda.synchronize()
+    same = {"o": torch.equal(o, o2), "lse": torch.equal(lse, lse2)}
+    emit({"phase": "kernels", "kernel": "flash_fwd", "shape": list(q.shape),
+          "strided": bool(case.get("fused")), "causal": case["causal"],
+          "bitwise_repeat": same, "ok": all(same.values())})
+    if not all(same.values()):
+        fail(f"flash_fwd is not deterministic on {case}: {same}")
+
+
+# K1 is timed at the serving path's shape and the training path's.
+FWD_TIMED = (("serving", MAIN), ("training", TRAIN))
 
 
 def phase_timing(fa, gen) -> dict:
-    b, s, h, d, dt, causal = (MAIN[k] for k in
-                              ("b", "s", "h", "d", "dtype", "causal"))
-    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda",
-                           dtype=torch.float32).to(dt) for _ in range(3))
-    scale = 1.0 / d ** 0.5
-    blk = fa._fit_block(s, 512)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    plain_ms = time_ms(lambda: fa._fwd_blockwise(
-        q, k, v, blk=blk, scale=scale, causal=causal), iters=5)
-
-    # the kernel and the library call in turns, three times each
-    turns: dict[str, list[float]] = {"kernel": [], "library": []}
-    for _ in range(3):
-        turns["kernel"].append(time_ms(lambda: fa.flash_attention_lse(
-            q, k, v, causal=causal), iters=20))
-        turns["library"].append(time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal), iters=20))
-    bound_ms, bound_by = attention_bound_ms(b, s, h, d, dt, causal)
-    out = {"ms": float(np.mean(turns["kernel"])), "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": float(np.mean(turns["library"]))}
-    emit({"phase": "timing", "kernel": "flash_fwd",
-          "shape": [b, s, h, d], "dtype": "bfloat16", "causal": causal,
-          **out, "ms_turns": turns["kernel"],
-          "library_ms_turns": turns["library"],
-          "library": "F.scaled_dot_product_attention"})
-    return out
+    """K1 against F.scaled_dot_product_attention (timed only, never used
+    by the port) at each shape of FWD_TIMED, in turns (3 turns each):
+    device time with the launches queued behind a sleep kernel (50
+    launches; fails if the host could not stay ahead) and host-paced time
+    (20 launches, the Python wrapper's cost included); the plain version's
+    time, the bound, and the TFLOP/s of the 2 products. Returns the
+    serving shape's numbers, the training shape's beside them."""
+    per = {}
+    for label, cfg in FWD_TIMED:
+        b, s, h, d, dt, causal = (cfg[k] for k in
+                                  ("b", "s", "h", "d", "dtype", "causal"))
+        q, k, v = qkv_case(cfg, gen)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        runs = {"kernel": lambda: fa.flash_attention_lse(q, k, v,
+                                                         causal=causal),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal)}
+        queued = {n: [] for n in runs}
+        paced = {n: [] for n in runs}
+        host_bound = False
+        for _ in range(3):
+            for n, fn in runs.items():
+                ms, hb = time_ms_queued(fn, iters=50)
+                queued[n].append(ms)
+                host_bound |= hb
+                paced[n].append(time_ms(fn, iters=20))
+        plain_ms = time_ms(lambda: fa._fwd_blockwise(
+            q, k, v, blk=fa._fit_block(s, 512), scale=1.0 / d ** 0.5,
+            causal=causal), iters=5)
+        bound_ms, bound_by = attention_bound_ms(b, s, h, d, dt, causal)
+        ms = float(np.mean(queued["kernel"]))
+        library_ms = float(np.mean(queued["library"]))
+        per[label] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "ms_host_paced": float(np.mean(paced["kernel"])),
+            "library_ms_host_paced": float(np.mean(paced["library"])),
+            "tflops": bwd_tflops(2, ms, b, s, h, d, causal),
+            "library_tflops": bwd_tflops(2, library_ms, b, s, h, d, causal)}
+        emit({"phase": "timing", "kernel": "flash_fwd", "path": label,
+              "shape": [b, s, h, d], "dtype": "bfloat16", "causal": causal,
+              **per[label], "ms_turns": queued["kernel"],
+              "library_ms_turns": queued["library"],
+              "ms_host_paced_turns": paced["kernel"],
+              "library_ms_host_paced_turns": paced["library"],
+              "host_bound": host_bound, "products": 2,
+              "timing": "device: launches queued behind a sleep kernel",
+              "library": "F.scaled_dot_product_attention"})
+        if host_bound:
+            fail("flash_fwd: the host could not queue the timed launches "
+                 "ahead of the card")
+    return {**per["serving"], "training_shape": per["training"]}
 
 
 def bwd_atol(ref: torch.Tensor) -> float:
@@ -1328,6 +1441,20 @@ def opt_step(ok_mod, opt: str, quant: str, p, g, moments, scalars,
                            eps=1e-8, wd=wd, quant=quant)
 
 
+def plan_step(ok_mod, opt: str, quant: str, p_bufs, g_bufs, moments,
+              scalars, wd: float, plain: bool) -> None:
+    """One step over every bucket of a plan: momentum-SGD with fp32
+    momentum through the entry fused_apply uses (one K4 launch over all
+    the buckets), the others bucket by bucket; or the plain version
+    bucket by bucket."""
+    if opt == "sgdm" and quant == "off" and not plain:
+        ok_mod.sgdm_fp32_buckets(p_bufs, g_bufs, [m[0] for m in moments],
+                                 scalars[0], mu=0.9, wd=wd)
+        return
+    for p, g, m in zip(p_bufs, g_bufs, moments):
+        opt_step(ok_mod, opt, quant, p, g, m, scalars, wd, plain)
+
+
 def opt_tensors(p, moments) -> list:
     out = [p]
     for m in moments:
@@ -1404,17 +1531,17 @@ def plan_world(ok_mod, fo, model, tx, gen):
 
 def plan_bitwise(ok_mod, fo, name, opt, quant, tx, p_bufs, g_bufs,
                  wd) -> int:
-    """2 steps of the kernel over every bucket of a plan against the
-    plain version, bit for bit. Returns the buckets checked."""
+    """2 steps of the kernel over every bucket of a plan (`plan_step`)
+    against the plain version, bit for bit. Returns the buckets
+    checked."""
     kern = [(p.clone(), opt_moments(ok_mod, opt, quant, p)) for p in p_bufs]
     plain = [(p.clone(), opt_moments(ok_mod, opt, quant, p))
              for p in p_bufs]
     for step in range(2):
         scalars = tx.scalars(step)
-        for i, g in enumerate(g_bufs):
-            for side, is_plain in ((kern, False), (plain, True)):
-                opt_step(ok_mod, opt, quant, side[i][0], g, side[i][1],
-                         scalars, wd, is_plain)
+        for side, is_plain in ((kern, False), (plain, True)):
+            plan_step(ok_mod, opt, quant, [p for p, _ in side], g_bufs,
+                      [m for _, m in side], scalars, wd, is_plain)
     torch.cuda.synchronize()
     differ = [i for i in range(len(p_bufs))
               if not all(fo.bitwise_equal(x, y) for x, y in
@@ -1433,21 +1560,22 @@ def plan_bitwise(ok_mod, fo, name, opt, quant, tx, p_bufs, g_bufs,
 
 def time_plan(ok_mod, name, opt, quant, tx, p_bufs, g_bufs, wd,
               library=None) -> dict:
-    """One optimizer step over every bucket of a plan: the kernel and the
-    library call in turns (3 turns of 10 steps), the plain version over 3
-    steps, and the bound from the bytes the kernel must move."""
+    """One optimizer step over every bucket of a plan (`plan_step`: K4 as
+    one launch, as fused_apply runs it): the kernel and the library call
+    in turns (3 turns of 10 steps), the plain version over 3 steps, and
+    the bound from the bytes the kernel must move."""
     moments = [opt_moments(ok_mod, opt, quant, p) for p in p_bufs]
     scalars = tx.scalars(0)
 
     def step(plain):
-        for p, g, m in zip(p_bufs, g_bufs, moments):
-            opt_step(ok_mod, opt, quant, p, g, m, scalars, wd, plain)
+        plan_step(ok_mod, opt, quant, p_bufs, g_bufs, moments, scalars, wd,
+                  plain)
 
     turns: dict[str, list[float]] = {"kernel": [], "library": []}
     host_bound = False
-    # stream entries of one step: a launch per bucket, or a memset and
-    # three passes per bucket for the quantized kernels
-    entries = len(p_bufs) * (1 if quant == "off" else 4)
+    # stream entries of one step: one K4 launch, or a memset and three
+    # passes per bucket for the quantized kernels
+    entries = 1 if quant == "off" else 4 * len(p_bufs)
     iters = max(2, min(10, 800 // entries))
     for _ in range(3):
         ms, hb = time_ms_queued(lambda: step(False), iters=iters)
@@ -1685,7 +1813,8 @@ def profile_steps(classification, state, batch) -> dict:
 def resnet_run(imagenet_train, classification, opt_state_bytes,
                counters: dict, argv: list, name: str, kernel: str) -> dict:
     """One imagenet_train.main run at ``argv``: exactly one launch of
-    ``kernel`` per bucket each step and no other counted launch, the loss
+    ``kernel`` a step (K4, over every bucket) or per bucket (K6) and no
+    other counted launch, the loss
     finite, the epoch means falling and no step of the last epoch above
     step 1's loss."""
     run = run_probed(classification, imagenet_train.main, argv, counters)
@@ -1697,7 +1826,9 @@ def resnet_run(imagenet_train, classification, opt_state_bytes,
         final = json.load(f)["final"]
     state = run["seen"]["state"]
     n_buckets = len(state.opt_state.p)
-    want = {n: (n_buckets if n == kernel else 0) for n in counters}
+    # K4 takes every bucket of a step in one launch; K6 one call a bucket
+    per_step = 1 if kernel == "sgdm_fp32" else n_buckets
+    want = {n: (per_step if n == kernel else 0) for n in counters}
     check_launches(run["steps"], want, f"imagenet_train {name}")
     losses = [st["loss"] for st in run["steps"]]
     epochs = [float(np.mean(losses[i:i + RESNET_STEPS_PER_EPOCH]))
@@ -1731,8 +1862,8 @@ def phase_train_resnet(ok_mod) -> tuple[dict, dict]:
     """The port's imagenet_train.main at RESNET_ARGV with --fused-opt fp32
     (K4), then int8 (K6), then fp32 with fp32 activations, on the same
     shards from the same init: step time and images/s, the forward /
-    backward / optimizer split, peak memory, exactly one K4 (K6) per
-    bucket each step, the loss finite and falling, eval acc1/acc5; the
+    backward / optimizer split, peak memory, exactly one K4 each step
+    (one K6 per bucket), the loss finite and falling, eval acc1/acc5; the
     int8 run within the envelope of the fp32 run with at least STATE_CUT x
     fewer optimizer-state bytes; the bf16 run's per-step losses within
     RESNET_BF16_ATOL of the fp32-activation run's."""
@@ -2111,12 +2242,12 @@ def world_worker(run: str, out_dir: str, argv_json: str) -> int:
 def world_summary(name: str, ranks: list[dict], blog_dir: Path) -> dict:
     """The gates of one world training run, each fatal: exactly one K8
     per compressed bucket a step on each rank (none in the dense run),
-    one K4 per optimizer bucket a step, the ranks' final states bitwise
+    one K4 a step over every optimizer bucket, the ranks' final states bitwise
     equal, the loss finite with falling epoch means and the last epoch
     below step 1."""
     for rk in ranks:
         want = {"pack_int8": rk["compressed_buckets"] if name == "int8"
-                else 0, "sgdm_fp32": rk["opt_buckets"]}
+                else 0, "sgdm_fp32": 1}
         for i, st in enumerate(rk["steps"]):
             if st["launches"] != want:
                 fail(f"world {name} rank {rk['rank']} step {i + 1} "
@@ -2247,7 +2378,7 @@ def main() -> int:
                           "ptxas": [ln.strip() for ln in r["log"].splitlines()
                                     if "registers" in ln or "spill" in ln]}
                       for n, r in built.items()},
-          "flash_bwd": flash_bwd_build(_build, built["flash_bwd"]["log"])})
+          **flash_build(_build, {n: built[n]["log"] for n in FLASH_LIBS})})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(fa, gen)

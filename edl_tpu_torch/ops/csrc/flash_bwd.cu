@@ -40,7 +40,7 @@
 // memory.
 //
 // bf16 (dkdv_wgmma_kernel, dq_wgmma_kernel) runs on the Hopper tensor
-// cores, with the pieces of hopper.cuh:
+// cores, with the pieces of hopper.cuh and flash.cuh (shared with K1):
 // - A block is two consumer warpgroups, each owning 64 rows of the
 //   resident tile, and a producer warpgroup whose first warp issues the
 //   copies (setmaxnreg gives its registers to the consumers: 40 against
@@ -102,9 +102,11 @@
 #include <stdint.h>
 #include <stdio.h>
 
-#include "hopper.cuh"
+#include "flash.cuh"
 
 namespace {
+
+using namespace flash;
 
 constexpr int BT = 64;              // rows of an fp32 resident or streamed tile
 
@@ -428,90 +430,6 @@ dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16: wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int WG_ROWS = 64;                       // rows a consumer warpgroup owns
-constexpr int CONSUMERS = 2;                      // consumer warpgroups a block
-constexpr int TILE_ROWS = CONSUMERS * WG_ROWS;    // resident rows a block
-constexpr int WG_THREADS = 128;
-constexpr int TC_THREADS = (CONSUMERS + 1) * WG_THREADS;  // + the producer's
-constexpr int CONSUMER_WARPS = CONSUMERS * WG_THREADS / 32;
-// Registers a thread after setmaxnreg: the producer warpgroup only issues
-// copies; 40 x 128 + 232 x 256 fits the 65,536 of a SM.
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// A bf16 tile of ROWS x D as TMA lands it: column blocks of COLS columns
-// (D itself up to 64, else two halves of 64), each ROWS rows of ROW_BYTES
-// swizzled across ROW_BYTES, one block after the other.
-template <int D, int ROWS>
-struct Tile {
-  static constexpr int COLS = D < 64 ? D : 64;
-  static constexpr int ROW_BYTES = COLS * 2;
-  static constexpr int BLOCK_BYTES = ROWS * ROW_BYTES;
-  static constexpr int BYTES = ROWS * D * 2;
-
-  // TMA the (batch b, head h) rows row0.. of `map` into dst.
-  static __device__ __forceinline__ void load(uint8_t* dst, const CUtensorMap* map,
-                                              uint64_t* bar, int h, int row0,
-                                              int b) {
-#pragma unroll
-    for (int c = 0; c < D / COLS; ++c)
-      hopper::tma_load_4d(dst + c * BLOCK_BYTES, map, bar, c * COLS, h, row0, b);
-  }
-
-  // K-major operand: rows row0..row0+63 (or the B tile's n rows), k-step kk
-  // of the head dim.
-  static __device__ __forceinline__ uint64_t k_desc(const uint8_t* t, int row0,
-                                                    int kk) {
-    const int col = kk * 16;
-    return hopper::desc_k<ROW_BYTES>(t + (col / COLS) * BLOCK_BYTES
-                                     + row0 * ROW_BYTES + (col % COLS) * 2);
-  }
-
-  // MN-major B: rows 16kk..16kk+15 as the k of the product, all D columns
-  // as its n.
-  static __device__ __forceinline__ uint64_t mn_desc(const uint8_t* t, int kk) {
-    return hopper::desc_mn<ROW_BYTES>(t + kk * 16 * ROW_BYTES, BLOCK_BYTES);
-  }
-};
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-// A consumer warp is done with ring stage `bar`.
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) hopper::mbar_arrive(bar);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// k-step kk of an accumulator (column chunks 2kk, 2kk+1) as a bf16 A operand.
-template <int R>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&acc)[R],
-                                         int kk) {
-  a[0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
-  a[1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
-  a[2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
-  a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
-}
-
-// 2^x in one MUFU.EX2; x <= 0 here (lse bounds every score), and a result
-// below the fp32 normal range flushes to 0.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // p = exp(s * scale - lse) in place of a score tile, as exp2(s * c2 - lse2)
 // with c2 = scale * log2(e) and lse2 = lse * log2(e), over a warpgroup's
 // 64 rows x N columns; this thread's columns are col0 + 8i + 2(lane%4)
@@ -591,43 +509,6 @@ __device__ __forceinline__ void row_terms(const float (&p)[N / 2],
     rt0 = fmaf(p[4 * i + 1], pacc[4 * i + 1], rt0);
     rt1 = fmaf(p[4 * i + 2], pacc[4 * i + 2], rt1);
     rt1 = fmaf(p[4 * i + 3], pacc[4 * i + 3], rt1);
-  }
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Write a warpgroup's 64 x D accumulator (rows row0.. of the (b, h) head)
-// as bf16 rows: through `stage` (64 x D x 2 bytes of shared memory, 16-byte
-// pieces of a row rotated by the row so a warp's writes spread over the
-// banks), then 16 bytes a thread to global memory; rows at or past S are
-// not written. `bar` is the warpgroup's named barrier.
-template <int D>
-__device__ __forceinline__ void store_wg(__nv_bfloat16* out, uint8_t* stage,
-                                         const float (&acc)[D / 2], int b, int S,
-                                         int H, int h, int row0, int bar) {
-  constexpr int PIECES = D / 8;                  // 16-byte pieces a row
-  constexpr int ROT = PIECES < 8 ? PIECES : 8;
-  const int wtid = threadIdx.x % WG_THREADS;
-  const int lane = wtid & 31, g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = (wtid >> 5) * 16 + g + 8 * half;
-#pragma unroll
-    for (int i = 0; i < PIECES; ++i)
-      *reinterpret_cast<uint32_t*>(stage + r * D * 2 + ((i ^ (r % ROT)) * 16)
-                                   + tq * 4) =
-          pack_bf16(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
-  }
-  named_sync(bar, WG_THREADS);
-  for (int idx = wtid; idx < WG_ROWS * PIECES; idx += WG_THREADS) {
-    const int r = idx / PIECES, c = idx % PIECES;
-    if (row0 + r < S)
-      *reinterpret_cast<uint4*>(out + (((long long)b * S + row0 + r) * H + h) * D
-                                + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * D * 2 + ((c ^ (r % ROT)) * 16));
   }
 }
 
@@ -996,35 +877,18 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // launch
 // ---------------------------------------------------------------------------
 
-// Returned when a tensor map cannot be made: this plus its CUresult.
-constexpr int TENSOR_MAP_FAILED = 100000;
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
-}
-
 // The tensor maps of q, k, v and dO, streamed in boxes of q_rows (q, dO)
 // and kv_rows (k, v) rows. Returns 0 or TENSOR_MAP_FAILED + the CUresult.
 template <int D>
-int make_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
-              const void* dout, int B, int S, int H, const Strides& st,
-              int q_rows, int kv_rows) {
-  constexpr int COLS = D < 64 ? D : 64;
+int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
+             const void* dout, int B, int S, int H, const Strides& st,
+             int q_rows, int kv_rows) {
   const void* ptr[4] = {q, k, v, dout};
-  const long long sb[4] = {st.qb, st.kb, st.vb, st.ob};
-  const long long ss[4] = {st.qs, st.ks, st.vs, st.os};
-  const long long sh[4] = {st.qh, st.kh, st.vh, st.oh};
-  for (int i = 0; i < 4; ++i) {
-    const int rows = (i == 1 || i == 2) ? kv_rows : q_rows;
-    if (int err = hopper::encode_bshd_bf16(&m[i], ptr[i], B, S, H, D, sb[i],
-                                           ss[i], sh[i], rows, COLS))
-      return TENSOR_MAP_FAILED + err;
-  }
-  return 0;
+  const long long s[12] = {st.qb, st.qs, st.qh, st.kb, st.ks, st.kh,
+                          st.vb, st.vs, st.vh, st.ob, st.os, st.oh};
+  const int rows[4] = {q_rows, kv_rows, kv_rows, q_rows};
+  return make_maps<D>(m, 4, ptr, s, rows, B, S, H);
 }
-
 template <int D>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* rt, void* dk, void* dv, int B,
@@ -1042,7 +906,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
   } else {
     using L = K2Smem<D>;
     CUtensorMap m[4];
-    if (int err = make_maps<D>(m, q, k, v, dout, B, S, H, st, L::BQ, TILE_ROWS))
+    if (int err = bwd_maps<D>(m, q, k, v, dout, B, S, H, st, L::BQ, TILE_ROWS))
       return err;
     if (int err = set_smem(dkdv_wgmma_kernel<D>, L::BYTES)) return err;
     const dim3 grid((S + TILE_ROWS - 1) / TILE_ROWS, B * H);
@@ -1069,7 +933,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   } else {
     using L = K3Smem<D>;
     CUtensorMap m[4];
-    if (int err = make_maps<D>(m, q, k, v, dout, B, S, H, st, TILE_ROWS, L::BK))
+    if (int err = bwd_maps<D>(m, q, k, v, dout, B, S, H, st, TILE_ROWS, L::BK))
       return err;
     if (int err = set_smem(dq_wgmma_kernel<D>, L::BYTES)) return err;
     const dim3 grid((S + TILE_ROWS - 1) / TILE_ROWS, B * H);

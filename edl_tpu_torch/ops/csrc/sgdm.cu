@@ -1,17 +1,23 @@
-// Fused momentum-SGD over one flat fp32 bucket for Hopper (sm_90a):
-// K4 with fp32 momentum, K6 with a quantized momentum plane.
+// Fused momentum-SGD over flat fp32 buckets for Hopper (sm_90a): K4
+// with fp32 momentum, K6 with a quantized momentum plane.
 //
 // K4 replaces edl_tpu/ops/opt_kernels.py::_sgdm_fp32_kernel (called from
-// _sgdm_fp32_pallas through pl.pallas_call). Per element, in _sgdm_math's
-// order:
+// _sgdm_fp32_pallas through pl.pallas_call, once per bucket). Per
+// element, in _sgdm_math's order:
 //   g' = g + wd p        (only when wd != 0)
 //   m' = g' + mu m
 //   p' = p + m' (-lr)
-// p and m are rewritten in place. One grid-stride pass reads p, g, m as
-// float4 (buckets are padded to a multiple of 128 elements and 16-byte
-// aligned) and writes p, m. Bound on an H100 SXM: 20 bytes an element
-// (p, g, m read; p, m written), memory bound at 3.35 TB/s: ResNet50_vd's
-// 25.58M parameters take at least 0.153 ms a step.
+// p and m are rewritten in place. Bound on an H100 SXM: 20 bytes an
+// element (p, g, m read; p, m written), memory bound at 3.35 TB/s:
+// ResNet50_vd's 25.58M parameters take at least 0.153 ms a step.
+// One launch covers every bucket of a step (up to MAX_BUCKETS): a bucket
+// table passed by value (each entry's p, g, m and float4 count, and the
+// prefix of its chunks of THREADS float4s) and one grid over all the
+// chunks; a block finds its chunk's bucket by binary search over the
+// prefix, then each thread updates one float4 (buckets are padded to a
+// multiple of 128 elements and 16-byte aligned). Launching once per
+// bucket paid each launch's ramp and tail, and a small bucket (BatchNorm,
+// biases) could not fill the card. One bucket is the one-entry case.
 //
 // K6 replaces _sgdm_q_kernel (_sgdm_q_pallas): the momentum lives as a
 // QPlane (q, scale, rq, rscale; int8 or fp8 e4m3 bits), dequantized as
@@ -43,20 +49,72 @@ __device__ __forceinline__ void sgdm_one(float& p, float g, float& m,
   p = __fadd_rn(p, __fmul_rn(m, hp.neg_lr));
 }
 
+// Buckets a K4 launch takes: the table stays within the 4 KB of kernel
+// parameters.
+constexpr int MAX_BUCKETS = 96;
+
+struct Bucket {
+  float4* p;
+  const float4* g;
+  float4* m;
+  long long n4;         // float4s
+};
+
+// The buckets of one launch and cend[i], the chunks of THREADS float4s in
+// buckets 0..i (a bucket's last chunk may be partial).
+struct Table {
+  Bucket b[MAX_BUCKETS];
+  int cend[MAX_BUCKETS];
+  int n;
+};
+
 __global__ void __launch_bounds__(THREADS)
-sgdm_fp32_kernel(float4* __restrict__ p, const float4* __restrict__ g,
-                 float4* __restrict__ m, long long n4, Hyper hp) {
-  for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * THREADS) {
-    float4 pp = p[i], mm = m[i];
-    const float4 gg = g[i];
-    sgdm_one(pp.x, gg.x, mm.x, hp);
-    sgdm_one(pp.y, gg.y, mm.y, hp);
-    sgdm_one(pp.z, gg.z, mm.z, hp);
-    sgdm_one(pp.w, gg.w, mm.w, hp);
-    p[i] = pp;
-    m[i] = mm;
+sgdm_fp32_kernel(const __grid_constant__ Table tab, Hyper hp) {
+  const int chunks = tab.cend[tab.n - 1];
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    int lo = 0, hi = tab.n - 1;     // the first bucket whose cend > c
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (tab.cend[mid] > c) hi = mid; else lo = mid + 1;
+    }
+    const Bucket& bk = tab.b[lo];
+    const long long i =
+        (long long)(c - (lo ? tab.cend[lo - 1] : 0)) * THREADS + threadIdx.x;
+    if (i < bk.n4) {
+      float4 pp = bk.p[i], mm = bk.m[i];
+      const float4 gg = bk.g[i];
+      sgdm_one(pp.x, gg.x, mm.x, hp);
+      sgdm_one(pp.y, gg.y, mm.y, hp);
+      sgdm_one(pp.z, gg.z, mm.z, hp);
+      sgdm_one(pp.w, gg.w, mm.w, hp);
+      bk.p[i] = pp;
+      bk.m[i] = mm;
+    }
   }
+}
+
+// K4 over count buckets (1..MAX_BUCKETS) in one launch.
+int sgdm_fp32_launch(void* const* p, const void* const* g, void* const* m,
+                     const long long* n, int count, const Hyper& hp,
+                     cudaStream_t stream) {
+  if (count <= 0 || count > MAX_BUCKETS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Table tab;
+  tab.n = count;
+  long long chunks = 0;
+  for (int i = 0; i < count; ++i) {
+    if (n[i] % 4 != 0 || n[i] <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const long long n4 = n[i] / 4;
+    tab.b[i] = {static_cast<float4*>(p[i]), static_cast<const float4*>(g[i]),
+                static_cast<float4*>(m[i]), n4};
+    chunks += (n4 + THREADS - 1) / THREADS;
+    if (chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    tab.cend[i] = static_cast<int>(chunks);
+  }
+  const unsigned grid = static_cast<unsigned>(
+      chunks < edl::MAX_BLOCKS ? chunks : edl::MAX_BLOCKS);
+  sgdm_fp32_kernel<<<grid, THREADS, 0, stream>>>(tab, hp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Pass 1 of K6: dequantize, update, write p, stage m', fold max|m'|.
@@ -94,18 +152,22 @@ sgdm_q_update_kernel(float4* __restrict__ p, const float4* __restrict__ g,
 
 extern "C" {
 
-// K4. n: elements, a multiple of 4; every pointer 16-byte aligned.
-// Returns a cudaError_t (0 = launched).
+// K4 over one bucket. n: elements, a multiple of 4; every pointer 16-byte
+// aligned. Returns a cudaError_t (0 = launched).
 int edl_sgdm_fp32(void* p, const void* g, void* m, long long n, float lr,
                   float mu, float wd, int use_wd, void* stream) {
-  if (n % 4 != 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n4 = n / 4;
-  const Hyper hp{-lr, mu, wd, use_wd};
-  sgdm_fp32_kernel<<<edl::grid_for(n4), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float4*>(p), static_cast<const float4*>(g),
-      static_cast<float4*>(m), n4, hp);
-  return static_cast<int>(cudaGetLastError());
+  return sgdm_fp32_launch(&p, &g, &m, &n, 1, Hyper{-lr, mu, wd, use_wd},
+                          static_cast<cudaStream_t>(stream));
+}
+
+// K4 over `count` buckets (1..96) in one launch: p[i], g[i], m[i] of n[i]
+// elements each, as edl_sgdm_fp32 takes one.
+int edl_sgdm_fp32_buckets(void* const* p, const void* const* g,
+                          void* const* m, const long long* n, int count,
+                          float lr, float mu, float wd, int use_wd,
+                          void* stream) {
+  return sgdm_fp32_launch(p, g, m, n, count, Hyper{-lr, mu, wd, use_wd},
+                          static_cast<cudaStream_t>(stream));
 }
 
 // K6: the three passes over one bucket. q/rq: n int8 (fp8 = 1: e4m3

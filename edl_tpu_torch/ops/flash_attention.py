@@ -153,7 +153,8 @@ def _library(name: str) -> ctypes.CDLL:
 def _check_kernel_inputs(kernel: str, *ts: torch.Tensor) -> None:
     """What the kernels take: fp32 or bf16 alike, one device, head dims
     32/64/128 with the head dim contiguous, at most 65535 batch*heads,
-    and for bf16 (the tensor-core bodies) 16-byte aligned rows."""
+    and for bf16 (the wgmma bodies, fed by TMA) 16-byte aligned data and
+    (batch, seq, head) strides in multiples of 8 elements."""
     q = ts[0]
     b, s, h, d = q.shape
     if q.dtype not in _DTYPE_CODES:
@@ -191,8 +192,8 @@ def _fwd_cuda(q, k, v, *, scale: float, causal: bool):
     """Launch the forward kernel (K1). Returns (o, lse) as
     `_fwd_blockwise`.
 
-    bf16 runs the tensor-core body, fp32 the FMA body (fp32 stays off
-    the tensor cores: TF32 would break the 2e-5 fp32 bound)."""
+    bf16 runs the wgmma body fed by TMA copies, fp32 the FMA body (fp32
+    stays off the tensor cores: TF32 would break the 2e-5 fp32 bound)."""
     b, s, h, d = q.shape
     _check_kernel_inputs("flash_fwd", q, k, v)
     lib = _library("flash_fwd")
@@ -333,8 +334,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through both outputs.
 
     ``block_q``/``block_k`` are validated as in JAX; the plain version
-    scans KV blocks of ``_fit_block(S, block_k)``, the kernel uses its own
-    64-row tiles.
+    scans KV blocks of ``_fit_block(S, block_k)``, the kernels use their
+    own tiles.
     """
     b, s, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:

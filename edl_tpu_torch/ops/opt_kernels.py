@@ -21,7 +21,8 @@ Dispatch is by the tensors' device, never by a fallback:
 - a CPU tensor runs the plain version (``_sgdm_plain``/``_adam_plain``:
   the math above with ``_dq2``/``_rq2`` around it);
 - a CUDA tensor launches the kernel or raises, each built at first use by
-  ``ops/_build.py``: momentum-SGD runs K4 (``sgdm_fp32``,
+  ``ops/_build.py``: momentum-SGD runs K4 (``sgdm_fp32`` on one bucket,
+  ``sgdm_fp32_buckets`` once over every bucket of a step;
   ``csrc/sgdm.cu``) or K6 (``sgdm_q``, same file), Adam(W) runs K5
   (``adam_fp32``, ``csrc/adam_fp32.cu``) or K7 (``adam_q``,
   ``csrc/adam_q.cu``). Each launcher counts its calls in ``.launches``;
@@ -262,11 +263,16 @@ _P, _F, _I, _L = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, \
 _SIGNATURES = {
     "adam_fp32": ("edl_adam_fp32", [_P] * 4 + [_L] + [_F] * 9 + [_I, _P]),
     "sgdm": ("edl_sgdm_fp32", [_P] * 3 + [_L] + [_F] * 3 + [_I, _P]),
+    "sgdm_buckets": ("edl_sgdm_fp32_buckets",
+                     [_P] * 4 + [_I] + [_F] * 3 + [_I, _P]),
     "sgdm_q": ("edl_sgdm_q", [_P] * 8 + [_L] + [_F] * 3 + [_I, _I, _P]),
     "adam_q": ("edl_adam_q", [_P] * 12 + [_L] + [_F] * 9 + [_I, _I, _P]),
 }
-_SOURCE = {"adam_fp32": "adam_fp32", "sgdm": "sgdm", "sgdm_q": "sgdm",
-           "adam_q": "adam_q"}
+_SOURCE = {"adam_fp32": "adam_fp32", "sgdm": "sgdm", "sgdm_buckets": "sgdm",
+           "sgdm_q": "sgdm", "adam_q": "adam_q"}
+# Buckets one K4 launch takes (sgdm.cu's MAX_BUCKETS: its table is passed
+# by value in the 4 KB of kernel parameters).
+SGDM_TABLE_MAX = 96
 
 
 _entries: dict[str, tuple] = {}
@@ -330,6 +336,40 @@ def sgdm_fp32(p, g, m, lr: float, *, mu: float, wd: float) -> None:
             m.data_ptr(), p.numel(), float(lr), float(mu), float(wd),
             int(bool(wd)))
     sgdm_fp32.launches += 1
+
+
+def sgdm_fp32_buckets(ps, gs, ms, lr: float, *, mu: float,
+                      wd: float) -> None:
+    """Momentum-SGD over every bucket of a step, p and m rewritten in
+    place: on the card K4 once over a table of all the buckets (once per
+    SGDM_TABLE_MAX of them), counted in ``sgdm_fp32.launches``; on the CPU
+    the plain version bucket by bucket."""
+    if not len(ps) == len(gs) == len(ms) or not ps:
+        raise ValueError(f"sgdm_fp32_buckets takes one or more buckets and "
+                         f"as many gradients and moments, got {len(ps)}, "
+                         f"{len(gs)}, {len(ms)}")
+    device = ps[0].device
+    for p, g, m in zip(ps, gs, ms):
+        _check_bucket("sgdm_fp32_buckets", p, g, m)
+        if p.device != device:
+            raise ValueError("sgdm_fp32_buckets: buckets on different "
+                             f"devices: {device} and {p.device}")
+    if device.type == "cpu":
+        for p, g, m in zip(ps, gs, ms):
+            _sgdm_plain(p, g, m, lr, mu, wd, "off")
+        return
+    if device.type != "cuda":
+        raise ValueError(f"sgdm_fp32_buckets runs on cpu or cuda, not "
+                         f"{device}")
+    for i in range(0, len(ps), SGDM_TABLE_MAX):
+        part = slice(i, i + SGDM_TABLE_MAX)
+        n = len(ps[part])
+        ptrs = [(ctypes.c_void_p * n)(*(t.data_ptr() for t in ts[part]))
+                for ts in (ps, gs, ms)]
+        sizes = (ctypes.c_longlong * n)(*(p.numel() for p in ps[part]))
+        _launch("sgdm_buckets", "sgdm_fp32_buckets", device, *ptrs, sizes, n,
+                float(lr), float(mu), float(wd), int(bool(wd)))
+        sgdm_fp32.launches += 1
 
 
 def sgdm_q(p, g, plane: QPlane, lr: float, *, mu: float, wd: float,

@@ -42,6 +42,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from edl_tpu_torch import resolve_device
 from edl_tpu_torch.obs import metrics as obs_metrics
 from edl_tpu_torch.obs import trace
 from edl_tpu_torch.ops.pack import all_gather_int8
@@ -581,25 +582,27 @@ def loss_parity_gate(loss_fn: Callable, state_fn: Callable, batch, *,
 # -- convergence-parity smoke (the CI gate) ----------------------------------
 
 
-def _local_rows(batch: dict) -> dict:
-    """This rank's contiguous share of a global numpy batch, as
-    tensors."""
+def _local_rows(batch: dict, device: str | torch.device = "cpu") -> dict:
+    """This rank's contiguous share of a global numpy batch, as tensors
+    on ``device``."""
     w, r = distributed.world_size(), distributed.rank()
     out = {}
     for k, v in batch.items():
         n = v.shape[0] // w
-        out[k] = torch.from_numpy(np.ascontiguousarray(v[r * n:(r + 1) * n]))
+        out[k] = torch.from_numpy(
+            np.ascontiguousarray(v[r * n:(r + 1) * n])).to(device)
     return out
 
 
-def _smoke_cnn(world: int):
+def _smoke_cnn(world: int, device: str | torch.device = "cuda"):
     """Tiny BN CNN on separable synthetic images (the JAX package's
-    data, the port's seeded init). Returns (loss_fn, state_fn, global
-    numpy batch)."""
+    data, the port's seeded init), its model on ``device``. Returns
+    (loss_fn, state_fn, global numpy batch)."""
     from edl_tpu_torch.models.resnet import ResNetTiny
     from edl_tpu_torch.train import classification as cls
     from edl_tpu_torch.train import state as state_lib
 
+    dev = resolve_device(device)
     rng = np.random.default_rng(7)
     n, hw, classes = 8 * world, 16, 4
     labels = rng.integers(0, classes, size=n).astype(np.int32)
@@ -609,7 +612,7 @@ def _smoke_cnn(world: int):
 
     def state_fn():
         model = ResNetTiny(num_classes=classes, dtype=torch.float32,
-                           device="cpu", seed=0)
+                           device=dev, seed=0)
         return cls.create_state(model, state_lib.sgd(0.05, momentum=0.9))
 
     def loss_fn(model, batch):
@@ -621,10 +624,10 @@ def _smoke_cnn(world: int):
     return loss_fn, state_fn, {"image": images, "label": labels}
 
 
-def _smoke_transformer(world: int):
+def _smoke_transformer(world: int, device: str | torch.device = "cuda"):
     """Tiny Markov-LM transformer: the no-BN model (the JAX package's
-    data, the port's seeded init). Returns (loss_fn, state_fn, global
-    numpy batch)."""
+    data, the port's seeded init), on ``device``. Returns (loss_fn,
+    state_fn, global numpy batch)."""
     from edl_tpu_torch.bridge import flax_named_parameters
     from edl_tpu_torch.models.transformer import (Transformer,
                                                   TransformerConfig,
@@ -632,6 +635,7 @@ def _smoke_transformer(world: int):
     from edl_tpu_torch.train import state as state_lib
     from edl_tpu_torch.train.state import TrainState
 
+    dev = resolve_device(device)
     vocab, seq = 32, 16
     gen = np.random.default_rng(11)
     successors = gen.integers(0, vocab, size=(vocab, 4))
@@ -645,7 +649,7 @@ def _smoke_transformer(world: int):
                             dtype=torch.float32)
 
     def state_fn():
-        model = Transformer(cfg, device="cpu", seed=0)
+        model = Transformer(cfg, device=dev, seed=0)
         # momentum-SGD: the optimizer the error-feedback analysis is for
         return TrainState.create(model=model,
                                  tx=state_lib.sgd(0.5, momentum=0.9),
@@ -665,7 +669,8 @@ def _loaded(state_fn: Callable, state_dict: dict) -> Callable:
 
 def convergence_smoke(compress: str = "topk", steps: int = 40,
                       envelope: float = 0.25, topology=None,
-                      weights: dict | None = None) -> dict:
+                      weights: dict | None = None,
+                      device: str | torch.device = "cuda") -> dict:
     """CNN + transformer convergence smokes over the joined world: train
     the compressed path against the dense per-leaf reference from the
     same init; both must LEARN (final loss below initial) and the
@@ -674,7 +679,10 @@ def convergence_smoke(compress: str = "topk", steps: int = 40,
     (initial - dense), a RELATIVE envelope). The topk wire runs at 1/8
     density. ``weights`` ({"cnn": state_dict, "transformer": state_dict})
     replaces the port's seeded init, e.g. with the JAX package's bridged
-    one. Returns the report; ``ok`` only if every gate holds."""
+    one. The models and batches live on ``device`` (CUDA unless the
+    caller asks for the CPU; raises where CUDA is asked for and absent).
+    Returns the report; ``ok`` only if every gate holds."""
+    dev = resolve_device(device)
     world = distributed.world_size()
     report: dict = {"compress": compress, "steps": steps,
                     "envelope": envelope, "world": world,
@@ -683,7 +691,7 @@ def convergence_smoke(compress: str = "topk", steps: int = 40,
                         min_compress_elems=64)
 
     def run(name, loss_fn, state_fn, batch):
-        batch = _local_rows(batch)
+        batch = _local_rows(batch, dev)
         if weights is not None:
             state_fn = _loaded(state_fn, weights[name])
         ref = _PerLeafStep(loss_fn, config=dataclasses.replace(
@@ -709,8 +717,8 @@ def convergence_smoke(compress: str = "topk", steps: int = 40,
             "learned": last_a < first and last_b < first,
             "within_envelope": delta <= envelope * improvement}
 
-    run("cnn", *_smoke_cnn(world))
-    run("transformer", *_smoke_transformer(world))
+    run("cnn", *_smoke_cnn(world, dev))
+    run("transformer", *_smoke_transformer(world, dev))
     report["ok"] = all(report[k]["learned"] and report[k]["within_envelope"]
                        for k in ("cnn", "transformer"))
     return report

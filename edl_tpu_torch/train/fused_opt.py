@@ -4,9 +4,11 @@
 Parameters are packed into the same flat, dtype-grouped, 128-padded
 buckets as the JAX package (``train/comm.plan_buckets``) and each
 bucket's whole momentum-SGD or Adam(W) update runs as one kernel call
-(``ops/opt_kernels.sgdm_bucket``/``adam_bucket``: K4/K5 with fp32
-moments, K6/K7 with quantized ones, on a card; the plain version on the
-CPU).
+(``ops/opt_kernels.sgdm_bucket``/``adam_bucket``: K5 with fp32 moments,
+K6/K7 with quantized ones, on a card; the plain version on the CPU).
+Momentum-SGD with fp32 momentum takes one K4 launch over every bucket of
+the step (``ops/opt_kernels.sgdm_fp32_buckets``); the math per element
+is the same.
 
 Resident moment formats (``quant``): ``off`` keeps fp32 bucket buffers;
 ``int8``/``fp8`` keep each moment plane as a ``QPlane`` (the quantized
@@ -158,7 +160,13 @@ class FusedOptimizer:
         leaves = _leaves(params)
         _check_views(leaves, opt_state.p, plan)
         lr, c1, c2 = self.scalars(opt_state.count)
-        for i, g in enumerate(_grad_buckets(plan, leaves, grads)):
+        g_bufs = _grad_buckets(plan, leaves, grads)
+        if self.optimizer == "sgdm" and self.quant == "off":
+            # one K4 launch over every bucket
+            ok.sgdm_fp32_buckets(opt_state.p, g_bufs, opt_state.m, lr,
+                                 mu=self.momentum, wd=self.weight_decay)
+            return params, opt_state._replace(count=opt_state.count + 1)
+        for i, g in enumerate(g_bufs):
             if self.optimizer == "sgdm":
                 ok.sgdm_bucket(opt_state.p[i], g, opt_state.m[i], lr,
                                mu=self.momentum, wd=self.weight_decay,

@@ -1,11 +1,14 @@
-"""chip_smoke.py's build gate for the flash backward, on the CPU.
+"""chip_smoke.py's build gate for the bf16 flash kernels (the forward K1
+and the backward K2/K3), on the CPU.
 
-On a card the gate reads ptxas's log and the SASS of the built library
+On a card the gate reads ptxas's log and the SASS of each built library
 (cuobjdump) and fails unless each bf16 wgmma body holds wgmma (HGMMA) and
 TMA loads (UTMALDG), spills nothing, and never writes a register that a
-wgmma in flight reads as its A operand. Its parsers are plain Python, so
-they are held here to logs and SASS written by hand in the tools' formats,
-including the two clobbering patterns the gate exists for.
+wgmma reads as its A operand before the product, or the next turn of its
+loop, has read it. Its parsers are plain Python, so they are held here to
+logs and SASS written by hand in the tools' formats (an HGMMA marked gsb0
+closes a commit group, as in cuobjdump's output), including the
+clobbering patterns the gate exists for.
 """
 
 import importlib.util
@@ -22,11 +25,14 @@ K2 = ("_ZN45_GLOBAL__N__da1476e7_12_flash_bwd_cu_a119745d17dkdv_wgmma_kernel"
       "ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iifi")
 K3 = ("_ZN45_GLOBAL__N__da1476e7_12_flash_bwd_cu_a119745d13dq_fma_kernel"
       "ILi128EEEvPKfS2_S2_S2_S2_S2_PfS3_iiNS_7StridesEfi")
+K1 = ("_ZN45_GLOBAL__N__418534f1_12_flash_fwd_cu_71b00afc22flash_fwd_wgmma_"
+      "kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiifi")
 
 
 @pytest.mark.parametrize("mangled,name", [
     (K2, "dkdv_wgmma_kernel<64>"),
     (K3, "dq_fma_kernel<128>"),
+    (K1, "flash_fwd_wgmma_kernel<64>"),
     ("_Z16adam_fp32_kernelPfS_", "adam_fp32_kernel"),
     ("_Z3foov", "_Z3foov"),
 ])
@@ -50,10 +56,21 @@ def test_ptxas_kernels_reads_registers_and_spills_per_kernel():
     }
 
 
-def _sass(body: list[str]) -> str:
+def test_ptxas_kernels_reads_the_forward_s_wgmma_body():
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{K1}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {K1}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+    ])
+    assert cs.ptxas_kernels(log) == {
+        "flash_fwd_wgmma_kernel<64>": {"spill_bytes": 0, "registers": 168}}
+
+
+def _sass(body: list[str], mangled: str = K2) -> str:
     """cuobjdump's layout: a function header, then one instruction a line
     at 16-byte addresses, each followed by its encoding comment."""
-    lines = [f"\t\tFunction : {K2}"]
+    lines = [f"\t\tFunction : {mangled}"]
     for i, ins in enumerate(body):
         lines.append(f"        /*{16 * i:04x}*/                   {ins} ;"
                      "   /* 0x000000000000 */")
@@ -62,26 +79,53 @@ def _sass(body: list[str]) -> str:
     return "\n".join(lines)
 
 
-# A K2-like loop: the head at 0x10, the tile's second product reads its A
-# operand from R8..R11, and its wait comes in the next turn of the loop.
+# A K2-like loop: the head at 0x10, the tile's first product (S) and, as
+# the last group, its second product, which reads its A operand from
+# R8..R11 and is covered by the wait in the next turn of the loop (one
+# group, S, closes after it).
 _LOOP = [
-    "LDSM.16.M88.4 R20, [R1]",                                # 0x00
-    "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR9], R8",           # 0x10 head
-    "HGMMA.64x64x16.F32.BF16 R56, gdesc[UR16], RZ, !UPT",     # 0x20
-    "WARPGROUP.DEPBAR.LE gsb0, 0x1",                          # 0x30
-    "F2FP.BF16.F32.PACK_AB R8, R57, R56",                     # 0x40
-    "HGMMA.64x64x16.F32.BF16 R88, R8, gdesc[UR8].tnspB, R88", # 0x50
-    "IADD3 R2, R2, 0x1, RZ",                                  # 0x60
-    "@!P0 BRA 0x10",                                          # 0x70
-    "WARPGROUP.DEPBAR.LE gsb0, 0x0",                          # 0x80
-    "EXIT",                                                   # 0x90
+    "LDSM.16.M88.4 R20, [R1]",                                      # 0x00
+    "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR9], R8",                 # 0x10 head
+    "HGMMA.64x64x16.F32.BF16 R56, gdesc[UR16], RZ, !UPT, gsb0",     # 0x20
+    "WARPGROUP.DEPBAR.LE gsb0, 0x1",                                # 0x30
+    "F2FP.BF16.F32.PACK_AB R8, R57, R56",                           # 0x40
+    "HGMMA.64x64x16.F32.BF16 R88, R8, gdesc[UR8].tnspB, R88, gsb0", # 0x50
+    "IADD3 R2, R2, 0x1, RZ",                                        # 0x60
+    "@!P0 BRA 0x10",                                                # 0x70
+    "WARPGROUP.DEPBAR.LE gsb0, 0x0",                                # 0x80
+    "EXIT",                                                         # 0x90
+]
+
+# K1's loop as ptxas builds it: this tile's S, then the last tile's
+# O += P V (A operand R120..R123, made at the end of the last turn) as
+# two groups; the softmax runs between the wait for S and the wait for
+# P V; then the next turn's P is packed into R120.. and carried over the
+# back edge.
+_FWD_LOOP = [
+    "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R21+UR9], R24",                # 0x00 head
+    "WARPGROUP.ARRIVE",                                                  # 0x10
+    "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], RZ, !UPT, gsb0",         # 0x20
+    "HGMMA.64x64x16.F32.BF16 R88, R120, gdesc[UR20].tnspB, R88, gsb0",   # 0x30
+    "WARPGROUP.DEPBAR.LE gsb0, 0x1",                                     # 0x40
+    "FMUL R29, R29, R9",                                                 # 0x50
+    "MUFU.EX2 R30, R29",                                                 # 0x60
+    "WARPGROUP.DEPBAR.LE gsb0, 0x0",                                     # 0x70
+    "FMUL R88, R88, R4",                                                 # 0x80
+    "F2FP.BF16.F32.PACK_AB R120, R25, R24",                              # 0x90
+    "F2FP.BF16.F32.PACK_AB R121, R27, R26",                              # 0xa0
+    "@!P0 BRA 0x0",                                                      # 0xb0
+    "EXIT",                                                              # 0xc0
 ]
 
 
-def _hazards(body):
-    (name, ins), = cs.sass_functions(_sass(body)).items()
-    assert name == "dkdv_wgmma_kernel<64>"
+def _hazards(body, mangled=K2, name="dkdv_wgmma_kernel<64>"):
+    (got, ins), = cs.sass_functions(_sass(body, mangled)).items()
+    assert got == name
     return cs.wgmma_a_hazards(ins)
+
+
+def _fwd_hazards(body):
+    return _hazards(body, K1, "flash_fwd_wgmma_kernel<64>")
 
 
 def test_sass_functions_counts_instructions():
@@ -107,10 +151,69 @@ def test_loop_invariant_operand_written_in_the_loop_is_a_hazard():
     loop (R20, by ldmatrix) and overwritten later in the loop, so the next
     turn's product reads another value."""
     body = list(_LOOP)
-    body[2] = "HGMMA.64x64x16.F32.BF16 R56, R20, gdesc[UR16], RZ, !UPT"
+    body[2] = "HGMMA.64x64x16.F32.BF16 R56, R20, gdesc[UR16], RZ, !UPT, gsb0"
     body[4] = "F2FP.BF16.F32.PACK_AB R20, R57, R56"
-    body[5] = "HGMMA.64x64x16.F32.BF16 R88, R20, gdesc[UR8].tnspB, R88"
+    body[5] = "HGMMA.64x64x16.F32.BF16 R88, R20, gdesc[UR8].tnspB, R88, gsb0"
     assert _hazards(body) == [("0x40", "F2FP.BF16.F32.PACK_AB R20, R57, R56")]
+
+
+def test_pipelined_operand_made_for_the_next_turn_is_no_hazard():
+    """K1's P, packed after the wait that covers the product reading it
+    and carried unread over the back edge, is the next turn's operand."""
+    (_, ins), = cs.sass_functions(_sass(_FWD_LOOP, K1)).items()
+    assert sum("HGMMA" in t for _, t in ins) == 2
+    assert _fwd_hazards(_FWD_LOOP) == []
+
+
+def test_write_while_the_later_group_runs_is_a_hazard():
+    """The wait for S (LE 0x1) does not cover O += P V, committed after
+    it: a softmax write into R121 before the wait for P V (LE 0x0)
+    clobbers the operand in flight. A first-wait rule would miss it."""
+    body = list(_FWD_LOOP)
+    body[5] = "FMUL R121, R29, R9"
+    assert _fwd_hazards(body) == [("0x50", "FMUL R121, R29, R9")]
+
+
+def test_pipelined_operand_read_before_the_back_edge_is_a_hazard():
+    """A value packed into R120 and read by something else before the
+    back edge was made for another use: the next turn's product would
+    read it as its operand."""
+    body = list(_FWD_LOOP)
+    body[10] = "FADD R5, R120, R3"
+    assert _fwd_hazards(body) == [
+        ("0x90", "F2FP.BF16.F32.PACK_AB R120, R25, R24")]
+
+
+def test_operand_register_reused_after_its_wait_then_rewritten_is_no_hazard():
+    """ptxas borrows R120 for a barrier's address once the wait for
+    O += P V (LE 0x0) has returned, then packs the next turn's P into it:
+    the value the next turn reads is the last one, unread before the back
+    edge."""
+    body = list(_FWD_LOOP)
+    body[8] = "@!P0 IMAD R120, R176, 0x8, R183"
+    body[9] = "@!P0 SYNCS.ARRIVE.TRANS64.A1T0 RZ, [R120+URZ], RZ"
+    body.insert(10, "F2FP.BF16.F32.PACK_AB R120, R25, R24")
+    body[-2] = "@!P0 BRA 0x0"
+    assert _fwd_hazards(body) == []
+    # the same borrowing before that wait clobbers the operand in flight
+    early = list(body)
+    early[5], early[8] = early[8], early[5]
+    assert _fwd_hazards(early) == [("0x50", "@!P0 IMAD R120, R176, 0x8, R183")]
+
+
+def test_sass_operands_split_the_destination_from_the_sources():
+    assert cs.sass_operands("F2FP.BF16.F32.PACK_AB R120, R25, R24") == (
+        "R120", ["R25", "R24"])
+    assert cs.sass_operands("@!P0 IADD3 R9, R2, 0x1, RZ") == ("R9", ["R2"])
+    assert cs.sass_operands(
+        "HGMMA.64x64x16.F32.BF16 R88, R120, gdesc[UR20].tnspB, R88, gsb0"
+    ) == (None, ["R88", "R120", "R88"])
+    assert cs.sass_operands("STS.128 [R3], R8") == (None, ["R3", "R8"])
+    assert cs.sass_operands("SHFL.BFLY PT, R121, R4, 0x1, 0x1f") == (
+        "R121", ["R4"])
+    assert cs.sass_operands("ISETP.GE.AND P0, PT, R2, R3, PT") == (
+        None, ["R2", "R3"])
+    assert cs.FLASH_LIBS == ("flash_fwd", "flash_bwd")
 
 
 def test_bwd_tflops_counts_the_visible_pairs():

@@ -285,7 +285,7 @@ def test_comm_config_validation():
 
 
 def _tiny_problem():
-    loss_fn, state_fn, batch = comm._smoke_cnn(1)
+    loss_fn, state_fn, batch = comm._smoke_cnn(1, device="cpu")
     return loss_fn, state_fn, {k: torch.from_numpy(v)
                                for k, v in batch.items()}
 
@@ -340,3 +340,28 @@ def test_tree_bitwise_equal():
     assert not comm.tree_bitwise_equal(a, [a[0].double(), a[1]])
     assert not comm.tree_bitwise_equal(a, a[:1])
     assert comm.tree_bitwise_equal({"x": a[0]}, {"x": a[0].clone()})
+
+
+def test_convergence_smoke_asks_for_cuda_unless_told_the_cpu(monkeypatch):
+    """The port's entry points run on CUDA unless the caller passes
+    device="cpu": with no card, the default raises instead of moving to
+    the CPU; the smoke problems build their models where they are told."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        comm.convergence_smoke("int8", steps=1)
+    for smoke in (comm._smoke_cnn, comm._smoke_transformer):
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            smoke(1)
+        _, state_fn, _ = smoke(1, device="cpu")
+        assert all(p.device.type == "cpu"
+                   for p in state_fn().model.parameters())
+    batch = comm._local_rows({"x": np.arange(6, dtype=np.float32)}, "cpu")
+    assert batch["x"].device.type == "cpu" and batch["x"].numel() == 6
+
+
+def test_convergence_smoke_runs_on_the_device_it_is_given():
+    report = comm.convergence_smoke("int8", steps=2, device="cpu")
+    assert report["world"] == 1 and report["steps"] == 2
+    assert {"cnn", "transformer"} <= report.keys()
+    for model in ("cnn", "transformer"):
+        assert np.isfinite(report[model]["loss_dense"])

@@ -122,7 +122,7 @@ def test_smoke_problems_are_the_jax_package_s(comm_world):
     _, _, batches = comm_world
     for model, smoke in (("tr", comm._smoke_transformer),
                          ("cnn", comm._smoke_cnn)):
-        _, _, batch = smoke(2)
+        _, _, batch = smoke(2, device="cpu")
         assert batch.keys() == batches[model].keys()
         for k in batch:
             np.testing.assert_array_equal(batch[k], batches[model][k])

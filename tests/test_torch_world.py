@@ -263,7 +263,7 @@ def _task_comm_steps(inputs: dict, directory: Path) -> dict:
     out = {}
     for model, smoke in (("tr", comm._smoke_transformer),
                          ("cnn", comm._smoke_cnn)):
-        loss_fn, state_fn, batch = smoke(2)
+        loss_fn, state_fn, batch = smoke(2, device="cpu")
         local = comm._local_rows(batch)
         weights = {k.split("/", 1)[1]: torch.from_numpy(v)
                    for k, v in inputs.items() if k.startswith(model + "/")}
@@ -287,7 +287,7 @@ def _task_comm_steps(inputs: dict, directory: Path) -> dict:
                 for name, model in (("transformer", "tr"), ("cnn", "cnn"))}
     for name, smoke in (("transformer", comm._smoke_transformer),
                         ("cnn", comm._smoke_cnn)):
-        loss_fn, state_fn, batch = smoke(2)
+        loss_fn, state_fn, batch = smoke(2, device="cpu")
         gate = comm.loss_parity_gate(
             loss_fn, comm._loaded(state_fn, jax_init[name]),
             comm._local_rows(batch),
@@ -295,7 +295,7 @@ def _task_comm_steps(inputs: dict, directory: Path) -> dict:
         out[f"gate/{name}"] = np.array(json.dumps(gate))
     for mode in ("int8", "topk"):
         out[f"smoke/{mode}"] = np.array(json.dumps(
-            comm.convergence_smoke(mode, weights=jax_init)))
+            comm.convergence_smoke(mode, weights=jax_init, device="cpu")))
     return out
 
 
