@@ -27,11 +27,14 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              K6 (quantized momentum-SGD, int8 and fp8) and K7 (quantized
              Adam, int8 and fp8) over 3 steps of a 4 MiB, a ragged, an
              all-zero and a pinned-abs-max bucket with wd 0 and 1e-4
-             (p, moments, quantized payloads and scales), the fused
+             (p, moments, quantized payloads and scales), K5 and K7 in
+             one table over those four buckets, each step also repeated
+             in a second launch and held against the first, the fused
              optimizer's gate (every optimizer x quant mode), and (in the
              timing phase) two steps over every bucket of the main paths'
-             plans: the base LM's (K5, K7) and ResNet50_vd's (K4 as one
-             launch over all 24 buckets, K6);
+             plans: the base LM's (K5 as one launch over all 60 buckets;
+             K7 as one entry call, int8 and fp8 m) and ResNet50_vd's (K4
+             as one launch over all 24 buckets, K6);
              K8 (the int8 gradient pack: q and the scale's bits) on the
              CPU tests' grid, a 4 MiB shard and every compressed bucket
              of ResNet50_vd's comm plan at world 2 filled with one real
@@ -47,7 +50,9 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              backward) and each one's TFLOP/s over the products it
              computes. The optimizer kernels and K8 are timed over one
              step of their plan with the host queued ahead of the card
-             (device time);
+             (device time); K5 also launched once per bucket, and each
+             of K7's passes alone (C also with its loads and stores
+             alone) beside its bytes' bound;
 4. serve   — the transformer LM teacher at the repo's base config
              (bench.py's: vocab 32768, d_model 1024, 16 heads, 8 layers,
              d_ff 4096, S 1024, bf16 activations, fp32 params; seeded
@@ -61,13 +66,14 @@ Phases, each printed as JSON lines; any failure exits non-zero:
 6. train   — the port's lm_train.main at the base config, 16 rows a
              step, 20 steps (--bf16 --fused-opt fp32): step time, the
              forward / backward / optimizer split, launches per step
-             (exactly 8 K1, 8 K2, 8 K3 and one K5 per bucket), the loss
-             falling; then one step of flash against dense attention on
+             (exactly 8 K1, 8 K2, 8 K3 and one K5 over every bucket), the
+             loss falling; then one step of flash against dense attention on
              the trained weights, and each layer's dq from that step
              against the exact (fp64) gradient: K3's, and the one the
              JAX package's row term rowsum(dO*O), with O in bf16, gives;
 7. train_int8 — the same lm_train run with --fused-opt int8: exactly one
-             K7 per bucket a step beside K1-K3, the loss finite and
+             K7 entry call a step (a memset and three passes over every
+             bucket) beside K1-K3, peak memory, the loss finite and
              falling and within 0.25 x the fp32 run's improvement of its
              last loss, the optimizer state >= 1.8x smaller;
 8. train_resnet — the port's imagenet_train.main at bench.py's ResNet
@@ -775,13 +781,15 @@ def base_config():
 
 
 def phase_timing_adam(ok_mod, fo, gen) -> tuple[dict, int]:
-    """K5 over every bucket of the base config's plan (one optimizer
-    step), against the plain `_adam_math` over the same buckets and
+    """K5 over every bucket of the base config's plan (one optimizer step,
+    one launch through adam_fp32_buckets, the entry fused_apply uses),
+    against the plain `_adam_math` over the same buckets,
     torch.optim.AdamW(fused=True) over the same parameters (timed only,
-    never used by the port). First, two steps of K5 over every bucket
+    never used by the port), and K5 launched once per bucket through the
+    one-bucket entry, in turns. First, two steps of K5 over every bucket
     are held against `_adam_math` bit for bit: the plan's large buckets
-    (up to 33.5M elements) are the ones whose launches loop over their
-    grid. Returns (the timings, the buckets checked)."""
+    (up to 33.5M elements) span every block of the grid. Returns (the
+    timings, the buckets checked)."""
     from edl_tpu_torch.bridge import flax_named_parameters
     from edl_tpu_torch.models.transformer import Transformer
 
@@ -799,6 +807,10 @@ def phase_timing_adam(ok_mod, fo, gen) -> tuple[dict, int]:
     hyper = dict(b1=tx.b1, b2=tx.b2, eps=tx.eps, wd=tx.weight_decay)
 
     def kernel_step():
+        ok_mod.adam_fp32_buckets(state.p, g_bufs, state.m, state.v, lr, c1,
+                                 c2, **hyper)
+
+    def per_bucket_step():
         for i in range(plan.n_buckets):
             ok_mod.adam_fp32(state.p[i], g_bufs[i], state.m[i], state.v[i],
                              lr, c1, c2, **hyper)
@@ -810,9 +822,9 @@ def phase_timing_adam(ok_mod, fo, gen) -> tuple[dict, int]:
     for step in range(2):
         s_lr, s_c1, s_c2 = tx.scalars(step)
         s_dev = [ok_mod._scalar(x, state.p[0]) for x in (s_lr, s_c1, s_c2)]
+        ok_mod.adam_fp32_buckets(kern[0], g_bufs, kern[1], kern[2], s_lr,
+                                 s_c1, s_c2, **hyper)
         for i in range(plan.n_buckets):
-            ok_mod.adam_fp32(kern[0][i], g_bufs[i], kern[1][i], kern[2][i],
-                             s_lr, s_c1, s_c2, **hyper)
             new = ok_mod._adam_math(plain[0][i], g_bufs[i], plain[1][i],
                                     plain[2][i], *s_dev, tx.b1, tx.b2,
                                     tx.eps, tx.weight_decay)
@@ -838,13 +850,15 @@ def phase_timing_adam(ok_mod, fo, gen) -> tuple[dict, int]:
     lib = torch.optim.AdamW([x for _, x in named], lr=lr, betas=(tx.b1, tx.b2),
                             eps=tx.eps, weight_decay=tx.weight_decay,
                             fused=True)
-    turns: dict[str, list[float]] = {"kernel": [], "library": []}
+    turns: dict[str, list[float]] = {"kernel": [], "library": [],
+                                     "per_bucket": []}
     for _ in range(3):
-        for key, fn in (("kernel", kernel_step), ("library", lib.step)):
+        for key, fn in (("kernel", kernel_step), ("library", lib.step),
+                        ("per_bucket", per_bucket_step)):
             ms, host_bound = time_ms_queued(fn, iters=10)
             if host_bound:
-                fail("adam_fp32: the host could not queue the timed "
-                     "launches ahead of the card")
+                fail(f"adam_fp32 ({key}): the host could not queue the "
+                     "timed launches ahead of the card")
             turns[key].append(ms)
     host_paced_ms = time_ms(kernel_step, iters=10)
     plain_ms = time_ms(plain_step, iters=3, warmup=1)
@@ -852,10 +866,13 @@ def phase_timing_adam(ok_mod, fo, gen) -> tuple[dict, int]:
     bound_ms = 28 * padded / PEAK_BYTES_S * 1e3
     out = {"ms": float(np.mean(turns["kernel"])), "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": "bytes",
-           "library_ms": float(np.mean(turns["library"]))}
+           "library_ms": float(np.mean(turns["library"])),
+           "per_bucket_launches_ms": float(np.mean(turns["per_bucket"]))}
     emit({"phase": "timing", "kernel": "adam_fp32", "buckets": plan.n_buckets,
           "padded_elems": padded, "per": "optimizer step (all buckets)",
+          "launches_per_step": -(-plan.n_buckets // ok_mod.ADAM_TABLE_MAX),
           "ms_turns": turns["kernel"], "library_ms_turns": turns["library"],
+          "per_bucket_launches_ms_turns": turns["per_bucket"],
           "timing": "device: launches queued behind a sleep kernel",
           "ms_host_paced": host_paced_ms,
           "library": "torch.optim.AdamW(fused=True)", **out})
@@ -1318,8 +1335,10 @@ def phase_train(fa, ok_mod) -> dict:
 
     state = seen["state"]
     n_buckets = len(state.opt_state.p)
+    # one K5 launch a step over every bucket (per ADAM_TABLE_MAX of them)
     want = {"flash_fwd": 8, "flash_bwd_dkdv": 8, "flash_bwd_dq": 8,
-            "adam_fp32": n_buckets, "adam_q": 0}
+            "adam_fp32": -(-n_buckets // ok_mod.ADAM_TABLE_MAX),
+            "adam_q": 0}
     check_launches(steps, want, "lm_train")
     losses = [st["loss"] for st in steps]
     summary = step_summary(steps)
@@ -1414,6 +1433,19 @@ OPT_BUCKETS = (("4MiB", 1 << 20, 1 << 20), ("ragged", 127_539, 127_616),
 OPT_BOUND_BYTES = {"sgdm_fp32": 20, "sgdm_q": 16, "adam_q": 20}
 
 
+def opt_bucket(gen, label: str, payload: int, padded: int,
+               std: float) -> torch.Tensor:
+    """One of OPT_BUCKETS on the card: ``payload`` random elements of
+    ``std`` then zero padding; the pinned one's abs-max is one element."""
+    x = torch.zeros(padded, device="cuda")
+    if payload:
+        x[:payload] = torch.randn(payload, generator=gen,
+                                  device="cuda") * std
+    if label == "pinned_amax":
+        x[payload // 3] = -40 * std
+    return x
+
+
 def opt_moments(ok_mod, opt: str, quant: str, p: torch.Tensor) -> list:
     def zero():
         if quant == "off":
@@ -1443,13 +1475,23 @@ def opt_step(ok_mod, opt: str, quant: str, p, g, moments, scalars,
 
 def plan_step(ok_mod, opt: str, quant: str, p_bufs, g_bufs, moments,
               scalars, wd: float, plain: bool) -> None:
-    """One step over every bucket of a plan: momentum-SGD with fp32
-    momentum through the entry fused_apply uses (one K4 launch over all
-    the buckets), the others bucket by bucket; or the plain version
-    bucket by bucket."""
-    if opt == "sgdm" and quant == "off" and not plain:
-        ok_mod.sgdm_fp32_buckets(p_bufs, g_bufs, [m[0] for m in moments],
-                                 scalars[0], mu=0.9, wd=wd)
+    """One step over every bucket of a plan through the entry fused_apply
+    uses: one K4 or K5 launch over all the buckets, K7's entry over all of
+    them, K6 bucket by bucket; or the plain version bucket by bucket."""
+    if not plain and (opt == "adam" or quant == "off"):
+        lr, c1, c2 = scalars
+        ms = [m[0] for m in moments]
+        if opt == "sgdm":
+            ok_mod.sgdm_fp32_buckets(p_bufs, g_bufs, ms, lr, mu=0.9, wd=wd)
+            return
+        vs = [m[1] for m in moments]
+        hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=wd)
+        if quant == "off":
+            ok_mod.adam_fp32_buckets(p_bufs, g_bufs, ms, vs, lr, c1, c2,
+                                     **hyper)
+        else:
+            ok_mod.adam_q_buckets(p_bufs, g_bufs, ms, vs, lr, c1, c2,
+                                  quant=quant, **hyper)
         return
     for p, g, m in zip(p_bufs, g_bufs, moments):
         opt_step(ok_mod, opt, quant, p, g, m, scalars, wd, plain)
@@ -1471,16 +1513,9 @@ def phase_kernels_opt(ok_mod, fo, gen) -> dict:
            "adam": fo.fused_adam(lambda step: 3e-4 * (step + 1) / 3)}
     checks = {name: 0 for name, _, _ in OPT_KINDS}
     for label, payload, padded in OPT_BUCKETS:
-        def bucket(std):
-            x = torch.zeros(padded, device="cuda")
-            if payload:
-                x[:payload] = torch.randn(payload, generator=gen,
-                                          device="cuda") * std
-            if label == "pinned_amax":
-                x[payload // 3] = -40 * std
-            return x
-        p0 = bucket(0.1)
-        grads = [bucket(0.02) for _ in range(3)]
+        p0 = opt_bucket(gen, label, payload, padded, 0.1)
+        grads = [opt_bucket(gen, label, payload, padded, 0.02)
+                 for _ in range(3)]
         for name, opt, quant in OPT_KINDS:
             for wd in (0.0, 1e-4):
                 kern = (p0.clone(), opt_moments(ok_mod, opt, quant, p0))
@@ -1509,6 +1544,70 @@ def phase_kernels_opt(ok_mod, fo, gen) -> dict:
                              f"step {step}: p err {err}, padding zero "
                              f"{pad_zero}")
                     checks[name] += 1
+    return {name: (0.0, n) for name, n in checks.items()}
+
+
+# K5 and K7 in one table launch over mixed buckets: (name, quant)
+TABLE_ORDER = ("ragged", "4MiB", "zero", "pinned_amax")
+TABLE_CASES = (("adam_fp32", "off"), ("adam_q", "int8"), ("adam_q", "fp8"))
+
+
+def clone_side(side: list) -> list:
+    """A copy of [(p, moments)] for every bucket (QPlanes included)."""
+    return [(p.clone(), [type(m)(*(t.clone() for t in m))
+                         if isinstance(m, tuple) else m.clone()
+                         for m in moments]) for p, moments in side]
+
+
+def phase_kernels_tables(ok_mod, fo, gen) -> dict:
+    """K5 and K7 (int8 and fp8 m) in one table over OPT_BUCKETS' ragged, 4 MiB, all-zero and pinned-abs-max
+    buckets, through the entries fused_apply uses: 3 steps with wd 0 and
+    1e-4 bit for bit against the plain version bucket by bucket, and each
+    step repeated from the same state in a second launch, bit for bit
+    against the first. The 4 MiB bucket's 1,024 chunks span the grid:
+    K7's new scales must wait for every block of its last pass. Returns
+    {name:
+    (0.0, checks)}: any difference fails."""
+    tx = fo.fused_adam(lambda step: 3e-4 * (step + 1) / 3)
+    spec = {label: (payload, padded) for label, payload, padded in OPT_BUCKETS}
+    p0 = [opt_bucket(gen, lb, *spec[lb], 0.1) for lb in TABLE_ORDER]
+    grads = [[opt_bucket(gen, lb, *spec[lb], 0.02) for lb in TABLE_ORDER]
+             for _ in range(3)]
+    checks = {"adam_fp32": 0, "adam_q": 0}
+    for name, quant in TABLE_CASES:
+        for wd in (0.0, 1e-4):
+            kern = [(p.clone(), opt_moments(ok_mod, "adam", quant, p))
+                    for p in p0]
+            plain = clone_side(kern)
+            for step, g in enumerate(grads):
+                scalars = tx.scalars(step)
+                again = clone_side(kern)
+                for side, is_plain in ((kern, False), (plain, True),
+                                       (again, False)):
+                    plan_step(ok_mod, "adam", quant, [p for p, _ in side], g,
+                              [m for _, m in side], scalars, wd, is_plain)
+                torch.cuda.synchronize()
+
+                def same(a, b):
+                    return all(fo.bitwise_equal(x, y)
+                               for u, w in zip(a, b)
+                               for x, y in zip(opt_tensors(*u),
+                                               opt_tensors(*w)))
+
+                bitwise, repeat = same(kern, plain), same(kern, again)
+                pad_zero = all(not t[spec[lb][0]:].any().item()
+                               for lb, side in zip(TABLE_ORDER, kern)
+                               for t in opt_tensors(*side) if t.dim() == 1)
+                emit({"phase": "kernels", "kernel": name, "quant": quant,
+                      "table": list(TABLE_ORDER), "wd": wd,
+                      "step": step, "bitwise": bitwise,
+                      "bitwise_repeat": repeat, "padding_zero": pad_zero,
+                      "ok": bitwise and repeat and pad_zero})
+                if not (bitwise and repeat and pad_zero):
+                    fail(f"{name} ({quant}) over the mixed table, "
+                         f"wd {wd}, step {step}: bit for bit {bitwise}, "
+                         f"repeat {repeat}, padding zero {pad_zero}")
+                checks[name] += 1
     return {name: (0.0, n) for name, n in checks.items()}
 
 
@@ -1560,10 +1659,10 @@ def plan_bitwise(ok_mod, fo, name, opt, quant, tx, p_bufs, g_bufs,
 
 def time_plan(ok_mod, name, opt, quant, tx, p_bufs, g_bufs, wd,
               library=None) -> dict:
-    """One optimizer step over every bucket of a plan (`plan_step`: K4 as
-    one launch, as fused_apply runs it): the kernel and the library call
-    in turns (3 turns of 10 steps), the plain version over 3 steps, and
-    the bound from the bytes the kernel must move."""
+    """One optimizer step over every bucket of a plan (`plan_step`, as
+    fused_apply runs it): the kernel and the library call in turns (3
+    turns of up to 10 steps), the plain version over 3 steps, and the
+    bound from the bytes the kernel must move."""
     moments = [opt_moments(ok_mod, opt, quant, p) for p in p_bufs]
     scalars = tx.scalars(0)
 
@@ -1573,9 +1672,14 @@ def time_plan(ok_mod, name, opt, quant, tx, p_bufs, g_bufs, wd,
 
     turns: dict[str, list[float]] = {"kernel": [], "library": []}
     host_bound = False
-    # stream entries of one step: one K4 launch, or a memset and three
-    # passes per bucket for the quantized kernels
-    entries = 1 if quant == "off" else 4 * len(p_bufs)
+    # stream entries of one step: one K4 launch; a memset and three passes
+    # for K7 (per ADAM_Q_TABLE_MAX buckets) and for K6 (per bucket)
+    if quant == "off":
+        entries = 1
+    elif opt == "adam":
+        entries = 4 * -(-len(p_bufs) // ok_mod.ADAM_Q_TABLE_MAX)
+    else:
+        entries = 4 * len(p_bufs)
     iters = max(2, min(10, 800 // entries))
     for _ in range(3):
         ms, hb = time_ms_queued(lambda: step(False), iters=iters)
@@ -1598,8 +1702,8 @@ def time_plan(ok_mod, name, opt, quant, tx, p_bufs, g_bufs, wd,
           "per": "optimizer step (all buckets)",
           "ms_turns": turns["kernel"], "library_ms_turns": turns["library"],
           "timing": "device: launches queued behind a sleep kernel",
-          "queued_steps": iters, "host_bound": host_bound,
-          "ms_host_paced": host_paced_ms, **out})
+          "stream_entries": entries, "queued_steps": iters,
+          "host_bound": host_bound, "ms_host_paced": host_paced_ms, **out})
     if host_bound:
         fail(f"{name}: the host could not queue the timed launches ahead "
              "of the card")
@@ -1638,12 +1742,18 @@ def phase_timing_sgdm(ok_mod, fo, gen) -> tuple[dict, dict]:
     return timing, checks
 
 
+# bytes an element each K7 pass moves (A, B: g and four planes read; C:
+# p, g read, p written, four planes read and written)
+K7_PASS_BYTES = {"A": 8, "B": 8, "C": 20, "C_loads_only": 20}
+
+
 def phase_timing_adam_q(ok_mod, fo, gen) -> tuple[dict, int]:
     """K7 over every bucket of the base LM config's plan: 2 steps bit for
     bit against the plain version (int8 and fp8 m), then one step's time
-    (int8, lm_train's quantized path). No PyTorch call computes a
-    quantized-moment Adam: library_ms is null. Returns (timing,
-    checks)."""
+    (int8, lm_train's quantized path), and each pass alone (A, B, C, and
+    C with its loads and stores alone) beside its bytes' bound. No PyTorch
+    call computes a quantized-moment Adam: library_ms is null. Returns
+    (timing, checks)."""
     from edl_tpu_torch.models.transformer import Transformer
 
     model = Transformer(base_config(), device="cuda", seed=0)
@@ -1653,7 +1763,31 @@ def phase_timing_adam_q(ok_mod, fo, gen) -> tuple[dict, int]:
                               g_bufs, 0.01) for q in ("int8", "fp8"))
     timing = time_plan(ok_mod, "adam_q", "adam", "int8", tx, state.p,
                        g_bufs, 0.01)
-    del state, model, named, g_bufs
+    p_bufs = state.p
+    ms = [ok_mod.zero_plane(p.numel(), "int8", device="cuda") for p in p_bufs]
+    vs = [ok_mod.zero_plane(p.numel(), ok_mod.V_QUANT, device="cuda")
+          for p in p_bufs]
+    lr, c1, c2 = tx.scalars(0)
+    hyper = dict(b1=tx.b1, b2=tx.b2, eps=tx.eps, wd=0.01, quant="int8")
+    # one full step first: the passes alone then read its words
+    ok_mod.adam_q_buckets(p_bufs, g_bufs, ms, vs, lr, c1, c2, **hyper)
+    padded = sum(p.numel() for p in p_bufs)
+    pass_ms, pass_bound, host_bound = {}, {}, {}
+    for which, key in enumerate(K7_PASS_BYTES):
+        pass_ms[key], host_bound[key] = time_ms_queued(
+            lambda: ok_mod.adam_q_pass(p_bufs, g_bufs, ms, vs, lr, c1, c2,
+                                       which=which, **hyper), iters=10)
+        pass_bound[key] = K7_PASS_BYTES[key] * padded / PEAK_BYTES_S * 1e3
+    emit({"phase": "timing", "kernel": "adam_q", "quant": "int8",
+          "buckets": len(p_bufs), "padded_elems": padded,
+          "passes_ms": pass_ms, "passes_bound_ms": pass_bound,
+          "timing": "device: launches queued behind a sleep kernel",
+          "host_bound": host_bound})
+    if any(host_bound.values()):
+        fail(f"adam_q: the host could not queue the timed passes ahead of "
+             f"the card: {host_bound}")
+    timing["passes_ms"] = pass_ms
+    del state, model, named, g_bufs, ms, vs
     torch.cuda.empty_cache()
     return timing, checks
 
@@ -1690,8 +1824,9 @@ def envelope_check(what: str, fp32: dict, quant: dict) -> dict:
 
 def phase_train_int8(fa, ok_mod, fp32: dict) -> dict:
     """lm_train with the train phase's argv but --fused-opt int8: exactly
-    8 K1, 8 K2, 8 K3 and one K7 per bucket each step; the loss finite and
-    falling and within the envelope of the train phase's fp32 run."""
+    8 K1, 8 K2, 8 K3 and one K7 entry call (a memset and three passes over
+    every bucket) each step; the loss finite and falling and within the
+    envelope of the train phase's fp32 run."""
     import tempfile
 
     from edl_tpu_torch.examples import lm_train
@@ -1709,8 +1844,10 @@ def phase_train_int8(fa, ok_mod, fp32: dict) -> dict:
         fail(f"lm_train.main --fused-opt int8 returned {run['rc']}")
     state = run["seen"]["state"]
     n_buckets = len(state.opt_state.p)
+    # one K7 entry call a step over every bucket (per ADAM_Q_TABLE_MAX)
     want = {"flash_fwd": 8, "flash_bwd_dkdv": 8, "flash_bwd_dq": 8,
-            "adam_fp32": 0, "adam_q": n_buckets}
+            "adam_fp32": 0,
+            "adam_q": -(-n_buckets // ok_mod.ADAM_Q_TABLE_MAX)}
     check_launches(run["steps"], want, "lm_train --fused-opt int8")
     losses = [st["loss"] for st in run["steps"]]
     summary = step_summary(run["steps"])
@@ -2385,6 +2522,8 @@ def main() -> int:
     errs.update(phase_kernels_bwd(fa, gen))
     errs.update(phase_kernels_adam(ok_mod, fo, gen))
     errs.update(phase_kernels_opt(ok_mod, fo, gen))
+    for name, (_, n) in phase_kernels_tables(ok_mod, fo, gen).items():
+        errs[name] = (0.0, errs[name][1] + n)
     pack_errs, pack_bufs = phase_kernels_pack(pack_mod, gen)
     errs.update(pack_errs)
     timing = {"flash_fwd": phase_timing(fa, gen)}

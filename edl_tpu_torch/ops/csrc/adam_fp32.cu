@@ -1,10 +1,11 @@
-// Fused Adam(W) update of one flat fp32 bucket for Hopper (sm_90a).
+// Fused Adam(W) over flat fp32 buckets for Hopper (sm_90a): K5.
 //
 // Replaces the TPU kernel edl_tpu/ops/opt_kernels.py::_adam_fp32_kernel
-// (called from _adam_fp32_pallas through pl.pallas_call). Same contract:
-// p, g, m, v are one flat fp32 bucket, padded to a multiple of 128
-// elements (the zero padding is a fixed point of the update); p, m and v
-// are rewritten in place. Per element, in _adam_math's expression order:
+// (called from _adam_fp32_pallas through pl.pallas_call, once per
+// bucket). Same contract: p, g, m, v are one flat fp32 bucket each,
+// padded to a multiple of 128 elements (the zero padding is a fixed point
+// of the update); p, m and v are rewritten in place. Per element, in
+// _adam_math's expression order:
 //   v  = max(v, 0)
 //   m' = (1 - b1) g + b1 m
 //   v' = (1 - b2) (g g) + b2 v
@@ -13,30 +14,54 @@
 // lr, c1 = 1 - b1^t and c2 = 1 - b2^t come by value from the host, so a
 // step needs no device-to-host read.
 //
-// Design. The TPU kernel ran the bucket through VMEM in one pass. Here a
-// grid-stride loop reads p, g, m, v as float4 (buckets are 128-aligned)
-// and writes p, m, v back, once each. Every operation is an IEEE
-// intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc
-// never contracts, and the file is built with -fmad=false besides: the
-// kernel then matches the unfused PyTorch sequence of _adam_math bit for
-// bit.
+// Design. One launch covers every bucket of a step (up to MAX_BUCKETS):
+// a table of each bucket's p, g, m, v and float4 count (table.cuh), one
+// grid over all the chunks, each thread updating one float4 of a chunk
+// (buckets are 128-aligned), reading p, g, m, v and writing p, m, v once
+// each. One bucket is the one-entry table. Launching once per bucket
+// paid each launch's ramp and tail (the base LM has 60 buckets), and a
+// grid of 8 blocks a SM left a second wave: this body needs more than 32
+// registers a thread, so fewer blocks fit; the grid is now what the card
+// holds at once. Every operation is an IEEE intrinsic (__fmul_rn,
+// __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc never contracts, and the
+// file is built with -fmad=false besides: the kernel then matches the
+// unfused PyTorch sequence of _adam_math bit for bit.
 //
 // Bound on an H100 SXM: 28 bytes an element (p, g, m, v read; p, m, v
 // written) and 12 flops; memory bound at 3.35 TB/s. At the base LM
-// config's 168.9M parameters that is 4.73 GB, about 1.41 ms a step,
-// spread over the buckets of the plan.
+// config's 168.9M parameters that is 4.73 GB, about 1.41 ms a step.
 
 #include <cuda_runtime.h>
+
+#include "table.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 132 * 8;   // 8 resident blocks on each of 132 SMs
+// Buckets a launch takes: the table stays within 4 KB of parameters.
+constexpr int MAX_BUCKETS = 90;
 
 struct Hyper {
   float lr, c1, c2, b1, omb1, b2, omb2, eps, wd;
   int use_wd;
 };
+
+struct Bucket {
+  float4* p;
+  const float4* g;
+  float4* m;
+  float4* v;
+  long long n4;         // float4s
+};
+
+struct Table {
+  Bucket b[MAX_BUCKETS];
+  int cend[MAX_BUCKETS];
+  int n;
+};
+
+static_assert(sizeof(Table) + sizeof(Hyper) <= 4096,
+              "K5's table must fit 4 KB of kernel parameters");
 
 __device__ __forceinline__ void adam_one(float& p, float g, float& m, float& v,
                                          const Hyper& hp) {
@@ -50,20 +75,25 @@ __device__ __forceinline__ void adam_one(float& p, float g, float& m, float& v,
 }
 
 __global__ void __launch_bounds__(THREADS)
-adam_fp32_kernel(float4* __restrict__ p, const float4* __restrict__ g,
-                 float4* __restrict__ m, float4* __restrict__ v, long long n4,
-                 Hyper hp) {
-  for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * THREADS) {
-    float4 pp = p[i], mm = m[i], vv = v[i];
-    const float4 gg = g[i];
-    adam_one(pp.x, gg.x, mm.x, vv.x, hp);
-    adam_one(pp.y, gg.y, mm.y, vv.y, hp);
-    adam_one(pp.z, gg.z, mm.z, vv.z, hp);
-    adam_one(pp.w, gg.w, mm.w, vv.w, hp);
-    p[i] = pp;
-    m[i] = mm;
-    v[i] = vv;
+adam_fp32_kernel(const __grid_constant__ Table tab, Hyper hp) {
+  const int chunks = tab.cend[tab.n - 1];
+  int b = 0;
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    b = edl::bucket_of(tab.cend, b, c);
+    const Bucket& bk = tab.b[b];
+    const long long i =
+        (long long)(c - (b ? tab.cend[b - 1] : 0)) * THREADS + threadIdx.x;
+    if (i < bk.n4) {
+      float4 pp = bk.p[i], mm = bk.m[i], vv = bk.v[i];
+      const float4 gg = bk.g[i];
+      adam_one(pp.x, gg.x, mm.x, vv.x, hp);
+      adam_one(pp.y, gg.y, mm.y, vv.y, hp);
+      adam_one(pp.z, gg.z, mm.z, vv.z, hp);
+      adam_one(pp.w, gg.w, mm.w, vv.w, hp);
+      bk.p[i] = pp;
+      bk.m[i] = mm;
+      bk.v[i] = vv;
+    }
   }
 }
 
@@ -71,21 +101,36 @@ adam_fp32_kernel(float4* __restrict__ p, const float4* __restrict__ g,
 
 extern "C" {
 
-// n: elements, a multiple of 4 (buckets are padded to 128); every pointer
-// 16-byte aligned. omb1 = 1 - b1 and omb2 = 1 - b2 as the host rounds
-// them to fp32. Returns a cudaError_t (0 = launched).
-int edl_adam_fp32(void* p, const void* g, void* m, void* v, long long n,
-                  float lr, float c1, float c2, float b1, float omb1, float b2,
-                  float omb2, float eps, float wd, int use_wd, void* stream) {
-  if (n % 4 != 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n4 = n / 4;
-  long long blocks = (n4 + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
+// K5 over `count` buckets (1..90) in one launch. ptrs: p, g, m, v of
+// each bucket in turn (4 a bucket, each 16-byte aligned); n[i]: bucket
+// i's elements, a multiple of 4. omb1 = 1 - b1 and omb2 = 1 - b2 as the
+// host rounds them to fp32. Returns a cudaError_t (0 = launched).
+int edl_adam_fp32_buckets(void* const* ptrs, const long long* n, int count,
+                          float lr, float c1, float c2, float b1, float omb1,
+                          float b2, float omb2, float eps, float wd,
+                          int use_wd, void* stream) {
+  if (count <= 0 || count > MAX_BUCKETS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Table tab;
+  tab.n = count;
+  long long chunks = 0;
+  for (int i = 0; i < count; ++i) {
+    if (n[i] % 4 != 0 || n[i] <= 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    void* const* q = ptrs + 4 * i;
+    const long long n4 = n[i] / 4;
+    tab.b[i] = {static_cast<float4*>(q[0]), static_cast<const float4*>(q[1]),
+                static_cast<float4*>(q[2]), static_cast<float4*>(q[3]), n4};
+    chunks += (n4 + THREADS - 1) / THREADS;
+    if (chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    tab.cend[i] = static_cast<int>(chunks);
+  }
+  static const long long resident =
+      edl::resident_blocks(adam_fp32_kernel, THREADS);
   const Hyper hp{lr, c1, c2, b1, omb1, b2, omb2, eps, wd, use_wd};
-  adam_fp32_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float4*>(p), static_cast<const float4*>(g),
-      static_cast<float4*>(m), static_cast<float4*>(v), n4, hp);
+  adam_fp32_kernel<<<static_cast<unsigned>(chunks < resident ? chunks
+                                                             : resident),
+                     THREADS, 0, static_cast<cudaStream_t>(stream)>>>(tab, hp);
   return static_cast<int>(cudaGetLastError());
 }
 

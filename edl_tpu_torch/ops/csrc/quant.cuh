@@ -1,16 +1,17 @@
 // Shared pieces of the quantized-moment optimizer kernels (K6 in sgdm.cu,
 // K7 in adam_q.cu) for Hopper (sm_90a): the QPlane codec of
-// edl_tpu/ops/opt_kernels.py (_dq2 / _rq2), a block-wide abs-max that
-// folds into one device word, and the two requantization passes.
+// edl_tpu/ops/opt_kernels.py (_dq2 / _rq2) and a block-wide abs-max that
+// folds into one device word, used by both; and K6's two requantization
+// passes (K7 recomputes its moments in each pass instead, adam_q.cu).
 //
 // A moment plane at rest is (q, scale, rq, rscale): q = quant(m, scale),
 // rq = quant(m - deq(q, scale), rscale), each scale the bucket's abs-max
 // over 127 (int8) or 448 (fp8 e4m3), 1.0 for an all-zero bucket. On the
 // TPU one Pallas program held the whole bucket, so both abs-max
 // reductions were free. Here they cross blocks, and rscale depends on
-// scale, so a bucket takes three passes on one stream:
-//   1. the update (sgdm.cu / adam_q.cu): dequantize, update, write p,
-//      stage m' in an fp32 workspace, fold max|m'| into amax[0];
+// scale, so K6 takes three passes a bucket on one stream:
+//   1. the update (sgdm.cu): dequantize, update, write p, stage m' in an
+//      fp32 workspace, fold max|m'| into amax[0];
 //   2. requant_kernel<..., false>: scale from amax[0], write q and the
 //      scale, fold max|r| into amax[1], r = m' - deq(q, scale);
 //   3. requant_kernel<..., true>: scale and rscale from the words,

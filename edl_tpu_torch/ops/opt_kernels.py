@@ -23,10 +23,14 @@ Dispatch is by the tensors' device, never by a fallback:
 - a CUDA tensor launches the kernel or raises, each built at first use by
   ``ops/_build.py``: momentum-SGD runs K4 (``sgdm_fp32`` on one bucket,
   ``sgdm_fp32_buckets`` once over every bucket of a step;
-  ``csrc/sgdm.cu``) or K6 (``sgdm_q``, same file), Adam(W) runs K5
-  (``adam_fp32``, ``csrc/adam_fp32.cu``) or K7 (``adam_q``,
-  ``csrc/adam_q.cu``). Each launcher counts its calls in ``.launches``;
-  K6 and K7 are three passes on one stream per call (``csrc/quant.cuh``).
+  ``csrc/sgdm.cu``) or K6 (``sgdm_q``, same file, three passes a bucket
+  through ``csrc/quant.cuh``), Adam(W) runs K5 (``adam_fp32`` on one
+  bucket, ``adam_fp32_buckets`` in one launch over every bucket of a
+  step; ``csrc/adam_fp32.cu``) or K7 (``adam_q`` on one bucket,
+  ``adam_q_buckets`` over every bucket of a step: a memset and three
+  passes over a table of the buckets, no workspace; ``csrc/adam_q.cu``).
+  One bucket is the one-entry table. Each launcher counts its calls in
+  ``.launches`` (``adam_q``: the calls of the C entry, each a whole K7).
 
 The scalars lr, c1 = 1 - b1^t and c2 = 1 - b2^t are host floats. The
 plain version makes them, and the codecs' constants, 0-dim fp32 tensors on
@@ -157,6 +161,14 @@ def _sgdm_math(p, g, m, lr, mu: float, wd: float):
     return p_new, m_new
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The fp32 square root, correctly rounded on any device. torch's
+    vectorized CPU sqrt is an ulp off for some inputs, while JAX's and
+    the kernels' (__fsqrt_rn) are not; the float64 root rounded once to
+    fp32 is correctly rounded (53 >= 2 x 24 + 2 bits)."""
+    return torch.sqrt(x.double()).float()
+
+
 def _adam_math(p, g, m, v, lr, c1, c2, b1: float, b2: float,
                eps: float, wd: float):
     # v >= +0.0 exactly on the fp32 path, so the clamp is bitwise-neutral
@@ -164,7 +176,7 @@ def _adam_math(p, g, m, v, lr, c1, c2, b1: float, b2: float,
     v = torch.clamp_min(v, 0.0)
     m_new = (1 - b1) * g + b1 * m
     v_new = (1 - b2) * (g * g) + b2 * v
-    u = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
+    u = (m_new / c1) / (_sqrt_rn(v_new / c2) + eps)
     if wd:
         u = u + wd * p
     p_new = p + u * (-lr)
@@ -217,6 +229,11 @@ def _check_quant(quant: str) -> None:
         raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
 
 
+def _check_q(name: str, quant: str) -> None:
+    if quant not in ("int8", "fp8"):
+        raise ValueError(f"{name} takes quant int8 or fp8, got {quant!r}")
+
+
 def _check_aligned(name: str, t: torch.Tensor) -> None:
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} needs contiguous 16-byte aligned buckets")
@@ -261,18 +278,29 @@ _P, _F, _I, _L = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, \
     ctypes.c_longlong
 # C signature of each kernel library's entry point
 _SIGNATURES = {
-    "adam_fp32": ("edl_adam_fp32", [_P] * 4 + [_L] + [_F] * 9 + [_I, _P]),
+    "adam_fp32_buckets": ("edl_adam_fp32_buckets",
+                          [_P, _P, _I] + [_F] * 9 + [_I, _P]),
     "sgdm": ("edl_sgdm_fp32", [_P] * 3 + [_L] + [_F] * 3 + [_I, _P]),
     "sgdm_buckets": ("edl_sgdm_fp32_buckets",
                      [_P] * 4 + [_I] + [_F] * 3 + [_I, _P]),
     "sgdm_q": ("edl_sgdm_q", [_P] * 8 + [_L] + [_F] * 3 + [_I, _I, _P]),
-    "adam_q": ("edl_adam_q", [_P] * 12 + [_L] + [_F] * 9 + [_I, _I, _P]),
+    "adam_q_buckets": ("edl_adam_q_buckets",
+                       [_P, _P, _I, _P] + [_F] * 9 + [_I, _I, _P]),
+    "adam_q_pass": ("edl_adam_q_pass",
+                    [_P, _P, _I, _P, _I] + [_F] * 9 + [_I, _I, _P]),
 }
-_SOURCE = {"adam_fp32": "adam_fp32", "sgdm": "sgdm", "sgdm_buckets": "sgdm",
-           "sgdm_q": "sgdm", "adam_q": "adam_q"}
-# Buckets one K4 launch takes (sgdm.cu's MAX_BUCKETS: its table is passed
-# by value in the 4 KB of kernel parameters).
+_SOURCE = {"adam_fp32_buckets": "adam_fp32", "sgdm": "sgdm",
+           "sgdm_buckets": "sgdm", "sgdm_q": "sgdm",
+           "adam_q_buckets": "adam_q", "adam_q_pass": "adam_q"}
+# Buckets one launch takes (MAX_BUCKETS of sgdm.cu, adam_fp32.cu and
+# adam_q.cu): each table is passed by value as a kernel parameter, within
+# 4 KB for K4 and K5; K7's 88 bytes a bucket take CUDA 12.1's larger
+# parameter space.
 SGDM_TABLE_MAX = 96
+ADAM_TABLE_MAX = 90
+ADAM_Q_TABLE_MAX = 96
+# Device words of K7 a bucket: four abs-maxes and its last pass's count.
+_ADAM_Q_WORDS = 5
 
 
 _entries: dict[str, tuple] = {}
@@ -311,22 +339,67 @@ def _launch(kind: str, name: str, device: torch.device, *args) -> None:
                            + err_string(err).decode())
 
 
-# Scratch of K6/K7 (m' staged in fp32 between passes, and the abs-max
-# words), one per (device, stream): launches on one stream run in order,
-# so every bucket reuses it. Grown to the largest bucket seen, never
-# shrunk.
+def _launch_tables(kind: str, name: str, device: torch.device, limit: int,
+                   rows: list[tuple], *args) -> int:
+    """Launch the table entry ``kind`` once per ``limit`` buckets: rows[i]
+    holds bucket i's tensors in its table's order (its first, p, gives the
+    elements), passed as one flat array of pointers, then the sizes and
+    the count, then ``args``. Returns the entry calls made."""
+    calls = 0
+    for i in range(0, len(rows), limit):
+        part = rows[i:i + limit]
+        ptrs = [t.data_ptr() for row in part for t in row]
+        sizes = [row[0].numel() for row in part]
+        _launch(kind, name, device, (ctypes.c_void_p * len(ptrs))(*ptrs),
+                (ctypes.c_longlong * len(part))(*sizes), len(part), *args)
+        calls += 1
+    return calls
+
+
+# Scratch of K6 (m' staged in fp32 between passes) and the device words
+# of K6/K7 (abs-maxes, counts), one pair per (device, stream): launches on
+# one stream run in order, so every call reuses it. Grown to the largest
+# call seen, never shrunk.
 _workspaces: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _workspace(device: torch.device, floats: int
+def _workspace(device: torch.device, floats: int, words: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
     key = (device.index, _stream(device))
     ws = _workspaces.get(key)
-    if ws is None or ws[0].numel() < floats:
-        ws = (torch.empty(floats, dtype=torch.float32, device=device),
-              torch.empty(4, dtype=torch.int32, device=device))
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < words:
+        have = ws or (torch.empty(0), torch.empty(0))
+        ws = (torch.empty(max(floats, have[0].numel()), dtype=torch.float32,
+                          device=device),
+              torch.empty(max(words, have[1].numel()), dtype=torch.int32,
+                          device=device))
         _workspaces[key] = ws
     return ws
+
+
+def _check_lists(name: str, ps, gs, *moments, quant: str = "off"
+                 ) -> torch.device:
+    """The checks of an entry over every bucket of a step: lists of one
+    length, each bucket as its one-bucket entry takes it, all on one
+    device. Returns the device."""
+    if not ps or any(len(x) != len(ps) for x in (gs, *moments)):
+        raise ValueError(f"{name} takes one or more buckets and as many "
+                         f"gradients and moments, got "
+                         + ", ".join(str(len(x)) for x in (ps, gs, *moments)))
+    device = ps[0].device
+    for p, g, *ms in zip(ps, gs, *moments):
+        if quant == "off":
+            _check_bucket(name, p, g, *ms)
+        else:
+            _check_bucket(name, p, g)
+            for plane in ms:
+                _check_plane(name, p, plane)
+        if p.device != device:
+            raise ValueError(f"{name}: buckets on different devices: "
+                             f"{device} and {p.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {device}")
+    return device
 
 
 def sgdm_fp32(p, g, m, lr: float, *, mu: float, wd: float) -> None:
@@ -344,23 +417,11 @@ def sgdm_fp32_buckets(ps, gs, ms, lr: float, *, mu: float,
     place: on the card K4 once over a table of all the buckets (once per
     SGDM_TABLE_MAX of them), counted in ``sgdm_fp32.launches``; on the CPU
     the plain version bucket by bucket."""
-    if not len(ps) == len(gs) == len(ms) or not ps:
-        raise ValueError(f"sgdm_fp32_buckets takes one or more buckets and "
-                         f"as many gradients and moments, got {len(ps)}, "
-                         f"{len(gs)}, {len(ms)}")
-    device = ps[0].device
-    for p, g, m in zip(ps, gs, ms):
-        _check_bucket("sgdm_fp32_buckets", p, g, m)
-        if p.device != device:
-            raise ValueError("sgdm_fp32_buckets: buckets on different "
-                             f"devices: {device} and {p.device}")
+    device = _check_lists("sgdm_fp32_buckets", ps, gs, ms)
     if device.type == "cpu":
         for p, g, m in zip(ps, gs, ms):
             _sgdm_plain(p, g, m, lr, mu, wd, "off")
         return
-    if device.type != "cuda":
-        raise ValueError(f"sgdm_fp32_buckets runs on cpu or cuda, not "
-                         f"{device}")
     for i in range(0, len(ps), SGDM_TABLE_MAX):
         part = slice(i, i + SGDM_TABLE_MAX)
         n = len(ps[part])
@@ -378,9 +439,8 @@ def sgdm_q(p, g, plane: QPlane, lr: float, *, mu: float, wd: float,
     and scales) rewritten in place."""
     _check_bucket("sgdm_q", p, g)
     _check_plane("sgdm_q", p, plane)
-    if quant not in ("int8", "fp8"):
-        raise ValueError(f"sgdm_q takes quant int8 or fp8, got {quant!r}")
-    work, amax = _workspace(p.device, p.numel())
+    _check_q("sgdm_q", quant)
+    work, amax = _workspace(p.device, p.numel(), 2)
     _launch("sgdm_q", "sgdm_q", p.device, p.data_ptr(), g.data_ptr(),
             *(t.data_ptr() for t in plane), work.data_ptr(),
             amax.data_ptr(), p.numel(), float(lr), float(mu), float(wd),
@@ -388,35 +448,92 @@ def sgdm_q(p, g, plane: QPlane, lr: float, *, mu: float, wd: float,
     sgdm_q.launches += 1
 
 
+def _adam_scalars(lr, c1, c2, b1, b2, eps, wd) -> tuple:
+    """The C entries' fp32 scalars of Adam(W), after the table:
+    lr, c1, c2, b1, 1 - b1, b2, 1 - b2, eps, wd, use_wd."""
+    return (float(lr), float(c1), float(c2), float(b1), float(1 - b1),
+            float(b2), float(1 - b2), float(eps), float(wd), int(bool(wd)))
+
+
+def adam_fp32_buckets(ps, gs, ms, vs, lr: float, c1: float, c2: float, *,
+                      b1: float, b2: float, eps: float, wd: float) -> None:
+    """Adam(W) over every bucket of a step, p, m and v rewritten in place:
+    on the card K5 once over a table of all the buckets (once per
+    ADAM_TABLE_MAX of them), counted in ``adam_fp32.launches``; on the CPU
+    the plain version bucket by bucket."""
+    device = _check_lists("adam_fp32_buckets", ps, gs, ms, vs)
+    if device.type == "cpu":
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            _adam_plain(p, g, m, v, lr, c1, c2, b1, b2, eps, wd, "off")
+        return
+    adam_fp32.launches += _launch_tables(
+        "adam_fp32_buckets", "adam_fp32_buckets", device, ADAM_TABLE_MAX,
+        list(zip(ps, gs, ms, vs)), *_adam_scalars(lr, c1, c2, b1, b2, eps, wd))
+
+
 def adam_fp32(p, g, m, v, lr: float, c1: float, c2: float, *, b1: float,
               b2: float, eps: float, wd: float) -> None:
-    """Launch K5 on one bucket: p, m, v rewritten in place."""
-    _check_bucket("adam_fp32", p, g, m, v)
-    _launch("adam_fp32", "adam_fp32", p.device, p.data_ptr(), g.data_ptr(),
-            m.data_ptr(), v.data_ptr(), p.numel(), float(lr), float(c1),
-            float(c2), float(b1), float(1 - b1), float(b2), float(1 - b2),
-            float(eps), float(wd), int(bool(wd)))
-    adam_fp32.launches += 1
+    """Launch K5 on one bucket (the one-entry table): p, m, v rewritten in
+    place."""
+    adam_fp32_buckets([p], [g], [m], [v], lr, c1, c2, b1=b1, b2=b2, eps=eps,
+                      wd=wd)
+
+
+def _adam_q_rows(ps, gs, m_planes, v_planes) -> list[tuple]:
+    return [(p, g, *m, *v) for p, g, m, v in zip(ps, gs, m_planes, v_planes)]
+
+
+def adam_q_buckets(ps, gs, m_planes, v_planes, lr: float, c1: float,
+                   c2: float, *, b1: float, b2: float, eps: float, wd: float,
+                   quant: str) -> None:
+    """Adam(W) with quantized moments over every bucket of a step, p and
+    both QPlanes rewritten in place (m on ``quant``'s codec, v on
+    ``V_QUANT``'s): on the card K7 (a memset and its three passes over a
+    table of the buckets, once per ADAM_Q_TABLE_MAX of them), each call
+    of its entry counted in ``adam_q.launches``; on the CPU the plain
+    version bucket by bucket."""
+    _check_q("adam_q_buckets", quant)
+    device = _check_lists("adam_q_buckets", ps, gs, m_planes, v_planes,
+                          quant=quant)
+    if device.type == "cpu":
+        for p, g, m, v in zip(ps, gs, m_planes, v_planes):
+            _adam_plain(p, g, m, v, lr, c1, c2, b1, b2, eps, wd, quant)
+        return
+    _, words = _workspace(device, 0,
+                          _ADAM_Q_WORDS * min(len(ps), ADAM_Q_TABLE_MAX))
+    adam_q.launches += _launch_tables(
+        "adam_q_buckets", "adam_q_buckets", device, ADAM_Q_TABLE_MAX,
+        _adam_q_rows(ps, gs, m_planes, v_planes), words.data_ptr(),
+        *_adam_scalars(lr, c1, c2, b1, b2, eps, wd), int(quant == "fp8"))
+
+
+def adam_q_pass(ps, gs, m_planes, v_planes, lr: float, c1: float,
+                c2: float, *, b1: float, b2: float, eps: float, wd: float,
+                quant: str, which: int) -> None:
+    """One pass of K7 alone over a table of CUDA buckets, for timing
+    (csrc/adam_q.cu, edl_adam_q_pass): ``which`` 0, 1, 2 = passes A, B, C;
+    3 = C's loads and stores without its arithmetic. Not counted in
+    ``adam_q.launches``: no step runs it."""
+    _check_q("adam_q_pass", quant)
+    device = _check_lists("adam_q_pass", ps, gs, m_planes, v_planes,
+                          quant=quant)
+    if device.type != "cuda" or len(ps) > ADAM_Q_TABLE_MAX:
+        raise ValueError(f"adam_q_pass times one table of at most "
+                         f"{ADAM_Q_TABLE_MAX} CUDA buckets")
+    _, words = _workspace(device, 0, _ADAM_Q_WORDS * len(ps))
+    _launch_tables("adam_q_pass", "adam_q_pass", device, ADAM_Q_TABLE_MAX,
+                   _adam_q_rows(ps, gs, m_planes, v_planes), words.data_ptr(),
+                   int(which), *_adam_scalars(lr, c1, c2, b1, b2, eps, wd),
+                   int(quant == "fp8"))
 
 
 def adam_q(p, g, m_plane: QPlane, v_plane: QPlane, lr: float, c1: float,
            c2: float, *, b1: float, b2: float, eps: float, wd: float,
            quant: str) -> None:
-    """Launch K7 on one bucket (three passes): p and both QPlanes
+    """Launch K7 on one bucket (the one-entry table): p and both QPlanes
     rewritten in place; m on ``quant``'s codec, v on ``V_QUANT``'s."""
-    _check_bucket("adam_q", p, g)
-    _check_plane("adam_q", p, m_plane)
-    _check_plane("adam_q", p, v_plane)
-    if quant not in ("int8", "fp8"):
-        raise ValueError(f"adam_q takes quant int8 or fp8, got {quant!r}")
-    work, amax = _workspace(p.device, 2 * p.numel())
-    _launch("adam_q", "adam_q", p.device, p.data_ptr(), g.data_ptr(),
-            *(t.data_ptr() for t in m_plane),
-            *(t.data_ptr() for t in v_plane), work.data_ptr(),
-            amax.data_ptr(), p.numel(), float(lr), float(c1), float(c2),
-            float(b1), float(1 - b1), float(b2), float(1 - b2), float(eps),
-            float(wd), int(bool(wd)), int(quant == "fp8"))
-    adam_q.launches += 1
+    adam_q_buckets([p], [g], [m_plane], [v_plane], lr, c1, c2, b1=b1, b2=b2,
+                   eps=eps, wd=wd, quant=quant)
 
 
 sgdm_fp32.launches = 0

@@ -2,13 +2,14 @@
 ``edl_tpu.train.fused_opt``).
 
 Parameters are packed into the same flat, dtype-grouped, 128-padded
-buckets as the JAX package (``train/comm.plan_buckets``) and each
-bucket's whole momentum-SGD or Adam(W) update runs as one kernel call
-(``ops/opt_kernels.sgdm_bucket``/``adam_bucket``: K5 with fp32 moments,
-K6/K7 with quantized ones, on a card; the plain version on the CPU).
-Momentum-SGD with fp32 momentum takes one K4 launch over every bucket of
-the step (``ops/opt_kernels.sgdm_fp32_buckets``); the math per element
-is the same.
+buckets as the JAX package (``train/comm.plan_buckets``). A step hands
+every bucket to one entry of ``ops/opt_kernels``, which on a card runs
+one kernel call over a table of them: K4 (``sgdm_fp32_buckets``) or K5
+(``adam_fp32_buckets``) with fp32 moments, one launch; K7
+(``adam_q_buckets``) with quantized Adam moments, a memset and three
+passes. Quantized momentum-SGD runs K6 bucket by bucket
+(``sgdm_bucket``). On the CPU each entry runs the plain version bucket
+by bucket; the math per element is the JAX package's per-bucket update.
 
 Resident moment formats (``quant``): ``off`` keeps fp32 bucket buffers;
 ``int8``/``fp8`` keep each moment plane as a ``QPlane`` (the quantized
@@ -161,20 +162,20 @@ class FusedOptimizer:
         _check_views(leaves, opt_state.p, plan)
         lr, c1, c2 = self.scalars(opt_state.count)
         g_bufs = _grad_buckets(plan, leaves, grads)
-        if self.optimizer == "sgdm" and self.quant == "off":
-            # one K4 launch over every bucket
-            ok.sgdm_fp32_buckets(opt_state.p, g_bufs, opt_state.m, lr,
-                                 mu=self.momentum, wd=self.weight_decay)
-            return params, opt_state._replace(count=opt_state.count + 1)
-        for i, g in enumerate(g_bufs):
-            if self.optimizer == "sgdm":
-                ok.sgdm_bucket(opt_state.p[i], g, opt_state.m[i], lr,
-                               mu=self.momentum, wd=self.weight_decay,
-                               quant=self.quant)
-            else:
-                ok.adam_bucket(opt_state.p[i], g, opt_state.m[i],
-                               opt_state.v[i], lr, c1, c2, b1=self.b1,
-                               b2=self.b2, eps=self.eps,
+        st = opt_state
+        adam = dict(b1=self.b1, b2=self.b2, eps=self.eps,
+                    wd=self.weight_decay)
+        if self.optimizer == "adam" and self.quant == "off":
+            ok.adam_fp32_buckets(st.p, g_bufs, st.m, st.v, lr, c1, c2, **adam)
+        elif self.optimizer == "adam":
+            ok.adam_q_buckets(st.p, g_bufs, st.m, st.v, lr, c1, c2,
+                              quant=self.quant, **adam)
+        elif self.quant == "off":
+            ok.sgdm_fp32_buckets(st.p, g_bufs, st.m, lr, mu=self.momentum,
+                                 wd=self.weight_decay)
+        else:
+            for p, g, m in zip(st.p, g_bufs, st.m):
+                ok.sgdm_bucket(p, g, m, lr, mu=self.momentum,
                                wd=self.weight_decay, quant=self.quant)
         return params, opt_state._replace(count=opt_state.count + 1)
 
@@ -279,7 +280,7 @@ def _run_fused(tx: FusedOptimizer, params, grads, steps: int,
                plain: bool = False) -> FusedOptState:
     """``steps`` fused steps in place; ``plain`` runs each bucket's plain
     version (``_sgdm_plain``/``_adam_plain``) on the same device instead
-    of ``sgdm_bucket``/``adam_bucket``."""
+    of ``fused_apply``'s entries."""
     state = tx.init(params)
     for _ in range(steps):
         if not plain:
@@ -314,10 +315,10 @@ def update_parity_gate(seed: int = 0, steps: int = 3, lr: float = 0.1,
                        wd: float = 1e-4,
                        device: str | torch.device = "cuda") -> dict:
     """The kernel-vs-plain half of the JAX package's gate: for every
-    optimizer x quant mode, the fused update through ``sgdm_bucket``/
-    ``adam_bucket`` (K4-K7 on a card) against each bucket's plain version
-    on the same device, over ``steps`` steps of the gate world, bitwise
-    (params, moments, quantized payloads and scales)."""
+    optimizer x quant mode, the fused update through ``fused_apply``
+    (K4-K7 on a card) against each bucket's plain version on the same
+    device, over ``steps`` steps of the gate world, bitwise (params,
+    moments, quantized payloads and scales)."""
     report: dict = {"steps": steps, "device": str(device)}
     for opt in OPTIMIZERS:
         for quant in QUANT_MODES:
