@@ -27,18 +27,21 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              K6 (quantized momentum-SGD, int8 and fp8) and K7 (quantized
              Adam, int8 and fp8) over 3 steps of a 4 MiB, a ragged, an
              all-zero and a pinned-abs-max bucket with wd 0 and 1e-4
-             (p, moments, quantized payloads and scales), K5 and K7 in
-             one table over those four buckets, each step also repeated
-             in a second launch and held against the first, the fused
-             optimizer's gate (every optimizer x quant mode), and (in the
-             timing phase) two steps over every bucket of the main paths'
-             plans: the base LM's (K5 as one launch over all 60 buckets;
-             K7 as one entry call, int8 and fp8 m) and ResNet50_vd's (K4
-             as one launch over all 24 buckets, K6);
+             (p, moments, quantized payloads and scales), K5, K6 and K7
+             in one table over those four buckets, each step also
+             repeated in a second launch and held against the first, the
+             fused optimizer's gate (every optimizer x quant mode), and
+             (in the timing phase) two steps over every bucket of the
+             main paths' plans (K4's, K6's and K7's steps also
+             repeated in a second launch): the base LM's (K5 as one
+             launch over all 60 buckets; K7 as one entry call, int8 and
+             fp8 m) and ResNet50_vd's (K4 as one launch over all 24
+             buckets; K6 as one entry call, int8 and fp8);
              K8 (the int8 gradient pack: q and the scale's bits) on the
              CPU tests' grid, a 4 MiB shard and every compressed bucket
-             of ResNet50_vd's comm plan at world 2 filled with one real
-             step's gradients;
+             of ResNet50_vd's comm plan at world 2 filled with the real
+             gradients of steps 1 and 2, each shard alone and each set
+             as one table;
 3. timing  — each kernel at its main path's shape: its time, its plain
              version's, one PyTorch library call computing the same
              function (timed only, never used by the port; none for
@@ -51,8 +54,10 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              computes. The optimizer kernels and K8 are timed over one
              step of their plan with the host queued ahead of the card
              (device time); K5 also launched once per bucket, and each
-             of K7's passes alone (C also with its loads and stores
-             alone) beside its bytes' bound;
+             of K6's, K7's and K8's passes alone (K7's C also with its
+             loads and stores alone) beside its bytes' bound, K8 on step
+             2's gradients (step 1's, mostly zeros, beside it), and K6's
+             and K8's registers and spills (ptxas);
 4. serve   — the transformer LM teacher at the repo's base config
              (bench.py's: vocab 32768, d_model 1024, 16 heads, 8 layers,
              d_ff 4096, S 1024, bf16 activations, fp32 params; seeded
@@ -82,7 +87,8 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              --fused-opt fp32 (one K4 a step over every bucket), a profiled
              window of 3 more steps (device busy and idle share, the
              kernels that take the time), then --fused-opt int8 (one K6
-             per bucket a step) on the same shards from the same init:
+             entry call a step over every bucket) on the same shards from
+             the same init:
              step time, images/s, the split, peak memory, eval acc1/acc5,
              the last epoch's mean loss below the first step's and the
              first epoch's, the int8 run within the envelope of the fp32
@@ -93,9 +99,10 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              host memory; 64 images a rank), --fused-opt fp32, from the
              same init on the same shards: --dcn-compress int8 and
              --comm-bucket-mb 4 (bucketed dense). Per step and rank:
-             exactly one K8 per compressed bucket (none dense) and one K4
-             over every optimizer bucket; step and reduction times; the ranks'
-             final states bitwise equal; the loss finite with falling
+             exactly one K8 call over every compressed bucket (none
+             dense) and one K4 over every optimizer bucket; step and
+             reduction times, the device memory the reduction adds and
+             each rank's peak; the ranks' final states bitwise equal; the loss finite with falling
              epoch means; the int8 run within 0.25 x the dense run's
              improvement; the int8 wire <= 0.26 x the fp32 leg's bytes;
              loss_parity_gate on ResNet50_vd (3 steps, bitwise dense, int8
@@ -250,16 +257,22 @@ def qkv_case(case: dict, gen) -> tuple:
 
 def kernel_name(mangled: str) -> str:
     """The readable name of a kernel from its mangled symbol, e.g.
-    dkdv_wgmma_kernel<64>: the length-prefixed identifier that ends in
-    "kernel", with its integer template arguments."""
-    for m in re.finditer(r"\d+", mangled):
-        ident = mangled[m.end():m.end() + int(m.group())]
-        if ident.endswith("kernel"):
-            args = re.match(r"I((?:Li\d+E)+)E", mangled[m.end() + len(ident):])
-            if args is None:
-                return ident
-            return ident + "<" + ",".join(re.findall(r"Li(\d+)E", args[1])) + ">"
-    return mangled
+    dkdv_wgmma_kernel<64> or sgdm_q_kernel<2,1,0>: the last identifier of
+    its (nested) name, when it ends in "kernel", with its integer and
+    bool template arguments."""
+    m = re.match(r"_ZN?", mangled)
+    if m is None:
+        return mangled
+    i, ident = m.end(), ""
+    while d := re.match(r"\d+", mangled[i:]):
+        i += d.end()
+        ident, i = mangled[i:i + int(d.group())], i + int(d.group())
+    if not ident.endswith("kernel"):
+        return mangled
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
+    if args is None:
+        return ident
+    return ident + "<" + ",".join(re.findall(r"L[ib](\d+)E", args[1])) + ">"
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -1476,13 +1489,17 @@ def opt_step(ok_mod, opt: str, quant: str, p, g, moments, scalars,
 def plan_step(ok_mod, opt: str, quant: str, p_bufs, g_bufs, moments,
               scalars, wd: float, plain: bool) -> None:
     """One step over every bucket of a plan through the entry fused_apply
-    uses: one K4 or K5 launch over all the buckets, K7's entry over all of
-    them, K6 bucket by bucket; or the plain version bucket by bucket."""
-    if not plain and (opt == "adam" or quant == "off"):
+    uses: one K4 or K5 launch over all the buckets, K6's or K7's entry
+    over all of them; or the plain version bucket by bucket."""
+    if not plain:
         lr, c1, c2 = scalars
         ms = [m[0] for m in moments]
-        if opt == "sgdm":
+        if opt == "sgdm" and quant == "off":
             ok_mod.sgdm_fp32_buckets(p_bufs, g_bufs, ms, lr, mu=0.9, wd=wd)
+            return
+        if opt == "sgdm":
+            ok_mod.sgdm_q_buckets(p_bufs, g_bufs, ms, lr, mu=0.9, wd=wd,
+                                  quant=quant)
             return
         vs = [m[1] for m in moments]
         hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=wd)
@@ -1547,9 +1564,11 @@ def phase_kernels_opt(ok_mod, fo, gen) -> dict:
     return {name: (0.0, n) for name, n in checks.items()}
 
 
-# K5 and K7 in one table launch over mixed buckets: (name, quant)
+# K5, K6 and K7 in one table call over mixed buckets: (name, opt, quant)
 TABLE_ORDER = ("ragged", "4MiB", "zero", "pinned_amax")
-TABLE_CASES = (("adam_fp32", "off"), ("adam_q", "int8"), ("adam_q", "fp8"))
+TABLE_CASES = (("adam_fp32", "adam", "off"), ("sgdm_q", "sgdm", "int8"),
+               ("sgdm_q", "sgdm", "fp8"), ("adam_q", "adam", "int8"),
+               ("adam_q", "adam", "fp8"))
 
 
 def clone_side(side: list) -> list:
@@ -1560,31 +1579,32 @@ def clone_side(side: list) -> list:
 
 
 def phase_kernels_tables(ok_mod, fo, gen) -> dict:
-    """K5 and K7 (int8 and fp8 m) in one table over OPT_BUCKETS' ragged, 4 MiB, all-zero and pinned-abs-max
-    buckets, through the entries fused_apply uses: 3 steps with wd 0 and
-    1e-4 bit for bit against the plain version bucket by bucket, and each
-    step repeated from the same state in a second launch, bit for bit
-    against the first. The 4 MiB bucket's 1,024 chunks span the grid:
-    K7's new scales must wait for every block of its last pass. Returns
-    {name:
-    (0.0, checks)}: any difference fails."""
-    tx = fo.fused_adam(lambda step: 3e-4 * (step + 1) / 3)
+    """K5, K6 and K7 (K6 and K7 with int8 and fp8 moments) in one table
+    over OPT_BUCKETS' ragged, 4 MiB, all-zero and pinned-abs-max buckets,
+    through the entries fused_apply uses: 3 steps with wd 0 and 1e-4 bit
+    for bit against the plain version bucket by bucket, and each step
+    repeated from the same state in a second launch, bit for bit against
+    the first. The 4 MiB bucket's 1,024 chunks span the grid: K6's and
+    K7's new scales must wait for every block of their last pass. Returns
+    {name: (0.0, checks)}: any difference fails."""
+    txs = {"sgdm": fo.fused_sgd(lambda step: 0.1 * (step + 1) / 3),
+           "adam": fo.fused_adam(lambda step: 3e-4 * (step + 1) / 3)}
     spec = {label: (payload, padded) for label, payload, padded in OPT_BUCKETS}
     p0 = [opt_bucket(gen, lb, *spec[lb], 0.1) for lb in TABLE_ORDER]
     grads = [[opt_bucket(gen, lb, *spec[lb], 0.02) for lb in TABLE_ORDER]
              for _ in range(3)]
-    checks = {"adam_fp32": 0, "adam_q": 0}
-    for name, quant in TABLE_CASES:
+    checks = {name: 0 for name, _, _ in TABLE_CASES}
+    for name, opt, quant in TABLE_CASES:
         for wd in (0.0, 1e-4):
-            kern = [(p.clone(), opt_moments(ok_mod, "adam", quant, p))
+            kern = [(p.clone(), opt_moments(ok_mod, opt, quant, p))
                     for p in p0]
             plain = clone_side(kern)
             for step, g in enumerate(grads):
-                scalars = tx.scalars(step)
+                scalars = txs[opt].scalars(step)
                 again = clone_side(kern)
                 for side, is_plain in ((kern, False), (plain, True),
                                        (again, False)):
-                    plan_step(ok_mod, "adam", quant, [p for p, _ in side], g,
+                    plan_step(ok_mod, opt, quant, [p for p, _ in side], g,
                               [m for _, m in side], scalars, wd, is_plain)
                 torch.cuda.synchronize()
 
@@ -1631,27 +1651,39 @@ def plan_world(ok_mod, fo, model, tx, gen):
 def plan_bitwise(ok_mod, fo, name, opt, quant, tx, p_bufs, g_bufs,
                  wd) -> int:
     """2 steps of the kernel over every bucket of a plan (`plan_step`)
-    against the plain version, bit for bit. Returns the buckets
-    checked."""
+    against the plain version, bit for bit, each step also repeated from
+    the same state in a second launch, bit for bit against the first.
+    Returns the buckets checked."""
     kern = [(p.clone(), opt_moments(ok_mod, opt, quant, p)) for p in p_bufs]
     plain = [(p.clone(), opt_moments(ok_mod, opt, quant, p))
              for p in p_bufs]
+
+    def differ(a, b):
+        return [i for i in range(len(p_bufs))
+                if not all(fo.bitwise_equal(x, y) for x, y in
+                           zip(opt_tensors(*a[i]), opt_tensors(*b[i])))]
+
+    repeat_differ = []
     for step in range(2):
         scalars = tx.scalars(step)
-        for side, is_plain in ((kern, False), (plain, True)):
+        again = clone_side(kern)
+        for side, is_plain in ((kern, False), (plain, True), (again, False)):
             plan_step(ok_mod, opt, quant, [p for p, _ in side], g_bufs,
                       [m for _, m in side], scalars, wd, is_plain)
-    torch.cuda.synchronize()
-    differ = [i for i in range(len(p_bufs))
-              if not all(fo.bitwise_equal(x, y) for x, y in
-                         zip(opt_tensors(*kern[i]), opt_tensors(*plain[i])))]
+        torch.cuda.synchronize()
+        repeat_differ += differ(kern, again)
+        del again
+    plain_differ = differ(kern, plain)
     emit({"phase": "kernels", "kernel": name, "quant": quant,
           "plan_buckets": len(p_bufs),
           "largest_bucket": max(p.numel() for p in p_bufs), "steps": 2,
-          "bitwise": not differ, "buckets_differing": differ})
-    if differ:
+          "bitwise": not plain_differ, "buckets_differing": plain_differ,
+          "bitwise_repeat": not repeat_differ,
+          "buckets_differing_repeat": repeat_differ})
+    if plain_differ or repeat_differ:
         fail(f"{name} ({quant}) differs from its plain version on buckets "
-             f"{differ} of the plan")
+             f"{plain_differ} of the plan, or from a second launch on "
+             f"{repeat_differ}")
     del kern, plain
     torch.cuda.empty_cache()
     return len(p_bufs)
@@ -1673,13 +1705,13 @@ def time_plan(ok_mod, name, opt, quant, tx, p_bufs, g_bufs, wd,
     turns: dict[str, list[float]] = {"kernel": [], "library": []}
     host_bound = False
     # stream entries of one step: one K4 launch; a memset and three passes
-    # for K7 (per ADAM_Q_TABLE_MAX buckets) and for K6 (per bucket)
+    # for K6 and K7 (per table of buckets)
     if quant == "off":
         entries = 1
-    elif opt == "adam":
-        entries = 4 * -(-len(p_bufs) // ok_mod.ADAM_Q_TABLE_MAX)
     else:
-        entries = 4 * len(p_bufs)
+        entries = 4 * -(-len(p_bufs) // (ok_mod.ADAM_Q_TABLE_MAX
+                                          if opt == "adam"
+                                          else ok_mod.SGDM_Q_TABLE_MAX))
     iters = max(2, min(10, 800 // entries))
     for _ in range(3):
         ms, hb = time_ms_queued(lambda: step(False), iters=iters)
@@ -1710,12 +1742,49 @@ def time_plan(ok_mod, name, opt, quant, tx, p_bufs, g_bufs, wd,
     return out
 
 
-def phase_timing_sgdm(ok_mod, fo, gen) -> tuple[dict, dict]:
+# bytes an element each K6 pass moves at wd != 0 (A, B: p, g and the two
+# planes read; C: p, g read, p written, the planes read and written)
+K6_PASS_BYTES = {"A": 10, "B": 10, "C": 16}
+
+
+def ptxas_of(log: str, prefix: str) -> dict:
+    """Registers and spills (ptxas) of the kernels named ``prefix<...>``
+    in a library's build log."""
+    return {n: k for n, k in ptxas_kernels(log).items()
+            if n.startswith(prefix)}
+
+
+def time_passes(run_pass, passes: dict, bytes_per_elem: dict,
+                elems: int) -> dict:
+    """Device ms of each pass alone (``passes``: name -> the arguments of
+    ``run_pass``, which runs one pass over the plan) beside its bytes'
+    bound, queued behind a sleep kernel (10 calls, the mean of 3 turns).
+    Fails if the host fell behind."""
+    out: dict = {"passes_ms": {}, "passes_bound_ms": {}}
+    host_bound = {}
+    for _ in range(3):
+        for key, args in passes.items():
+            ms, host_bound[key] = time_ms_queued(lambda: run_pass(*args),
+                                                 iters=10)
+            out["passes_ms"].setdefault(key, []).append(ms)
+    out["passes_ms"] = {k: float(np.mean(v))
+                        for k, v in out["passes_ms"].items()}
+    out["passes_bound_ms"] = {k: b * elems / PEAK_BYTES_S * 1e3
+                              for k, b in bytes_per_elem.items()}
+    if any(host_bound.values()):
+        fail(f"the host could not queue the timed passes ahead of the "
+             f"card: {host_bound}")
+    return out
+
+
+def phase_timing_sgdm(ok_mod, fo, gen, sgdm_log: str) -> tuple[dict, dict]:
     """K4 and K6 over every bucket of ResNet50_vd's plan: 2 steps bit for
-    bit against the plain version (K4, K6 int8 and fp8), then one step's
-    time (K4; K6 int8, imagenet_train's quantized path), K4 beside
-    torch.optim.SGD(momentum=0.9, weight_decay=1e-4, fused=True) (timed
-    only, never used by the port). Returns (timings, checks)."""
+    bit against the plain version (K4, K6 int8 and fp8, each step repeated
+    in a second launch), then one step's time (K4; K6 int8, imagenet_train's
+    quantized path), K4 beside torch.optim.SGD(momentum=0.9,
+    weight_decay=1e-4, fused=True) (timed only, never used by the port);
+    each of K6's passes alone beside its bytes' bound, and K6's registers
+    and spills (ptxas). Returns (timings, checks)."""
     from edl_tpu_torch.models.resnet import ResNet50_vd
 
     model = ResNet50_vd(num_classes=1000, dtype=torch.bfloat16,
@@ -1733,11 +1802,30 @@ def phase_timing_sgdm(ok_mod, fo, gen) -> tuple[dict, dict]:
                                      state.p, g_bufs, 1e-4, lib.step),
               "sgdm_q": time_plan(ok_mod, "sgdm_q", "sgdm", "int8", tx,
                                   state.p, g_bufs, 1e-4)}
+    planes = [ok_mod.zero_plane(p.numel(), "int8", device="cuda")
+              for p in state.p]
+    # one full step first: the passes alone then read its words
+    ok_mod.sgdm_q_buckets(state.p, g_bufs, planes, 0.1, mu=0.9, wd=1e-4,
+                          quant="int8")
+    passes = time_passes(
+        lambda which: ok_mod.sgdm_q_pass(
+            state.p, g_bufs, planes, 0.1, mu=0.9, wd=1e-4, quant="int8",
+            which=which),
+        {key: (which,) for which, key in enumerate(K6_PASS_BYTES)},
+        K6_PASS_BYTES, plan.padded_elems())
+    ptxas = ptxas_of(sgdm_log, "sgdm_q_kernel")
+    emit({"phase": "timing", "kernel": "sgdm_q", "quant": "int8",
+          "buckets": plan.n_buckets, "padded_elems": plan.padded_elems(),
+          "ms": timing["sgdm_q"]["ms"],
+          "bound_ms": timing["sgdm_q"]["bound_ms"], **passes,
+          "timing": "device: launches queued behind a sleep kernel",
+          "ptxas": ptxas})
+    timing["sgdm_q"]["passes_ms"] = passes["passes_ms"]
     emit({"phase": "timing", "plan": "ResNet50_vd", "params": sum(
         x.numel() for _, x in named), "buckets": plan.n_buckets,
         "library": "torch.optim.SGD(momentum=0.9, weight_decay=1e-4, "
                    "fused=True)"})
-    del lib, state, model, named, g_bufs
+    del lib, state, model, named, g_bufs, planes
     torch.cuda.empty_cache()
     return timing, checks
 
@@ -1772,21 +1860,15 @@ def phase_timing_adam_q(ok_mod, fo, gen) -> tuple[dict, int]:
     # one full step first: the passes alone then read its words
     ok_mod.adam_q_buckets(p_bufs, g_bufs, ms, vs, lr, c1, c2, **hyper)
     padded = sum(p.numel() for p in p_bufs)
-    pass_ms, pass_bound, host_bound = {}, {}, {}
-    for which, key in enumerate(K7_PASS_BYTES):
-        pass_ms[key], host_bound[key] = time_ms_queued(
-            lambda: ok_mod.adam_q_pass(p_bufs, g_bufs, ms, vs, lr, c1, c2,
-                                       which=which, **hyper), iters=10)
-        pass_bound[key] = K7_PASS_BYTES[key] * padded / PEAK_BYTES_S * 1e3
+    passes = time_passes(
+        lambda which: ok_mod.adam_q_pass(p_bufs, g_bufs, ms, vs, lr, c1, c2,
+                                         which=which, **hyper),
+        {key: (which,) for which, key in enumerate(K7_PASS_BYTES)},
+        K7_PASS_BYTES, padded)
     emit({"phase": "timing", "kernel": "adam_q", "quant": "int8",
-          "buckets": len(p_bufs), "padded_elems": padded,
-          "passes_ms": pass_ms, "passes_bound_ms": pass_bound,
-          "timing": "device: launches queued behind a sleep kernel",
-          "host_bound": host_bound})
-    if any(host_bound.values()):
-        fail(f"adam_q: the host could not queue the timed passes ahead of "
-             f"the card: {host_bound}")
-    timing["passes_ms"] = pass_ms
+          "buckets": len(p_bufs), "padded_elems": padded, **passes,
+          "timing": "device: launches queued behind a sleep kernel"})
+    timing["passes_ms"] = passes["passes_ms"]
     del state, model, named, g_bufs, ms, vs
     torch.cuda.empty_cache()
     return timing, checks
@@ -1947,13 +2029,19 @@ def profile_steps(classification, state, batch) -> dict:
     return out
 
 
+def resnet_want(counters: dict, kernel: str) -> dict:
+    """The launches of a step of imagenet_train on one card: one call of
+    ``kernel`` over every bucket (K4's launch, or K6's entry call) and no
+    other counted launch."""
+    return {n: int(n == kernel) for n in counters}
+
+
 def resnet_run(imagenet_train, classification, opt_state_bytes,
                counters: dict, argv: list, name: str, kernel: str) -> dict:
-    """One imagenet_train.main run at ``argv``: exactly one launch of
-    ``kernel`` a step (K4, over every bucket) or per bucket (K6) and no
-    other counted launch, the loss
-    finite, the epoch means falling and no step of the last epoch above
-    step 1's loss."""
+    """One imagenet_train.main run at ``argv``: exactly one call of
+    ``kernel`` a step over every bucket (K4, or K6's entry) and no other
+    counted launch (``resnet_want``), the loss finite, the epoch means
+    falling and no step of the last epoch above step 1's loss."""
     run = run_probed(classification, imagenet_train.main, argv, counters)
     if run["rc"] != 0 or "final_acc1=" not in run["printed"]:
         fail(f"imagenet_train {name} returned {run['rc']} and printed "
@@ -1963,9 +2051,7 @@ def resnet_run(imagenet_train, classification, opt_state_bytes,
         final = json.load(f)["final"]
     state = run["seen"]["state"]
     n_buckets = len(state.opt_state.p)
-    # K4 takes every bucket of a step in one launch; K6 one call a bucket
-    per_step = 1 if kernel == "sgdm_fp32" else n_buckets
-    want = {n: (per_step if n == kernel else 0) for n in counters}
+    want = resnet_want(counters, kernel)
     check_launches(run["steps"], want, f"imagenet_train {name}")
     losses = [st["loss"] for st in run["steps"]]
     epochs = [float(np.mean(losses[i:i + RESNET_STEPS_PER_EPOCH]))
@@ -1999,8 +2085,8 @@ def phase_train_resnet(ok_mod) -> tuple[dict, dict]:
     """The port's imagenet_train.main at RESNET_ARGV with --fused-opt fp32
     (K4), then int8 (K6), then fp32 with fp32 activations, on the same
     shards from the same init: step time and images/s, the forward /
-    backward / optimizer split, peak memory, exactly one K4 each step
-    (one K6 per bucket), the loss finite and falling, eval acc1/acc5; the
+    backward / optimizer split, peak memory, exactly one K4 (or one K6
+    entry call) each step, the loss finite and falling, eval acc1/acc5; the
     int8 run within the envelope of the fp32 run with at least STATE_CUT x
     fewer optimizer-state bytes; the bf16 run's per-step losses within
     RESNET_BF16_ATOL of the fp32-activation run's."""
@@ -2055,11 +2141,13 @@ PACK_DESIGN_BYTES = 9
 
 
 def pack_grid(gen) -> dict[str, torch.Tensor]:
-    """The CPU tests' shards (tests/test_torch_pack.py: lengths 1 to
-    4099, all-zero, a pinned abs-max, exact half-steps, subnormals beside
-    a normal abs-max and alone) and a 4 MiB shard, on the card."""
+    """The CPU tests' shards (tests/test_torch_pack.py and
+    tests/test_torch_pack_buckets.py: lengths 1 to 4099, all-zero, a
+    pinned abs-max, exact half-steps, subnormals beside a normal abs-max
+    and alone) and a 4 MiB shard, on the card."""
     rng = np.random.default_rng(0)
     grid = {f"len{n}": rng.normal(size=n) for n in (1, 127, 128, 200, 4099)}
+    grid["len3"] = rng.normal(size=3)
     grid["zero"] = np.zeros(300)
     pinned = rng.normal(0, 0.1, size=1000)
     pinned[333] = -4.0
@@ -2075,15 +2163,19 @@ def pack_grid(gen) -> dict[str, torch.Tensor]:
     return shards
 
 
+def pack_same(a: tuple, b: tuple) -> bool:
+    """Two packs' q and scale bits equal."""
+    return (torch.equal(a[0], b[0])
+            and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
+
+
 def pack_bitwise(pack_mod, name: str, x: torch.Tensor) -> None:
     """K8 against its plain version on the same shard: q and the scale's
     bits equal, or the run fails."""
     q, scale = pack_mod.pack_int8(x)
     pq, pscale = pack_mod._pack_plain(x)
     torch.cuda.synchronize()
-    bitwise = (torch.equal(q, pq)
-               and torch.equal(scale.view(torch.int32),
-                               pscale.view(torch.int32)))
+    bitwise = pack_same((q, scale), (pq, pscale))
     emit({"phase": "kernels", "kernel": "pack_int8", "shard": name,
           "elems": x.numel(), "scale": scale.item(), "bitwise": bitwise,
           "q_differing": int((q != pq).sum().item()), "ok": bitwise})
@@ -2092,11 +2184,40 @@ def pack_bitwise(pack_mod, name: str, x: torch.Tensor) -> None:
              f"{scale.item()!r} vs {pscale.item()!r}")
 
 
-def resnet_comm_buckets(gen, world: int = 2) -> list[torch.Tensor]:
+def pack_table_bitwise(pack_mod, name: str, xs: list) -> None:
+    """K8 once over a table of every shard of ``xs`` (pack_int8_buckets,
+    one launch counted) against its plain version shard by shard, bit for
+    bit, or the run fails."""
+    before = pack_mod.pack_int8.launches
+    got = pack_mod.pack_int8_buckets(xs)
+    calls = pack_mod.pack_int8.launches - before
+    want = [pack_mod._pack_plain(x) for x in xs]
+    torch.cuda.synchronize()
+    differ = [i for i, (a, b) in enumerate(zip(got, want))
+              if not pack_same(a, b)]
+    emit({"phase": "kernels", "kernel": "pack_int8", "table": name,
+          "shards": len(xs), "elems": sum(x.numel() for x in xs),
+          "calls": calls, "bitwise": not differ, "shards_differing": differ,
+          "ok": not differ and calls == 1})
+    if differ or calls != 1:
+        fail(f"pack_int8_buckets over {name}: {calls} calls, shards "
+             f"{differ} differ from the plain version")
+
+
+# The plain SGD step between the two steps of resnet_comm_buckets.
+COMM_BUCKETS_LR = 0.01
+
+
+def resnet_comm_buckets(gen, world: int = 2) -> list[list[torch.Tensor]]:
     """Every compressed bucket of ResNet50_vd's comm plan at ``world``
-    ranks (4 MiB, int8), filled with one real step's gradients: one rank's
-    share of RESNET_ARGV's batch (128 / world images of 224 px, bf16
-    activations), smoothed cross-entropy, the step's 1/W scaling."""
+    ranks (4 MiB, int8), filled with the real gradients of steps 1 and 2:
+    one rank's share of RESNET_ARGV's batch (128 / world images of 224 px,
+    bf16 activations, a new batch a step), smoothed cross-entropy, the
+    step's 1/W scaling, and between the steps one plain SGD step
+    (COMM_BUCKETS_LR). Step 1's gradients are mostly exact zeros (each
+    residual block's last BatchNorm scale starts at zero, so no gradient
+    reaches the convolutions inside the branch); step 2's are what the
+    rest of a run packs. Returns [step 1's buckets, step 2's]."""
     from edl_tpu_torch.bridge import flax_named_parameters
     from edl_tpu_torch.models.resnet import ResNet50_vd
     from edl_tpu_torch.train import classification, comm
@@ -2104,35 +2225,56 @@ def resnet_comm_buckets(gen, world: int = 2) -> list[torch.Tensor]:
     model = ResNet50_vd(num_classes=1000, dtype=torch.bfloat16,
                         device="cuda", seed=0)
     named = flax_named_parameters(model)
-    rows = 128 // world
-    images = torch.randn((rows, 224, 224, 3), generator=gen, device="cuda")
-    labels = torch.randint(0, 1000, (rows,), generator=gen, device="cuda")
-    loss = classification.soft_cross_entropy(
-        model(images), classification.smoothed_labels(labels, 1000, 0.1))
-    loss.backward()
-    grads = [p.grad * (1.0 / world) for _, p in named]
     plan = comm.plan_buckets([p for _, p in named], 4.0, align=world)
     config = comm.CommConfig(compress="int8")
-    bufs = [buf for buf, b in zip(comm.pack_buckets(grads, plan),
-                                  plan.buckets)
-            if comm._needs_residual(b, 1, world, config)]
-    emit({"phase": "kernels", "kernel": "pack_int8",
-          "plan": f"ResNet50_vd comm plan at world {world}",
-          "buckets": plan.n_buckets, "compressed": len(bufs),
-          "elems": sum(b.numel() for b in bufs), "loss": loss.item()})
+    rows = 128 // world
+    steps = []
+    for step in (1, 2):
+        images = torch.randn((rows, 224, 224, 3), generator=gen,
+                             device="cuda")
+        labels = torch.randint(0, 1000, (rows,), generator=gen,
+                               device="cuda")
+        loss = classification.soft_cross_entropy(
+            model(images), classification.smoothed_labels(labels, 1000, 0.1))
+        loss.backward()
+        grads = [p.grad * (1.0 / world) for _, p in named]
+        bufs = [buf for buf, b in zip(comm.pack_buckets(grads, plan),
+                                      plan.buckets)
+                if comm._needs_residual(b, 1, world, config)]
+        elems = sum(b.numel() for b in bufs)
+        finite = all(bool(torch.isfinite(b).all()) for b in bufs)
+        emit({"phase": "kernels", "kernel": "pack_int8",
+              "plan": f"ResNet50_vd comm plan at world {world}",
+              "step": step, "buckets": plan.n_buckets,
+              "compressed": len(bufs), "elems": elems, "loss": loss.item(),
+              "finite": finite,
+              "zero_share": sum(int((b == 0).sum()) for b in bufs) / elems})
+        if not finite:
+            fail(f"ResNet50_vd's step {step} gradients are not finite")
+        steps.append(bufs)
+        with torch.no_grad():
+            for _, p in named:
+                p.add_(p.grad, alpha=-COMM_BUCKETS_LR)
+                p.grad = None
     del model, named, grads
-    return bufs
+    return steps
 
 
 def phase_kernels_pack(pack_mod, gen) -> tuple[dict, list[torch.Tensor]]:
     """K8 against its plain version, bit for bit: the CPU tests' grid, a
     4 MiB shard and every compressed bucket of ResNet50_vd's comm plan at
-    world 2 with one real step's gradients; a bf16 shard and a strided one
-    refused. Returns ({"pack_int8": (0.0, checks)}, the plan's buckets)."""
+    world 2 with the real gradients of steps 1 and 2 (step 2's each shard
+    alone too), each set as one table (pack_int8_buckets); a bf16 shard
+    and a strided one refused. Returns ({"pack_int8": (0.0, checks)},
+    the plan's buckets at steps 1 and 2)."""
     checks = 0
-    for name, x in pack_grid(gen).items():
+    grid = pack_grid(gen)
+    for name, x in grid.items():
         pack_bitwise(pack_mod, name, x)
         checks += 1
+    pack_table_bitwise(pack_mod, "the CPU tests' grid and a 4 MiB shard",
+                       list(grid.values()))
+    checks += 1
     for bad, err in ((torch.ones(8, device="cuda", dtype=torch.bfloat16),
                       TypeError),
                      (torch.ones(16, device="cuda")[::2], ValueError)):
@@ -2142,28 +2284,50 @@ def phase_kernels_pack(pack_mod, gen) -> tuple[dict, list[torch.Tensor]]:
             checks += 1
         else:
             fail(f"pack_int8 took a {bad.dtype} strided={bad.stride()} shard")
-    bufs = resnet_comm_buckets(gen)
-    for i, buf in enumerate(bufs):
-        pack_bitwise(pack_mod, f"ResNet50_vd bucket {i}", buf)
+    steps = resnet_comm_buckets(gen)
+    for i, buf in enumerate(steps[1]):
+        pack_bitwise(pack_mod, f"ResNet50_vd step 2 bucket {i}", buf)
         checks += 1
-    return {"pack_int8": (0.0, checks)}, bufs
+    for step, bufs in enumerate(steps, 1):
+        pack_table_bitwise(pack_mod, f"ResNet50_vd's compressed buckets at "
+                           f"step {step}", bufs)
+    return {"pack_int8": (0.0, checks + len(steps))}, steps
 
 
-def phase_timing_pack(pack_mod, bufs: list[torch.Tensor]) -> dict:
-    """K8 over one step of ResNet50_vd's compressed buckets at world 2:
-    device time with the host queued ahead (the mean of 3 turns), the
-    host-paced time and the plain version's. No PyTorch call computes
-    the same function: library_ms is null."""
+# bytes an element each K8 pass moves (the abs-max pass: x read; the pack
+# pass: x read, q written)
+K8_PASS_BYTES = {"amax": 4, "pack": 5}
+
+
+def phase_timing_pack(pack_mod, steps: list[list[torch.Tensor]],
+                      pack_log: str) -> dict:
+    """K8 over ResNet50_vd's compressed buckets at world 2 with step 2's
+    gradients (``steps``: resnet_comm_buckets'), through pack_int8_buckets
+    (one call over every bucket, the entry the comm step uses): device
+    time with the host queued ahead (the mean of 3 turns; step 1's mostly
+    zero gradients beside it), the host-paced time and the plain
+    version's; each pass alone beside its bytes' bound, and K8's registers
+    and spills (ptxas). No PyTorch call computes the same function:
+    library_ms is null."""
+    bufs = steps[1]
+
     def step(plain: bool):
-        for buf in bufs:
-            (pack_mod._pack_plain if plain else pack_mod.pack_int8)(buf)
+        if plain:
+            for buf in bufs:
+                pack_mod._pack_plain(buf)
+        else:
+            pack_mod.pack_int8_buckets(bufs)
 
     # stream entries of one call: a memset and two kernels
-    iters = max(2, min(10, 800 // (3 * len(bufs))))
-    turns, host_bound = [], False
+    iters = 10
+    turns, step1_turns, host_bound = [], [], False
     for _ in range(3):
         ms, hb = time_ms_queued(lambda: step(False), iters=iters)
         turns.append(ms)
+        host_bound |= hb
+        ms, hb = time_ms_queued(
+            lambda: pack_mod.pack_int8_buckets(steps[0]), iters=iters)
+        step1_turns.append(ms)
         host_bound |= hb
     host_paced_ms = time_ms(lambda: step(False), iters=10)
     plain_ms = time_ms(lambda: step(True), iters=3, warmup=1)
@@ -2171,16 +2335,24 @@ def phase_timing_pack(pack_mod, bufs: list[torch.Tensor]) -> dict:
     out = {"ms": float(np.mean(turns)), "plain_ms": plain_ms,
            "bound_ms": PACK_BOUND_BYTES * elems / PEAK_BYTES_S * 1e3,
            "bound_by": "bytes", "library_ms": None}
+    packed = pack_mod.pack_int8_buckets(bufs)
+    qs, scales = [q for q, _ in packed], [s for _, s in packed]
+    passes = time_passes(
+        lambda which: pack_mod.pack_int8_pass(bufs, qs, scales, which=which),
+        {"amax": (0,), "pack": (1,)}, K8_PASS_BYTES, elems)
     emit({"phase": "timing", "kernel": "pack_int8", "buckets": len(bufs),
           "elems": elems, "per": "one step's compressed buckets",
-          "ms_turns": turns, "queued_steps": iters,
+          "gradients": "step 2", "ms_turns": turns,
+          "ms_step1_gradients": float(np.mean(step1_turns)),
+          "queued_steps": iters,
           "timing": "device: launches queued behind a sleep kernel",
           "host_bound": host_bound, "ms_host_paced": host_paced_ms,
           "design_bytes_ms": PACK_DESIGN_BYTES * elems / PEAK_BYTES_S * 1e3,
-          **out})
+          **passes, "ptxas": ptxas_of(pack_log, "pack_kernel"), **out})
     if host_bound:
         fail("pack_int8: the host could not queue the timed launches ahead "
              "of the card")
+    out["passes_ms"] = passes["passes_ms"]
     return out
 
 
@@ -2248,9 +2420,11 @@ def spawn_world(run: str, argv: list, out_dir: Path) -> list[dict]:
 
 def world_train(argv: list) -> dict:
     """One rank of imagenet_train.main(argv): each step timed on the host
-    clock between two synchronizes, its reduction with CUDA events, K8's
+    clock between two synchronizes, its reduction with CUDA events and the
+    device memory it allocates beyond what was live when it began, K8's
     and K4's launches counted (set to 0 just before the run, read just
-    after); the final state's digest."""
+    after); the rank's peak device memory over the run; the final state's
+    digest. Runs any checkout of the port that is first on sys.path."""
     import hashlib
 
     from edl_tpu_torch.examples import imagenet_train
@@ -2265,9 +2439,15 @@ def world_train(argv: list) -> dict:
     step_fn, reduce_fn = comm.CommTrainStep._step, comm.CommTrainStep._reduce
 
     def timed_reduce(self, grads):
+        # the peak since the last reset folds into the run's before the
+        # reduction's own window starts
+        seen["peak"] = max(seen["peak"], torch.cuda.max_memory_allocated())
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         e0 = event()
         out = reduce_fn(self, grads)
         seen["reduce"] = (e0, event())
+        seen["reduce_extra"] = torch.cuda.max_memory_allocated() - live
         return out
 
     def timed_step(self, state, batch):
@@ -2280,6 +2460,7 @@ def world_train(argv: list) -> dict:
         e0, e1 = seen["reduce"]
         steps.append({"ms": (t1 - t0) * 1e3,
                       "reduce_ms": e0.elapsed_time(e1),
+                      "reduce_extra_bytes": seen["reduce_extra"],
                       "launches": {n: c.launches - c0[n]
                                    for n, c in counters.items()},
                       "loss": float(metrics["loss"])})
@@ -2289,12 +2470,15 @@ def world_train(argv: list) -> dict:
     comm.CommTrainStep._step = timed_step
     comm.CommTrainStep._reduce = timed_reduce
     try:
+        torch.cuda.reset_peak_memory_stats()
+        seen["peak"] = 0
         for c in counters.values():
             c.launches = 0
         t0 = time.monotonic()
         rc = imagenet_train.main(argv)
         wall_s = time.monotonic() - t0
         launches = {n: c.launches for n, c in counters.items()}
+        peak = max(seen["peak"], torch.cuda.max_memory_allocated())
     finally:
         comm.CommTrainStep._step = step_fn
         comm.CommTrainStep._reduce = reduce_fn
@@ -2305,7 +2489,8 @@ def world_train(argv: list) -> dict:
         digest.update(t.detach().cpu().numpy().tobytes())
     off = replace(step.config, compress="off")
     return {"rc": rc, "wall_s": wall_s, "steps": steps,
-            "launches": launches, "digest": digest.hexdigest(),
+            "launches": launches, "peak_gib": peak / 2**30,
+            "digest": digest.hexdigest(),
             "comm_buckets": step.plan.n_buckets,
             "compressed_buckets": sum(
                 comm._needs_residual(b, step.chips, step.n_slices,
@@ -2376,15 +2561,20 @@ def world_worker(run: str, out_dir: str, argv_json: str) -> int:
     return 0
 
 
+def world_want(name: str) -> dict:
+    """The launches of a step of one rank in the world run ``name``: one
+    K8 call over every compressed bucket in the int8 run (none in the
+    dense run) and one K4 launch over every optimizer bucket."""
+    return {"pack_int8": int(name == "int8"), "sgdm_fp32": 1}
+
+
 def world_summary(name: str, ranks: list[dict], blog_dir: Path) -> dict:
-    """The gates of one world training run, each fatal: exactly one K8
-    per compressed bucket a step on each rank (none in the dense run),
-    one K4 a step over every optimizer bucket, the ranks' final states bitwise
+    """The gates of one world training run, each fatal: the launches of
+    ``world_want`` every step on each rank, the ranks' final states bitwise
     equal, the loss finite with falling epoch means and the last epoch
     below step 1."""
     for rk in ranks:
-        want = {"pack_int8": rk["compressed_buckets"] if name == "int8"
-                else 0, "sgdm_fp32": 1}
+        want = world_want(name)
         for i, st in enumerate(rk["steps"]):
             if st["launches"] != want:
                 fail(f"world {name} rank {rk['rank']} step {i + 1} "
@@ -2412,6 +2602,9 @@ def world_summary(name: str, ranks: list[dict], blog_dir: Path) -> dict:
               "step_ms_max": max(st["ms"] for st in timed),
               "reduce_ms_median": float(np.median(
                   [st["reduce_ms"] for st in timed])),
+              "reduce_extra_mib_max": max(
+                  st["reduce_extra_bytes"] for st in r0["steps"]) / 2**20,
+              "peak_gib": [rk["peak_gib"] for rk in ranks],
               "timed_steps": f"{TIMED_FROM_STEP}-{len(losses)}",
               "images_per_s": 128 / (step_ms / 1e3),
               "loss_first": losses[0], "loss_last": losses[-1],
@@ -2530,11 +2723,13 @@ def main() -> int:
     timing.update(phase_timing_train(fa, gen))
     timing["adam_fp32"], plan_checks = phase_timing_adam(ok_mod, fo, gen)
     errs["adam_fp32"] = (0.0, errs["adam_fp32"][1] + plan_checks)
-    sgdm_timing, sgdm_checks = phase_timing_sgdm(ok_mod, fo, gen)
+    sgdm_timing, sgdm_checks = phase_timing_sgdm(ok_mod, fo, gen,
+                                                 built["sgdm"]["log"])
     timing.update(sgdm_timing)
     timing["adam_q"], adam_q_checks = phase_timing_adam_q(ok_mod, fo, gen)
     sgdm_checks["adam_q"] = adam_q_checks
-    timing["pack_int8"] = phase_timing_pack(pack_mod, pack_bufs)
+    timing["pack_int8"] = phase_timing_pack(pack_mod, pack_bufs,
+                                            built["pack"]["log"])
     del pack_bufs
     for name, n in sgdm_checks.items():
         errs[name] = (0.0, errs[name][1] + n)

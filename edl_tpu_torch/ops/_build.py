@@ -8,6 +8,9 @@ source's own flags (``flags(name)``: the common ones plus
 ``SOURCE_FLAGS[name]``), so an edited source, header or flag never
 loads a stale library. No PyTorch headers are included, so a build takes
 seconds. A failed build raises: there is no fallback to a plain version.
+
+``scratch_words`` holds the device words the table kernels fold their
+abs-maxes and counts into (K6, K7, K8), one array per (device, stream).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -40,6 +45,7 @@ SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}   # guarded-by: _lock
+_words: dict[tuple, torch.Tensor] = {}
 
 
 def nvcc() -> str:
@@ -117,3 +123,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
+
+
+def scratch_words(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 words on ``device`` for the kernels' scratch,
+    one array per (device, current stream): launches on one stream run in
+    order, so every call on it reuses the array. Grown to the largest
+    call seen, never shrunk; each kernel call zeroes the words it uses."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    words = _words.get(key)
+    if words is None or words.numel() < n:
+        words = _words[key] = torch.empty(
+            max(n, 0 if words is None else words.numel()), dtype=torch.int32,
+            device=device)
+    return words

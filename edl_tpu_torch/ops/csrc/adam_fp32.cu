@@ -37,7 +37,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+using edl::THREADS;
 // Buckets a launch takes: the table stays within 4 KB of parameters.
 constexpr int MAX_BUCKETS = 90;
 
@@ -54,11 +54,7 @@ struct Bucket {
   long long n4;         // float4s
 };
 
-struct Table {
-  Bucket b[MAX_BUCKETS];
-  int cend[MAX_BUCKETS];
-  int n;
-};
+using Table = edl::Table<Bucket, MAX_BUCKETS>;
 
 static_assert(sizeof(Table) + sizeof(Hyper) <= 4096,
               "K5's table must fit 4 KB of kernel parameters");
@@ -109,29 +105,20 @@ int edl_adam_fp32_buckets(void* const* ptrs, const long long* n, int count,
                           float lr, float c1, float c2, float b1, float omb1,
                           float b2, float omb2, float eps, float wd,
                           int use_wd, void* stream) {
-  if (count <= 0 || count > MAX_BUCKETS)
-    return static_cast<int>(cudaErrorInvalidValue);
   Table tab;
-  tab.n = count;
-  long long chunks = 0;
-  for (int i = 0; i < count; ++i) {
-    if (n[i] % 4 != 0 || n[i] <= 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    void* const* q = ptrs + 4 * i;
-    const long long n4 = n[i] / 4;
-    tab.b[i] = {static_cast<float4*>(q[0]), static_cast<const float4*>(q[1]),
-                static_cast<float4*>(q[2]), static_cast<float4*>(q[3]), n4};
-    chunks += (n4 + THREADS - 1) / THREADS;
-    if (chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    tab.cend[i] = static_cast<int>(chunks);
-  }
-  static const long long resident =
-      edl::resident_blocks(adam_fp32_kernel, THREADS);
+  const bool ok = edl::fill_table(
+      &tab, count, THREADS, nullptr, [&](int i, Bucket* row) -> long long {
+        if (n[i] % 4 != 0) return 0;
+        void* const* q = ptrs + 4 * i;
+        *row = {static_cast<float4*>(q[0]), static_cast<const float4*>(q[1]),
+                static_cast<float4*>(q[2]), static_cast<float4*>(q[3]),
+                n[i] / 4};
+        return row->n4;
+      });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const Hyper hp{lr, c1, c2, b1, omb1, b2, omb2, eps, wd, use_wd};
-  adam_fp32_kernel<<<static_cast<unsigned>(chunks < resident ? chunks
-                                                             : resident),
-                     THREADS, 0, static_cast<cudaStream_t>(stream)>>>(tab, hp);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(edl::launch_resident<&adam_fp32_kernel>(
+      static_cast<cudaStream_t>(stream), tab, hp));
 }
 
 const char* edl_cuda_error_string(int err) {

@@ -83,12 +83,7 @@ struct Bucket {
   long long n4;         // float4s
 };
 
-struct Table {
-  Bucket b[MAX_BUCKETS];
-  int cend[MAX_BUCKETS];
-  int n;
-  unsigned* words;      // WORDS a bucket of this table
-};
+using Table = edl::Table<Bucket, MAX_BUCKETS>;
 
 enum Pass { kAmax = 0, kResid = 1, kWrite = 2, kWriteLoadsOnly = 3 };
 
@@ -134,17 +129,12 @@ __device__ __forceinline__ void finish(const Table& tab, int b,
     edl::block_amax(mbits, w + 2);
     edl::block_amax(vbits, w + 3);
   } else if constexpr (PASS == kWrite) {
-    __syncthreads();   // the block's threads are done with the old scales
-    if (threadIdx.x == 0) {
-      __threadfence();
-      const unsigned chunks = tab.cend[b] - (b ? tab.cend[b - 1] : 0);
-      if (atomicAdd(w + 4, done) + done == chunks) {
-        const Bucket& bk = tab.b[b];
-        *bk.sm = edl::scale_of(w[0], MFP8);
-        *bk.rsm = edl::scale_of(w[2], MFP8);
-        *bk.sv = edl::scale_of(w[1], 1);
-        *bk.rsv = edl::scale_of(w[3], 1);
-      }
+    if (edl::last_block(tab.cend, b, w + 4, done)) {
+      const Bucket& bk = tab.b[b];
+      *bk.sm = edl::scale_of(w[0], MFP8);
+      *bk.rsm = edl::scale_of(w[2], MFP8);
+      *bk.sv = edl::scale_of(w[1], 1);
+      *bk.rsv = edl::scale_of(w[3], 1);
     }
   }
 }
@@ -236,22 +226,12 @@ adam_q_kernel(const __grid_constant__ Table tab, Hyper hp) {
   if (b >= 0) finish<PASS, MFP8>(tab, b, mbits, vbits, done);
 }
 
-template <int PASS, bool MFP8>
-cudaError_t launch_as(const Table& tab, const Hyper& hp, cudaStream_t st) {
-  static const long long resident =
-      edl::resident_blocks(adam_q_kernel<PASS, MFP8>, THREADS);
-  const long long chunks = tab.cend[tab.n - 1];
-  adam_q_kernel<PASS, MFP8>
-      <<<static_cast<unsigned>(chunks < resident ? chunks : resident),
-         THREADS, 0, st>>>(tab, hp);
-  return cudaGetLastError();
-}
-
 template <int PASS>
 cudaError_t launch(const Table& tab, const Hyper& hp, int m_fp8,
                    cudaStream_t st) {
-  return m_fp8 ? launch_as<PASS, true>(tab, hp, st)
-               : launch_as<PASS, false>(tab, hp, st);
+  if (m_fp8)
+    return edl::launch_resident<&adam_q_kernel<PASS, true>>(st, tab, hp);
+  return edl::launch_resident<&adam_q_kernel<PASS, false>>(st, tab, hp);
 }
 
 // The table of `count` buckets (1..MAX_BUCKETS): ptrs holds PTRS a
@@ -259,25 +239,18 @@ cudaError_t launch(const Table& tab, const Hyper& hp, int m_fp8,
 // is out of range or the chunks overflow an int.
 bool make_table(void* const* ptrs, const long long* n, int count,
                 unsigned* words, Table* tab) {
-  if (count <= 0 || count > MAX_BUCKETS) return false;
-  tab->n = count;
-  tab->words = words;
-  long long chunks = 0;
-  for (int i = 0; i < count; ++i) {
-    if (n[i] % 4 != 0 || n[i] <= 0) return false;
-    void* const* q = ptrs + PTRS * i;
-    const long long n4 = n[i] / 4;
-    tab->b[i] = {
-        static_cast<float4*>(q[0]), static_cast<const float4*>(q[1]),
-        static_cast<char4*>(q[2]),  static_cast<float*>(q[3]),
-        static_cast<char4*>(q[4]),  static_cast<float*>(q[5]),
-        static_cast<char4*>(q[6]),  static_cast<float*>(q[7]),
-        static_cast<char4*>(q[8]),  static_cast<float*>(q[9]), n4};
-    chunks += (n4 + THREADS - 1) / THREADS;
-    if (chunks > 0x7fffffffLL) return false;
-    tab->cend[i] = static_cast<int>(chunks);
-  }
-  return true;
+  return edl::fill_table(
+      tab, count, THREADS, words, [&](int i, Bucket* row) -> long long {
+        if (n[i] % 4 != 0) return 0;
+        void* const* q = ptrs + PTRS * i;
+        *row = {static_cast<float4*>(q[0]), static_cast<const float4*>(q[1]),
+                static_cast<char4*>(q[2]),  static_cast<float*>(q[3]),
+                static_cast<char4*>(q[4]),  static_cast<float*>(q[5]),
+                static_cast<char4*>(q[6]),  static_cast<float*>(q[7]),
+                static_cast<char4*>(q[8]),  static_cast<float*>(q[9]),
+                n[i] / 4};
+        return row->n4;
+      });
 }
 
 }  // namespace

@@ -23,14 +23,15 @@ Dispatch is by the tensors' device, never by a fallback:
 - a CUDA tensor launches the kernel or raises, each built at first use by
   ``ops/_build.py``: momentum-SGD runs K4 (``sgdm_fp32`` on one bucket,
   ``sgdm_fp32_buckets`` once over every bucket of a step;
-  ``csrc/sgdm.cu``) or K6 (``sgdm_q``, same file, three passes a bucket
-  through ``csrc/quant.cuh``), Adam(W) runs K5 (``adam_fp32`` on one
-  bucket, ``adam_fp32_buckets`` in one launch over every bucket of a
-  step; ``csrc/adam_fp32.cu``) or K7 (``adam_q`` on one bucket,
-  ``adam_q_buckets`` over every bucket of a step: a memset and three
-  passes over a table of the buckets, no workspace; ``csrc/adam_q.cu``).
-  One bucket is the one-entry table. Each launcher counts its calls in
-  ``.launches`` (``adam_q``: the calls of the C entry, each a whole K7).
+  ``csrc/sgdm.cu``) or K6 (``sgdm_q`` on one bucket, ``sgdm_q_buckets``
+  over every bucket of a step: a memset and three passes over a table of
+  the buckets, no workspace; same file), Adam(W) runs K5 (``adam_fp32``
+  on one bucket, ``adam_fp32_buckets`` in one launch over every bucket of
+  a step; ``csrc/adam_fp32.cu``) or K7 (``adam_q`` on one bucket,
+  ``adam_q_buckets`` over every bucket of a step, K6's scheme for two
+  moments; ``csrc/adam_q.cu``). One bucket is the one-entry table. Each
+  launcher counts its calls in ``.launches`` (``sgdm_q``, ``adam_q``: the
+  calls of the C entry, each a whole K6 or K7).
 
 The scalars lr, c1 = 1 - b1^t and c2 = 1 - b2^t are host floats. The
 plain version makes them, and the codecs' constants, 0-dim fp32 tensors on
@@ -283,23 +284,30 @@ _SIGNATURES = {
     "sgdm": ("edl_sgdm_fp32", [_P] * 3 + [_L] + [_F] * 3 + [_I, _P]),
     "sgdm_buckets": ("edl_sgdm_fp32_buckets",
                      [_P] * 4 + [_I] + [_F] * 3 + [_I, _P]),
-    "sgdm_q": ("edl_sgdm_q", [_P] * 8 + [_L] + [_F] * 3 + [_I, _I, _P]),
+    "sgdm_q_buckets": ("edl_sgdm_q_buckets",
+                       [_P, _P, _I, _P] + [_F] * 3 + [_I, _I, _P]),
+    "sgdm_q_pass": ("edl_sgdm_q_pass",
+                    [_P, _P, _I, _P, _I] + [_F] * 3 + [_I, _I, _P]),
     "adam_q_buckets": ("edl_adam_q_buckets",
                        [_P, _P, _I, _P] + [_F] * 9 + [_I, _I, _P]),
     "adam_q_pass": ("edl_adam_q_pass",
                     [_P, _P, _I, _P, _I] + [_F] * 9 + [_I, _I, _P]),
 }
 _SOURCE = {"adam_fp32_buckets": "adam_fp32", "sgdm": "sgdm",
-           "sgdm_buckets": "sgdm", "sgdm_q": "sgdm",
-           "adam_q_buckets": "adam_q", "adam_q_pass": "adam_q"}
+           "sgdm_buckets": "sgdm", "sgdm_q_buckets": "sgdm",
+           "sgdm_q_pass": "sgdm", "adam_q_buckets": "adam_q",
+           "adam_q_pass": "adam_q"}
 # Buckets one launch takes (MAX_BUCKETS of sgdm.cu, adam_fp32.cu and
 # adam_q.cu): each table is passed by value as a kernel parameter, within
-# 4 KB for K4 and K5; K7's 88 bytes a bucket take CUDA 12.1's larger
-# parameter space.
+# 4 KB for K4 and K5; K6's 56 and K7's 88 bytes a bucket take CUDA 12.1's
+# larger parameter space.
 SGDM_TABLE_MAX = 96
+SGDM_Q_TABLE_MAX = 96
 ADAM_TABLE_MAX = 90
 ADAM_Q_TABLE_MAX = 96
-# Device words of K7 a bucket: four abs-maxes and its last pass's count.
+# Device words a bucket: K6's two abs-maxes and its last pass's count;
+# K7's four abs-maxes and its count.
+_SGDM_Q_WORDS = 3
 _ADAM_Q_WORDS = 5
 
 
@@ -354,27 +362,6 @@ def _launch_tables(kind: str, name: str, device: torch.device, limit: int,
                 (ctypes.c_longlong * len(part))(*sizes), len(part), *args)
         calls += 1
     return calls
-
-
-# Scratch of K6 (m' staged in fp32 between passes) and the device words
-# of K6/K7 (abs-maxes, counts), one pair per (device, stream): launches on
-# one stream run in order, so every call reuses it. Grown to the largest
-# call seen, never shrunk.
-_workspaces: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _workspace(device: torch.device, floats: int, words: int
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    key = (device.index, _stream(device))
-    ws = _workspaces.get(key)
-    if ws is None or ws[0].numel() < floats or ws[1].numel() < words:
-        have = ws or (torch.empty(0), torch.empty(0))
-        ws = (torch.empty(max(floats, have[0].numel()), dtype=torch.float32,
-                          device=device),
-              torch.empty(max(words, have[1].numel()), dtype=torch.int32,
-                          device=device))
-        _workspaces[key] = ws
-    return ws
 
 
 def _check_lists(name: str, ps, gs, *moments, quant: str = "off"
@@ -433,19 +420,59 @@ def sgdm_fp32_buckets(ps, gs, ms, lr: float, *, mu: float,
         sgdm_fp32.launches += 1
 
 
+def _sgdm_q_rows(ps, gs, planes) -> list[tuple]:
+    return [(p, g, *m) for p, g, m in zip(ps, gs, planes)]
+
+
+def _sgdm_scalars(lr, mu, wd, quant) -> tuple:
+    """The C entries' arguments of K6 after the table: lr, mu, wd, use_wd
+    and the codec (1: fp8)."""
+    return (float(lr), float(mu), float(wd), int(bool(wd)),
+            int(quant == "fp8"))
+
+
+def sgdm_q_buckets(ps, gs, planes, lr: float, *, mu: float, wd: float,
+                   quant: str) -> None:
+    """Momentum-SGD with a quantized momentum over every bucket of a step,
+    p and the QPlanes rewritten in place: on the card K6 (a memset and its
+    three passes over a table of the buckets, once per SGDM_Q_TABLE_MAX
+    of them), each call of its entry counted in ``sgdm_q.launches``; on
+    the CPU the plain version bucket by bucket."""
+    _check_q("sgdm_q_buckets", quant)
+    device = _check_lists("sgdm_q_buckets", ps, gs, planes, quant=quant)
+    if device.type == "cpu":
+        for p, g, m in zip(ps, gs, planes):
+            _sgdm_plain(p, g, m, lr, mu, wd, quant)
+        return
+    words = _build.scratch_words(
+        device, _SGDM_Q_WORDS * min(len(ps), SGDM_Q_TABLE_MAX))
+    sgdm_q.launches += _launch_tables(
+        "sgdm_q_buckets", "sgdm_q_buckets", device, SGDM_Q_TABLE_MAX,
+        _sgdm_q_rows(ps, gs, planes), words.data_ptr(),
+        *_sgdm_scalars(lr, mu, wd, quant))
+
+
+def sgdm_q_pass(ps, gs, planes, lr: float, *, mu: float, wd: float,
+                quant: str, which: int) -> None:
+    """One pass of K6 alone over a table of CUDA buckets, for timing
+    (csrc/sgdm.cu, edl_sgdm_q_pass): ``which`` 0, 1, 2 = passes A, B, C.
+    Not counted in ``sgdm_q.launches``: no step runs it."""
+    _check_q("sgdm_q_pass", quant)
+    device = _check_lists("sgdm_q_pass", ps, gs, planes, quant=quant)
+    if device.type != "cuda" or len(ps) > SGDM_Q_TABLE_MAX:
+        raise ValueError(f"sgdm_q_pass times one table of at most "
+                         f"{SGDM_Q_TABLE_MAX} CUDA buckets")
+    words = _build.scratch_words(device, _SGDM_Q_WORDS * len(ps))
+    _launch_tables("sgdm_q_pass", "sgdm_q_pass", device, SGDM_Q_TABLE_MAX,
+                   _sgdm_q_rows(ps, gs, planes), words.data_ptr(), int(which),
+                   *_sgdm_scalars(lr, mu, wd, quant))
+
+
 def sgdm_q(p, g, plane: QPlane, lr: float, *, mu: float, wd: float,
            quant: str) -> None:
-    """Launch K6 on one bucket (three passes): p and the QPlane (payloads
-    and scales) rewritten in place."""
-    _check_bucket("sgdm_q", p, g)
-    _check_plane("sgdm_q", p, plane)
-    _check_q("sgdm_q", quant)
-    work, amax = _workspace(p.device, p.numel(), 2)
-    _launch("sgdm_q", "sgdm_q", p.device, p.data_ptr(), g.data_ptr(),
-            *(t.data_ptr() for t in plane), work.data_ptr(),
-            amax.data_ptr(), p.numel(), float(lr), float(mu), float(wd),
-            int(bool(wd)), int(quant == "fp8"))
-    sgdm_q.launches += 1
+    """Launch K6 on one bucket (the one-entry table): p and the QPlane
+    (payloads and scales) rewritten in place."""
+    sgdm_q_buckets([p], [g], [plane], lr, mu=mu, wd=wd, quant=quant)
 
 
 def _adam_scalars(lr, c1, c2, b1, b2, eps, wd) -> tuple:
@@ -499,8 +526,8 @@ def adam_q_buckets(ps, gs, m_planes, v_planes, lr: float, c1: float,
         for p, g, m, v in zip(ps, gs, m_planes, v_planes):
             _adam_plain(p, g, m, v, lr, c1, c2, b1, b2, eps, wd, quant)
         return
-    _, words = _workspace(device, 0,
-                          _ADAM_Q_WORDS * min(len(ps), ADAM_Q_TABLE_MAX))
+    words = _build.scratch_words(
+        device, _ADAM_Q_WORDS * min(len(ps), ADAM_Q_TABLE_MAX))
     adam_q.launches += _launch_tables(
         "adam_q_buckets", "adam_q_buckets", device, ADAM_Q_TABLE_MAX,
         _adam_q_rows(ps, gs, m_planes, v_planes), words.data_ptr(),
@@ -520,7 +547,7 @@ def adam_q_pass(ps, gs, m_planes, v_planes, lr: float, c1: float,
     if device.type != "cuda" or len(ps) > ADAM_Q_TABLE_MAX:
         raise ValueError(f"adam_q_pass times one table of at most "
                          f"{ADAM_Q_TABLE_MAX} CUDA buckets")
-    _, words = _workspace(device, 0, _ADAM_Q_WORDS * len(ps))
+    words = _build.scratch_words(device, _ADAM_Q_WORDS * len(ps))
     _launch_tables("adam_q_pass", "adam_q_pass", device, ADAM_Q_TABLE_MAX,
                    _adam_q_rows(ps, gs, m_planes, v_planes), words.data_ptr(),
                    int(which), *_adam_scalars(lr, c1, c2, b1, b2, eps, wd),

@@ -17,8 +17,15 @@ reduces each bucket as an independent collective:
   the slice. The cross-slice leg is dense, top-k values and int32
   indices with an error-feedback residual (``_cross_topk``), or int8
   values with one fp32 scale a rank and a residual (``_cross_int8``, on
-  the ``ops/pack.all_gather_int8`` wire and kernel K8). A flat world with
+  the ``ops/pack.all_gather_packed`` wire). A flat world with
   compression on treats every rank as its own slice.
+
+A step runs the buckets in phases (``_reduce_buckets``): every
+reduce-scatter, then one ``ops/pack.pack_int8_buckets`` call over every
+int8 leg's input (kernel K8 once over all of them), then each bucket's
+cross-slice leg in bucket order, then every all-gather. Each bucket keeps
+its own scale, so the result is bit for bit that of reducing the buckets
+one by one (``_reduce_bucket``, the one-bucket case).
 
 The loss and the float metrics are averaged over the world, and so are
 the BatchNorm running buffers after each step (the JAX package's
@@ -45,7 +52,7 @@ import torch
 from edl_tpu_torch import resolve_device
 from edl_tpu_torch.obs import metrics as obs_metrics
 from edl_tpu_torch.obs import trace
-from edl_tpu_torch.ops.pack import all_gather_int8
+from edl_tpu_torch.ops.pack import all_gather_packed, pack_int8_buckets
 from edl_tpu_torch.parallel import distributed
 from edl_tpu_torch.parallel import mesh as mesh_lib
 from edl_tpu_torch.utils.logging import get_logger
@@ -261,39 +268,75 @@ def _cross_topk(shard, resid, group, k):
     return dense, u - sent
 
 
-def _cross_int8(shard, resid, group):
-    """int8 cross-slice edge: one symmetric scale a rank (K8 on a card),
-    error feedback keeps the quantization error local and
-    re-contributed."""
-    u = shard + resid
-    gathered, local = all_gather_int8(u, group)
+def _cross_int8(u, q, scale, group):
+    """int8 cross-slice edge of u = shard + residual, packed as (q, scale)
+    with one symmetric scale a rank (K8 on a card): error feedback keeps
+    the quantization error local and re-contributed. u becomes the new
+    residual in place. Returns the dense sum."""
+    gathered, local = all_gather_packed(q, scale, group)
     dense = torch.sum(gathered.to(u.dtype), dim=0)
-    return dense, u - local.to(u.dtype)
+    u.sub_(local.to(u.dtype))
+    return dense
+
+
+def _leg(shard, config: CommConfig) -> str:
+    """The cross-slice leg of a shard: "dense", "topk" or "int8"."""
+    if config.compress == "off" or shard.shape[0] < config.min_compress_elems \
+            or not shard.dtype.is_floating_point:
+        return "dense"
+    return config.compress
+
+
+def _reduce_buckets(bufs, resids: list, *, n_slices: int, chips: int,
+                    config: CommConfig, groups=(None, None)) -> list:
+    """Every bucket's dp reduction, in phases: the intra-slice
+    reduce-scatters; u = shard + residual of every int8 leg, packed in one
+    ``pack_int8_buckets`` call; each bucket's cross-slice leg in bucket
+    order; the intra-slice all-gathers. ``groups`` is this rank's
+    (intra-slice, cross-slice) process groups (``mesh.comm_groups``).
+    Returns the reduced full buckets. ``resids``, this rank's residual
+    shards, is updated in place: an int8 leg's u replaces its residual as
+    soon as it is formed and becomes the new one in place, so a step holds
+    one residual a bucket, as one bucket at a time did; a dense leg's
+    stays as it came."""
+    if n_slices <= 1:
+        # no slow edge: one dense all-reduce of each bucket
+        return [distributed.all_reduce(b) for b in bufs]
+    intra, cross = groups
+    shards = [distributed.reduce_scatter(b, intra) if chips > 1 else b
+              for b in bufs]
+    legs = [_leg(shard, config) for shard in shards]
+    int8 = [i for i, leg in enumerate(legs) if leg == "int8"]
+    for i in int8:
+        resids[i] = shards[i] + resids[i]
+    packed = (dict(zip(int8, pack_int8_buckets([resids[i] for i in int8])))
+              if int8 else {})
+    outs = []
+    for i, leg in enumerate(legs):
+        shard, shards[i] = shards[i], None   # freed once its leg is done
+        if leg == "dense":
+            out = _cross_dense(shard, cross)
+        elif leg == "topk":
+            out, resids[i] = _cross_topk(
+                shard, resids[i], cross, _topk_k(shard.shape[0],
+                                                 config.topk_frac))
+        else:
+            out = _cross_int8(resids[i], *packed.pop(i), cross)
+        outs.append(out)
+    if chips > 1:
+        outs = [distributed.all_gather(o, intra).reshape(-1) for o in outs]
+    return outs
 
 
 def _reduce_bucket(buf, resid, *, n_slices: int, chips: int,
                    config: CommConfig, groups=(None, None)):
-    """One bucket's dp reduction. ``groups`` is this rank's (intra-slice,
-    cross-slice) process groups (``mesh.comm_groups``). Returns (reduced
-    full bucket, new residual shard); the residual is zero-width when
-    dense."""
-    if n_slices <= 1:
-        # no slow edge: one dense all-reduce of the bucket
-        return distributed.all_reduce(buf), resid
-    intra, cross = groups
-    shard = distributed.reduce_scatter(buf, intra) if chips > 1 else buf
-    m = shard.shape[0]
-    if config.compress == "off" or m < config.min_compress_elems \
-            or not shard.dtype.is_floating_point:
-        out = _cross_dense(shard, cross)
-    elif config.compress == "topk":
-        out, resid = _cross_topk(shard, resid, cross,
-                                 _topk_k(m, config.topk_frac))
-    else:
-        out, resid = _cross_int8(shard, resid, cross)
-    if chips > 1:
-        out = distributed.all_gather(out, intra).reshape(-1)
-    return out, resid
+    """One bucket's dp reduction: the one-bucket case of
+    ``_reduce_buckets``. Returns (reduced full bucket, new residual
+    shard)."""
+    resids = [resid]
+    (out,) = _reduce_buckets([buf], resids, n_slices=n_slices, chips=chips,
+                             config=config, groups=groups)
+    return out, resids[0]
 
 
 def _needs_residual(bucket: _Bucket, chips: int, n_slices: int,
@@ -448,14 +491,12 @@ class CommTrainStep:
         return state.apply_gradients(), metrics
 
     def _reduce(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
-        """The reduced gradients (already scaled by 1/W), bucket by
-        bucket."""
-        out = []
-        for i, buf in enumerate(pack_buckets(grads, self.plan)):
-            r, self.resid[i] = _reduce_bucket(
-                buf, self.resid[i], n_slices=self.n_slices, chips=self.chips,
-                config=self.config, groups=self.groups)
-            out.append(r)
+        """The reduced gradients (already scaled by 1/W): every bucket
+        through ``_reduce_buckets``' phases."""
+        out = _reduce_buckets(
+            pack_buckets(grads, self.plan), self.resid,
+            n_slices=self.n_slices, chips=self.chips, config=self.config,
+            groups=self.groups)
         return unpack_buckets(out, self.plan)
 
 

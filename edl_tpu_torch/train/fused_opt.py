@@ -5,11 +5,11 @@ Parameters are packed into the same flat, dtype-grouped, 128-padded
 buckets as the JAX package (``train/comm.plan_buckets``). A step hands
 every bucket to one entry of ``ops/opt_kernels``, which on a card runs
 one kernel call over a table of them: K4 (``sgdm_fp32_buckets``) or K5
-(``adam_fp32_buckets``) with fp32 moments, one launch; K7
-(``adam_q_buckets``) with quantized Adam moments, a memset and three
-passes. Quantized momentum-SGD runs K6 bucket by bucket
-(``sgdm_bucket``). On the CPU each entry runs the plain version bucket
-by bucket; the math per element is the JAX package's per-bucket update.
+(``adam_fp32_buckets``) with fp32 moments, one launch; K6
+(``sgdm_q_buckets``) or K7 (``adam_q_buckets``) with quantized moments,
+a memset and three passes. On the CPU each entry runs the plain version
+bucket by bucket; the math per element is the JAX package's per-bucket
+update.
 
 Resident moment formats (``quant``): ``off`` keeps fp32 bucket buffers;
 ``int8``/``fp8`` keep each moment plane as a ``QPlane`` (the quantized
@@ -174,9 +174,8 @@ class FusedOptimizer:
             ok.sgdm_fp32_buckets(st.p, g_bufs, st.m, lr, mu=self.momentum,
                                  wd=self.weight_decay)
         else:
-            for p, g, m in zip(st.p, g_bufs, st.m):
-                ok.sgdm_bucket(p, g, m, lr, mu=self.momentum,
-                               wd=self.weight_decay, quant=self.quant)
+            ok.sgdm_q_buckets(st.p, g_bufs, st.m, lr, mu=self.momentum,
+                              wd=self.weight_decay, quant=self.quant)
         return params, opt_state._replace(count=opt_state.count + 1)
 
 

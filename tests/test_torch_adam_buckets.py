@@ -244,8 +244,8 @@ def test_a_plan_longer_than_the_table_is_split(monkeypatch, quant):
     monkeypatch.setattr(tok, "_launch", rec)
     monkeypatch.setattr(tok, "_check_lists", lambda *a, **k: card)
     words = torch.zeros(5 * limit, dtype=torch.int32)
-    monkeypatch.setattr(tok, "_workspace",
-                        lambda device, floats, w: (None, words[:w]))
+    monkeypatch.setattr(tok._build, "scratch_words",
+                        lambda device, n: words[:n])
     ps = [torch.zeros(128 * (1 + i % 3)) for i in range(n)]
     gs = [torch.zeros_like(p) for p in ps]
     ms = [_zero_moment(p.numel(), quant) for p in ps]

@@ -1,5 +1,6 @@
 """chip_smoke.py's build gate for the bf16 flash kernels (the forward K1
-and the backward K2/K3), on the CPU.
+and the backward K2/K3), and its launch gates of the main paths, on the
+CPU.
 
 On a card the gate reads ptxas's log and the SASS of each built library
 (cuobjdump) and fails unless each bf16 wgmma body holds wgmma (HGMMA) and
@@ -12,8 +13,10 @@ clobbering patterns the gate exists for.
 """
 
 import importlib.util
+import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 _SPEC = importlib.util.spec_from_file_location(
@@ -35,6 +38,12 @@ K1 = ("_ZN45_GLOBAL__N__418534f1_12_flash_fwd_cu_71b00afc22flash_fwd_wgmma_"
     (K1, "flash_fwd_wgmma_kernel<64>"),
     ("_Z16adam_fp32_kernelPfS_", "adam_fp32_kernel"),
     ("_Z3foov", "_Z3foov"),
+    # a kernel in a namespace nested in the file's anonymous one, with
+    # int and bool template arguments (K6's passes)
+    ("_ZN39_GLOBAL__N__3d1c2e41_7_sgdm_cu_8c1f2a122k613sgdm_q_kernel"
+     "ILi2ELb1ELb0EEEvNS0_5TableENS_5HyperE", "sgdm_q_kernel<2,1,0>"),
+    ("_ZN39_GLOBAL__N__0a1b2c3d_7_pack_cu_4e5f607111pack_kernelILb1ELb1EEEv"
+     "NS_5TableE", "pack_kernel<1,1>"),
 ])
 def test_kernel_name(mangled, name):
     assert cs.kernel_name(mangled) == name
@@ -224,3 +233,52 @@ def test_bwd_tflops_counts_the_visible_pairs():
     # the products each backward computes, as bound and TFLOP/s count them
     assert cs.BWD_PRODUCTS == {"flash_bwd_dkdv": 4, "flash_bwd_dq": 5,
                                "sdpa_bwd": 5}
+
+
+# -- the launch gates --------------------------------------------------------
+
+
+def test_resnet_runs_want_one_optimizer_call_a_step():
+    """imagenet_train on one card: one K4 launch a step (fp32 momentum)
+    or one K6 entry call a step (int8), whatever the bucket count, and no
+    other counted launch."""
+    counters = {"sgdm_fp32": None, "sgdm_q": None}
+    assert cs.resnet_want(counters, "sgdm_fp32") == {"sgdm_fp32": 1,
+                                                     "sgdm_q": 0}
+    assert cs.resnet_want(counters, "sgdm_q") == {"sgdm_fp32": 0,
+                                                  "sgdm_q": 1}
+
+
+def _rank(rank: int, launches: dict, steps: int) -> dict:
+    step = {"ms": 100.0, "reduce_ms": 60.0, "reduce_extra_bytes": 2**20,
+            "launches": launches}
+    losses = np.linspace(7.0, 6.0, steps)
+    return {"rank": rank, "rc": 0, "digest": "d" * 64, "wall_s": 1.0,
+            "peak_gib": 1.5 + rank,
+            "steps": [dict(step, loss=float(x)) for x in losses],
+            "launches": {n: v * steps for n, v in launches.items()},
+            "comm_buckets": 24, "compressed_buckets": 24, "opt_buckets": 24,
+            "stats": {}, "topology": [2, 1], "fp32_leg_bytes": 1}
+
+
+@pytest.mark.parametrize("name", ["int8", "dense"])
+def test_world_runs_want_one_pack_call_a_step_a_rank(name, tmp_path,
+                                                     capsys):
+    """The world runs: one K8 call a step a rank over every compressed
+    bucket in the int8 run (none dense), one K4 a step; a rank that
+    launched K8 once per compressed bucket fails the run."""
+    want = cs.world_want(name)
+    assert want == {"pack_int8": int(name == "int8"), "sgdm_fp32": 1}
+    (tmp_path / "log_0.json").write_text(json.dumps({"final": {}}))
+    steps = 3 * cs.RESNET_STEPS_PER_EPOCH
+    out = cs.world_summary(name, [_rank(r, want, steps) for r in range(2)],
+                           tmp_path)
+    assert out["launches_per_step_per_rank"] == want
+    assert out["peak_gib"] == [1.5, 2.5]
+    assert out["reduce_extra_mib_max"] == 1.0
+    assert out["launches"]["pack_int8"] == 2 * steps * int(name == "int8")
+    per_bucket = dict(want, pack_int8=24 if name == "int8" else 1)
+    with pytest.raises(SystemExit):
+        cs.world_summary(name, [_rank(r, per_bucket, steps)
+                                for r in range(2)], tmp_path)
+    assert "launched" in capsys.readouterr().err

@@ -292,7 +292,9 @@ def _tiny_problem():
 
 def test_world_of_one_with_int8_is_a_plain_step(monkeypatch):
     calls = []
-    monkeypatch.setattr(comm, "all_gather_int8",
+    monkeypatch.setattr(comm, "pack_int8_buckets",
+                        lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(comm, "all_gather_packed",
                         lambda *a, **k: calls.append(a))
     loss_fn, state_fn, batch = _tiny_problem()
     step = make_train_step(loss_fn, comm=comm.CommConfig(compress="int8"))

@@ -112,8 +112,8 @@ def test_buckets_refuse_what_the_kernel_does_not_take():
 
 def test_fused_apply_takes_every_sgdm_bucket_in_one_call(monkeypatch):
     """fused_apply hands momentum-SGD with fp32 momentum to the entry
-    once a step, with every bucket; the quantized modes keep their
-    per-bucket loop."""
+    once a step, with every bucket; the quantized modes go to their own
+    entry (tests/test_torch_sgdm_q_buckets.py)."""
     calls = []
     entry = tok.sgdm_fp32_buckets
 

@@ -218,20 +218,20 @@ def _task_reduce(inputs: dict, directory: Path) -> dict:
     """comm._reduce_bucket of row r of each case's ``buf`` and ``resid``
     (cases in ``inputs["cases"]``, JSON), with what the int8 leg packed
     (its input u, q and scale)."""
-    from edl_tpu_torch.ops import pack
     from edl_tpu_torch.parallel import distributed
     from edl_tpu_torch.parallel import mesh
     from edl_tpu_torch.train import comm
 
     r = distributed.rank()
     packed = []
-    gather = comm.all_gather_int8
+    pack_all = comm.pack_int8_buckets
 
-    def probe(u, group=None):
-        packed.append((u.clone(), *pack.pack_int8(u)))
-        return gather(u, group)
+    def probe(us):
+        out = pack_all(us)
+        packed.extend((u.clone(), q, s) for u, (q, s) in zip(us, out))
+        return out
 
-    comm.all_gather_int8 = probe
+    comm.pack_int8_buckets = probe
     groups: dict = {}
     out = {}
     for case in as_json(inputs["cases"]):
@@ -299,6 +299,78 @@ def _task_comm_steps(inputs: dict, directory: Path) -> dict:
     return out
 
 
+def _task_phased_reduce(inputs: dict, directory: Path) -> dict:
+    """For each mode of ``inputs["modes"]`` (JSON: int8, topk, off, and
+    off_sliced: compress off over two slices of one rank), two steps of
+    CommTrainStep._reduce of this rank's gradients (``g{rank}_{i}``, leaf
+    lengths ``leaves``) over a plan of 0.0005 MiB buckets from injected
+    residuals, then the same two steps through _reduce_bucket bucket by
+    bucket from the same residuals: the reduced gradients and residuals
+    of both, and the pack_int8_buckets calls the phased steps made."""
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.parallel import mesh
+    from edl_tpu_torch.train import comm
+
+    r = distributed.rank()
+    grads = [torch.from_numpy(inputs[f"g{r}_{i}"])
+             for i in range(len(inputs["leaves"]))]
+    calls = []
+    pack_all = comm.pack_int8_buckets
+
+    def probe(us):
+        calls.append(len(us))
+        return pack_all(us)
+
+    comm.pack_int8_buckets = probe
+    out = {}
+    for mode in as_json(inputs["modes"]):
+        config = comm.CommConfig(
+            compress="off" if mode.startswith("off") else mode,
+            bucket_mb=0.0005, topk_frac=0.25, min_compress_elems=32)
+        step = comm.CommTrainStep(
+            None, config=config,
+            topology=mesh.SliceTopology(2, 1) if mode == "off_sliced"
+            else None)
+        step.plan = comm.plan_buckets(grads, config.bucket_mb, align=2)
+        if step.n_slices > 1:
+            step.groups = mesh.comm_groups(step.n_slices, step.chips)
+        rng = np.random.default_rng(10 + r)
+        legs = [comm._needs_residual(b, step.chips, step.n_slices, config)
+                for b in step.plan.buckets]
+        resid0 = [torch.from_numpy(rng.normal(
+            0, 1e-3, b.padded if leg else 3).astype(np.float32))
+            for b, leg in zip(step.plan.buckets, legs)]
+        step.resid = [t.clone() for t in resid0]
+        calls.clear()
+        for _ in range(2):
+            phased = step._reduce([g.clone() for g in grads])
+        pack_calls = list(calls)
+        resid = [t.clone() for t in resid0]
+        for _ in range(2):
+            bufs = comm.pack_buckets([g.clone() for g in grads], step.plan)
+            outs = []
+            for i, buf in enumerate(bufs):
+                o, resid[i] = comm._reduce_bucket(
+                    buf, resid[i], n_slices=step.n_slices, chips=step.chips,
+                    config=config, groups=step.groups)
+                outs.append(o)
+            one_by_one = comm.unpack_buckets(outs, step.plan)
+        for name, gs, rs in (("phased", phased, step.resid),
+                             ("one_by_one", one_by_one, resid)):
+            out.update({f"{mode}/{name}/g{i}": g.numpy()
+                        for i, g in enumerate(gs)})
+            out.update({f"{mode}/{name}/resid{i}": t.numpy()
+                        for i, t in enumerate(rs)})
+        sizes = [b.padded for b in step.plan.buckets]
+        out[f"{mode}/info"] = np.array(json.dumps({
+            "buckets": step.plan.n_buckets, "sizes": sizes,
+            "n_slices": step.n_slices, "pack_calls": pack_calls,
+            "int8_legs": sum(legs) if mode == "int8" else 0,
+            "dense_small": any(n < config.min_compress_elems
+                               for n in sizes)}))
+    return out
+
+
 def _task_wires_reduce(inputs: dict, directory: Path) -> dict:
     """_task_wires, then _task_reduce, in one world."""
     return {**_task_wires(inputs, directory),
@@ -306,7 +378,7 @@ def _task_wires_reduce(inputs: dict, directory: Path) -> dict:
 
 
 TASKS = {"imagenet": _task_imagenet, "wires_reduce": _task_wires_reduce,
-         "comm_steps": _task_comm_steps}
+         "comm_steps": _task_comm_steps, "phased_reduce": _task_phased_reduce}
 
 
 # -- the tests ---------------------------------------------------------------

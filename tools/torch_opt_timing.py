@@ -9,14 +9,16 @@ turns; a turn queues few enough steps to keep a checkout that launches
 bucket by bucket under about 800 queued launches): K5 (fp32 Adam) and
 K7 (Adam with int8 m and fp8 v) over the base LM config's 60 buckets
 (vocab 32768, d_model 1024, 16 heads, 8 layers, d_ff 4096: 168.9M
-parameters), and K6 (momentum-SGD
-with int8 momentum) over ResNet50_vd's 24 buckets, each through the
-entry the checkout's fused optimizer uses for a step (one call over
-every bucket where the checkout has it, else bucket by bucket). Also
-the device memory K7 allocates beyond the model and its state (a
-workspace, if any). Prints one JSON line with the card's name and power
-limit. The port is imported from PYTHONPATH, so one script times any
-checkout of it; run two side by side in one call to compare them.
+parameters), K6 (momentum-SGD with int8 momentum) over ResNet50_vd's 24
+optimizer buckets, and K8 (the int8 gradient pack) over the 24
+compressed buckets of ResNet50_vd's comm plan at world 2 (a step's
+pack on one rank), each through the entry the checkout's training path
+uses for a step (one call over every bucket where the checkout has it,
+else bucket by bucket). Also the device memory K7 allocates beyond the
+model and its state (a workspace, if any). Prints one JSON line with the
+card's name and power limit. The port is imported from PYTHONPATH, so
+one script times any checkout of it; run two side by side in one call
+to compare them.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ import torch
 
 TURNS = 3
 # steps queued a turn: K7 bucket by bucket is 4 stream entries a bucket
-# (240 a step), K6 96 a step, K5 60
-ITERS = {"K5": 10, "K7": 3, "K6": 8}
+# (240 a step), K6 96 a step, K5 60, K8 shard by shard 72
+ITERS = {"K5": 10, "K7": 3, "K6": 8, "K8": 8}
 
 
 def queued_ms(fn, iters: int) -> float:
@@ -72,10 +74,13 @@ def main() -> int:
         return 1
 
     import edl_tpu_torch
+    from edl_tpu_torch.bridge import flax_named_parameters
     from edl_tpu_torch.models.resnet import ResNet50_vd
     from edl_tpu_torch.models.transformer import (Transformer,
                                                   TransformerConfig)
     from edl_tpu_torch.ops import opt_kernels as ok
+    from edl_tpu_torch.ops import pack
+    from edl_tpu_torch.train import comm
     from edl_tpu_torch.train import fused_opt as fo
 
     card = subprocess.run(
@@ -96,6 +101,13 @@ def main() -> int:
                          device="cuda", seed=0)
     sgdq = fo.fused_sgd(0.1, 0.9, 1e-4, quant="int8")
     s6, g6 = plan(fo, resnet, sgdq, gen)
+    leaves = [p for _, p in flax_named_parameters(resnet)]
+    wire = comm.plan_buckets(leaves, 4.0, align=2)
+    int8 = comm.CommConfig(compress="int8")
+    shards = [buf for buf, b in zip(
+        comm.pack_buckets([torch.randn(p.shape, generator=gen, device="cuda")
+                           * 1e-3 for p in leaves], wire), wire.buckets)
+        if comm._needs_residual(b, 1, 2, int8)]
 
     def k5():
         if hasattr(ok, "adam_fp32_buckets"):
@@ -114,8 +126,19 @@ def main() -> int:
             ok.adam_q(*args, lr, c1, c2, quant="int8", **hyper)
 
     def k6():
+        if hasattr(ok, "sgdm_q_buckets"):
+            ok.sgdm_q_buckets(s6.p, g6, s6.m, 0.1, mu=0.9, wd=1e-4,
+                              quant="int8")
+            return
         for p, g, m in zip(s6.p, g6, s6.m):
             ok.sgdm_q(p, g, m, 0.1, mu=0.9, wd=1e-4, quant="int8")
+
+    def k8():
+        if hasattr(pack, "pack_int8_buckets"):
+            pack.pack_int8_buckets(shards)
+            return
+        for x in shards:
+            pack.pack_int8(x)
 
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -123,15 +146,17 @@ def main() -> int:
     k7()
     torch.cuda.synchronize()
     k7_extra = torch.cuda.max_memory_allocated() - before
-    turns: dict[str, list[float]] = {"K5": [], "K7": [], "K6": []}
+    turns: dict[str, list[float]] = {"K5": [], "K7": [], "K6": [], "K8": []}
     for _ in range(TURNS):
-        for name, fn in (("K5", k5), ("K7", k7), ("K6", k6)):
+        for name, fn in (("K5", k5), ("K7", k7), ("K6", k6), ("K8", k8)):
             turns[name].append(queued_ms(fn, ITERS[name]))
     print(json.dumps({
         "card": card, "torch": torch.__version__, "port": edl_tpu_torch.__file__,
         "ms": {k: sum(v) / len(v) for k, v in turns.items()},
         "ms_turns": turns, "k7_extra_device_bytes": k7_extra,
         "lm_buckets": len(s32.p), "resnet_buckets": len(s6.p),
+        "resnet_compressed_buckets": len(shards),
+        "resnet_compressed_elems": sum(x.numel() for x in shards),
         "timing": "device: steps queued behind a sleep kernel"}), flush=True)
     return 0
 
