@@ -106,7 +106,33 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              epoch means; the int8 run within 0.25 x the dense run's
              improvement; the int8 wire <= 0.26 x the fp32 leg's bytes;
              loss_parity_gate on ResNet50_vd (3 steps, bitwise dense, int8
-             loss delta <= 5e-3).
+             loss delta <= 5e-3);
+10. resume — the input planes and checkpoints: imagenet_train.main at
+             RESNET_ARGV's model, size, classes and batch over packed
+             records (--make-synthetic packs the same 5 shards),
+             --augment-device 1 (crop/flip on the prefetch stream),
+             --loader-workers N (the cores less one, at most 8; printed)
+             and prefetch onto the card: fp32 (K4) for 3 epochs without
+             checkpoints (the epoch rate with the loader, step ms, peak
+             memory), then with --ckpt-dir for 2 epochs with async saves
+             (save stall ms and write s, state and staging-arena bytes),
+             then resumed to epoch 3 with a sync save (it starts at epoch
+             2 from the latest version; its restored params, BatchNorm
+             statistics, moments, count and status bit for bit the saved
+             state; losses finite
+             and no epoch mean above the first's by 0.1: the synthetic
+             task is not augmentation-invariant; restore s); one
+             step from the restored state bit for bit the same step from
+             the state the save was taken of (cudnn.deterministic for
+             this check); the same run with --ckpt-steps 5, its async
+             step-15 save bit for bit the state at step 15 though steps
+             16-20 rewrote its buffers in place during the write, that
+             version copied into a fresh dir and resumed: exactly 5
+             batches of epoch 1 skipped and steps 16-20 on the
+             uninterrupted run's batches (sha256 of each placed, augmented
+             batch); int8 (K6) for 1 epoch and resumed: the QPlanes bit
+             for bit, the checkpoint's optimizer part >= 1.8x smaller than
+             fp32's. Exactly one K4 (or K6 entry call) a step throughout.
 
 The line before the last lists every ported kernel; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1218,14 +1244,20 @@ def event():
     return e
 
 
-def run_probed(module, main_fn, argv: list, counters: dict) -> dict:
+def run_probed(module, main_fn, argv: list, counters: dict,
+               hashes: list | None = None,
+               capture: tuple | None = None) -> dict:
     """``main_fn(argv)`` with ``module.make_train_step`` and
     TrainState.apply_gradients wrapped for the run: each step is timed on
     the host clock between two synchronizes, its forward (the loss
     function), backward and optimizer with CUDA events; ``counters``
     ({name: wrapper}) are set to 0 just before the run and read around
-    every step and just after. Returns the steps, the last state, the
-    first batch, what main printed, its code, wall time and peak memory."""
+    every step and just after. With ``hashes``, the sha256 of each step's
+    placed batch (after any device augment) is appended to it before the
+    step is timed. ``capture`` = (step, fn): after that step (1-based),
+    outside its timing, ``seen["captured"] = fn(state)``. Returns the
+    steps, the last state, the first batch, what main printed, its code,
+    wall time and peak memory."""
     import contextlib
     import io
 
@@ -1250,6 +1282,8 @@ def run_probed(module, main_fn, argv: list, counters: dict) -> dict:
         def timed_step(state, batch):
             if "batch" not in seen:
                 seen["batch"] = {k: v.clone() for k, v in batch.items()}
+            if hashes is not None:
+                hashes.append(batch_hash(batch))
             torch.cuda.synchronize()
             c0 = [counters[n].launches for n in names]
             t0 = time.perf_counter()
@@ -1261,6 +1295,8 @@ def run_probed(module, main_fn, argv: list, counters: dict) -> dict:
                                        for n, c in zip(names, c0)},
                           "loss": float(metrics["loss"])})
             seen["state"] = state
+            if capture is not None and len(steps) == capture[0]:
+                seen["captured"] = capture[1](state)
             return state, metrics
         return timed_step
 
@@ -1291,6 +1327,19 @@ def run_probed(module, main_fn, argv: list, counters: dict) -> dict:
     return {"rc": rc, "printed": out, "steps": steps, "seen": seen,
             "launches": launches, "wall_s": wall_s,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def batch_hash(batch: dict) -> str:
+    """sha256 over a placed batch's keys, dtypes, shapes and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        t = batch[k].detach().contiguous().cpu()
+        h.update(f"{k}:{t.dtype}:{tuple(t.shape)}".encode())
+        h.update(t.view(torch.uint8).numpy().tobytes() if t.numel()
+                 else b"")
+    return h.hexdigest()
 
 
 def step_summary(steps: list[dict]) -> dict:
@@ -2681,6 +2730,376 @@ def phase_train_resnet_world() -> dict:
                                         if v} for n, r in runs.items()}
 
 
+# -- 10. resume (the input planes and checkpoints) ---------------------------
+
+RESUME_ARGV = [a for a in RESNET_ARGV if a != "--no-augment"
+               ] + ["--data-format", "packed", "--augment-device", "1"]
+RESUME_MID_STEPS = 5      # --ckpt-steps of the mid-epoch run
+# The synthetic template task is not augmentation-invariant: under
+# flip/crop (the host's or the device's) ResNet50_vd stays near chance
+# for these 3 epochs (epoch means 6.985, 6.907, 6.913 on an H100 80GB
+# HBM3 at 700 W; at 32 px ResNetTiny without augmentation reaches acc1
+# 0.98 in 2 epochs, with either augmentation it stays at chance for 6).
+# So the augmented runs are held to no divergence: no epoch's mean loss
+# above the first epoch's by more than this.
+RESUME_LOSS_SLACK = 0.1
+
+
+def loader_workers(cores: int | None = None) -> int:
+    """The resume phase's loader processes: the machine's cores less one
+    (the training thread), at most 8."""
+    cores = os.cpu_count() if cores is None else cores
+    return max(1, min(8, (cores or 2) - 1))
+
+
+def tree_mismatches(a, b) -> list[str]:
+    """Keys of two checkpoint trees whose leaves differ in key, dtype,
+    shape or any bit."""
+    from edl_tpu_torch.train.sharded_checkpoint import keyed_leaves
+
+    la, lb = dict(keyed_leaves(a)), dict(keyed_leaves(b))
+    bad = sorted(set(la) ^ set(lb))
+    for k in sorted(set(la) & set(lb)):
+        x, y = np.asarray(la[k]), np.asarray(lb[k])
+        if (x.dtype != y.dtype or x.shape != y.shape
+                or x.tobytes() != y.tobytes()):
+            bad.append(k)
+    return bad
+
+
+def opt_bytes(tree) -> int:
+    """Bytes of a checkpoint tree's optimizer leaves, as stored."""
+    from edl_tpu_torch.train.serialization import to_state_dict
+
+    def nbytes(node) -> int:
+        if isinstance(node, dict):
+            return sum(nbytes(v) for v in node.values())
+        return 0 if node is None else int(np.asarray(node).nbytes)
+
+    return nbytes(to_state_dict(tree)["opt_state"])
+
+
+def async_save_mismatches(ckpt_dir: Path, version: int,
+                          tree) -> list[str]:
+    """Leaves of ``version`` under ``ckpt_dir`` that differ from ``tree``
+    (the state the save was taken of)."""
+    from edl_tpu_torch.train.checkpoint import CheckpointManager
+    from edl_tpu_torch.train.serialization import to_state_dict
+
+    if tree is None:
+        return ["<no state captured>"]
+    raw, _ = CheckpointManager(str(ckpt_dir)).restore_raw(version)
+    return tree_mismatches(to_state_dict(tree), raw)
+
+
+def version_at(ckpt_dir: str, step: int) -> int | None:
+    """The sealed version whose meta.json status is at global ``step``."""
+    for name in sorted(os.listdir(ckpt_dir)):
+        meta = os.path.join(ckpt_dir, name, "meta.json")
+        if name.startswith("ckpt-") and os.path.exists(meta):
+            with open(meta) as f:
+                if json.load(f)["status"]["step"] == step:
+                    return int(name[5:])
+    return None
+
+
+def resume_run(imagenet_train, classification, counters: dict, argv: list,
+               name: str, kernel: str, card: str, restored: dict,
+               hashes: list | None = None,
+               capture: tuple | None = None) -> dict:
+    """One imagenet_train.main run of the resume phase: exactly one call
+    of ``kernel`` a step and no other counted launch, losses finite; its
+    benchmark log's epoch rates and checkpoint accounting. ``restored``
+    receives what try_restore restored (probe_restore)."""
+    restored.clear()
+    run = run_probed(classification, imagenet_train.main, argv, counters,
+                     hashes=hashes, capture=capture)
+    if run["rc"] != 0 or "final_acc1=" not in run["printed"]:
+        fail(f"imagenet_train resume {name} returned {run['rc']} and "
+             f"printed {run['printed']!r}")
+    check_launches(run["steps"], resnet_want(counters, kernel),
+                   f"imagenet_train resume {name}")
+    blog_dir = argv[argv.index("--benchmark-log") + 1]
+    with open(os.path.join(blog_dir, "log_0.json")) as f:
+        blog = json.load(f)
+    losses = [st["loss"] for st in run["steps"]]
+    if not all(np.isfinite(losses)):
+        fail(f"imagenet_train resume {name}: losses {losses} not finite")
+    out = {"phase": f"resume_{name}", "card": card, "argv": argv,
+           "steps": len(losses), "wall_s": run["wall_s"],
+           "launches": run["launches"], "losses": losses,
+           "epoch_examples_per_s": [e["examples_per_sec"]
+                                    for e in blog["epochs"]],
+           "peak_gib": run["peak_gib"],
+           "ckpt": {k: v for k, v in blog.items() if k.startswith("ckpt")}}
+    if len(losses) > TIMED_FROM_STEP:
+        out.update(step_summary(run["steps"]))
+    if restored:
+        out["restored"] = {k: v for k, v in restored.items()
+                           if k != "tree"}
+    emit(out)
+    out["state"] = run["seen"]["state"]
+    out["batch"] = run["seen"]["batch"]
+    out["captured"] = run["seen"].get("captured")
+    return out
+
+
+def probe_restore(loop_mod, bridge, restored: dict):
+    """Wrap TrainLoop.try_restore: after it, record the version, the
+    status and the state's checkpoint tree (before any step). Returns the
+    original, for the caller to put back."""
+    original = loop_mod.TrainLoop.try_restore
+
+    def try_restore(self):
+        ok = original(self)
+        if ok:
+            restored.update(version=self.restored_version,
+                            status=self.status.to_dict(),
+                            restore_s=self.restore_s,
+                            tree=bridge.state_to_flax(self.state))
+        return ok
+
+    loop_mod.TrainLoop.try_restore = try_restore
+    return original
+
+
+def one_step_after_restore(imagenet_train, classification, bridge, fo,
+                           ckpt_dir: str, version: int, argv: list, state,
+                           batch) -> dict:
+    """One step from the restored fp32 state against the same step from
+    the state the save was taken of, on the same batch, bit for bit.
+    cuDNN's backward may pick nondeterministic algorithms, so this one
+    check runs with torch.backends.cudnn.deterministic = True."""
+    from edl_tpu_torch import models as zoo
+    from edl_tpu_torch.train.checkpoint import CheckpointManager
+
+    args = imagenet_train._parser().parse_args(argv)
+    model = zoo.get_model(args.model)(
+        num_classes=args.num_classes, dtype=torch.bfloat16,
+        device=torch.device("cuda"), seed=args.seed + 1)
+    tx = fo.make_fused_tx("sgdm", state.tx.learning_rate, "fp32",
+                          momentum=args.momentum,
+                          weight_decay=args.weight_decay)
+    other = classification.create_state(model, tx)
+    if CheckpointManager(ckpt_dir).restore(other, version) is None:
+        fail(f"no checkpoint {version} to restore under {ckpt_dir}")
+    step = classification.make_classification_step(
+        args.num_classes, smoothing=args.label_smoothing, seed=args.seed)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        losses = []
+        for st in (state, other):
+            st, metrics = step(st, {k: v.clone() for k, v in batch.items()})
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        bad = tree_mismatches(bridge.state_to_flax(state),
+                              bridge.state_to_flax(other))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    return {"losses": losses, "mismatched_leaves": bad,
+            "cudnn_deterministic": True}
+
+
+def phase_resume(ok_mod, card: str) -> dict:
+    """The port's imagenet_train.main at RESNET_ARGV's model, size,
+    classes and batch over packed records (--make-synthetic packs the
+    same shards), --augment-device 1, loader_workers() forked loader
+    processes and prefetch onto the card, with checkpoints:
+
+    0. fp32 (K4), 3 epochs without checkpoints: the epoch rate with the
+       loader, step ms and peak memory of the input planes alone;
+    1. fp32, 2 epochs, async saves: epoch rates (the epoch-end wait for
+       the write included), save stall and write time, state and arena
+       bytes, peak;
+    2. resumed to epoch 3 with a sync save (its stall): starts at epoch 2
+       from the latest version, its
+       restored tree (params, BatchNorm statistics, moments, count,
+       status) bit for bit run 1's final state, losses finite and no
+       epoch mean over runs 1-2 above the first by RESUME_LOSS_SLACK;
+       one step from the restored state bit for bit the same step from
+       run 1's (cudnn.deterministic);
+    3. run 1 again with --ckpt-steps 5: its async save at step 15
+       (step 5 of epoch 1), whose buffers steps 16-20 rewrote in place
+       while it was written, bit for bit the state at step 15; that
+       version copied into a fresh dir and resumed: exactly 5 batches of
+       epoch 1 skipped, steps 16-20 take run 3's batches (sha256 of each
+       placed, augmented batch);
+    4. int8 (K6), 1 epoch, resumed to 2: the restored QPlanes bit for
+       bit, the checkpoint's optimizer part >= STATE_CUT x smaller than
+       run 1's.
+    Every run launches exactly one K4 (or K6 entry call) a step."""
+    import shutil
+    import tempfile
+
+    from edl_tpu_torch import bridge
+    from edl_tpu_torch.examples import imagenet_train
+    from edl_tpu_torch.train import classification
+    from edl_tpu_torch.train import fused_opt as fo
+    from edl_tpu_torch.train import loop as loop_mod
+
+    torch.cuda.empty_cache()
+    counters = {"sgdm_fp32": ok_mod.sgdm_fp32, "sgdm_q": ok_mod.sgdm_q}
+    workers = loader_workers()
+    emit({"phase": "resume_setup", "card": card, "loader_workers": workers,
+          "cpu_count": os.cpu_count(), "argv": RESUME_ARGV})
+    restored: dict = {}
+    original = probe_restore(loop_mod, bridge, restored)
+    runs: dict = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            data = str(tmp / "data")
+
+            def argv(name, mode, epochs, ckpt, *extra):
+                ck = ["--ckpt-dir", str(ckpt)] if ckpt else []
+                return ["--data-dir", data, *RESUME_ARGV, "--fused-opt", mode,
+                        "--loader-workers", str(workers), "--epochs",
+                        str(epochs), *ck, "--benchmark-log",
+                        str(tmp / name), *extra]
+
+            # the input planes alone (no checkpoint waits in the epochs)
+            runs["loader"] = resume_run(
+                imagenet_train, classification, counters,
+                argv("loader", "fp32", 3, None, "--make-synthetic",
+                     str(RESNET_SHARDS)),
+                "loader", "sgdm_fp32", card, restored)
+            for k in ("state", "batch", "captured"):
+                runs["loader"].pop(k)
+            torch.cuda.empty_cache()
+            a_argv = argv("fp32", "fp32", 2, tmp / "ck_fp32")
+            a = resume_run(imagenet_train, classification, counters, a_argv,
+                           "fp32", "sgdm_fp32", card, restored)
+            saved_tree = bridge.state_to_flax(a["state"])
+            fp32_opt = opt_bytes(saved_tree)
+            saved_status = {"epoch": 1, "step": 2 * RESNET_STEPS_PER_EPOCH,
+                            "step_in_epoch": 0}
+            # its one save is sync: the stall of a whole save
+            b = resume_run(imagenet_train, classification, counters,
+                           argv("fp32_resumed", "fp32", 3, tmp / "ck_fp32",
+                                "--ckpt-sync"),
+                           "fp32_resumed", "sgdm_fp32", card, restored)
+            check = {"phase": "resume_fp32_check", "card": card,
+                     "restored_version": restored.get("version"),
+                     "status": restored.get("status"),
+                     "mismatched_leaves": tree_mismatches(
+                         saved_tree, restored.get("tree")),
+                     "restore_s": restored.get("restore_s")}
+            epochs = [float(np.mean(x[i:i + RESNET_STEPS_PER_EPOCH]))
+                      for x in (a["losses"] + b["losses"],)
+                      for i in range(0, len(x), RESNET_STEPS_PER_EPOCH)]
+            check["epoch_mean_losses"] = epochs
+            check["one_step"] = one_step_after_restore(
+                imagenet_train, classification, bridge, fo,
+                str(tmp / "ck_fp32"), check["restored_version"], a_argv,
+                a["state"], a["batch"])
+            emit(check)
+            st = check["status"] or {}
+            if not (check["restored_version"] is not None
+                    and {k: st.get(k) for k in saved_status} == saved_status
+                    and b["steps"] == RESNET_STEPS_PER_EPOCH):
+                fail(f"resume: run 2 did not start at epoch 2 from the "
+                     f"latest version: {check} ({b['steps']} steps)")
+            if check["mismatched_leaves"]:
+                fail("resume: restored state differs from the saved one "
+                     f"in {check['mismatched_leaves'][:10]}")
+
+            if max(epochs) > epochs[0] + RESUME_LOSS_SLACK:
+                fail(f"resume: epoch means {epochs} rise above the first "
+                     f"epoch's by more than {RESUME_LOSS_SLACK}")
+            if check["one_step"]["mismatched_leaves"]:
+                fail("resume: one step after the restore differs from the "
+                     "step without it in "
+                     f"{check['one_step']['mismatched_leaves'][:10]}")
+            del saved_tree, b
+            a.pop("state"), a.pop("batch"), a.pop("captured")
+            runs["fp32"] = a
+            torch.cuda.empty_cache()
+
+            c_hashes: list = []
+            at = RESNET_STEPS_PER_EPOCH + RESUME_MID_STEPS
+            c = resume_run(imagenet_train, classification, counters,
+                           argv("fp32_mid", "fp32", 2, tmp / "ck_mid",
+                                "--ckpt-steps", str(RESUME_MID_STEPS)),
+                           "fp32_mid", "sgdm_fp32", card, restored,
+                           hashes=c_hashes,
+                           capture=(at, bridge.state_to_flax))
+            version = version_at(str(tmp / "ck_mid"), at)
+            if version is None:
+                fail(f"resume: no checkpoint at step {at} under "
+                     f"{tmp / 'ck_mid'}: {os.listdir(tmp / 'ck_mid')}")
+            # that save was async, and steps 16-20 rewrote the buffers it
+            # read in place while its write ran: its bytes must still be
+            # the state it was taken of
+            async_bad = async_save_mismatches(tmp / "ck_mid", version,
+                                              c.pop("captured"))
+            os.makedirs(tmp / "ck_copy")
+            shutil.copytree(tmp / "ck_mid" / f"ckpt-{version}",
+                            tmp / "ck_copy" / f"ckpt-{version}")
+            d_hashes: list = []
+            d = resume_run(imagenet_train, classification, counters,
+                           argv("fp32_mid_resumed", "fp32", 2,
+                                tmp / "ck_copy"),
+                           "fp32_mid_resumed", "sgdm_fp32", card, restored,
+                           hashes=d_hashes)
+            skipped = (restored.get("status") or {}).get("step_in_epoch")
+            mid = {"phase": "resume_mid_epoch_check", "card": card,
+                   "version": version, "skipped": skipped,
+                   "async_save_mismatched_leaves": async_bad,
+                   "resumed_steps": d["steps"],
+                   "hashes_equal": d_hashes == c_hashes[at:],
+                   "hashes": d_hashes}
+            emit(mid)
+            if skipped != RESUME_MID_STEPS \
+                    or d["steps"] != RESNET_STEPS_PER_EPOCH - skipped:
+                fail(f"resume: mid-epoch restore skipped {skipped} batches "
+                     f"and ran {d['steps']} steps")
+            if not mid["hashes_equal"]:
+                fail("resume: the resumed steps took other batches than the "
+                     "uninterrupted run")
+            if async_bad:
+                fail(f"resume: the async save at step {at} differs from the "
+                     f"state it was taken of in {async_bad[:10]}")
+            c.pop("state"), c.pop("batch")
+            d.pop("state"), d.pop("batch"), d.pop("captured")
+            runs["fp32_mid"] = c
+            torch.cuda.empty_cache()
+
+            e = resume_run(imagenet_train, classification, counters,
+                           argv("int8", "int8", 1, tmp / "ck_int8"),
+                           "int8", "sgdm_q", card, restored)
+            int8_tree = bridge.state_to_flax(e.pop("state"))
+            e.pop("batch"), e.pop("captured")
+            f = resume_run(imagenet_train, classification, counters,
+                           argv("int8_resumed", "int8", 2, tmp / "ck_int8"),
+                           "int8_resumed", "sgdm_q", card, restored)
+            f.pop("state"), f.pop("batch"), f.pop("captured")
+            q = {"phase": "resume_int8_check", "card": card,
+                 "restored_version": restored.get("version"),
+                 "mismatched_leaves": tree_mismatches(
+                     int8_tree, restored.get("tree")),
+                 "opt_bytes_int8": opt_bytes(int8_tree),
+                 "opt_bytes_fp32": fp32_opt}
+            q["opt_cut"] = q["opt_bytes_fp32"] / max(1, q["opt_bytes_int8"])
+            emit(q)
+            if q["mismatched_leaves"] or q["restored_version"] is None:
+                fail("resume: the int8 run's restored QPlanes differ: "
+                     f"{q['mismatched_leaves'][:10]}")
+            if q["opt_cut"] < STATE_CUT:
+                fail(f"resume: int8 checkpoint's optimizer part only "
+                     f"{q['opt_cut']:.3f}x smaller than fp32's")
+            runs["int8"] = e
+            del int8_tree
+    finally:
+        loop_mod.TrainLoop.try_restore = original
+        torch.cuda.empty_cache()
+    return {f"resume_{n}": {k: v for k, v in r["launches"].items() if v}
+            for n, r in runs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -2743,6 +3162,7 @@ def main() -> int:
     resnet_launches, _ = phase_train_resnet(ok_mod)
     launches.update(resnet_launches)
     launches.update(phase_train_resnet_world())
+    launches.update(phase_resume(ok_mod, card))
     emit({"seconds": time.monotonic() - t_start, "card": card})
 
     kernels = []

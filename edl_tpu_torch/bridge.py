@@ -28,11 +28,19 @@ before ``BottleneckBlock_2``), the leaf order of the JAX package's
 bucket planner, which the fused optimizer's buckets (and so every
 quantization scale) follow. ``grads_to_flax`` and ``buckets_to_flax``
 carry gradients and flat optimizer buckets across for the tests.
+
+Checkpoints: ``state_snapshot``/``state_to_flax`` give the JAX
+TrainState's whole tree for a port TrainState (step, params, the fused
+optimizer's count and per-bucket moments or QPlanes, or torch.optim's
+SGD/AdamW state as optax's chains, BatchNorm statistics), and
+``flax_to_state`` writes such a tree back into the live tensors.
 """
 
 from __future__ import annotations
 
+import collections
 import re
+from typing import Callable
 
 import numpy as np
 import torch
@@ -88,7 +96,13 @@ def flax_leaf(name: str, t: torch.Tensor,
               n_heads: int | None = None) -> np.ndarray:
     """One state-dict tensor in its flax layout (numpy). ``n_heads``
     splits the transformer's attention projections."""
-    w = _n(t)
+    return to_flax_layout(name, _n(t), n_heads)
+
+
+def to_flax_layout(name: str, w: np.ndarray,
+                   n_heads: int | None = None) -> np.ndarray:
+    """A numpy array in a state-dict tensor's layout -> its flax layout
+    (a copy when the layouts differ)."""
     path = flax_path(name)
     if path[-1] != "kernel":
         return w
@@ -99,6 +113,19 @@ def flax_leaf(name: str, t: torch.Tensor,
     if w.ndim == 4:                                    # OIHW -> HWIO
         return w.transpose(2, 3, 1, 0).copy()
     return w.T.copy()                                  # (out, in) -> (in, out)
+
+
+def from_flax_layout(name: str, w: np.ndarray,
+                     shape: tuple[int, ...]) -> np.ndarray:
+    """Inverse of :func:`to_flax_layout` for a tensor of torch ``shape``."""
+    w = np.asarray(w)
+    if flax_path(name)[-1] != "kernel":
+        return w.reshape(shape)
+    if len(shape) == 4:                                # HWIO -> OIHW
+        return w.transpose(3, 2, 0, 1).reshape(shape)
+    if flax_path(name)[-2] == "out":                   # (H, Dh, d)
+        return w.reshape(-1, shape[0]).T.reshape(shape)
+    return w.reshape(shape[1], -1).T.reshape(shape)    # (in, ...) -> (out, in)
 
 
 def grads_to_flax(model: torch.nn.Module, n_heads: int) -> dict:
@@ -115,16 +142,8 @@ def buckets_to_flax(buffers, plan, names: list[str],
     -> the JAX package's buffers for the same plan (each leaf in its
     flax layout), padding kept. ``names`` are the plan's leaves' names in
     its order."""
-    out = []
-    for buf, b in zip(buffers, plan.buckets):
-        flat = _n(buf).copy()
-        for s in b.slots:
-            piece = torch.from_numpy(flat[s.offset:s.offset + s.size]
-                                     .reshape(s.shape).copy())
-            flat[s.offset:s.offset + s.size] = flax_leaf(
-                names[s.leaf], piece, n_heads).reshape(-1)
-        out.append(flat)
-    return out
+    return [bucket_layout(_n(buf), b, names, n_heads)
+            for buf, b in zip(buffers, plan.buckets)]
 
 
 def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
@@ -206,3 +225,284 @@ def torch_to_flax_variables(state_dict: dict[str, torch.Tensor]) -> dict:
     if not out["batch_stats"]:
         del out["batch_stats"]
     return out
+
+
+# -- the whole TrainState (checkpoints) --------------------------------------
+#
+# The JAX package checkpoints its TrainState pytree: flax writes it as
+# {"step", "params", "opt_state", "batch_stats"}, with every dict's keys
+# sorted (a jitted step's outputs, and jax.device_get, rebuild dicts in
+# key order), NamedTuples as maps of their fields and tuples as maps
+# {"0": ..., "1": ...}. The node types below reproduce that tree from the
+# port's state, so serialization.to_bytes writes flax's bytes for it and
+# sharded_checkpoint names its leaves as jax.tree_util.keystr does.
+
+TrainStateTree = collections.namedtuple(
+    "TrainState", ("step", "params", "opt_state", "batch_stats"))
+FusedOptTree = collections.namedtuple("FusedOptState", ("count", "m", "v"))
+QPlaneTree = collections.namedtuple("QPlane", ("q", "scale", "rq", "rscale"))
+EmptyState = collections.namedtuple("EmptyState", ())
+TraceState = collections.namedtuple("TraceState", ("trace",))
+ScheduleState = collections.namedtuple("ScaleByScheduleState", ("count",))
+AdamState = collections.namedtuple("ScaleByAdamState", ("count", "mu", "nu"))
+
+_BN_STATS = ("running_mean", "running_var")
+_QFIELDS = ("q", "scale", "rq", "rscale")
+
+
+def _n_heads(model: torch.nn.Module) -> int | None:
+    return getattr(getattr(model, "cfg", None), "n_heads", None)
+
+
+def _bn_buffers(model: torch.nn.Module) -> list[tuple[str, torch.Tensor]]:
+    return [(n, b) for n, b in model.named_buffers()
+            if n.rsplit(".", 1)[-1] in _BN_STATS]
+
+
+def _insert(tree: dict, path: tuple, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def _lookup(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _key_sorted(tree):
+    """Every dict's keys in sorted order (jax's flatten order)."""
+    if isinstance(tree, dict):
+        return {k: _key_sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _param_tree(names, arrays, n_heads) -> dict:
+    tree: dict = {}
+    for name, a in zip(names, arrays):
+        _insert(tree, flax_path(name), to_flax_layout(name, a, n_heads))
+    return _key_sorted(tree)
+
+
+def bucket_layout(flat: np.ndarray, bucket, names: list[str],
+                  n_heads: int | None = None, *,
+                  to_flax: bool = True) -> np.ndarray:
+    """One flat bucket of a plan (fp32 moment or int8 plane) with every
+    slot moved between its leaf's torch and flax layouts (a copy, the
+    padding kept); ``names`` are the plan's leaves'."""
+    out = np.array(flat, copy=True)
+    for s in bucket.slots:
+        piece = flat[s.offset:s.offset + s.size]
+        name, shape = names[s.leaf], tuple(s.shape)
+        if to_flax:
+            piece = to_flax_layout(name, piece.reshape(shape), n_heads)
+        else:
+            fshape = to_flax_layout(name, np.empty(shape, np.int8),
+                                    n_heads).shape
+            piece = from_flax_layout(name, piece.reshape(fshape), shape)
+        out[s.offset:s.offset + s.size] = piece.reshape(-1)
+    return out
+
+
+def _is_fused(tx) -> bool:
+    return hasattr(tx, "fused_apply")
+
+
+def state_snapshot(state) -> tuple[list[torch.Tensor], Callable]:
+    """The live tensors a checkpoint of ``state`` reads, and
+    ``build(host_arrays)``, which turns host copies of them (numpy, in
+    the same order) into the JAX TrainState's tree (TrainStateTree).
+
+    Under the fused optimizer the tensors are its parameter buckets (the
+    parameters live in them), its moment buffers or QPlanes' tensors, and
+    the BatchNorm statistics; unfused, the parameters, the torch.optim
+    moments and the statistics. The step count is read now (host ints),
+    so the copies can be taken on the device's stream and converted
+    later, on another thread."""
+    model, tx, st = state.model, state.tx, state.opt_state
+    n_heads = _n_heads(model)
+    names = [n for n, _ in state.params]
+    buffers = _bn_buffers(model)
+    step = int(state.step)
+    if _is_fused(tx):
+        plan = tx.plan(state.params)
+
+        def moments(seq):
+            out = []
+            for m in seq:
+                out.extend(m if isinstance(m, tuple) else (m,))
+            return out
+
+        quant = bool(st.m) and isinstance(st.m[0], tuple)
+        live = [*st.p, *moments(st.m), *moments(st.v)]
+        count = int(st.count)
+    else:
+        live = [p for _, p in state.params]
+        kind = _torch_kind(tx)
+        opt = st
+        slots = ("momentum_buffer",) if kind == "sgd" else (
+            "exp_avg", "exp_avg_sq")
+        for _, p in state.params:
+            for slot in slots:
+                live.append(opt.state.get(p, {}).get(slot,
+                                                     torch.zeros_like(p)))
+    live += [b for _, b in buffers]
+
+    def build(host: list[np.ndarray]) -> TrainStateTree:
+        it = iter(host)
+        if _is_fused(tx):
+            p_host = [next(it) for _ in st.p]
+            leaves = [None] * len(names)
+            for buf, b in zip(p_host, plan.buckets):
+                for s in b.slots:
+                    leaves[s.leaf] = buf[s.offset:s.offset + s.size].reshape(
+                        s.shape)
+
+            def flax(flat, b):
+                return bucket_layout(flat, b, names, n_heads)
+
+            def take(seq):
+                out = []
+                for b in plan.buckets[:len(seq)]:
+                    if quant:
+                        q, scale, rq, rscale = (next(it) for _ in _QFIELDS)
+                        out.append(QPlaneTree(flax(q, b), scale, flax(rq, b),
+                                              rscale))
+                    else:
+                        out.append(flax(next(it), b))
+                return tuple(out)
+
+            m = take(st.m)
+            v = take(st.v)
+            opt_tree = FusedOptTree(np.asarray(count, np.int32), m, v)
+        else:
+            leaves = [next(it) for _ in names]
+            per = [[next(it) for _ in slots] for _ in names]
+            trees = [_param_tree(names, [x[i] for x in per], n_heads)
+                     for i in range(len(slots))]
+            c = np.asarray(step, np.int32)
+            if kind == "sgd":
+                opt_tree = (EmptyState(), (TraceState(trees[0]),
+                                           ScheduleState(c)))
+            else:
+                opt_tree = (AdamState(c, trees[0], trees[1]), EmptyState(),
+                            ScheduleState(c))
+        stats: dict = {}
+        for name, _ in buffers:
+            _insert(stats, flax_path(name), next(it))
+        return TrainStateTree(
+            step=np.asarray(step, np.int32),
+            params=_param_tree(names, leaves, n_heads),
+            opt_state=opt_tree,
+            batch_stats=_key_sorted(stats) if buffers else None)
+
+    return live, build
+
+
+def _torch_kind(tx) -> str:
+    cls = getattr(tx, "cls", None)
+    if cls is torch.optim.SGD:
+        return "sgd"
+    if cls is torch.optim.AdamW:
+        return "adamw"
+    raise ValueError(f"no checkpoint tree for the optimizer {tx!r}")
+
+
+def state_to_flax(state) -> TrainStateTree:
+    """The JAX TrainState's tree of ``state`` (numpy leaves, a copy)."""
+    live, build = state_snapshot(state)
+    return build([t.detach().cpu().numpy().copy() for t in live])
+
+
+def _put(dst: torch.Tensor, src, what: str) -> None:
+    src = np.asarray(src)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{what}: checkpoint shape {tuple(src.shape)} != "
+                         f"{tuple(dst.shape)}")
+    t = torch.from_numpy(np.array(src, copy=True))
+    if t.dtype != dst.dtype:
+        raise ValueError(f"{what}: checkpoint dtype {t.dtype} != "
+                         f"{dst.dtype}")
+    dst.copy_(t)
+
+
+@torch.no_grad()
+def flax_to_state(tree: dict, state):
+    """Write a JAX TrainState's state dict (``serialization.to_state_dict``
+    of it, or what ``msgpack_restore`` gives) into ``state`` in place:
+    parameters into their tensors (under the fused optimizer, into the
+    buckets they live in, so the kernels keep updating what the module
+    reads), BatchNorm statistics, moments (fp32 buffers or each QPlane's
+    tensors; torch.optim's momentum or Adam state), counts and the step.
+    Raises ValueError on a structure, shape or dtype that does not
+    match."""
+    try:
+        return _write_state(tree, state)
+    except KeyError as exc:
+        raise ValueError(f"checkpoint tree does not match the state: no "
+                         f"key {exc}") from exc
+
+
+def _write_state(tree: dict, state):
+    model, tx, st = state.model, state.tx, state.opt_state
+    n_heads = _n_heads(model)
+    names = [n for n, _ in state.params]
+    params = tree["params"]
+    for name, p in state.params:
+        _put(p, from_flax_layout(name, _lookup(params, flax_path(name)),
+                                 tuple(p.shape)), name)
+    for name, b in _bn_buffers(model):
+        _put(b, _lookup(tree["batch_stats"], flax_path(name)), name)
+    opt = tree["opt_state"]
+    if _is_fused(tx):
+        if "count" not in opt or "m" not in opt:
+            raise ValueError("checkpoint holds no fused optimizer state")
+        buckets = tx.plan(state.params).buckets
+        for key, seq in (("m", st.m), ("v", st.v)):
+            # an empty tuple has no leaves in the sharded format
+            saved_seq = opt.get(key, {})
+            if len(saved_seq) != len(seq):
+                raise ValueError(f"checkpoint has {len(saved_seq)} {key} "
+                                 f"buckets, the optimizer {len(seq)}")
+            for i, (moment, b) in enumerate(zip(seq, buckets)):
+                saved = saved_seq[str(i)]
+                if isinstance(moment, tuple) != isinstance(saved, dict):
+                    raise ValueError(f"{key}[{i}]: the checkpoint's moment "
+                                     "format is not the optimizer's "
+                                     "(fp32 buffer against QPlane)")
+                for f, dst in (zip(_QFIELDS, moment)
+                               if isinstance(moment, tuple)
+                               else ((None, moment),)):
+                    src = np.asarray(saved if f is None else saved[f])
+                    if src.ndim:
+                        if src.shape != (b.padded,):
+                            raise ValueError(
+                                f"opt_state.{key}[{i}]: checkpoint bucket "
+                                f"{src.shape} != ({b.padded},)")
+                        src = bucket_layout(src, b, names, n_heads,
+                                            to_flax=False)
+                    _put(dst, src, f"opt_state.{key}[{i}]")
+        state.opt_state = st._replace(count=int(opt["count"]))
+    else:
+        kind = _torch_kind(tx)
+        if kind == "sgd":
+            slots = (("momentum_buffer", opt["1"]["0"]["trace"]),)
+            count = int(opt["1"]["1"]["count"])
+        else:
+            slots = (("exp_avg", opt["0"]["mu"]), ("exp_avg_sq",
+                                                   opt["0"]["nu"]))
+            count = int(opt["0"]["count"])
+        for name, p in state.params:
+            entry = st.state[p]
+            for slot, saved in slots:
+                buf = torch.empty_like(p)
+                _put(buf, from_flax_layout(
+                    name, _lookup(saved, flax_path(name)), tuple(p.shape)),
+                    f"{slot}.{name}")
+                entry[slot] = buf
+            if kind == "adamw":
+                entry["step"] = torch.tensor(float(count),
+                                             dtype=torch.float32)
+    state.step = int(np.asarray(tree["step"]))
+    return state

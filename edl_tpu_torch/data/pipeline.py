@@ -1,32 +1,40 @@
-"""Sharded, deterministic input pipeline (trimmed copy of
-``edl_tpu.data.pipeline``: ``epoch_indices``, ``FileSource``,
-``materialize_batch`` and ``DataLoader`` inline, with batch transforms,
-and the host image transforms ``random_flip_lr``/``random_crop``).
+"""Sharded, deterministic, prefetching input pipeline (port of
+``edl_tpu.data.pipeline``).
 
 The same (seed, epoch, rank, world) gives the same batches, bit for bit,
-as the JAX package's loader:
+as the JAX package's loader, in every execution mode (inline, a decode
+thread pool, or forked worker processes handing batches back through a
+shared-memory ring, data/mp_loader.py):
 
 - **seed-per-pass determinism**: the epoch's global order is
-  `default_rng(seed + epoch)`; a restart replays the identical order.
+  `default_rng(seed + epoch)`; a restart replays the identical order, so
+  the train loop's step cursor skips exactly the batches already
+  consumed;
 - **shard-by-rank on the GLOBAL order**: rank r of world W takes indices
-  `perm[r::W]`.
+  `perm[r::W]`;
 - **static shapes**: drop_remainder truncates to a whole number of batches
-  per shard.
-
-Batches are host numpy; the train loop places them on the device
-(a pinned, non-blocking copy).
+  per shard;
+- **prefetch onto the card** (`prefetch_to_device`): a staging thread
+  copies each batch into pinned memory and onto the device on a side
+  stream (and runs the device augment there), so the copy of batch i+1
+  overlaps step i; the consumer's stream waits on the batch's event
+  before using it.
 """
 
 from __future__ import annotations
 
+import queue
 import threading
+import time
+import weakref
 from collections import OrderedDict
-from typing import Callable, Iterator, Sequence
+from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 
-from edl_tpu_torch.utils import config
 from edl_tpu_torch.utils.exceptions import EdlDataError
+
+AUGMENT_SEED_KEY = "augment_seed"
 
 
 def epoch_indices(n: int, epoch: int, seed: int = 0,
@@ -173,56 +181,107 @@ class FileSource:
 
 
 def materialize_batch(source, idx: np.ndarray,
+                      sample_transforms: Sequence[Callable],
                       transforms: Sequence[Callable],
-                      batch_seed: int | None) -> dict[str, np.ndarray]:
-    """Compute one batch from a descriptor: the rows ``idx`` of
-    ``source``, then the post-collation ``transforms`` with a generator
-    seeded by ``batch_seed`` (drawn by the loader in step order, so the
-    batch bytes are a pure function of the descriptor)."""
-    batch = source.batch(idx)
+                      sample_seeds: np.ndarray | None,
+                      batch_seed: int | None,
+                      pool=None, emit_seed: bool = False
+                      ) -> dict[str, np.ndarray]:
+    """Compute one batch from a descriptor.
+
+    The loader's determinism contract, shared by the inline, thread-pool
+    and worker-process modes: every random input is an argument
+    (``sample_seeds`` per sample, ``batch_seed`` for the post-collation
+    transforms), drawn by the parent in step order, so the batch bytes
+    are a pure function of the descriptor wherever it runs. numpy only:
+    forked workers run it beside a CUDA context they never touch.
+
+    ``emit_seed`` attaches ``batch_seed`` to the batch as a 0-d uint32
+    under ``"augment_seed"``, the device augment's draw.
+    """
+    if sample_transforms:
+        samples = source.samples(idx)
+
+        def work(args):
+            sample, seed = args
+            srng = np.random.default_rng(seed)
+            for t in sample_transforms:
+                sample = t(sample, srng)
+            return sample
+
+        done = list(pool.map(work, zip(samples, sample_seeds))) if pool \
+            else [work(a) for a in zip(samples, sample_seeds)]
+        batch = {k: np.stack([d[k] for d in done]) for k in done[0]}
+    else:
+        batch = source.batch(idx)
     if transforms:
         brng = np.random.default_rng(batch_seed)
         for t in transforms:
             batch = t(batch, brng)
+    if emit_seed:
+        batch = {**batch,
+                 AUGMENT_SEED_KEY: np.asarray(batch_seed & 0xFFFFFFFF,
+                                              dtype=np.uint32)}
     return batch
+
+
+def _close_mp_pool(pool) -> None:
+    # weakref.finalize target: must not reference the DataLoader
+    pool.close()
 
 
 class DataLoader:
     """Deterministic sharded batch iterator.
 
     Args:
-      source: FileSource, or anything with __len__ + batch(indices)->dict.
+      source: FileSource, PackedSource or anything with __len__ +
+        batch(indices) -> dict; with ``sample_transforms``, a source with
+        ``samples(indices) -> list[dict]`` (e.g. JPEG bytes).
       batch_size: per-RANK batch size.
       rank/world: this trainer's shard of the global order.
       seed: base shuffle seed; epoch is folded in per pass.
-      transforms: callables (batch_dict, np.random.Generator) -> batch_dict,
-        run on host after collation (augmentation hook); the generator is
-        seeded per (epoch, rank, step) so augmentation replays after a
-        restart.
-      num_workers: PROCESS pool width. Only 0 (inline) is ported; None
-        reads the `EDL_TPU_LOADER_WORKERS` env contract, and a width
-        above 0 raises (the shared-memory mp loader is ROADMAP Queue 1
-        item 8).
+      transforms: callables (batch_dict, np.random.Generator) -> batch_dict
+        run on the host after collation; the generator is seeded per
+        (epoch, rank, step), so augmentation replays after a restart.
+      sample_transforms: callables (sample_dict, np.random.Generator) ->
+        sample_dict run per sample before collation under a
+        ``decode_threads``-wide thread pool; every sample's seed is drawn
+        up front, so scheduling cannot change the stream.
+      num_workers: PROCESS pool width (0 = inline/threads; None = the
+        ``EDL_TPU_LOADER_WORKERS`` env contract). Workers are forked at
+        the first batch and hand batches back through a shared-memory
+        slot ring in strict step order (data/mp_loader.py), bit for bit
+        the inline stream. Those batches are views over the ring, valid
+        until the following ``next()``: ``prefetch_to_device`` copies
+        them before that.
+      emit_batch_seed: attach the per-step batch seed to each batch as a
+        0-d uint32 ``"augment_seed"`` for the device augment
+        (``ops/augment.make_device_augment``).
 
-    The JAX loader's per-sample transforms with their decode thread pool
-    and its device-augmentation seed are not ported yet (item 8).
+    A DataLoader is a context manager; ``close()`` joins the decode pool
+    and the worker processes and unlinks every shm segment. TrainLoop
+    closes the loader it drives; GC of an abandoned loader also tears its
+    pool down.
     """
 
     def __init__(self, source, batch_size: int, *, rank: int = 0,
                  world: int = 1, seed: int = 0, shuffle: bool = True,
                  drop_remainder: bool = True,
                  transforms: Sequence[Callable] = (),
-                 num_workers: int | None = None):
+                 sample_transforms: Sequence[Callable] = (),
+                 decode_threads: int = 0,
+                 num_workers: int | None = None,
+                 emit_batch_seed: bool = False):
         if world < 1 or not (0 <= rank < world):
             raise EdlDataError(f"bad shard rank={rank} world={world}")
+        if sample_transforms and not hasattr(source, "samples"):
+            raise EdlDataError(
+                "sample_transforms need a source with samples(indices)")
         if num_workers is None:
-            num_workers = int(config.env_float("EDL_TPU_LOADER_WORKERS", 0))
+            from edl_tpu_torch.data.mp_loader import default_num_workers
+            num_workers = default_num_workers()
         if num_workers < 0:
             raise EdlDataError(f"num_workers must be >= 0, got {num_workers}")
-        if num_workers > 0:
-            raise NotImplementedError(
-                f"num_workers={num_workers}: the shared-memory mp loader "
-                "is not ported yet (ROADMAP Queue 1 item 8); use 0")
         self.source = source
         self.batch_size = batch_size
         self.rank = rank
@@ -231,6 +290,55 @@ class DataLoader:
         self.shuffle = shuffle
         self.drop_remainder = drop_remainder
         self.transforms = list(transforms)
+        self.sample_transforms = list(sample_transforms)
+        self.decode_threads = decode_threads
+        self.num_workers = num_workers
+        self.emit_batch_seed = emit_batch_seed
+        self._pool = None
+        self._mp_pool = None
+        self._mp_finalizer = None
+
+    def _decode_pool(self):
+        if self._pool is None and self.decode_threads > 0:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.decode_threads,
+                thread_name_prefix="data-decode")
+        return self._pool
+
+    def _ensure_mp_pool(self, probe_batch: dict[str, np.ndarray]):
+        """The worker pool, (re)built lazily and reused across epochs;
+        ``probe_batch`` sizes the shm slots."""
+        if self._mp_pool is not None and not (self._mp_pool.closed
+                                              or self._mp_pool.broken):
+            return self._mp_pool
+        from edl_tpu_torch.data import mp_loader
+        pool = mp_loader.MpLoaderPool(
+            self.source, self.sample_transforms, self.transforms,
+            self.num_workers, mp_loader.probe_slot_bytes(probe_batch),
+            emit_seed=self.emit_batch_seed)
+        self._mp_pool = pool
+        self._mp_finalizer = weakref.finalize(self, _close_mp_pool, pool)
+        return pool
+
+    def close(self) -> None:
+        """Join the decode pool and worker processes, unlink the shm ring
+        (idempotent; pools rebuild lazily on the next epoch)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+        if self._mp_pool is not None:
+            self._mp_pool.close()
+            if self._mp_finalizer is not None:
+                self._mp_finalizer.detach()
+                self._mp_finalizer = None
+            self._mp_pool = None
+
+    def __enter__(self) -> "DataLoader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def steps_per_epoch(self) -> int:
         shard = len(self.source) // self.world if self.drop_remainder \
@@ -240,18 +348,16 @@ class DataLoader:
         return -(-shard // self.batch_size)
 
     def _epoch_descriptors(self, epoch: int, start_step: int):
-        """(step, indices, batch_seed) for steps >= start_step — with
-        every seed draw made in step order from the per-(epoch, rank)
-        generator, INCLUDING the skipped steps', so a mid-epoch resume
-        replays the identical remainder."""
+        """(step, indices, sample_seeds, batch_seed) for steps >=
+        start_step, with every seed draw made in step order from the
+        per-(epoch, rank) generator, the skipped steps' included, so a
+        mid-epoch resume replays the identical remainder."""
         perm = epoch_indices(len(self.source), epoch, self.seed,
                              self.shuffle)
         mine = perm[self.rank::self.world]
         n_steps = self.steps_per_epoch()
         if n_steps == 0:
-            # An empty epoch is always a config bug (batch bigger than the
-            # shard); yielding nothing turns it into a silent hang for
-            # any epoch-looping consumer.
+            # an empty epoch is a config bug (batch bigger than the shard)
             raise EdlDataError(
                 f"shard of {len(mine)} samples yields 0 batches of "
                 f"{self.batch_size} (world={self.world})")
@@ -262,22 +368,200 @@ class DataLoader:
             idx = mine[i * self.batch_size:(i + 1) * self.batch_size]
             if len(idx) == 0:
                 break
-            bseed = int(rng.integers(0, 2**63)) if self.transforms else None
+            sseeds = rng.integers(0, 2**63, size=len(idx)) \
+                if self.sample_transforms else None
+            bseed = int(rng.integers(0, 2**63)) \
+                if self.transforms or self.emit_batch_seed else None
             if i >= start_step:
-                descs.append((i, idx, bseed))
+                descs.append((i, idx, sseeds, bseed))
         return descs
 
     def epoch(self, epoch: int, start_step: int = 0
               ) -> Iterator[dict[str, np.ndarray]]:
-        """The epoch's batch stream from the `start_step` cursor
-        (seed-per-pass: the same (epoch, start_step) always replays the
-        same remainder — the elastic stop-resume contract)."""
-        for _step, idx, bseed in self._epoch_descriptors(epoch, start_step):
-            yield materialize_batch(self.source, idx, self.transforms, bseed)
+        """The epoch's batch stream from the ``start_step`` cursor (the
+        same (epoch, start_step) always replays the same remainder)."""
+        descs = self._epoch_descriptors(epoch, start_step)
+        if self.num_workers > 0:
+            yield from self._epoch_mp(descs)
+            return
+        pool = self._decode_pool()
+        for _step, idx, sseeds, bseed in descs:
+            yield materialize_batch(self.source, idx,
+                                    self.sample_transforms,
+                                    self.transforms, sseeds, bseed, pool,
+                                    emit_seed=self.emit_batch_seed)
+
+    def _epoch_mp(self, descs) -> Iterator[dict[str, np.ndarray]]:
+        if not descs:
+            return
+        if self._mp_pool is None or self._mp_pool.closed \
+                or self._mp_pool.broken:
+            # first mp epoch: batch 0 in the parent (the same descriptor,
+            # the same bytes) sizes the ring, then the workers fork
+            step0, idx0, sseeds0, bseed0 = descs[0]
+            probe = materialize_batch(self.source, idx0,
+                                      self.sample_transforms,
+                                      self.transforms, sseeds0, bseed0,
+                                      emit_seed=self.emit_batch_seed)
+            yield probe
+            pool = self._ensure_mp_pool(probe)
+            descs = descs[1:]
+        else:
+            pool = self._mp_pool
+        yield from pool.imap(descs)
 
     def __call__(self, epoch: int) -> Iterator[dict[str, np.ndarray]]:
         # TrainLoop's data_fn signature.
         return self.epoch(epoch)
+
+
+_END = object()
+
+
+def prefetch(it: Iterable, size: int = 2,
+             place: Callable[[Any], Any] | None = None) -> Iterator:
+    """Run ``it`` (and ``place`` on each item) in a daemon thread, keeping
+    up to ``size`` items ready. Closing the returned generator (or
+    abandoning it, as a stop mid-epoch does) stops the worker and drains
+    the queued items."""
+    q: queue.Queue = queue.Queue(maxsize=max(1, size))
+    err: list[BaseException] = []
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in it:
+                if not _put(place(item) if place else item):
+                    return
+        except BaseException as exc:  # re-raised on the consumer side
+            err.append(exc)
+        finally:
+            _put(_END)
+
+    def gen():
+        # the worker starts at the first next(): a generator closed
+        # before it ever runs skips its finally, so an eager thread could
+        # never be stopped
+        thread = threading.Thread(target=worker, daemon=True,
+                                  name="data-prefetch")
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _END:
+                    if err:
+                        raise err[0]
+                    return
+                yield item
+        finally:
+            stop.set()
+            # drain and join: the worker may be inside next(it), and the
+            # caller must not close that iterator while it runs
+            deadline = time.monotonic() + 30.0
+            while True:
+                try:
+                    while True:
+                        q.get_nowait()
+                except queue.Empty:
+                    pass
+                thread.join(timeout=0.1)
+                if not thread.is_alive() or time.monotonic() > deadline:
+                    break
+
+    return gen()
+
+
+def place_array(x, device):
+    """A host array as a tensor on ``device``, with the ring-view aliasing
+    guard: an array that does not own its memory (the mp loader's shm-ring
+    views) is copied before its slot can recycle. On a card every array
+    is copied into pinned memory (``pin_memory``, which is that copy) and
+    sent with a non-blocking copy on the current stream."""
+    import torch
+
+    if isinstance(x, torch.Tensor):       # placed upstream
+        return x.to(device, non_blocking=True)
+    x = np.ascontiguousarray(x)
+    if torch.device(device).type == "cuda":
+        return torch.from_numpy(x).pin_memory().to(device,
+                                                   non_blocking=True)
+    if not x.flags["OWNDATA"]:
+        x = np.array(x)
+    return torch.from_numpy(x)
+
+
+def pop_augment_seed(batch, augment) -> tuple:
+    """Split a loader batch into (payload, seed) for the device augment.
+    A seed with no augment configured, or the reverse, is a wiring bug
+    and raises."""
+    has_seed = isinstance(batch, dict) and AUGMENT_SEED_KEY in batch
+    if augment is None:
+        if has_seed:
+            raise EdlDataError(
+                "loader emitted augment_seed but no device augment fn is "
+                "configured (pass augment= / TrainLoop(augment_fn=...), "
+                "or drop DataLoader(emit_batch_seed=True))")
+        return batch, None
+    if not has_seed:
+        raise EdlDataError(
+            "device augment configured but the batch carries no "
+            "augment_seed; construct the DataLoader with "
+            "emit_batch_seed=True")
+    batch = dict(batch)
+    return batch, int(batch.pop(AUGMENT_SEED_KEY))
+
+
+def prefetch_to_device(it: Iterable, device, size: int = 2,
+                       augment: Callable | None = None) -> Iterator:
+    """Prefetch onto ``device``: a staging thread pops each batch's
+    augment seed, places its arrays (``place_array``) and runs
+    ``augment(batch, seed)`` (``ops.augment.make_device_augment``), all
+    on a side CUDA stream, and records an event there. The consumer's
+    stream waits on that event before the batch is used, and every
+    tensor is marked used on it (``record_stream``), so the caching
+    allocator does not hand its memory out early. On the CPU the same
+    runs without streams."""
+    import torch
+
+    device = torch.device(device)
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def place(batch):
+        batch, seed = pop_augment_seed(batch, augment)
+        if side is None:
+            placed = {k: place_array(v, device) for k, v in batch.items()}
+            return (augment(placed, seed) if augment else placed), None
+        with torch.cuda.device(device), torch.cuda.stream(side):
+            placed = {k: place_array(v, device) for k, v in batch.items()}
+            if augment is not None:
+                placed = augment(placed, seed)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return placed, ready
+
+    def gen():
+        staged = prefetch(it, size=size, place=place)
+        try:
+            for placed, ready in staged:
+                if ready is not None:
+                    stream = torch.cuda.current_stream(device)
+                    stream.wait_event(ready)
+                    for t in placed.values():
+                        t.record_stream(stream)
+                yield placed
+        finally:
+            staged.close()
+
+    return gen()
 
 
 # -- host-side image augmentation (the JAX loader's batch transforms) -------

@@ -1,16 +1,27 @@
-"""Flagship classification trainer: ResNet50_vd over file-backed npz
-shards, on one card or data parallel over a world of ranks (port of
+"""Flagship classification trainer: ResNet50_vd over file-backed data,
+on one card or data parallel over a world of ranks (port of
 ``edl_tpu.examples.imagenet_train``).
 
 Same flags, defaults, log lines and ``final_acc1=`` as the JAX package's
 entry point, plus ``--device`` (``cuda`` unless the caller asks for
 ``cpu``): the reference's LR menu (piecewise or cosine, linear warmup),
 label smoothing, mixup, weight decay, momentum-SGD (``--fused-opt
-fp32``: one fused kernel K4 per parameter bucket; ``int8|fp8``: the
-quantized-momentum kernel K6; ``off``: ``torch.optim.SGD``), the
-loader's flip/crop transforms, and a top-1/top-5 eval over ``val.npz``
-after each epoch. The flags this slice does not carry exit before any
-work, naming the ROADMAP item that brings them.
+fp32``: one fused kernel K4 over every parameter bucket; ``int8|fp8``:
+the quantized-momentum kernel K6; ``off``: ``torch.optim.SGD``), and a
+top-1/top-5 eval after each epoch. The input planes are the JAX
+package's: ``--data-format npz`` (float shards, host flip/crop),
+``jpeg`` (a file list decoded by cv2 in a thread pool) or ``packed``
+(pre-decoded fixed-stride records), each through the deterministic
+loader, inline or in ``--loader-workers`` forked processes;
+``--augment-device`` moves crop/flip/normalize onto the card. With
+loader processes or the device augment, batches are prefetched onto the
+card on a staging thread (``EDL_TPU_PREFETCH_BATCHES`` deep, 2 by
+default); the inline loader places them on the training thread. ``--ckpt-dir`` writes versioned
+checkpoints (async by default, every epoch and every ``--ckpt-steps``)
+that the JAX package reads, and a run started on a dir that holds one
+resumes from it, mid-epoch included. ``--profile DIR`` writes a
+torch.profiler trace of steps 10-15. The flags this slice does not carry
+exit before any work, naming the ROADMAP item that brings them.
 
 A world of ranks comes from the launcher's env (``EDL_TPU_RANK``,
 ``EDL_TPU_WORLD_SIZE``, ``EDL_TPU_COORDINATOR``; rank r trains on
@@ -20,14 +31,22 @@ needs the manual gradient path: ``--dcn-compress off|topk|int8`` and/or
 ``CommTrainStep`` (bucketed reductions; int8 runs kernel K8 on a card).
 The JAX package's other multi-process path, the SPMD step with
 global-batch BatchNorm statistics, is not ported, so a world above one
-without them exits. Rank 0 writes the synthetic shards (the others wait
-at a barrier), logs, and writes the benchmark log with the step's wire
-accounting.
+without them exits. Rank 0 writes the synthetic data (the others wait
+at a barrier), logs, writes checkpoints and the benchmark log.
 
   python -m edl_tpu_torch.examples.imagenet_train --device cpu \\
       --make-synthetic 2 --data-dir "$(mktemp -d)" --rows-per-file 32 \\
       --model ResNetTiny --image-size 32 --num-classes 10 \\
       --batch-size 16 --epochs 2 --fused-opt fp32 --no-augment
+
+  # packed records, two loader processes, crop/flip on the device, and
+  # checkpoints: run to epoch 1, then the same command with --epochs 2
+  # resumes from the checkpoint in $D/ckpt
+  python -m edl_tpu_torch.examples.imagenet_train --device cpu \\
+      --make-synthetic 2 --data-dir "$D" --data-format packed \\
+      --loader-workers 2 --ckpt-dir "$D/ckpt" --model ResNetTiny \\
+      --image-size 32 --num-classes 10 --rows-per-file 32 \\
+      --batch-size 16 --epochs 1
 
   # two ranks on the CPU (gloo), one process each, sharing one data dir
   # and a coordinator port that is free on this host ($PORT):
@@ -39,6 +58,7 @@ accounting.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -49,8 +69,15 @@ import torch
 from edl_tpu_torch import resolve_device
 from edl_tpu_torch import models as zoo
 from edl_tpu_torch.collective.job_env import TrainerEnv
-from edl_tpu_torch.data.pipeline import (DataLoader, FileSource, random_crop,
+from edl_tpu_torch.data.image import (JpegFileListSource,
+                                      eval_image_transform,
+                                      make_synthetic_jpeg_dataset,
+                                      train_image_transform)
+from edl_tpu_torch.data.packed_records import PackedSource, pack_npz
+from edl_tpu_torch.data.pipeline import (DataLoader, FileSource,
+                                         prefetch_to_device, random_crop,
                                          random_flip_lr)
+from edl_tpu_torch.ops.augment import make_device_augment
 from edl_tpu_torch.parallel import distributed
 from edl_tpu_torch.train import lr as lr_lib
 from edl_tpu_torch.train import state as state_lib
@@ -120,18 +147,27 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--data-dir", required=True)
     parser.add_argument("--data-format", choices=("npz", "jpeg", "packed"),
                         default="npz",
-                        help="npz: float shards (jpeg and packed are not "
-                             "ported yet)")
+                        help="npz: float shards; jpeg: a train.txt "
+                             "'<path> <label>' list of JPEGs with host "
+                             "decode + random-resized-crop/flip (cv2) and "
+                             "normalization on the device; packed: a "
+                             "train.pack pre-decoded fixed-stride record "
+                             "file (python -m "
+                             "edl_tpu_torch.data.packed_records pack; "
+                             "--augment-device default on)")
     parser.add_argument("--decode-threads", type=int,
                         default=max(1, (os.cpu_count() or 1) - 1),
-                        help="JPEG decode thread pool width (jpeg format "
-                             "only)")
+                        help="JPEG decode/augment THREAD pool width "
+                             "(ignored when --loader-workers > 0)")
     parser.add_argument("--loader-workers", type=int, default=None,
-                        help="input-plane worker PROCESSES (default: "
-                             "$EDL_TPU_LOADER_WORKERS, else 0 = inline; "
-                             "only 0 is ported)")
+                        help="input-plane worker PROCESSES with "
+                             "shared-memory batch hand-off (default: "
+                             "$EDL_TPU_LOADER_WORKERS, else 0 = "
+                             "inline/threaded)")
     parser.add_argument("--make-synthetic", type=int, default=0,
-                        help="generate N train shards (+1 val) first")
+                        help="generate N train shards (+1 val) first "
+                             "(jpeg format: N random JPEGs + train.txt; "
+                             "packed: the shards packed into train.pack)")
     parser.add_argument("--rows-per-file", type=int, default=1024)
     parser.add_argument("--synthetic-signal", type=float, default=0.7,
                         help="template amplitude of the synthetic data: "
@@ -195,7 +231,11 @@ def _parser() -> argparse.ArgumentParser:
                              "tasks are not augmentation-invariant)")
     parser.add_argument("--augment-device", type=int, default=None,
                         choices=(0, 1),
-                        help="crop/flip on the device (not ported yet)")
+                        help="crop/flip (+ normalize) on the device from "
+                             "the loader's per-step seed instead of on the "
+                             "host (default $EDL_TPU_AUGMENT_DEVICE, else "
+                             "on for --data-format packed); npz/packed "
+                             "only")
     parser.add_argument("--rotate", action="store_true",
                         help="jpeg mode: random rotation before the crop")
     parser.add_argument("--teachers", default="",
@@ -204,12 +244,21 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--distill-hard-weight", type=float, default=0.0)
     parser.add_argument("--distill-topk", type=int, default=0)
     parser.add_argument("--distill-predict-key", default="logits")
-    parser.add_argument("--ckpt-dir", default="")
-    parser.add_argument("--ckpt-steps", type=int, default=None)
-    parser.add_argument("--ckpt-sync", action="store_true")
+    parser.add_argument("--ckpt-dir", default="",
+                        help="checkpoint dir (default "
+                             "$EDL_TPU_CHECKPOINT_PATH); a run resumes from "
+                             "its latest checkpoint")
+    parser.add_argument("--ckpt-steps", type=int, default=None,
+                        help="also checkpoint every N optimizer steps "
+                             "(default $EDL_TPU_CKPT_STEPS, else epoch ends "
+                             "only)")
+    parser.add_argument("--ckpt-sync", action="store_true",
+                        help="synchronous saves (default: async "
+                             "snapshot-then-write)")
     parser.add_argument("--benchmark-log", default="")
     parser.add_argument("--profile", default="",
-                        help="profiler trace dir (not ported yet)")
+                        help="torch.profiler trace dir; traces steps "
+                             "10-15 on rank 0")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; the port's stand-in "
@@ -224,15 +273,48 @@ def main(argv=None) -> int:
     if args.rotate and (args.data_format != "jpeg" or args.no_augment):
         raise SystemExit("--rotate is a jpeg-mode augmentation (and is "
                          "incompatible with --no-augment)")
+    if args.data_format == "jpeg" and args.synthetic_label_noise > 0:
+        raise SystemExit(
+            "--synthetic-label-noise is only implemented for the npz "
+            "synthetic generator (jpeg synthetic data is random-labeled "
+            "noise already)")
     if 0 < args.schedule_epochs < args.epochs:
         raise SystemExit(
             f"--schedule-epochs {args.schedule_epochs} < --epochs "
             f"{args.epochs}: epochs past the horizon would train at "
             "LR ~0 (the horizon is the job TOTAL; the stop point is "
             "--epochs)")
+    # device augmentation: CLI > env > the format's default (on for
+    # packed, whose point is a transform-free host)
+    if args.augment_device is not None:
+        augment_device = bool(args.augment_device)
+    else:
+        env_aug = config.env_str("EDL_TPU_AUGMENT_DEVICE")
+        augment_device = (env_aug.lower() in ("1", "true", "yes", "on")
+                          if env_aug is not None
+                          else args.data_format == "packed")
+    if args.no_augment:
+        augment_device = False
+    if augment_device and args.data_format == "jpeg":
+        raise SystemExit(
+            "--augment-device needs fixed-stride pre-decoded pixels and "
+            "jpeg decode is host-side: pack the list first (python -m "
+            "edl_tpu_torch.data.packed_records pack --jpeg-list train.txt "
+            "--root DATA --out DATA/train.pack), then --data-format packed")
     device = resolve_device(args.device)
-    loop_cfg = from_env(LoopConfig, num_epochs=args.epochs)
-    _refuse_unported_env(loop_cfg)
+    env = TrainerEnv.from_environ()
+    ckpt_kw = {}
+    if args.ckpt_steps is not None:
+        ckpt_kw["ckpt_every_steps"] = args.ckpt_steps
+    if args.ckpt_sync:
+        ckpt_kw["ckpt_async"] = False
+    loop_cfg = from_env(LoopConfig, num_epochs=args.epochs,
+                        ckpt_dir=args.ckpt_dir or env.checkpoint_path
+                        or None, profile_dir=args.profile or None,
+                        **ckpt_kw)
+    loader_workers = (args.loader_workers
+                      if args.loader_workers is not None
+                      else loop_cfg.loader_workers)
     # the manual gradient path: CLI > env (LoopConfig binding) > off. A
     # compressed wire implies bucketing (default 4 MiB target).
     dcn_compress = (args.dcn_compress if args.dcn_compress is not None
@@ -244,7 +326,6 @@ def main(argv=None) -> int:
     if dcn_compress != "off" or comm_bucket_mb > 0:
         comm_cfg = CommConfig(bucket_mb=comm_bucket_mb or 4.0,
                               compress=dcn_compress)
-    env = TrainerEnv.from_environ()
     if env.world_size > 1 and comm_cfg is None:
         raise SystemExit(_unported(
             f"a world above 1 (EDL_TPU_WORLD_SIZE={env.world_size}) without "
@@ -270,11 +351,7 @@ def main(argv=None) -> int:
         torch.cuda.set_device(device)
     distributed.init_from_env(env, device=device)
     if args.make_synthetic and rank == 0:
-        make_synthetic_shards(args.data_dir, args.make_synthetic,
-                              args.rows_per_file, args.image_size,
-                              args.num_classes, args.seed,
-                              signal=args.synthetic_signal,
-                              label_noise=args.synthetic_label_noise)
+        _make_synthetic(args)
     if args.make_synthetic:
         distributed.barrier()   # the others must not list a half-written dir
 
@@ -283,20 +360,59 @@ def main(argv=None) -> int:
         raise SystemExit(f"global batch {args.batch_size} not divisible by "
                          f"world {world}")
     local_bs = args.batch_size // world
-    files = sorted(os.path.join(args.data_dir, f)
-                   for f in os.listdir(args.data_dir)
-                   if f.startswith("train-") and f.endswith(".npz"))
-    if not files:
-        raise SystemExit(f"no train-*.npz shards under {args.data_dir}")
-    source = FileSource(files)
-    transforms = () if args.no_augment else (random_flip_lr, random_crop)
-    loader = DataLoader(source, local_bs, rank=rank, world=world,
-                        seed=args.seed, transforms=transforms,
-                        num_workers=0)
+    normalize = None
+    if args.data_format == "jpeg":
+        list_file = os.path.join(args.data_dir, "train.txt")
+        if not os.path.exists(list_file):
+            raise SystemExit(f"no train.txt under {args.data_dir}")
+        source = JpegFileListSource(list_file, root=args.data_dir)
+        # --no-augment keeps the deterministic eval-style decode
+        sample_t = (eval_image_transform(args.image_size,
+                                         short=args.image_size * 8 // 7)
+                    if args.no_augment
+                    else train_image_transform(args.image_size,
+                                               rotate=args.rotate))
+        loader = DataLoader(source, local_bs, rank=rank, world=world,
+                            seed=args.seed, sample_transforms=(sample_t,),
+                            decode_threads=args.decode_threads,
+                            num_workers=loader_workers)
+        normalize = "imagenet"  # uint8 off the wire; normalized on the card
+        n_files = len(source)
+    else:
+        if args.data_format == "packed":
+            pack_path = os.path.join(args.data_dir, "train.pack")
+            if not os.path.exists(pack_path):
+                raise SystemExit(
+                    f"no train.pack under {args.data_dir} (pack one: "
+                    "python -m edl_tpu_torch.data.packed_records pack)")
+            source = PackedSource(pack_path)
+            # pre-decoded uint8 normalizes like the jpeg plane; float
+            # shards were normalized before packing
+            if source.fields["image"][1] == np.uint8:
+                normalize = "imagenet"
+            n_files = 1
+        else:
+            files = sorted(os.path.join(args.data_dir, f)
+                           for f in os.listdir(args.data_dir)
+                           if f.startswith("train-") and f.endswith(".npz"))
+            if not files:
+                raise SystemExit(
+                    f"no train-*.npz shards under {args.data_dir}")
+            source = FileSource(files)
+            n_files = len(files)
+        # device augmentation replaces the host batch transforms: the
+        # loader ships raw bytes and the per-step seed
+        transforms = () if (args.no_augment or augment_device) \
+            else (random_flip_lr, random_crop)
+        loader = DataLoader(source, local_bs, rank=rank, world=world,
+                            seed=args.seed, transforms=transforms,
+                            num_workers=loader_workers,
+                            emit_batch_seed=augment_device)
     steps_per_epoch = loader.steps_per_epoch()
     log.info("world=%d rank=%d device=%s format=%s shards=%d samples=%d "
-             "steps/epoch=%d", world, rank, device, args.data_format,
-             len(files), len(source), steps_per_epoch)
+             "steps/epoch=%d loader_workers=%d augment_device=%s", world,
+             rank, device, args.data_format, n_files, len(source),
+             steps_per_epoch, loader_workers, augment_device)
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = zoo.get_model(args.model)(num_classes=args.num_classes,
@@ -314,25 +430,25 @@ def main(argv=None) -> int:
         tx = state_lib.sgd(schedule, momentum=args.momentum,
                            weight_decay=args.weight_decay)
     state = create_state(model, tx)
+    # with device augmentation the augment normalizes (one pass after
+    # crop/flip); the step must not normalize twice
     step = make_classification_step(
         args.num_classes, smoothing=args.label_smoothing,
-        mixup_alpha=args.mixup_alpha, seed=args.seed, comm=comm_cfg,
+        mixup_alpha=args.mixup_alpha, seed=args.seed,
+        normalize=None if augment_device else normalize, comm=comm_cfg,
         topology=distributed.slice_topology(env))
     if comm_cfg is not None:
         log.info("manual gradient path: bucket=%.1fMiB compress=%s",
                  comm_cfg.bucket_mb, comm_cfg.compress)
-    eval_step = make_eval_step()
+    eval_step = make_eval_step(normalize=normalize)
+    augment = None
+    if augment_device:
+        augment = make_device_augment(pad=4, base_seed=args.seed,
+                                      normalize=normalize)
+        log.info("device-side augmentation: crop(pad=4)+flip+normalize "
+                 "on the prefetch stream from loader-emitted seeds")
 
-    eval_batches = None
-    if os.path.exists(val_path):
-        with np.load(val_path) as z:
-            eval_data = {"image": z["image"], "label": z["label"]}
-
-        def eval_batches():
-            for lo in range(0, len(eval_data["label"]) - local_bs + 1,
-                            local_bs):
-                yield {k: v[lo:lo + local_bs] for k, v in eval_data.items()}
-
+    eval_batches = _eval_batches(args, local_bs, val_path)
     blog = BenchmarkLog(args.model, batch_size=args.batch_size,
                         world_size=world)
     epoch_t0 = [time.perf_counter()]
@@ -363,9 +479,34 @@ def main(argv=None) -> int:
         epoch_t0[0] = time.perf_counter()
         return results
 
+    # Prefetch onto the card on a staging thread when the host work of a
+    # batch runs elsewhere (loader processes) or on the card (the device
+    # augment): the copy and the augment of batch i+1 overlap step i. The
+    # JAX package's CLI always prefetches; here an inline loader's numpy
+    # collation on that thread would hold the GIL against the eager
+    # step's kernel launches (ResNet50_vd's step went from 44.9 to 70.5 ms
+    # with the npz loader on it, PERF.md), so the inline loader places
+    # its batches on the training thread, between its launches (or on
+    # the loop's own staging thread when EDL_TPU_PREFETCH_BATCHES asks).
+    prefetch = loader_workers > 0 or augment_device
+    depth = loop_cfg.prefetch_batches or 2
+    if prefetch:
+        loop_cfg = dataclasses.replace(loop_cfg, prefetch_batches=0)
     loop = TrainLoop(step, state, device=device, config=loop_cfg,
                      eval_fn=eval_fn)
-    status = loop.run(loader.epoch)
+
+    def data_fn(epoch):
+        batches = loader.epoch(epoch)
+        if prefetch:
+            return prefetch_to_device(batches, device, size=depth,
+                                      augment=augment)
+        return batches
+
+    # TrainLoop closes the data plane it drives (decode pool, mp workers
+    # and their shm ring) when the run ends, crash paths included
+    data_fn.close = loader.close
+    status = loop.run(data_fn)
+    blog.extra(**loop.ckpt_stats())  # save-stall / restore accounting
     if comm_cfg is not None:
         blog.extra(**step.stats())  # bucket plan + wire accounting
     if rank == 0 and args.benchmark_log:
@@ -379,6 +520,65 @@ def main(argv=None) -> int:
     return 0
 
 
+def _make_synthetic(args) -> None:
+    """Rank 0's synthetic data: JPEGs + train.txt, or npz shards (packed
+    into train.pack for --data-format packed; val stays val.npz)."""
+    if args.data_format == "jpeg":
+        make_synthetic_jpeg_dataset(
+            args.data_dir, args.make_synthetic, classes=args.num_classes,
+            seed=args.seed, hw=(args.image_size * 3 // 2,
+                                args.image_size * 2))
+        return
+    make_synthetic_shards(args.data_dir, args.make_synthetic,
+                          args.rows_per_file, args.image_size,
+                          args.num_classes, args.seed,
+                          signal=args.synthetic_signal,
+                          label_noise=args.synthetic_label_noise)
+    if args.data_format == "packed":
+        shards = sorted(os.path.join(args.data_dir, f)
+                        for f in os.listdir(args.data_dir)
+                        if f.startswith("train-") and f.endswith(".npz"))
+        pack_npz(shards, os.path.join(args.data_dir, "train.pack"))
+
+
+def _eval_batches(args, local_bs: int, val_path: str):
+    """None, or a zero-arg callable yielding {'image', 'label'} host
+    batches of local_bs (streamed)."""
+    if args.data_format == "packed":
+        val_pack = os.path.join(args.data_dir, "val.pack")
+        if os.path.exists(val_pack):
+            vsrc = PackedSource(val_pack)
+            if len(vsrc) < local_bs:
+                log.warning("val.pack has %d < batch %d rows; eval off",
+                            len(vsrc), local_bs)
+                return None
+            return lambda: (vsrc.batch(np.arange(lo, lo + local_bs))
+                            for lo in range(0, len(vsrc) - local_bs + 1,
+                                            local_bs))
+    if args.data_format == "jpeg":
+        val_list = os.path.join(args.data_dir, "val.txt")
+        if not os.path.exists(val_list):
+            return None
+        vsrc = JpegFileListSource(val_list, root=args.data_dir)
+        if len(vsrc) < local_bs:
+            log.warning("val.txt has %d < batch %d images; eval off",
+                        len(vsrc), local_bs)
+            return None
+        vloader = DataLoader(
+            vsrc, local_bs, shuffle=False, num_workers=0,
+            sample_transforms=(eval_image_transform(
+                args.image_size, short=args.image_size * 8 // 7),),
+            decode_threads=args.decode_threads)
+        return lambda: vloader.epoch(0)
+    if not os.path.exists(val_path):
+        return None
+    with np.load(val_path) as z:
+        eval_data = {"image": z["image"], "label": z["label"]}
+    return lambda: ({k: v[lo:lo + local_bs] for k, v in eval_data.items()}
+                    for lo in range(0, len(eval_data["label"]) - local_bs
+                                    + 1, local_bs))
+
+
 def _unported(what: str, item: int) -> str:
     return f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
 
@@ -386,37 +586,15 @@ def _unported(what: str, item: int) -> str:
 def _refuse_unported(args) -> None:
     """Exit, before any work, on a flag this slice does not carry."""
     refused = [
-        (args.data_format != "npz",
-         f"--data-format {args.data_format} (the JPEG and packed-records "
-         "input planes)", 8),
-        (bool(args.augment_device),
-         "--augment-device (crop/flip/normalize on the device)", 8),
         (args.dgc_sparsity > 0, "--dgc-sparsity (deep gradient "
          "compression)", 11),
         (bool(args.teachers), "--teachers (distill mode)", 12),
-        (bool(args.ckpt_dir) or args.ckpt_steps is not None
-         or args.ckpt_sync, "--ckpt-dir/--ckpt-steps/--ckpt-sync "
-         "(checkpoints)", 8),
-        ((args.loader_workers or 0) > 0,
-         "--loader-workers > 0 (the mp loader)", 8),
-        (bool(args.profile), "--profile (torch.profiler)", 8),
         (args.model not in _RESNETS,
          f"--model {args.model} (the rest of the model zoo)", 13),
     ]
     for hit, what, item in refused:
         if hit:
             raise SystemExit(_unported(what, item))
-
-
-def _refuse_unported_env(cfg: LoopConfig) -> None:
-    """The same refusals for the env knobs that would turn them on."""
-    if cfg.loader_workers > 0:
-        raise SystemExit(_unported("EDL_TPU_LOADER_WORKERS > 0 (the mp "
-                                   "loader)", 8))
-    aug = config.env_str("EDL_TPU_AUGMENT_DEVICE")
-    if aug is not None and aug.lower() in ("1", "true", "yes", "on"):
-        raise SystemExit(_unported("EDL_TPU_AUGMENT_DEVICE (crop/flip/"
-                                   "normalize on the device)", 8))
 
 
 if __name__ == "__main__":

@@ -7,8 +7,13 @@ step runs the transformer with the flash kernels (forward K1, backward
 K2/K3) on a card and, with ``--fused-opt fp32``, one fused Adam kernel
 (K5) pass per parameter bucket, or with ``--fused-opt int8|fp8`` the
 quantized-moment Adam (K7); ``--fused-opt off`` takes
-``torch.optim.AdamW``. The flags this slice does not carry exit before
-any work, naming the ROADMAP item that brings them.
+``torch.optim.AdamW``. ``--ckpt-dir`` writes versioned checkpoints
+(async by default; ``--ckpt-sharded`` for the chunk format) that the
+JAX package reads, and a run on a dir that holds one resumes from it;
+``--loader-workers`` forks the shared-memory loader; ``--profile DIR``
+writes a torch.profiler trace of steps 10-15. The flags this slice does
+not carry exit before any work, naming the ROADMAP item that brings
+them.
 
   python -m edl_tpu_torch.examples.lm_train --device cpu \\
       --make-synthetic 1 --data-dir "$(mktemp -d)" --d-model 64 \\
@@ -168,7 +173,8 @@ def main(argv=None) -> int:
                              "async snapshot-then-write)")
     parser.add_argument("--benchmark-log", default="")
     parser.add_argument("--profile", default="",
-                        help="profiler trace dir (not ported yet)")
+                        help="torch.profiler trace dir (steps 10-15, rank "
+                             "0)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; the port's stand-in "
@@ -188,8 +194,19 @@ def main(argv=None) -> int:
     env = distributed.init_from_env()
     world = max(1, env.world_size)
     rank = max(0, env.rank)
-    loop_cfg = from_env(LoopConfig, num_epochs=args.epochs)
+    ckpt_kw = {}
+    if args.ckpt_steps is not None:
+        ckpt_kw["ckpt_every_steps"] = args.ckpt_steps
+    if args.ckpt_sync:
+        ckpt_kw["ckpt_async"] = False
+    loop_cfg = from_env(LoopConfig, num_epochs=args.epochs,
+                        ckpt_dir=args.ckpt_dir or env.checkpoint_path
+                        or None, ckpt_sharded=args.ckpt_sharded,
+                        profile_dir=args.profile or None, **ckpt_kw)
     _refuse_unported_env(loop_cfg)
+    loader_workers = (args.loader_workers
+                      if args.loader_workers is not None
+                      else loop_cfg.loader_workers)
     fused_opt = (args.fused_opt if args.fused_opt is not None
                  else loop_cfg.fused_opt)
     if loop_cfg.opt_quant and fused_opt != "off":
@@ -224,7 +241,7 @@ def main(argv=None) -> int:
 
     source = FileSource(files)
     loader = DataLoader(source, local_bs, rank=rank, world=world,
-                        seed=args.seed, num_workers=0)
+                        seed=args.seed, num_workers=loader_workers)
     steps_per_epoch = loader.steps_per_epoch()
     total_steps = steps_per_epoch * (args.schedule_epochs or args.epochs)
     # --batch-size is GLOBAL: LR stays batch-tied across elastic resizes
@@ -283,7 +300,9 @@ def main(argv=None) -> int:
     def data_fn(epoch):
         return ({"tokens": b["tokens"]} for b in loader.epoch(epoch))
 
+    data_fn.close = loader.close  # TrainLoop tears down the mp workers
     status = loop.run(data_fn)
+    blog.extra(**loop.ckpt_stats())  # save-stall / restore accounting
     if rank == 0 and args.benchmark_log:
         blog.write(args.benchmark_log, rank)
     final = blog.finalize().get("final", {})
@@ -318,10 +337,6 @@ def _refuse_unported(args) -> None:
         (args.fp16, "--fp16 (dynamic loss scaling)", 4),
         (args.fused_loss, "--fused-loss (the streamed-vocab loss)", 14),
         (args.remat != "off", f"--remat {args.remat}", 6),
-        (bool(args.ckpt_dir), "--ckpt-dir (checkpoints)", 8),
-        ((args.loader_workers or 0) > 0,
-         "--loader-workers > 0 (the mp loader)", 8),
-        (bool(args.profile), "--profile (torch.profiler)", 8),
         (TrainerEnv.from_environ().world_size > 1,
          "a world above 1 for lm_train (EDL_TPU_WORLD_SIZE > 1)", 11),
     ]
@@ -336,9 +351,6 @@ def _refuse_unported_env(cfg: LoopConfig) -> None:
         raise SystemExit(_unported(
             "EDL_TPU_DCN_COMPRESS / EDL_TPU_COMM_BUCKET_MB (the bucketed "
             "gradient reduction)", 11))
-    if cfg.loader_workers > 0:
-        raise SystemExit(_unported("EDL_TPU_LOADER_WORKERS > 0 (the mp "
-                                   "loader)", 8))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Causal spans across the wire seams (trimmed copy of
 ``edl_tpu.obs.trace``: the receiving half of the in-band context and the
-span the teacher server opens per admission decision).
+span the teacher server opens per admission decision, and the finished
+spans utils/timeline emits).
 
 A sender (the JAX package's clients) attaches its span context to a
 tensor frame's ``meta`` under the reserved ``"_tc"`` key; the port's
@@ -139,6 +140,17 @@ def start_span(name: str, parent: tuple[str, str] | None = None,
     else:
         trace_id, parent_id = _new_id(), None
     return Span(name, trace_id, _new_id(), parent_id, attrs)
+
+
+def event(name: str, dur_s: float) -> None:
+    """Emit a finished root span measured elsewhere (utils/timeline's
+    path: the operation happened, only its duration is known)."""
+    if not enabled():
+        return
+    now = time.time()
+    _emit({"tid": _new_id(), "sid": _new_id(), "parent": None,
+           "name": name, "pid": os.getpid(), "t0": round(now - dur_s, 6),
+           "dur": round(dur_s, 6), "attrs": {}})
 
 
 def parse_context(raw) -> tuple[str, str] | None:

@@ -192,6 +192,18 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     return t
 
 
+def broadcast_int(value: int, src: int = 0) -> int:
+    """Rank ``src``'s ``value`` on every rank (the value itself outside a
+    world). NCCL broadcasts from the current card, gloo from the host."""
+    if not is_initialized():
+        return value
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([value], dtype=torch.int64, device=dev)
+    dist.broadcast(t, src)
+    return int(t.item())
+
+
 def barrier() -> None:
     if is_initialized():
         dist.barrier()

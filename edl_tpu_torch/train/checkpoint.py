@@ -1,0 +1,487 @@
+"""Versioned atomic checkpoints with resume status (port of
+``edl_tpu.train.checkpoint``).
+
+The contract is the JAX package's, and so is every byte on disk:
+
+- rank 0 writes, every rank loads; in a world rank 0 picks the version
+  and broadcasts it (``torch.distributed``);
+- a save is written into a temp dir and sealed by ``os.rename`` to
+  ``ckpt-{version}``; versions increase; ``latest`` is the largest
+  sealed one, so a half-written temp dir is never visible;
+- ``meta.json`` beside the state holds ``TrainStatus.to_dict()``;
+- the newest ``max_to_keep`` versions are kept.
+
+Two payload formats: replicated (``state.msgpack``, flax's msgpack of the
+JAX TrainState's tree, written by ``serialization.to_bytes`` from
+``bridge.state_snapshot``) and sharded (``sharded=True``: chunks + index,
+``train/sharded_checkpoint.py``, one chunk a leaf). ``restore``
+detects the format, restores any chunk layout the JAX package writes,
+and writes the state into the live tensors (``bridge.flax_to_state``).
+
+Async snapshot-then-write (``save_async``): PyTorch updates in place, so
+the next step's kernels rewrite the very buffers a snapshot reads. The
+step thread therefore only enqueues device -> host copies of every state
+tensor into a staging arena (pinned memory on a card) on the stream the
+step runs on, and records a CUDA event after them; later kernels queue
+behind the copies. A single writer thread waits on that event, then
+builds the tree, serializes, writes, seals, mirrors and collects
+garbage. Two arenas at most are live (the one in flight and one
+pending): a newer snapshot supersedes a queued unwritten one
+(drop-to-latest) and reuses its arena, and an arena returns to the pool
+only once the writer is done with it. ``wait()``/``close()`` are the
+epoch-end and shutdown barriers; a failed background write raises
+``CheckpointWriteError`` on the next save/wait/close. Sync and async
+saves write identical bytes.
+
+The state-migration retention API (``retain_sealed``,
+``sealed_snapshot``) is not ported: it comes with the elastic trainer
+side (ROADMAP Queue 1 item 16).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import tempfile
+import threading
+import time
+
+import torch
+
+from edl_tpu_torch import bridge
+from edl_tpu_torch.obs import metrics as obs_metrics
+from edl_tpu_torch.parallel import distributed
+from edl_tpu_torch.train import serialization
+from edl_tpu_torch.train import sharded_checkpoint as sc
+from edl_tpu_torch.train.state import TrainStatus
+from edl_tpu_torch.utils import fs
+from edl_tpu_torch.utils.exceptions import EdlCheckpointCorrupt
+from edl_tpu_torch.utils.logging import get_logger
+from edl_tpu_torch.utils.timeline import timeline
+
+log = get_logger("edl_tpu_torch.train.checkpoint")
+
+_CKPT_RE = re.compile(r"^ckpt-(\d+)$")
+
+
+class CheckpointWriteError(RuntimeError):
+    """A background checkpoint write failed; raised on the save/wait/close
+    call after the failure."""
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 sharded: bool = False, remote: str | None = None):
+        """``remote``: an optional URI root (file://, gs://, hdfs://; see
+        utils/fs.py) mirroring the local dir: rank 0 uploads each sealed
+        version, and a restore whose local dir lacks the wanted version
+        fetches it first."""
+        self.directory = directory
+        self.max_to_keep = max_to_keep
+        self.sharded = sharded
+        self.remote = remote
+        self._remote_folded = False
+        self.last_restore_s: float | None = None
+        self.last_restored_version: int | None = None
+        self._cond = threading.Condition()
+        self._pending: dict | None = None   # guarded-by: _cond
+        self._inflight = False              # guarded-by: _cond
+        self._writer: threading.Thread | None = None  # guarded-by: _cond
+        self._closed = False                # guarded-by: _cond
+        self._write_error: BaseException | None = None  # guarded-by: _cond
+        self._arenas: list[list[torch.Tensor]] = []   # guarded-by: _cond
+        self._arena_key: tuple | None = None  # guarded-by: _cond
+        self._tl = timeline("ckpt")
+        self._stats = {  # guarded-by: _cond
+            "saves_async": 0, "saves_sync": 0, "superseded": 0,
+            "writes": 0, "errors": 0, "state_bytes_last": 0,
+            "arena_bytes": 0, "snapshot_ms_last": 0.0,
+            "save_stall_ms_total": 0.0, "write_s_last": 0.0,
+            "write_s_total": 0.0}
+        self._obs = obs_metrics.register_stats("ckpt", self.stats)
+
+    @property
+    def process_index(self) -> int:
+        return distributed.rank()
+
+    # -- discovery ---------------------------------------------------------
+
+    def versions(self) -> list[int]:
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(int(m.group(1)) for m in
+                      map(_CKPT_RE.match, os.listdir(self.directory)) if m)
+
+    def latest_version(self) -> int | None:
+        versions = self.versions()
+        return versions[-1] if versions else None
+
+    def _path(self, version: int) -> str:
+        return os.path.join(self.directory, f"ckpt-{version}")
+
+    # -- snapshot ----------------------------------------------------------
+
+    def _snapshot(self, state, status: TrainStatus) -> dict:
+        """Enqueue device -> host copies of every state tensor into a
+        staging arena on the current stream; the job's event marks them
+        done."""
+        live, build = bridge.state_snapshot(state)
+        key = tuple((tuple(t.shape), t.dtype, t.device.type) for t in live)
+        pinned = any(t.is_cuda for t in live)
+        with self._cond:
+            if key != self._arena_key:
+                self._arenas.clear()
+                self._arena_key = key
+            arena = self._arenas.pop() if self._arenas else None
+        if arena is None:
+            arena = [torch.empty(t.shape, dtype=t.dtype, pin_memory=pinned)
+                     for t in live]
+            with self._cond:
+                self._stats["arena_bytes"] = sum(
+                    a.numel() * a.element_size() for a in arena)
+        with torch.no_grad():
+            for dst, src in zip(arena, live):
+                dst.copy_(src, non_blocking=pinned)
+        event = None
+        if pinned:
+            event = torch.cuda.Event()
+            event.record()
+        return {"build": build, "arena": arena, "key": key, "event": event,
+                "status": TrainStatus.from_dict(status.to_dict())}
+
+    def _recycle(self, job: dict) -> None:  # holds-lock: _cond
+        if job["key"] == self._arena_key and len(self._arenas) < 2:
+            self._arenas.append(job["arena"])
+
+    # -- save --------------------------------------------------------------
+
+    def save(self, state, status: TrainStatus) -> int | None:
+        """Save a new checkpoint now; returns its version (None on ranks
+        other than 0). The caller pays the whole write."""
+        self.wait()
+        t0 = time.perf_counter()
+        try:
+            if self.process_index != 0:
+                self._gc(sealed_only=True)
+                return None
+            job = self._snapshot(state, status)
+            try:
+                return self._write(job)
+            finally:
+                with self._cond:
+                    self._recycle(job)
+        finally:
+            with self._cond:
+                self._stats["saves_sync"] += 1
+                self._stats["save_stall_ms_total"] += (
+                    time.perf_counter() - t0) * 1e3
+
+    def save_async(self, state, status: TrainStatus) -> None:
+        """Queue a checkpoint: the caller pays only for enqueueing the
+        snapshot copies. Raises ``CheckpointWriteError`` if an earlier
+        background write failed. A snapshot still queued behind the
+        writer is superseded by this one (drop-to-latest); the write in
+        flight is never aborted."""
+        self._raise_pending_error()
+        if self.process_index != 0:
+            self._gc(sealed_only=True)
+            return
+        t0 = time.perf_counter()
+        with self._tl.span("snapshot"):
+            with self._cond:
+                if self._pending is not None:
+                    old, self._pending = self._pending, None
+                    self._stats["superseded"] += 1
+                    # its copies are queued ahead of the new ones on the
+                    # same stream, so the arena can take them
+                    self._recycle(old)
+            job = self._snapshot(state, status)
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("CheckpointManager is closed")
+            self._stats["saves_async"] += 1
+            self._stats["snapshot_ms_last"] = stall_ms
+            self._stats["save_stall_ms_total"] += stall_ms
+            self._pending = job
+            if self._writer is None:
+                self._writer = threading.Thread(
+                    target=self._writer_loop, name="edl-ckpt-writer",
+                    daemon=True)
+                self._writer.start()
+            self._cond.notify_all()
+
+    def _write(self, job: dict) -> int:
+        """Wait for the job's copies, build the tree, write and seal it.
+        Runs on the caller for ``save`` and on the writer thread for
+        ``save_async``: the same bytes either way."""
+        if job["event"] is not None:
+            job["event"].synchronize()
+        tree = job["build"]([a.numpy() for a in job["arena"]])
+        return self._write_tree(tree, job["status"])
+
+    def _write_tree(self, tree, status: TrainStatus) -> int:
+        latest = self.latest_version()
+        mirror_this = self.remote is not None
+        folded_now = False
+        if self.remote is not None and not self._remote_folded:
+            latest, folded_now = self._fold_remote_latest(latest)
+            mirror_this = folded_now
+        version = 0 if latest is None else latest + 1
+        os.makedirs(self.directory, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix=".tmp-ckpt-", dir=self.directory)
+        try:
+            meta = {"version": version, "status": status.to_dict()}
+            if self.sharded:
+                files = sc.save_tree(tmp, tree)
+                nbytes = sum(os.path.getsize(os.path.join(tmp, f))
+                             for f in files)
+                meta.update(format="sharded",
+                            world={"process_count": 1,
+                                   "device_count": distributed.world_size()})
+            else:
+                payload = serialization.to_bytes(tree)
+                nbytes = len(payload)
+                with open(os.path.join(tmp, "state.msgpack"), "wb") as f:
+                    f.write(payload)
+            with self._cond:
+                self._stats["state_bytes_last"] = nbytes
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(meta, f)
+            os.rename(tmp, self._path(version))
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        log.info("saved checkpoint %s (epoch=%d step=%d)",
+                 self._path(version), status.epoch, status.step)
+        if folded_now:
+            self._remote_folded = True
+        if mirror_this:
+            self._mirror(version)
+        self._gc()
+        return version
+
+    def _fold_remote_latest(self, latest: int | None
+                            ) -> tuple[int | None, bool]:
+        """Fold the mirror's LATEST into the version choice (a rank 0
+        restarted with an empty local dir must not reuse a published
+        number). Returns (latest, read_ok); read_ok False skips this
+        save's mirror."""
+        try:
+            remote_latest = fs.remote_latest_version(self.remote)
+        except Exception as exc:  # noqa: BLE001 — mirror-only
+            log.warning("remote LATEST unreadable (%s); skipping this "
+                        "save's mirror", exc)
+            return latest, False
+        if remote_latest is not None:
+            latest = remote_latest if latest is None else max(
+                latest, remote_latest)
+        return latest, True
+
+    def _mirror(self, version: int) -> None:
+        try:
+            fs.mirror_checkpoint(self.directory, version, self.remote,
+                                 keep=self.max_to_keep)
+        except fs.EdlFsError as exc:
+            # the local version is sealed; the next save's upload
+            # supersedes a transient mirror failure
+            log.warning("mirror of ckpt-%d to %s failed: %s", version,
+                        self.remote, exc)
+
+    def _gc(self, *, sealed_only: bool = False) -> None:
+        versions = self.versions()
+        for version in versions[: max(0, len(versions) - self.max_to_keep)]:
+            shutil.rmtree(self._path(version), ignore_errors=True)
+        if sealed_only or not os.path.isdir(self.directory):
+            return
+        for name in os.listdir(self.directory):
+            if name.startswith(".tmp-ckpt-"):
+                shutil.rmtree(os.path.join(self.directory, name),
+                              ignore_errors=True)
+
+    def gc_stale_tmp(self) -> None:
+        """Startup GC: remove ``.tmp-*`` dirs left by a killed writer.
+        Call at (re)start, when no save of this run can be pending."""
+        try:
+            names = os.listdir(self.directory)
+        except FileNotFoundError:
+            return
+        for name in names:
+            if name.startswith(".tmp-"):
+                path = os.path.join(self.directory, name)
+                log.info("startup GC: removing stale partial save %s", path)
+                shutil.rmtree(path, ignore_errors=True)
+
+    # -- the writer --------------------------------------------------------
+
+    def _writer_loop(self) -> None:
+        while True:
+            with self._cond:
+                while self._pending is None and not self._closed:
+                    self._cond.wait()
+                if self._pending is None:
+                    return
+                job, self._pending = self._pending, None
+                self._inflight = True
+            try:
+                t0 = time.perf_counter()
+                with self._tl.span("write"):
+                    self._write(job)
+                dt = time.perf_counter() - t0
+                with self._cond:
+                    self._stats["writes"] += 1
+                    self._stats["write_s_last"] = dt
+                    self._stats["write_s_total"] += dt
+            except BaseException as exc:  # noqa: BLE001 — surfaced on the
+                log.exception(            # next save/wait/close call
+                    "async checkpoint write failed")
+                with self._cond:
+                    self._write_error = exc
+                    self._stats["errors"] += 1
+            finally:
+                with self._cond:
+                    self._recycle(job)
+                    self._inflight = False
+                    self._cond.notify_all()
+
+    def wait(self, timeout: float | None = None) -> None:
+        """Block until every queued snapshot is written; re-raises a
+        background failure as ``CheckpointWriteError``."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while self._pending is not None or self._inflight:
+                remaining = (None if deadline is None
+                             else deadline - time.monotonic())
+                if remaining is not None and remaining <= 0:
+                    raise TimeoutError(
+                        "checkpoint writer did not drain in time")
+                self._cond.wait(remaining)
+        self._raise_pending_error()
+
+    def close(self, raise_errors: bool = True) -> None:
+        """Drain the queued snapshot and stop the writer thread. With
+        ``raise_errors=False`` (crash paths) a failure is only logged. The
+        manager stays usable: a later ``save_async`` restarts the
+        writer."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+            writer = self._writer
+        if writer is not None:
+            writer.join()
+        with self._cond:
+            self._writer = None
+            self._closed = False
+        obs_metrics.unregister(self._obs)
+        if raise_errors:
+            self._raise_pending_error()
+
+    def _raise_pending_error(self) -> None:
+        with self._cond:
+            exc, self._write_error = self._write_error, None
+        if exc is not None:
+            raise CheckpointWriteError(
+                "background checkpoint write failed") from exc
+
+    def stats(self) -> dict:
+        """Save-stall and write accounting. ``save_stall_ms_total`` is
+        what the step loop waited: the whole save for a sync save, the
+        snapshot's enqueue for an async one."""
+        with self._cond:
+            s = dict(self._stats)
+        saves = s["saves_async"] + s["saves_sync"]
+        s["save_stall_ms_mean"] = (s["save_stall_ms_total"] / saves
+                                   if saves else 0.0)
+        if self.last_restore_s is not None:
+            s["restore_s"] = self.last_restore_s
+        return s
+
+    # -- load --------------------------------------------------------------
+
+    def _pick_version(self, version: int | None) -> int | None:
+        """The version to load: ``version``, else the local latest or the
+        mirror's newer LATEST; rank 0's choice in a world."""
+        if version is None and self.process_index == 0:
+            version = self.latest_version()
+            if self.remote is not None:
+                try:
+                    remote_latest = fs.remote_latest_version(self.remote)
+                except fs.EdlFsError as exc:
+                    log.warning("mirror %s unreachable for restore: %s",
+                                self.remote, exc)
+                    remote_latest = None
+                if remote_latest is not None and (
+                        version is None or remote_latest > version):
+                    version = remote_latest
+        picked = distributed.broadcast_int(-1 if version is None
+                                           else version)
+        if picked < 0:
+            return None
+        if not os.path.isdir(self._path(picked)) and self.remote is not None:
+            fs.fetch_latest_checkpoint(self.remote, self.directory,
+                                       version=picked)
+        return picked
+
+    def _read(self, version: int) -> tuple[dict, TrainStatus]:
+        path = self._path(version)
+        if sc.is_sharded_dir(path):
+            tree = sc.restore_state_dict(path)
+        else:
+            with open(os.path.join(path, "state.msgpack"), "rb") as f:
+                tree = serialization.msgpack_restore(f.read())
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        return tree, TrainStatus.from_dict(meta["status"])
+
+    def restore_raw(self, version: int | None = None
+                    ) -> tuple[dict, TrainStatus] | None:
+        """The state dict of a checkpoint (either format) and its status,
+        with no target state; None when there is none."""
+        version = self._pick_version(version)
+        return None if version is None else self._read(version)
+
+    def restore(self, state, version: int | None = None):
+        """Restore into ``state``'s tensors in place; returns (state,
+        status), or None when there is no checkpoint.
+
+        A chunk failing its crc32 raises ``EdlCheckpointCorrupt``; with
+        ``version=None`` the manager then falls back, loudly, to the next
+        older sealed version."""
+        if version is not None:
+            return self._restore_version(state, version)
+        try:
+            return self._restore_version(state, None)
+        except EdlCheckpointCorrupt as exc:
+            last_exc = exc
+        bad = self.latest_version()
+        log.error("checkpoint ckpt-%s corrupt (%s); falling back to the "
+                  "previous sealed version", bad, last_exc)
+        for v in reversed([v for v in self.versions()
+                           if bad is None or v < bad]):
+            try:
+                return self._restore_version(state, v)
+            except EdlCheckpointCorrupt as exc:
+                last_exc = exc
+                log.error("checkpoint ckpt-%d also corrupt (%s)", v, exc)
+        raise EdlCheckpointCorrupt(
+            "every local sealed checkpoint failed its integrity check "
+            f"under {self.directory}") from last_exc
+
+    def _restore_version(self, state, version: int | None):
+        t0 = time.perf_counter()
+        version = self._pick_version(version)
+        if version is None:
+            return None
+        tree, status = self._read(version)
+        bridge.flax_to_state(tree, state)
+        if next(state.model.parameters()).is_cuda:
+            torch.cuda.synchronize()
+        self.last_restore_s = time.perf_counter() - t0
+        self.last_restored_version = version
+        log.info("restored checkpoint %s (epoch=%d step=%d) in %.3fs",
+                 self._path(version), status.epoch, status.step,
+                 self.last_restore_s)
+        return state, status
+

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from edl_tpu_torch.bridge import flax_named_parameters
-from edl_tpu_torch.ops.augment import mixup
+from edl_tpu_torch.ops.augment import mixup, normalize_image
 from edl_tpu_torch.train.state import TrainState
 from edl_tpu_torch.train.step import make_train_step
 
@@ -67,16 +67,20 @@ def mixup_rng(seed: int, step: int) -> np.random.Generator:
 
 def make_classification_step(num_classes: int, *, smoothing: float = 0.0,
                              mixup_alpha: float = 0.0, seed: int = 0,
+                             normalize: str | None = None,
                              comm=None, topology=None) -> Callable:
     """``step(state, batch) -> (state, metrics)`` for {'image', 'label'}
     batches; metrics hold the loss and the batch's top-1 accuracy as
-    device tensors. ``comm``/``topology`` route the gradient reduction
-    through the manual bucketed path (see ``make_train_step``)."""
+    device tensors. ``normalize`` ('imagenet' | 'unit') turns uint8
+    pixels into normalized floats on the device first (the JPEG and
+    packed planes ship bytes). ``comm``/``topology`` route the gradient
+    reduction through the manual bucketed path (see
+    ``make_train_step``)."""
 
     def loss_fn(model: torch.nn.Module, batch: dict,
                 step: int) -> tuple[torch.Tensor, dict]:
         targets = smoothed_labels(batch["label"], num_classes, smoothing)
-        images = batch["image"]
+        images = normalize_image(batch["image"], normalize)
         if mixup_alpha > 0.0:
             images, targets = mixup(images, targets, mixup_alpha,
                                     rng=mixup_rng(seed, step))
@@ -89,7 +93,7 @@ def make_classification_step(num_classes: int, *, smoothing: float = 0.0,
                            topology=topology)
 
 
-def make_eval_step() -> Callable:
+def make_eval_step(normalize: str | None = None) -> Callable:
     """``eval_step(state, batch) -> {'acc1', 'acc5'}`` in eval mode (the
     running statistics); the model goes back to train mode after."""
 
@@ -99,7 +103,7 @@ def make_eval_step() -> Callable:
         was_training = model.training
         model.eval()
         try:
-            logits = model(batch["image"])
+            logits = model(normalize_image(batch["image"], normalize))
         finally:
             model.train(was_training)
         return {"acc1": accuracy_topk(logits, batch["label"], 1),

@@ -9,7 +9,7 @@ resume cursor, a copy of the JAX package's.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Any, Sequence
 
 import torch
@@ -99,8 +99,8 @@ class TrainState:
 
 @dataclass
 class TrainStatus:
-    """Host-side resume cursor (the JAX package persists it beside each
-    checkpoint; the port's checkpoints come with ROADMAP item 8)."""
+    """Host-side resume cursor, persisted in each checkpoint's meta.json
+    (``to_dict``), as the JAX package persists it."""
 
     epoch: int = -1          # last fully completed epoch (-1 = none)
     step: int = 0            # global optimizer steps completed
@@ -110,3 +110,13 @@ class TrainStatus:
 
     def next_epoch(self) -> int:
         return self.epoch + 1
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TrainStatus":
+        return cls(**{k: d[k] for k in
+                      ("epoch", "step", "step_in_epoch", "samples_seen",
+                       "world_size")
+                      if k in d})

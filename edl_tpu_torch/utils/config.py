@@ -58,7 +58,22 @@ ENV_VARS: dict[str, str] = {
                             "| int8",
     "EDL_TPU_FUSED_OPT": "fused optimizer path: off | fp32 | int8 | fp8",
     "EDL_TPU_AUGMENT_DEVICE": "crop/flip/normalize on the device "
-                              "(imagenet_train; refused until ported)",
+                              "(imagenet_train; default on for packed)",
+    "EDL_TPU_SAVE_CHECKPOINT_INTER": "checkpoint every N epochs",
+    "EDL_TPU_CKPT_STEPS": "also checkpoint every N optimizer steps "
+                          "(0 = epoch ends only)",
+    "EDL_TPU_SAVE_CHECKPOINT_STEPS": "alias of EDL_TPU_CKPT_STEPS",
+    "EDL_TPU_CHECKPOINT_KEEP": "sealed checkpoint versions to keep",
+    "EDL_TPU_CKPT_ASYNC": "async snapshot-then-write saves (0 = sync)",
+    "EDL_TPU_CHECKPOINT_SHARDED": "chunk + index checkpoint format "
+                                  "instead of one msgpack",
+    "EDL_TPU_CKPT_REMOTE": "checkpoint mirror URI (file://, gs://, "
+                           "hdfs://)",
+    "EDL_TPU_CKPT_VERIFY": "verify chunk crc32s on restore (default on)",
+    "EDL_TPU_CKPT_RESTORE_THREADS": "chunk region-read threads on restore",
+    "EDL_TPU_PROFILE": "1 = timeline spans to stderr",
+    "EDL_TPU_PROFILE_START": "global step the profiler window opens at",
+    "EDL_TPU_PROFILE_STEPS": "steps the profiler window spans",
     "EDL_TPU_OPT_QUANT": "override the resident-moment codec of the fused "
                          "optimizer: off | int8 | fp8 (empty = what "
                          "EDL_TPU_FUSED_OPT implies)",
@@ -84,6 +99,21 @@ def env_float(name: str, default: float = 0.0) -> float:
         return float(value) if value else default
     except ValueError:
         return default
+
+
+def env_int(name: str, default: int = 0) -> int:
+    value = os.environ.get(_declared(name), "").strip()
+    try:
+        return int(value) if value else default
+    except ValueError:
+        return default
+
+
+def env_flag(name: str, default: bool = False) -> bool:
+    value = os.environ.get(_declared(name), "").strip().lower()
+    if not value:
+        return default
+    return value in ("1", "true", "yes", "on")
 
 
 def field(default: Any = dataclasses.MISSING, *,

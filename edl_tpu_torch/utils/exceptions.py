@@ -8,3 +8,9 @@ class EdlError(Exception):
 
 class EdlDataError(EdlError):
     """Data pipeline / task dispenser error."""
+
+
+class EdlCheckpointCorrupt(EdlError):
+    """A checkpoint chunk failed its integrity check (crc32 recorded at
+    seal time, verified on restore). Typed so restore paths can fall back
+    to the previous sealed version instead of loading garbage."""

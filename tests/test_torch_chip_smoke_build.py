@@ -282,3 +282,64 @@ def test_world_runs_want_one_pack_call_a_step_a_rank(name, tmp_path,
         cs.world_summary(name, [_rank(r, per_bucket, steps)
                                 for r in range(2)], tmp_path)
     assert "launched" in capsys.readouterr().err
+
+
+# -- the resume phase --------------------------------------------------------
+
+
+def test_the_resume_phase_is_documented_and_run():
+    """Phase 10 is in the module docstring and main() drives it, after
+    the world runs, with every earlier phase."""
+    import ast
+    import inspect
+
+    assert "10. resume" in cs.__doc__
+    calls = [n.func.id for n in ast.walk(ast.parse(inspect.getsource(
+        cs.main))) if isinstance(n, ast.Call)
+        and isinstance(n.func, ast.Name)]
+    assert calls.index("phase_resume") > calls.index(
+        "phase_train_resnet_world") > calls.index("phase_train_resnet")
+    argv = cs.RESUME_ARGV
+    assert "--no-augment" not in argv
+    for flag, value in (("--data-format", "packed"),
+                        ("--augment-device", "1")):
+        assert argv[argv.index(flag) + 1] == value
+    for flag in ("--model", "--image-size", "--num-classes", "--batch-size"):
+        assert argv[argv.index(flag) + 1] == \
+            cs.RESNET_ARGV[cs.RESNET_ARGV.index(flag) + 1]
+
+
+@pytest.mark.parametrize("cores,want", [(8, 7), (32, 8), (2, 1), (1, 1)])
+def test_resume_loader_workers(cores, want):
+    assert cs.loader_workers(cores) == want
+
+
+def test_tree_mismatches_and_opt_bytes():
+    from edl_tpu_torch import bridge
+
+    q = bridge.QPlaneTree(np.zeros(8, np.int8), np.float32(1),
+                          np.zeros(8, np.int8), np.float32(2))
+    a = bridge.TrainStateTree(np.asarray(3, np.int32),
+                              {"w": np.ones(4, np.float32)},
+                              bridge.FusedOptTree(np.asarray(3, np.int32),
+                                                  (q,), ()), None)
+    assert cs.tree_mismatches(a, a) == []
+    b = a._replace(params={"w": -np.zeros(4, np.float32) + 1})
+    assert cs.tree_mismatches(a, b) == []
+    c = a._replace(params={"w": np.array([1, 1, 1, -0.0 + 1.5],
+                                         np.float32)})
+    assert cs.tree_mismatches(a, c) == [".params['w']"]
+    d = a._replace(params={"w": np.ones(4, np.float64)})
+    assert cs.tree_mismatches(a, d) == [".params['w']"]
+    assert cs.opt_bytes(a) == 4 + 8 + 4 + 8 + 4
+
+
+def test_version_at_reads_meta(tmp_path):
+    for v, step in ((3, 15), (4, 20)):
+        d = tmp_path / f"ckpt-{v}"
+        d.mkdir()
+        (d / "meta.json").write_text(json.dumps(
+            {"version": v, "status": {"step": step}}))
+    (tmp_path / ".tmp-ckpt-x").mkdir()
+    assert cs.version_at(str(tmp_path), 15) == 3
+    assert cs.version_at(str(tmp_path), 5) is None

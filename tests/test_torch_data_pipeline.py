@@ -75,11 +75,10 @@ def test_epoch_indices():
 
 def test_unported_and_bad_settings_raise(shard_files, monkeypatch):
     src = tpipe.FileSource(shard_files)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpipe.DataLoader(src, 4, num_workers=2)
     monkeypatch.setenv("EDL_TPU_LOADER_WORKERS", "3")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpipe.DataLoader(src, 4)
+    assert tpipe.DataLoader(src, 4).num_workers == 3
+    with pytest.raises(EdlDataError, match="num_workers"):
+        tpipe.DataLoader(src, 4, num_workers=-1)
     with pytest.raises(EdlDataError, match="rank"):
         tpipe.DataLoader(src, 4, rank=2, world=2, num_workers=0)
     with pytest.raises(EdlDataError, match="0 batches"):

@@ -1,6 +1,9 @@
 """The port stands alone: no file of edl_tpu_torch/ and not chip_smoke.py
-imports jax, flax, optax or anything of edl_tpu (an AST check, so
-function-scoped imports count too)."""
+imports jax, flax, optax, msgpack, ml_dtypes or anything of edl_tpu (an
+AST check, so function-scoped imports count too): the checkpoint payload
+is written without the msgpack package and read without ml_dtypes, which
+the card's machine lacks. cv2 is imported only inside a function of
+data/image.py, the JPEG plane, so every other plane runs without it."""
 
 import ast
 from pathlib import Path
@@ -8,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "edl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "edl_tpu", "msgpack",
+             "ml_dtypes")
 FILES = sorted((ROOT / "edl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -45,3 +49,17 @@ def test_checker_catches_forbidden_imports():
            "from edl_tpu_torch import bridge\nimport torch\n")
     found = [m for m, _ in _imported(ast.parse(src)) if _forbidden(m)]
     assert found == ["jax.numpy", "edl_tpu.ops", "flax.linen"]
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_cv2_only_lazily_in_the_jpeg_plane(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    uses = [line for mod, line in _imported(tree)
+            if mod.split(".")[0] == "cv2"]
+    if path != ROOT / "edl_tpu_torch" / "data" / "image.py":
+        assert not uses, f"{path.name} imports cv2 at {uses}"
+        return
+    top = {n.lineno for n in tree.body
+           if isinstance(n, (ast.Import, ast.ImportFrom))}
+    assert uses and not top & set(uses)

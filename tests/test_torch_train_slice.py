@@ -195,9 +195,7 @@ def test_lm_train_main_on_the_cpu(tmp_path, capsys, fused_opt):
     (["--moe"], 14), (["--mesh", "fsdp"], 10), (["--fsdp"], 10),
     (["--mesh", "sp"], 14), (["--dcn-compress", "int8"], 11),
     (["--comm-bucket-mb", "4"], 11), (["--fp16"], 4),
-    (["--fused-loss"], 14), (["--remat", "on"], 6), (["--remat", "auto"], 6),
-    (["--ckpt-dir", "ckpt"], 8), (["--loader-workers", "2"], 8),
-    (["--profile", "trace"], 8)])
+    (["--fused-loss"], 14), (["--remat", "on"], 6), (["--remat", "auto"], 6)])
 def test_unported_flags_exit_before_any_work(tmp_path, flags, item):
     data_dir = tmp_path / "never-written"
     with pytest.raises(SystemExit, match=f"item {item}"):
@@ -210,8 +208,8 @@ def test_unported_env_knobs_exit(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="item 11"):
         lm_train.main(["--data-dir", str(tmp_path), *TINY_ARGV])
     monkeypatch.delenv("EDL_TPU_DCN_COMPRESS")
-    monkeypatch.setenv("EDL_TPU_LOADER_WORKERS", "2")
-    with pytest.raises(SystemExit, match="item 8"):
+    monkeypatch.setenv("EDL_TPU_COMM_BUCKET_MB", "4")
+    with pytest.raises(SystemExit, match="item 11"):
         lm_train.main(["--data-dir", str(tmp_path), *TINY_ARGV])
 
 
@@ -241,14 +239,6 @@ def test_lm_train_refuses_a_world_above_one(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="item 11"):
         lm_train.main(["--data-dir", str(data_dir), *TINY_ARGV])
     assert not data_dir.exists()
-
-
-@pytest.mark.parametrize("kw,item", [({"ckpt_dir": "c"}, 8),
-                                     ({"profile_dir": "p"}, 8),
-                                     ({"prefetch_batches": 2}, 8)])
-def test_unported_loop_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        LoopConfig(**kw)
 
 
 def test_step_options_and_dropout_raise():
