@@ -11,9 +11,10 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              forward and backward (each library's report under its name),
              each kernel's registers and spills (ptxas) and its wgmma
              (HGMMA) and TMA load (UTMALDG) instructions in the built SASS
-             (cuobjdump): each bf16 body must hold both, spill nothing and
-             never write a register a wgmma reads as its A operand before
-             the product (or its loop's next turn) has read it;
+             (cuobjdump): each wgmma body, bf16 and fp16, must hold both,
+             spill nothing and never write a register a wgmma reads as
+             its A operand before the product (or its loop's next turn)
+             has read it;
 2. kernels — each kernel against its plain PyTorch version on the card,
              on the same inputs: K1 (flash forward) and K2/K3 (flash
              backward, with and without a dlse cotangent) over a grid of
@@ -132,9 +133,40 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              uninterrupted run's batches (sha256 of each placed, augmented
              batch); int8 (K6) for 1 epoch and resumed: the QPlanes bit
              for bit, the checkpoint's optimizer part >= 1.8x smaller than
-             fp32's. Exactly one K4 (or K6 entry call) a step throughout.
+             fp32's. Exactly one K4 (or K6 entry call) a step throughout;
+11. train_fp16 — lm_train.main at phase 6's config with --fp16 in place
+             of --bf16 (fp16 activations: K1-K3's fp16 bodies; dynamic
+             loss scaling; --fused-opt fp32): per step exactly 8 K1, 8
+             K2, 8 K3 and one K5, and no K5 on a step whose gradients
+             were not finite (skipped); the loss scale, the skipped
+             steps and the finite flag's host reads (one a step); the
+             loss finite and falling; one step of flash against dense
+             attention on the trained weights in fp16;
+12. train_fused_loss — the same with --bf16 --fused-loss (the streamed-
+             vocab loss): 8/8/8 and one K5 a step; step ms, split and
+             peak beside phase 6's, the peak at least the fp32 logits'
+             N x V x 4 bytes (2.0 GiB) below it; lm_loss_fused against
+             lm_loss_fn on one step's weights and batch: the loss within
+             1e-4, the lm_head gradient within 1e-4 relative L2;
+13. train_remat — the same with --bf16 --remat on: exactly 16 K1 (each
+             block's forward again in the backward), 8 K2, 8 K3 and one
+             K5 a step; step ms and peak beside phase 6's; the first
+             loss bit for bit phase 6's; auto_remat's choice at the base
+             config and 16 rows on this card;
+14. fused_opt_smoke — python -m edl_tpu_torch.train.fused_opt smoke,
+             in process: the gate (K4-K7 bit for bit against their plain
+             versions) and the quantized-moment convergence smoke (the
+             CNN with K6, the transformer with K7, one entry call a
+             step, against the dense optimizers: both learn, within the
+             0.25 envelope, state >= 1.8x smaller); exits 0.
 
-The line before the last lists every ported kernel; the last line is
+The kernels phase also holds K1 and K2/K3's fp16 bodies against their
+plain versions (the bf16 bounds; bit for bit between two launches on the
+training shape), the build phase requires wgmma bodies for bf16 and
+fp16, and the timing phase times both beside SDPA in fp16.
+
+The line before the last lists every ported kernel (K1-K3 with their
+fp16 bodies' numbers under "fp16"); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -178,12 +210,16 @@ KERNELS = (
 
 # The card's published peaks (H100 SXM data sheet, dense).
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
-# Backward bounds: fp32 as tests/test_flash_attention.py (5e-5); bf16
-# 3e-2 (the forward's bound) times the reference's largest magnitude, at
-# least 1: a gradient is a sum of up to S terms, each rounded to bf16 as
-# an operand of the tensor cores, and is itself rounded to bf16.
+PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
+                torch.float32: 67e12}
+# fp16 is held at the bf16 bounds (its 10-bit mantissa rounds finer than
+# bf16's 7).
+ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+# Backward bounds: fp32 as tests/test_flash_attention.py (5e-5); bf16 and
+# fp16 3e-2 (the forward's bound) times the reference's largest
+# magnitude, at least 1: a gradient is a sum of up to S terms, each
+# rounded to 16 bits as an operand of the tensor cores, and is itself
+# rounded to 16 bits.
 BWD_ATOL_FP32 = 5e-5
 BWD_REL_BF16 = 3e-2
 
@@ -191,6 +227,9 @@ BWD_REL_BF16 = 3e-2
 MAIN = dict(b=8, s=1024, h=16, d=64, dtype=torch.bfloat16, causal=True)
 # The training path: lm_train at the base config, 16 rows a step.
 TRAIN = dict(b=16, s=1024, h=16, d=64, dtype=torch.bfloat16, causal=True)
+# The same shapes in fp16: lm_train --fp16 (and fp16 serving).
+MAIN_F16 = dict(MAIN, dtype=torch.float16)
+TRAIN_F16 = dict(TRAIN, dtype=torch.float16)
 # 16 clients with one request of 1-4 rows in flight each keep ~40 rows
 # queued, so the batcher can fill max_batch = 8 rows.
 N_CLIENTS, REQS_PER_CLIENT, ROUNDS, TOPK = 16, 25, 3, 16
@@ -283,9 +322,10 @@ def qkv_case(case: dict, gen) -> tuple:
 
 def kernel_name(mangled: str) -> str:
     """The readable name of a kernel from its mangled symbol, e.g.
-    dkdv_wgmma_kernel<64> or sgdm_q_kernel<2,1,0>: the last identifier of
-    its (nested) name, when it ends in "kernel", with its integer and
-    bool template arguments."""
+    dkdv_wgmma_kernel<64>, sgdm_q_kernel<2,1,0> or
+    flash_fwd_wgmma_kernel<__half,64>: the last identifier of its
+    (nested) name, when it ends in "kernel", with its integer, bool and
+    type template arguments."""
     m = re.match(r"_ZN?", mangled)
     if m is None:
         return mangled
@@ -295,10 +335,22 @@ def kernel_name(mangled: str) -> str:
         ident, i = mangled[i:i + int(d.group())], i + int(d.group())
     if not ident.endswith("kernel"):
         return mangled
-    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
-    if args is None:
+    if not mangled.startswith("I", i):
         return ident
-    return ident + "<" + ",".join(re.findall(r"L[ib](\d+)E", args[1])) + ">"
+    args, i = [], i + 1
+    while not mangled.startswith("E", i):
+        if a := re.match(r"L[ib](\d+)E", mangled[i:]):
+            args.append(a[1])
+            i += a.end()
+        elif a := re.match(r"\d+", mangled[i:]):       # a type: its name
+            n = int(a.group())
+            args.append(mangled[i + a.end():i + a.end() + n])
+            i += a.end() + n
+        else:
+            return ident
+        if i >= len(mangled):
+            return ident
+    return ident + "<" + ",".join(args) + ">"
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -408,18 +460,23 @@ def wgmma_a_hazards(ins: list[tuple[int, str]]) -> list[tuple[str, str]]:
     return list(dict.fromkeys(found))
 
 
-# The libraries whose bf16 bodies are wgmma fed by TMA: K1, and K2/K3.
+# The kernels with fp16 bodies (K1-K3), and their libraries, whose
+# 16-bit bodies are wgmma fed by TMA: K1, and K2/K3.
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 FLASH_LIBS = ("flash_fwd", "flash_bwd")
+# The element types each of them compiles its wgmma bodies for.
+WGMMA_TYPES = ("__nv_bfloat16", "__half")
 
 
 def flash_build(build, logs: dict[str, str]) -> dict:
-    """What the bf16 flash bodies were built into, per library of
+    """What the 16-bit flash bodies were built into, per library of
     FLASH_LIBS: per kernel its registers and spills (ptxas), its count of
     wgmma (HGMMA) and TMA load (UTMALDG) instructions in the SASS of the
     built library (cuobjdump), and the writes that may clobber a wgmma's
     A operand (wgmma_a_hazards). Fails unless each library has wgmma
-    bodies and each holds both instructions, spills nothing and has no
-    such write. Returns {library: report}."""
+    bodies for every type of WGMMA_TYPES and each body (each
+    instantiation: every type and head dim) holds both instructions,
+    spills nothing and has no such write. Returns {library: report}."""
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     reports, bad = {}, {}
     for lib in FLASH_LIBS:
@@ -434,17 +491,17 @@ def flash_build(build, logs: dict[str, str]) -> dict:
                 UTMALDG=sum("UTMALDG" in t for _, t in ins),
                 a_operand_hazards=wgmma_a_hazards(ins)[:4])
         wgmma = {n: k for n, k in kernels.items() if "wgmma" in n}
-        ok = bool(wgmma) and all(k.get("HGMMA") and k.get("UTMALDG")
-                                 and k.get("spill_bytes") == 0
-                                 and not k.get("a_operand_hazards")
-                                 for k in wgmma.values())
-        reports[lib] = {"kernels": kernels, "ok": ok}
+        types = {t for t in WGMMA_TYPES for n in wgmma if f"<{t}," in n}
+        ok = types == set(WGMMA_TYPES) and all(
+            k.get("HGMMA") and k.get("UTMALDG") and k.get("spill_bytes") == 0
+            and not k.get("a_operand_hazards") for k in wgmma.values())
+        reports[lib] = {"kernels": kernels, "types": sorted(types), "ok": ok}
         if not ok:
             bad[lib] = wgmma
     if bad:
         emit({"phase": "build", **reports})
-        fail(f"bf16 flash bodies lack HGMMA/UTMALDG, spill, or may clobber "
-             f"a wgmma operand: {bad}")
+        fail(f"the 16-bit flash bodies lack a type of {WGMMA_TYPES}, or "
+             f"HGMMA/UTMALDG, spill, or may clobber a wgmma operand: {bad}")
     return reports
 
 
@@ -452,17 +509,18 @@ def phase_kernels(fa, gen) -> dict:
     """K1 vs its plain version on the card, over a grid of shapes, a
     strided (fused qkv) case, bf16 ragged cases (S = 200, causal and
     not), one served row (B=1), a negative scale and the serving and
-    training shapes; on
-    the training shape, the strided and the ragged causal case also two
-    launches, o and lse bit for bit. Returns {"flash_fwd": (max abs
-    error, checks)}."""
-    f32, bf16 = torch.float32, torch.bfloat16
+    training shapes; the grid, the head dim 32 case and the training
+    shape also in fp16; on the training shape (bf16 and fp16), the
+    strided and the ragged causal case also two launches, o and lse bit
+    for bit. Returns {"flash_fwd": (max abs error, checks)} and the fp16
+    cases' own under "flash_fwd_fp16"."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     cases = [dict(b=2, s=s, h=4, d=d, dtype=dt, causal=c)
-             for dt in (f32, bf16)
+             for dt in (f32, bf16, f16)
              for c in (True, False) for s in (128, 384, 1024)
              for d in (64, 128)]
     cases += [dict(b=2, s=1024, h=4, d=32, dtype=dt, causal=True)
-              for dt in (f32, bf16)]
+              for dt in (f32, bf16, f16)]
     strided = dict(b=2, s=256, h=4, d=64, dtype=bf16, causal=True, fused=True)
     ragged = [dict(b=2, s=200, h=3, d=64, dtype=bf16, causal=c)
               for c in (True, False)]
@@ -472,10 +530,10 @@ def phase_kernels(fa, gen) -> dict:
               *ragged, dict(b=1, s=1024, h=16, d=64, dtype=bf16, causal=True),
               dict(b=2, s=384, h=4, d=64, dtype=bf16, causal=True,
                    scale=-0.125),
-              MAIN, TRAIN]
+              MAIN, TRAIN, TRAIN_F16]
     # the cases run twice and held bit for bit between the launches
-    twice = {id(TRAIN), id(strided), id(ragged[0])}
-    worst, checks = 0.0, 0
+    twice = {id(TRAIN), id(TRAIN_F16), id(strided), id(ragged[0])}
+    worst, worst_f16, checks = 0.0, 0.0, 0
     for case in cases:
         b, s, h, d, dt = case["b"], case["s"], case["h"], case["d"], \
             case["dtype"]
@@ -501,11 +559,13 @@ def phase_kernels(fa, gen) -> dict:
             fail(f"flash_fwd disagrees with its plain version on {case}: "
                  f"o {err_o}, lse {err_lse}, bound {ATOL[dt]}")
         worst = max(worst, err_o, err_lse)
+        if dt == f16:
+            worst_f16 = max(worst_f16, err_o, err_lse)
         checks += 1
         if id(case) in twice:
             fwd_deterministic(fa, case, q, k, v, o, lse)
             checks += 1
-    return {"flash_fwd": (worst, checks)}
+    return {"flash_fwd": (worst, checks), "flash_fwd_fp16": worst_f16}
 
 
 def fwd_deterministic(fa, case, q, k, v, o, lse) -> None:
@@ -516,14 +576,17 @@ def fwd_deterministic(fa, case, q, k, v, o, lse) -> None:
     torch.cuda.synchronize()
     same = {"o": torch.equal(o, o2), "lse": torch.equal(lse, lse2)}
     emit({"phase": "kernels", "kernel": "flash_fwd", "shape": list(q.shape),
+          "dtype": str(q.dtype).split(".")[-1],
           "strided": bool(case.get("fused")), "causal": case["causal"],
           "bitwise_repeat": same, "ok": all(same.values())})
     if not all(same.values()):
         fail(f"flash_fwd is not deterministic on {case}: {same}")
 
 
-# K1 is timed at the serving path's shape and the training path's.
-FWD_TIMED = (("serving", MAIN), ("training", TRAIN))
+# K1 is timed at the serving path's shape and the training path's, in
+# bf16 and in fp16.
+FWD_TIMED = (("serving", MAIN), ("training", TRAIN),
+             ("serving_fp16", MAIN_F16), ("training_fp16", TRAIN_F16))
 
 
 def phase_timing(fa, gen) -> dict:
@@ -532,8 +595,9 @@ def phase_timing(fa, gen) -> dict:
     device time with the launches queued behind a sleep kernel (50
     launches; fails if the host could not stay ahead) and host-paced time
     (20 launches, the Python wrapper's cost included); the plain version's
-    time, the bound, and the TFLOP/s of the 2 products. Returns the
-    serving shape's numbers, the training shape's beside them."""
+    time, the bound, and the TFLOP/s of the 2 products; SDPA in the same
+    dtype. Returns the bf16 serving shape's numbers, the training shape's
+    beside them, and both fp16 shapes' under "fp16"."""
     per = {}
     for label, cfg in FWD_TIMED:
         b, s, h, d, dt, causal = (cfg[k] for k in
@@ -567,8 +631,8 @@ def phase_timing(fa, gen) -> dict:
             "tflops": bwd_tflops(2, ms, b, s, h, d, causal),
             "library_tflops": bwd_tflops(2, library_ms, b, s, h, d, causal)}
         emit({"phase": "timing", "kernel": "flash_fwd", "path": label,
-              "shape": [b, s, h, d], "dtype": "bfloat16", "causal": causal,
-              **per[label], "ms_turns": queued["kernel"],
+              "shape": [b, s, h, d], "dtype": str(dt).split(".")[-1],
+              "causal": causal, **per[label], "ms_turns": queued["kernel"],
               "library_ms_turns": queued["library"],
               "ms_host_paced_turns": paced["kernel"],
               "library_ms_host_paced_turns": paced["library"],
@@ -578,7 +642,9 @@ def phase_timing(fa, gen) -> dict:
         if host_bound:
             fail("flash_fwd: the host could not queue the timed launches "
                  "ahead of the card")
-    return {**per["serving"], "training_shape": per["training"]}
+    return {**per["serving"], "training_shape": per["training"],
+            "fp16": {"serving_shape": per["serving_fp16"],
+                     "training_shape": per["training_fp16"]}}
 
 
 def bwd_atol(ref: torch.Tensor) -> float:
@@ -589,23 +655,26 @@ def bwd_atol(ref: torch.Tensor) -> float:
 
 def phase_kernels_bwd(fa, gen) -> dict:
     """K2 and K3 against the plain `_bwd_blockwise` on the card, with
-    and without a dlse cotangent; on the training shape, a strided and a
-    ragged case also K3 then K2 twice, bit for bit. Returns {name: (max
-    abs error, checks)}."""
-    f32, bf16 = torch.float32, torch.bfloat16
+    and without a dlse cotangent, the grid, the head dim 32 case and the
+    training shape also in fp16; on the training shape (bf16 and fp16), a
+    strided and a ragged case also K3 then K2 twice, bit for bit. Returns
+    {name: (max abs error, checks)}, and each one's fp16 max abs error
+    under name + "_fp16"."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     cases = [dict(b=2, s=s, h=4, d=d, dtype=dt, causal=c)
-             for dt in (f32, bf16) for c in (True, False)
+             for dt in (f32, bf16, f16) for c in (True, False)
              for s in (128, 384, 1024) for d in (64, 128)]
     cases += [dict(b=2, s=1024, h=4, d=32, dtype=dt, causal=True)
-              for dt in (f32, bf16)]
+              for dt in (f32, bf16, f16)]
     ragged = dict(b=2, s=200, h=3, d=64, dtype=bf16, causal=False)
     strided = dict(b=2, s=256, h=4, d=64, dtype=bf16, causal=True, fused=True)
     cases += [dict(b=2, s=200, h=3, d=64, dtype=f32, causal=True), ragged,
               dict(b=2, s=256, h=4, d=64, dtype=f32, causal=True, fused=True),
-              strided, TRAIN]
+              strided, TRAIN, TRAIN_F16]
     # the cases run twice, K3 then K2, and held bit for bit between runs
-    twice = {id(TRAIN), id(ragged), id(strided)}
-    worst = {"flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
+    twice = {id(TRAIN), id(TRAIN_F16), id(ragged), id(strided)}
+    worst = {n + sfx: 0.0 for n in ("flash_bwd_dkdv", "flash_bwd_dq")
+             for sfx in ("", "_fp16")}
     checks = 0
     for case in cases:
         b, s, h, d, dt, causal = (case[x] for x in
@@ -637,32 +706,37 @@ def phase_kernels_bwd(fa, gen) -> dict:
             if not ok:
                 fail(f"flash backward disagrees with its plain version on "
                      f"{case} (dlse {with_dlse}): {errs}, bounds {atols}")
-            worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"],
-                                          errs["dk"], errs["dv"])
-            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
+            for sfx in ("", "_fp16") if dt == f16 else ("",):
+                worst["flash_bwd_dkdv" + sfx] = max(
+                    worst["flash_bwd_dkdv" + sfx], errs["dk"], errs["dv"])
+                worst["flash_bwd_dq" + sfx] = max(worst["flash_bwd_dq" + sfx],
+                                                  errs["dq"])
             checks += 1
             if with_dlse and id(case) in twice:
                 bwd_deterministic(fa, case, q, k, v, do, lse, dlse, scale)
                 checks += 1
-    return {n: (e, checks) for n, e in worst.items()}
+    return {n: (e, checks) if not n.endswith("_fp16") else e
+            for n, e in worst.items()}
 
 
 def bwd_deterministic(fa, case, q, k, v, do, lse, dlse, scale) -> None:
-    """K3 then K2, twice on the same inputs: dq, rt, dk and dv must be
-    bitwise equal between the runs (each gradient element is written by
-    one block, its sums in a fixed order)."""
+    """K3 then K2, twice on the same inputs: dq, rt, dk and dv (and fp16's
+    head maxima) must be bitwise equal between the runs (each gradient
+    element is written by one block, its sums in a fixed order; the head
+    maxima are atomic maxima, which do not depend on the order)."""
     runs = []
     for _ in range(2):
-        dq, rt = fa.flash_bwd_dq(q, k, v, do, lse, dlse, scale=scale,
-                                 causal=case["causal"])
-        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, rt, scale=scale,
-                                   causal=case["causal"])
-        runs.append((dq, rt, dk, dv))
+        dq, rt, head_max = fa.flash_bwd_dq(q, k, v, do, lse, dlse,
+                                           scale=scale, causal=case["causal"])
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, rt, head_max,
+                                   scale=scale, causal=case["causal"])
+        runs.append((dq, rt, dk, dv, head_max))
     torch.cuda.synchronize()
-    same = {n: torch.equal(a, b)
-            for n, a, b in zip(("dq", "rt", "dk", "dv"), *runs)}
+    same = {n: a is b is None or torch.equal(a, b)
+            for n, a, b in zip(("dq", "rt", "dk", "dv", "head_max"), *runs)}
     emit({"phase": "kernels", "kernel": "flash_bwd_dkdv+dq",
-          "shape": list(q.shape), "strided": bool(case.get("fused")),
+          "shape": list(q.shape), "dtype": str(q.dtype).split(".")[-1],
+          "strided": bool(case.get("fused")),
           "causal": case["causal"], "bitwise_repeat": same,
           "ok": all(same.values())})
     if not all(same.values()):
@@ -753,17 +827,19 @@ def bwd_bound_ms(kernel: str, b, s, h, d, dtype, causal) -> tuple:
                                  else "operations")
 
 
-def phase_timing_train(fa, gen) -> dict:
-    """K1, K2 and K3 at the training shape: each kernel's time, the
-    plain backward's, and the backward of F.scaled_dot_product_attention
+def phase_timing_train(fa, gen, cfg: dict = TRAIN) -> dict:
+    """K1, K2 and K3 at the training shape ``cfg`` (TRAIN, or TRAIN_F16
+    for the fp16 bodies): each kernel's time, the plain backward's, and
+    the backward of F.scaled_dot_product_attention in the same dtype
     (timed only, never used by the port); kernel and library in turns."""
-    b, s, h, d, dt, causal = (TRAIN[k] for k in
+    b, s, h, d, dt, causal = (cfg[k] for k in
                               ("b", "s", "h", "d", "dtype", "causal"))
-    q, k, v = qkv_case(TRAIN, gen)
+    q, k, v = qkv_case(cfg, gen)
     do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
     scale = 1.0 / d ** 0.5
     _, lse = fa._fwd_cuda(q, k, v, scale=scale, causal=causal)
-    _, rt = fa.flash_bwd_dq(q, k, v, do, lse, scale=scale, causal=causal)
+    _, rt, head_max = fa.flash_bwd_dq(q, k, v, do, lse, scale=scale,
+                                      causal=causal)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
@@ -772,7 +848,7 @@ def phase_timing_train(fa, gen) -> dict:
         "flash_fwd": lambda: fa._fwd_cuda(q, k, v, scale=scale,
                                           causal=causal),
         "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(
-            q, k, v, do, lse, rt, scale=scale, causal=causal),
+            q, k, v, do, lse, rt, head_max, scale=scale, causal=causal),
         "flash_bwd_dq": lambda: fa.flash_bwd_dq(
             q, k, v, do, lse, scale=scale, causal=causal),
         "sdpa_bwd": lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
@@ -796,8 +872,9 @@ def phase_timing_train(fa, gen) -> dict:
                   "library_ms": library_ms, "tflops": tflops[n],
                   "products": BWD_PRODUCTS[n]}
     fwd_bound, _ = attention_bound_ms(b, s, h, d, dt, causal)
-    emit({"phase": "timing", "shape": [b, s, h, d], "dtype": "bfloat16",
-          "causal": causal, "ms_turns": turns,
+    emit({"phase": "timing", "shape": [b, s, h, d],
+          "dtype": str(dt).split(".")[-1], "causal": causal,
+          "ms_turns": turns,
           "flash_fwd_ms_train_shape": float(np.mean(turns["flash_fwd"])),
           "flash_fwd_bound_ms_train_shape": fwd_bound,
           "flash_bwd_ms_train_shape": out["flash_bwd_dkdv"]["ms"]
@@ -1172,6 +1249,11 @@ TRAIN_ARGV = ["--make-synthetic", "1", "--rows-per-file", "320",
               "--batch-size", "16", "--bf16", "--fused-opt", "fp32",
               "--epochs", "1"]
 TIMED_FROM_STEP = 4
+# The same run with fp16 activations and loss scaling, with the streamed-
+# vocab loss, and with every block rematerialized.
+TRAIN_FP16_ARGV = [("--fp16" if a == "--bf16" else a) for a in TRAIN_ARGV]
+TRAIN_FUSED_LOSS_ARGV = [*TRAIN_ARGV, "--fused-loss"]
+TRAIN_REMAT_ARGV = [*TRAIN_ARGV, "--remat", "on"]
 # One step, flash (K1-K3) against dense attention, same weights and batch
 # (bounds written to PERF.md before the first run): the two differ only
 # in where attention rounds to bf16.
@@ -1250,7 +1332,9 @@ def run_probed(module, main_fn, argv: list, counters: dict,
     """``main_fn(argv)`` with ``module.make_train_step`` and
     TrainState.apply_gradients wrapped for the run: each step is timed on
     the host clock between two synchronizes, its forward (the loss
-    function), backward and optimizer with CUDA events; ``counters``
+    function), backward and optimizer with CUDA events (a loss-scaled
+    step that skipped its update has no optimizer events, and its
+    ``finite`` is False); ``counters``
     ({name: wrapper}) are set to 0 just before the run and read around
     every step and just after. With ``hashes``, the sha256 of each step's
     placed batch (after any device augment) is appended to it before the
@@ -1279,25 +1363,30 @@ def run_probed(module, main_fn, argv: list, counters: dict,
 
         step = make_step(timed_loss, **kw)
 
-        def timed_step(state, batch):
+        def timed_step(state, batch, *loss_scale):
             if "batch" not in seen:
                 seen["batch"] = {k: v.clone() for k, v in batch.items()}
             if hashes is not None:
                 hashes.append(batch_hash(batch))
             torch.cuda.synchronize()
+            ev.clear()
             c0 = [counters[n].launches for n in names]
             t0 = time.perf_counter()
-            state, metrics = step(state, batch)
+            out = step(state, batch, *loss_scale)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
+            state, metrics = out[:2]
             steps.append({"ms": (t1 - t0) * 1e3, "events": dict(ev),
                           "launches": {n: counters[n].launches - c
                                        for n, c in zip(names, c0)},
-                          "loss": float(metrics["loss"])})
+                          "loss": float(metrics["loss"]),
+                          "finite": bool(metrics.get("finite", True)),
+                          "loss_scale": float(metrics.get("loss_scale",
+                                                          1.0))})
             seen["state"] = state
             if capture is not None and len(steps) == capture[0]:
                 seen["captured"] = capture[1](state)
-            return state, metrics
+            return out
         return timed_step
 
     def timed_apply(self):
@@ -1344,13 +1433,14 @@ def batch_hash(batch: dict) -> str:
 
 def step_summary(steps: list[dict]) -> dict:
     """Median and range of the timed steps' host ms, and the median
-    forward / backward / optimizer split by CUDA events."""
+    forward / backward / optimizer split by CUDA events (over the timed
+    steps that ran the optimizer)."""
     timed = steps[TIMED_FROM_STEP - 1:]
     ms = [st["ms"] for st in timed]
 
     def span(a, b):
         return float(np.median([st["events"][a].elapsed_time(
-            st["events"][b]) for st in timed]))
+            st["events"][b]) for st in timed if "opt0" in st["events"]]))
 
     return {"step_ms_median": float(np.median(ms)), "step_ms_min": min(ms),
             "step_ms_max": max(ms),
@@ -1367,69 +1457,25 @@ def check_launches(steps: list[dict], want: dict, what: str) -> None:
                  f"{want}")
 
 
-def phase_train(fa, ok_mod) -> dict:
-    """The port's lm_train.main on the card at the base config (fp32
-    fused Adam, K5). Then one step of flash against dense attention on
-    the trained weights and the first batch. Returns the launches and
-    the losses."""
+def flash_vs_dense(batch: dict, model, phase: str,
+                   loss_scale: float | None = None) -> list:
+    """One step of flash (K1-K3) against dense attention on ``model``'s
+    weights and ``batch``: the loss within ONE_STEP_LOSS_ATOL and every
+    gradient within ONE_STEP_GRAD_REL (relative L2). With
+    ``loss_scale`` (fp16) both backwards run on the loss times it and
+    unscale, as the training step does. Returns each flash layer's q, k,
+    v and the cotangent of its output."""
     from dataclasses import replace as dc_replace
-    import tempfile
 
-    from edl_tpu_torch.examples import lm_train
     from edl_tpu_torch.models import transformer as tr
     from edl_tpu_torch.models.transformer import Transformer, lm_loss_fn
-    from edl_tpu_torch.train.fused_opt import opt_state_bytes
 
-    counters = {"flash_fwd": fa.flash_attention_lse,
-                "flash_bwd_dkdv": fa.flash_bwd_dkdv,
-                "flash_bwd_dq": fa.flash_bwd_dq, "adam_fp32": ok_mod.adam_fp32,
-                "adam_q": ok_mod.adam_q}
-    with tempfile.TemporaryDirectory() as data_dir:
-        run = run_probed(lm_train, lm_train.main,
-                         ["--data-dir", data_dir, *TRAIN_ARGV], counters)
-    steps, seen, launches = run["steps"], run["seen"], run["launches"]
-    printed, rc = run["printed"], run["rc"]
-    final = [ln for ln in printed.splitlines()
-             if ln.startswith("final_eval_loss=")]
-    if rc != 0 or not final:
-        fail(f"lm_train.main returned {rc} and printed {printed!r}")
-    final_eval_loss = float(final[-1].split("=", 1)[1])
-
-    state = seen["state"]
-    n_buckets = len(state.opt_state.p)
-    # one K5 launch a step over every bucket (per ADAM_TABLE_MAX of them)
-    want = {"flash_fwd": 8, "flash_bwd_dkdv": 8, "flash_bwd_dq": 8,
-            "adam_fp32": -(-n_buckets // ok_mod.ADAM_TABLE_MAX),
-            "adam_q": 0}
-    check_launches(steps, want, "lm_train")
-    losses = [st["loss"] for st in steps]
-    summary = step_summary(steps)
-    cfg = state.model.cfg
-    b, s = 16, cfg.max_len
-    result = {"phase": "train", "argv": TRAIN_ARGV, "steps": len(steps),
-              "params": sum(p.numel() for p in state.model.parameters()),
-              "buckets": n_buckets, "wall_s": run["wall_s"], **summary,
-              "tokens_per_s": b * s / (summary["step_ms_median"] / 1e3),
-              "loss_first": losses[0], "loss_last": losses[-1],
-              "losses": losses, "final_eval_loss": final_eval_loss,
-              "peak_gib": run["peak_gib"],
-              "opt_state_bytes": opt_state_bytes(state.opt_state),
-              "launches_per_step": want, "launches": launches}
-    emit(result)
-    if not all(np.isfinite(losses)) or not np.isfinite(final_eval_loss):
-        fail(f"non-finite loss: {losses}, eval {final_eval_loss}")
-    if not losses[-1] < losses[0]:
-        fail(f"the loss did not fall: first {losses[0]}, last {losses[-1]}")
-
-    # one step, flash against dense attention: same weights, same batch
-    model = state.model
+    cfg = model.cfg
     dense = Transformer(dc_replace(cfg, attention="dense"),
                         device=model.lm_head.weight.device, seed=1)
     dense.load_state_dict(model.state_dict())
     dense.train()
-    batch = seen["batch"]
     grads, step_loss = {}, {}
-    # each flash layer's q, k, v and the cotangent of its output
     caught: list[list] = []
     flash_attention = tr.flash_attention
 
@@ -1445,15 +1491,18 @@ def phase_train(fa, ok_mod) -> dict:
         tr.flash_attention = catching if name == "flash" else flash_attention
         try:
             loss, _ = lm_loss_fn(m, batch)
-            loss.backward()
+            (loss * (loss_scale or 1.0)).backward()
         finally:
             tr.flash_attention = flash_attention
         step_loss[name] = loss.item()
-        grads[name] = {n: p.grad.float() for n, p in m.named_parameters()}
+        grads[name] = {n: p.grad.float() / (loss_scale or 1.0)
+                       for n, p in m.named_parameters()}
     rel = {n: ((grads["flash"][n] - g).norm() / g.norm().clamp_min(1e-30))
            .item() for n, g in grads["dense"].items()}
     worst = max(rel, key=rel.get)
-    check = {"phase": "train_check", "rows": int(batch["tokens"].shape[0]),
+    check = {"phase": phase, "rows": int(batch["tokens"].shape[0]),
+             "dtype": str(cfg.dtype).split(".")[-1],
+             "loss_scale": loss_scale,
              "loss_flash": step_loss["flash"],
              "loss_dense": step_loss["dense"],
              "loss_abs_diff": abs(step_loss["flash"] - step_loss["dense"]),
@@ -1463,18 +1512,303 @@ def phase_train(fa, ok_mod) -> dict:
              "grad_rel_bound": ONE_STEP_GRAD_REL, "grad_rel_err": rel}
     emit(check)
     if (check["loss_abs_diff"] > ONE_STEP_LOSS_ATOL
-            or rel[worst] > ONE_STEP_GRAD_REL):
-        fail(f"flash and dense attention disagree on one step: loss "
-             f"{check['loss_abs_diff']} (bound {ONE_STEP_LOSS_ATOL}), "
+            or rel[worst] > ONE_STEP_GRAD_REL
+            or not np.isfinite(rel[worst])):
+        fail(f"{phase}: flash and dense attention disagree on one step: "
+             f"loss {check['loss_abs_diff']} (bound {ONE_STEP_LOSS_ATOL}), "
              f"grad {worst} {rel[worst]} (bound {ONE_STEP_GRAD_REL})")
-    if len(caught) != cfg.n_layers:
-        fail(f"caught {len(caught)} flash layers, want {cfg.n_layers}")
-    del model, dense, state, seen, grads
+    del dense, grads
+    model.zero_grad(set_to_none=True)
+    return caught
+
+
+def lm_counters(fa, ok_mod) -> dict:
+    """The launch counters of the LM runs: K1-K3, K5 and K7."""
+    return {"flash_fwd": fa.flash_attention_lse,
+            "flash_bwd_dkdv": fa.flash_bwd_dkdv,
+            "flash_bwd_dq": fa.flash_bwd_dq, "adam_fp32": ok_mod.adam_fp32,
+            "adam_q": ok_mod.adam_q}
+
+
+def lm_run(fa, ok_mod, argv: list, phase: str) -> tuple[dict, dict]:
+    """lm_train.main(argv) on the card through run_probed, on fresh
+    synthetic shards: fails unless it returns 0 and prints the final eval
+    loss. Returns (the run, the phase's result: step times and split,
+    tokens/s, losses, eval loss, peak memory, optimizer-state bytes and
+    the launches)."""
+    import tempfile
+
+    from edl_tpu_torch.examples import lm_train
+    from edl_tpu_torch.train.fused_opt import opt_state_bytes
+
+    with tempfile.TemporaryDirectory() as data_dir:
+        run = run_probed(lm_train, lm_train.main,
+                         ["--data-dir", data_dir, *argv],
+                         lm_counters(fa, ok_mod))
+    final = [ln for ln in run["printed"].splitlines()
+             if ln.startswith("final_eval_loss=")]
+    if run["rc"] != 0 or not final:
+        fail(f"{phase}: lm_train.main returned {run['rc']} and printed "
+             f"{run['printed']!r}")
+    steps = run["steps"]
+    state = run["seen"]["state"]
+    losses = [st["loss"] for st in steps]
+    summary = step_summary(steps)
+    cfg = state.model.cfg
+    result = {"phase": phase, "argv": argv, "steps": len(steps),
+              "params": sum(p.numel() for p in state.model.parameters()),
+              "buckets": len(state.opt_state.p), "wall_s": run["wall_s"],
+              **summary,
+              "tokens_per_s": 16 * cfg.max_len
+              / (summary["step_ms_median"] / 1e3),
+              "loss_first": losses[0], "loss_last": losses[-1],
+              "losses": losses,
+              "final_eval_loss": float(final[-1].split("=", 1)[1]),
+              "peak_gib": run["peak_gib"],
+              "opt_state_bytes": opt_state_bytes(state.opt_state),
+              "launches": run["launches"]}
+    return run, result
+
+
+def lm_want(ok_mod, n_buckets: int, quant: bool = False, k1: int = 8,
+            optimizer: bool = True) -> dict:
+    """The launches of one LM step: K1 ``k1`` times (8 blocks; 16 under
+    remat, whose backward re-runs each block's forward), K2 and K3 8
+    times, and one K5 launch (or, with ``quant``, one K7 entry call) per
+    table of at most ADAM_TABLE_MAX (ADAM_Q_TABLE_MAX) buckets; none of
+    either on a step that skipped its update (``optimizer`` False)."""
+    tables = -(-n_buckets // (ok_mod.ADAM_Q_TABLE_MAX if quant
+                              else ok_mod.ADAM_TABLE_MAX))
+    return {"flash_fwd": k1, "flash_bwd_dkdv": 8, "flash_bwd_dq": 8,
+            "adam_fp32": tables * (optimizer and not quant),
+            "adam_q": tables * (optimizer and quant)}
+
+
+def check_falling(phase: str, result: dict) -> None:
+    losses = result["losses"]
+    if not all(np.isfinite(losses)) or not np.isfinite(
+            result["final_eval_loss"]):
+        fail(f"{phase}: non-finite loss: {losses}, eval "
+             f"{result['final_eval_loss']}")
+    if not losses[-1] < losses[0]:
+        fail(f"{phase}: the loss did not fall: first {losses[0]}, last "
+             f"{losses[-1]}")
+
+
+def phase_train(fa, ok_mod) -> tuple[dict, dict]:
+    """The port's lm_train.main on the card at the base config (fp32
+    fused Adam, K5). Then one step of flash against dense attention on
+    the trained weights and the first batch. Returns the launches and
+    the result."""
+    run, result = lm_run(fa, ok_mod, TRAIN_ARGV, "train")
+    state, seen = run["seen"]["state"], run["seen"]
+    want = lm_want(ok_mod, result["buckets"])
+    check_launches(run["steps"], want, "lm_train")
+    result["launches_per_step"] = want
+    emit(result)
+    check_falling("train", result)
+    caught = flash_vs_dense(seen["batch"], state.model, "train_check")
+    if len(caught) != state.model.cfg.n_layers:
+        fail(f"caught {len(caught)} flash layers, want "
+             f"{state.model.cfg.n_layers}")
+    del state, seen, run
     torch.cuda.empty_cache()
     row_term_check(fa, caught)
     del caught
     torch.cuda.empty_cache()
-    return {k: v for k, v in launches.items() if v}, result
+    return {k: v for k, v in result["launches"].items() if v}, result
+
+
+def phase_train_fp16(fa, ok_mod, bf16: dict) -> tuple[dict, dict]:
+    """lm_train --fp16 (fp16 activations: K1-K3's fp16 bodies; dynamic
+    loss scaling; --fused-opt fp32) at the base config, 20 steps: per
+    step exactly 8 K1, 8 K2, 8 K3 and one K5 launch, and no K5 on a step
+    whose gradients were not finite (skipped); the loss scale, the
+    skipped steps and the finite flag's host reads (one a step); the
+    loss finite and falling; then one step of flash against dense
+    attention on the trained weights in fp16, under the run's last loss
+    scale."""
+    from edl_tpu_torch.train import amp
+
+    reads0 = amp.read_finite.reads
+    run, result = lm_run(fa, ok_mod, TRAIN_FP16_ARGV, "train_fp16")
+    steps, seen = run["steps"], run["seen"]
+    reads = amp.read_finite.reads - reads0
+    for i, st in enumerate(steps):
+        want = lm_want(ok_mod, result["buckets"], optimizer=st["finite"])
+        if st["launches"] != want:
+            fail(f"lm_train --fp16 step {i + 1} (finite {st['finite']}) "
+                 f"launched {st['launches']}, want {want}")
+    skipped = [i + 1 for i, st in enumerate(steps) if not st["finite"]]
+    state = seen["state"]
+    result.update({
+        "launches_per_step": lm_want(ok_mod, result["buckets"]),
+        "launches_per_skipped_step": lm_want(ok_mod, result["buckets"],
+                                             optimizer=False),
+        "skipped_steps": skipped,
+        "optimizer_steps": state.step,
+        "loss_scales": [st["loss_scale"] for st in steps],
+        "finite_host_reads": reads,
+        "bf16_step_ms_median": bf16["step_ms_median"],
+        "bf16_peak_gib": bf16["peak_gib"]})
+    emit(result)
+    if reads != len(steps) or state.step != len(steps) - len(skipped):
+        fail(f"train_fp16: {reads} finite reads and {state.step} optimizer "
+             f"steps for {len(steps)} steps, {len(skipped)} skipped")
+    if state.model.cfg.dtype != torch.float16:
+        fail(f"train_fp16 ran {state.model.cfg.dtype}")
+    check_falling("train_fp16", result)
+    flash_vs_dense(seen["batch"], state.model, "train_fp16_check",
+                   loss_scale=steps[-1]["loss_scale"])
+    del state, seen, run
+    torch.cuda.empty_cache()
+    return {k: v for k, v in result["launches"].items() if v}, result
+
+
+# The streamed-vocab loss against lm_loss_fn on one step's weights and
+# batch: both fp32 products and sums, in chunks against whole rows.
+FUSED_LOSS_ATOL = 1e-4
+FUSED_GRAD_REL = 1e-4
+
+
+def phase_train_fused_loss(fa, ok_mod, bf16: dict) -> tuple[dict, dict]:
+    """lm_train --bf16 --fused-loss at the base config, 20 steps: exactly
+    8 K1, 8 K2, 8 K3 and one K5 a step; step ms, split and peak beside
+    the train phase's, the peak at least the fp32 logits' N x V x 4 bytes
+    below it; the loss finite and falling; then, on the trained weights
+    and the first batch, lm_loss_fused's loss within FUSED_LOSS_ATOL of
+    lm_loss_fn's and its lm_head gradient within FUSED_GRAD_REL
+    (relative L2)."""
+    from edl_tpu_torch.models.transformer import lm_loss_fn, lm_loss_fused
+
+    run, result = lm_run(fa, ok_mod, TRAIN_FUSED_LOSS_ARGV,
+                         "train_fused_loss")
+    want = lm_want(ok_mod, result["buckets"])
+    check_launches(run["steps"], want, "lm_train --fused-loss")
+    model, batch = run["seen"]["state"].model, run["seen"]["batch"]
+    cfg = model.cfg
+    rows = batch["tokens"].shape[0] * (cfg.max_len - 1)
+    logits_gib = rows * cfg.vocab_size * 4 / 2**30
+    out = {}
+    for name, fn in (("fused", lm_loss_fused), ("dense", lm_loss_fn)):
+        model.zero_grad(set_to_none=True)
+        loss, _ = fn(model, batch)
+        loss.backward()
+        out[name] = (loss.item(), model.lm_head.weight.grad.clone())
+    model.zero_grad(set_to_none=True)
+    loss_diff = abs(out["fused"][0] - out["dense"][0])
+    g_f, g_d = out["fused"][1], out["dense"][1]
+    grad_rel = ((g_f - g_d).norm() / g_d.norm()).item()
+    result.update({
+        "launches_per_step": want,
+        "bf16_step_ms_median": bf16["step_ms_median"],
+        "bf16_peak_gib": bf16["peak_gib"],
+        "peak_cut_gib": bf16["peak_gib"] - result["peak_gib"],
+        "peak_cut_min_gib": logits_gib,
+        "one_step": {"loss_fused": out["fused"][0],
+                     "loss_dense": out["dense"][0], "loss_abs_diff":
+                     loss_diff, "loss_atol": FUSED_LOSS_ATOL,
+                     "lm_head_grad_rel": grad_rel,
+                     "grad_rel_bound": FUSED_GRAD_REL}})
+    emit(result)
+    check_falling("train_fused_loss", result)
+    if loss_diff > FUSED_LOSS_ATOL or not grad_rel <= FUSED_GRAD_REL:
+        fail(f"train_fused_loss: the streamed loss is {loss_diff} from "
+             f"the dense one (bound {FUSED_LOSS_ATOL}), its lm_head "
+             f"gradient {grad_rel} (bound {FUSED_GRAD_REL})")
+    if result["peak_cut_gib"] < logits_gib:
+        fail(f"train_fused_loss: peak {result['peak_gib']} GiB, only "
+             f"{result['peak_cut_gib']} below the dense run's "
+             f"{bf16['peak_gib']} (want >= {logits_gib})")
+    del model, batch, out, run
+    torch.cuda.empty_cache()
+    return {k: v for k, v in result["launches"].items() if v}, result
+
+
+def phase_train_remat(fa, ok_mod, bf16: dict) -> tuple[dict, dict]:
+    """lm_train --bf16 --remat on at the base config, 20 steps: exactly
+    16 K1 (each block's forward again in the backward), 8 K2, 8 K3 and
+    one K5 a step; step ms and peak beside the train phase's; the first
+    step's loss bit for bit the train phase's (same init, same batch:
+    the forward is the same computation); the loss finite and falling;
+    and auto_remat's choice at the base config and 16 rows on this
+    card."""
+    from edl_tpu_torch.models.transformer import auto_remat
+
+    run, result = lm_run(fa, ok_mod, TRAIN_REMAT_ARGV, "train_remat")
+    want = lm_want(ok_mod, result["buckets"], k1=16)
+    check_launches(run["steps"], want, "lm_train --remat on")
+    if not run["seen"]["state"].model.cfg.remat:
+        fail("train_remat: the model does not remat")
+    auto = auto_remat(base_config(), 16, device="cuda").remat
+    result.update({
+        "launches_per_step": want,
+        "bf16_step_ms_median": bf16["step_ms_median"],
+        "bf16_peak_gib": bf16["peak_gib"],
+        "step_ms_ratio": result["step_ms_median"] / bf16["step_ms_median"],
+        "first_loss_bitwise": result["losses"][0] == bf16["losses"][0],
+        "auto_remat_base_16_rows": auto,
+        "card_memory_bytes": torch.cuda.get_device_properties(0)
+        .total_memory})
+    emit(result)
+    check_falling("train_remat", result)
+    if not result["first_loss_bitwise"]:
+        fail(f"train_remat: the first loss {result['losses'][0]!r} is not "
+             f"the train phase's {bf16['losses'][0]!r}")
+    del run
+    torch.cuda.empty_cache()
+    return {k: v for k, v in result["launches"].items() if v}, result
+
+
+def phase_fused_opt_smoke(ok_mod, fo) -> dict:
+    """``python -m edl_tpu_torch.train.fused_opt smoke`` on the card, in
+    process (``fo._main(["smoke"])``): the gate holds K4-K7 against their
+    plain versions bit for bit, and the convergence smoke trains the CNN
+    with quantized momentum-SGD (K6) and the transformer with quantized
+    Adam (K7) against the dense optimizers; it must exit 0. Returns the
+    smoke's launches: the convergence runs' (one K6 or K7 entry call a
+    step), the gate's comparisons apart."""
+    import contextlib
+    import io
+
+    counters = {"sgdm_fp32": ok_mod.sgdm_fp32, "sgdm_q": ok_mod.sgdm_q,
+                "adam_fp32": ok_mod.adam_fp32, "adam_q": ok_mod.adam_q}
+    gate_launches: dict = {}
+    gate = fo.update_parity_gate
+
+    def counted_gate(*args, **kw):
+        c0 = {n: c.launches for n, c in counters.items()}
+        out = gate(*args, **kw)
+        gate_launches.update({n: c.launches - c0[n]
+                              for n, c in counters.items()})
+        return out
+
+    printed = io.StringIO()
+    for c in counters.values():
+        c.launches = 0
+    fo.update_parity_gate = counted_gate
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc = fo._main(["smoke"])
+    finally:
+        fo.update_parity_gate = gate
+    wall_s = time.monotonic() - t0
+    launches = {n: c.launches - gate_launches.get(n, 0)
+                for n, c in counters.items()}
+    lines = [ln for ln in printed.getvalue().splitlines()
+             if ln.startswith('{"fused_opt_smoke"')]
+    report = json.loads(lines[-1])["fused_opt_smoke"] if lines else None
+    steps = report["convergence"]["steps"] if report else 0
+    want = {"sgdm_fp32": 0, "sgdm_q": steps, "adam_fp32": 0, "adam_q": steps}
+    emit({"phase": "fused_opt_smoke", "rc": rc, "wall_s": wall_s,
+          "report": report, "launches": launches, "launches_want": want,
+          "gate_launches": gate_launches})
+    if rc != 0 or report is None or not report["ok"]:
+        fail(f"fused_opt smoke exited {rc}: {report}")
+    if launches != want:
+        fail(f"fused_opt smoke launched {launches}, want {want}")
+    return {k: v for k, v in launches.items() if v}
 
 
 # -- momentum-SGD (K4), quantized momentum-SGD (K6), quantized Adam (K7) ---
@@ -1958,42 +2292,15 @@ def phase_train_int8(fa, ok_mod, fp32: dict) -> dict:
     8 K1, 8 K2, 8 K3 and one K7 entry call (a memset and three passes over
     every bucket) each step; the loss finite and falling and within the
     envelope of the train phase's fp32 run."""
-    import tempfile
-
-    from edl_tpu_torch.examples import lm_train
-    from edl_tpu_torch.train.fused_opt import opt_state_bytes
-
     argv = [("int8" if a == "fp32" else a) for a in TRAIN_ARGV]
-    counters = {"flash_fwd": fa.flash_attention_lse,
-                "flash_bwd_dkdv": fa.flash_bwd_dkdv,
-                "flash_bwd_dq": fa.flash_bwd_dq, "adam_fp32": ok_mod.adam_fp32,
-                "adam_q": ok_mod.adam_q}
-    with tempfile.TemporaryDirectory() as data_dir:
-        run = run_probed(lm_train, lm_train.main,
-                         ["--data-dir", data_dir, *argv], counters)
-    if run["rc"] != 0 or "final_eval_loss=" not in run["printed"]:
-        fail(f"lm_train.main --fused-opt int8 returned {run['rc']}")
-    state = run["seen"]["state"]
-    n_buckets = len(state.opt_state.p)
-    # one K7 entry call a step over every bucket (per ADAM_Q_TABLE_MAX)
-    want = {"flash_fwd": 8, "flash_bwd_dkdv": 8, "flash_bwd_dq": 8,
-            "adam_fp32": 0,
-            "adam_q": -(-n_buckets // ok_mod.ADAM_Q_TABLE_MAX)}
+    run, result = lm_run(fa, ok_mod, argv, "train_int8")
+    want = lm_want(ok_mod, result["buckets"], quant=True)
     check_launches(run["steps"], want, "lm_train --fused-opt int8")
-    losses = [st["loss"] for st in run["steps"]]
-    summary = step_summary(run["steps"])
-    result = {"phase": "train_int8", "argv": argv, "steps": len(losses),
-              "buckets": n_buckets, "wall_s": run["wall_s"], **summary,
-              "tokens_per_s": 16 * 1024 / (summary["step_ms_median"] / 1e3),
-              "loss_first": losses[0], "loss_last": losses[-1],
-              "losses": losses, "peak_gib": run["peak_gib"],
-              "opt_state_bytes": opt_state_bytes(state.opt_state),
-              "launches_per_step": want, "launches": run["launches"]}
+    result["launches_per_step"] = want
     emit(result)
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"lm_train int8: losses {losses} not finite and falling")
+    check_falling("train_int8", result)
     envelope_check("train_int8", fp32, result)
-    del state, run
+    del run
     torch.cuda.empty_cache()
     return {k: v for k, v in result["launches"].items() if v}
 
@@ -3114,9 +3421,11 @@ def main() -> int:
     from edl_tpu_torch.ops import pack as pack_mod
     from edl_tpu_torch.train import fused_opt as fo
 
-    # fp32 products in full fp32, as the reference computes them
+    # fp32 products in full fp32, and fp16 products summed in fp32 (as
+    # bf16's are), as the reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     t_start = time.monotonic()
     card = card_line()
     print(card, flush=True)
@@ -3140,6 +3449,10 @@ def main() -> int:
     errs.update(pack_errs)
     timing = {"flash_fwd": phase_timing(fa, gen)}
     timing.update(phase_timing_train(fa, gen))
+    fp16 = phase_timing_train(fa, gen, TRAIN_F16)
+    fp16["flash_fwd"] = timing["flash_fwd"].pop("fp16")
+    for name in FLASH_KERNELS:
+        fp16[name]["max_abs_err"] = errs.pop(name + "_fp16")
     timing["adam_fp32"], plan_checks = phase_timing_adam(ok_mod, fo, gen)
     errs["adam_fp32"] = (0.0, errs["adam_fp32"][1] + plan_checks)
     sgdm_timing, sgdm_checks = phase_timing_sgdm(ok_mod, fo, gen,
@@ -3157,12 +3470,19 @@ def main() -> int:
     phase_forward(fa, model, dense, predict)
     del model, dense, predict
     torch.cuda.empty_cache()
-    launches["train"], lm_fp32 = phase_train(fa, ok_mod)
-    launches["train_int8"] = phase_train_int8(fa, ok_mod, lm_fp32)
+    launches["train"], lm_bf16 = phase_train(fa, ok_mod)
+    launches["train_int8"] = phase_train_int8(fa, ok_mod, lm_bf16)
     resnet_launches, _ = phase_train_resnet(ok_mod)
     launches.update(resnet_launches)
     launches.update(phase_train_resnet_world())
     launches.update(phase_resume(ok_mod, card))
+    launches["train_fp16"], _ = phase_train_fp16(fa, ok_mod, lm_bf16)
+    launches["train_fused_loss"], _ = phase_train_fused_loss(fa, ok_mod,
+                                                             lm_bf16)
+    launches["train_remat"], _ = phase_train_remat(fa, ok_mod, lm_bf16)
+    launches["fused_opt_smoke"] = phase_fused_opt_smoke(ok_mod, fo)
+    for name in FLASH_KERNELS:
+        fp16[name]["launches"] = launches["train_fp16"][name]
     emit({"seconds": time.monotonic() - t_start, "card": card})
 
     kernels = []
@@ -3179,6 +3499,7 @@ def main() -> int:
                         "launches": sum(by_path.values()),
                         "launches_by_path": by_path, "checks": checks,
                         "max_abs_err": max_err, **timing[name],
+                        **({"fp16": fp16[name]} if name in fp16 else {}),
                         "ok": True})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

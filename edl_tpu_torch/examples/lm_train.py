@@ -7,13 +7,17 @@ step runs the transformer with the flash kernels (forward K1, backward
 K2/K3) on a card and, with ``--fused-opt fp32``, one fused Adam kernel
 (K5) pass per parameter bucket, or with ``--fused-opt int8|fp8`` the
 quantized-moment Adam (K7); ``--fused-opt off`` takes
-``torch.optim.AdamW``. ``--ckpt-dir`` writes versioned checkpoints
-(async by default; ``--ckpt-sharded`` for the chunk format) that the
-JAX package reads, and a run on a dir that holds one resumes from it;
-``--loader-workers`` forks the shared-memory loader; ``--profile DIR``
-writes a torch.profiler trace of steps 10-15. The flags this slice does
-not carry exit before any work, naming the ROADMAP item that brings
-them.
+``torch.optim.AdamW``. ``--fp16`` runs fp16 activations (the flash
+kernels' fp16 bodies) with dynamic loss scaling, ``--fused-loss`` the
+streamed-vocab loss (``ops/fused_xent.py``; training and eval),
+``--remat on|auto`` per-block activation checkpointing (auto:
+``models.transformer.auto_remat``). ``--ckpt-dir`` writes versioned
+checkpoints (async by default; ``--ckpt-sharded`` for the chunk format)
+that the JAX package reads, and a run on a dir that holds one resumes
+from it; ``--loader-workers`` forks the shared-memory loader;
+``--profile DIR`` writes a torch.profiler trace of steps 10-15. The
+flags this slice does not carry exit before any work, naming the
+ROADMAP item that brings them.
 
   python -m edl_tpu_torch.examples.lm_train --device cpu \\
       --make-synthetic 1 --data-dir "$(mktemp -d)" --d-model 64 \\
@@ -24,6 +28,7 @@ them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -36,10 +41,12 @@ from edl_tpu_torch.bridge import flax_named_parameters
 from edl_tpu_torch.collective.job_env import TrainerEnv
 from edl_tpu_torch.data.pipeline import DataLoader, FileSource
 from edl_tpu_torch.models.transformer import (Transformer, TransformerConfig,
-                                              lm_loss_fn)
+                                              auto_remat, lm_loss_fn,
+                                              lm_loss_fused)
 from edl_tpu_torch.parallel import distributed
 from edl_tpu_torch.train import lr as lr_lib
 from edl_tpu_torch.train import state as state_lib
+from edl_tpu_torch.train.amp import DynamicLossScale
 from edl_tpu_torch.train.benchlog import BenchmarkLog
 from edl_tpu_torch.train.fused_opt import make_fused_tx
 from edl_tpu_torch.train.loop import LoopConfig, TrainLoop
@@ -218,6 +225,8 @@ def main(argv=None) -> int:
     if fused_opt not in ("off", "fp32", "int8", "fp8"):
         raise SystemExit(f"EDL_TPU_FUSED_OPT must be off|fp32|int8|fp8, "
                          f"got {fused_opt!r}")
+    if args.fp16 and fused_opt in ("int8", "fp8"):
+        raise SystemExit(_FP16_QUANT)
     if args.make_synthetic and rank == 0:
         make_synthetic_shards(args.data_dir, args.make_synthetic,
                               args.rows_per_file, args.seq_len, args.vocab,
@@ -235,7 +244,13 @@ def main(argv=None) -> int:
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff, max_len=args.seq_len,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32)
+        dtype=(torch.float16 if args.fp16
+               else torch.bfloat16 if args.bf16 else torch.float32))
+    if args.remat != "off":
+        cfg = (auto_remat(cfg, local_bs, device=device)
+               if args.remat == "auto"
+               else dataclasses.replace(cfg, remat=True))
+        log.info("remat=%s (mode %s)", cfg.remat, args.remat)
     model = Transformer(cfg, device=device, seed=args.seed)
     model.train()
 
@@ -256,7 +271,19 @@ def main(argv=None) -> int:
     # the buckets follow the flax flatten order, as the JAX package's do
     state = state_lib.TrainState.create(
         model=model, tx=tx, params=flax_named_parameters(model))
-    step = make_train_step(lm_loss_fn)
+    loss_fn = lm_loss_fused if args.fused_loss else lm_loss_fn
+    if args.fp16:
+        # TrainLoop's contract is step(state, batch); the loss-scale state
+        # rides a closure cell. It is not checkpointed: after a restart
+        # the scale re-warms from its init, as in the JAX package
+        raw_step = make_train_step(loss_fn, loss_scale=True)
+        ls_box = [DynamicLossScale.create()]
+
+        def step(state, batch):
+            state, metrics, ls_box[0] = raw_step(state, batch, ls_box[0])
+            return state, metrics
+    else:
+        step = make_train_step(loss_fn)
     log.info("world=%d rank=%d devices=%d params=%s steps/epoch=%d",
              world, rank, 1, sum(p.numel() for p in model.parameters()),
              steps_per_epoch)
@@ -268,8 +295,10 @@ def main(argv=None) -> int:
             eval_toks = z["tokens"][: 4 * local_bs]
 
     def eval_step(state, batch):
+        # eval honours --fused-loss too: the dense loss would form the
+        # very logits the streamed loss exists to avoid
         with torch.no_grad():
-            return lm_loss_fn(state.model, batch)[0]
+            return loss_fn(state.model, batch)[0]
 
     blog = BenchmarkLog(f"transformer_lm_{args.d_model}d{args.n_layers}L",
                         batch_size=args.batch_size, world_size=world)
@@ -316,15 +345,19 @@ def _unported(what: str, item: int) -> str:
     return f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
 
 
+# the JAX package's refusal, word for word
+_FP16_QUANT = (
+    "--fused-opt int8/fp8 is not supported with --fp16: on a "
+    "non-finite step the loss-scaler rolls the state back, but "
+    "quantized moments would still carry the overflowed "
+    "requantization residuals. Use --fused-opt fp32 (bitwise, "
+    "rollback-safe) or bf16/fp32 activations.")
+
+
 def _refuse_unported(args) -> None:
     """Exit, before any work, on a flag this slice does not carry."""
     if args.fp16 and args.fused_opt in ("int8", "fp8"):
-        raise SystemExit(
-            "--fused-opt int8/fp8 is not supported with --fp16: on a "
-            "non-finite step the loss-scaler rolls the state back, but "
-            "quantized moments would still carry the overflowed "
-            "requantization residuals. Use --fused-opt fp32 (bitwise, "
-            "rollback-safe) or bf16/fp32 activations.")
+        raise SystemExit(_FP16_QUANT)
     refused = [
         (args.moe, "--moe (mixture-of-experts blocks and dispatch)", 14),
         (args.fsdp or args.mesh == "fsdp", "--mesh fsdp (sharded params)",
@@ -334,9 +367,6 @@ def _refuse_unported(args) -> None:
          f"--dcn-compress {args.dcn_compress}", 11),
         (args.comm_bucket_mb not in (None, 0, 0.0),
          "--comm-bucket-mb (the bucketed gradient reduction)", 11),
-        (args.fp16, "--fp16 (dynamic loss scaling)", 4),
-        (args.fused_loss, "--fused-loss (the streamed-vocab loss)", 14),
-        (args.remat != "off", f"--remat {args.remat}", 6),
         (TrainerEnv.from_environ().world_size > 1,
          "a world above 1 for lm_train (EDL_TPU_WORLD_SIZE > 1)", 11),
     ]

@@ -1,5 +1,7 @@
 """Decoder-only transformer LM, dense, for serving and training (port
-of ``edl_tpu.models.transformer``), and its loss ``lm_loss_fn``.
+of ``edl_tpu.models.transformer``), its losses ``lm_loss_fn`` and
+``lm_loss_fused`` (the streamed-vocab loss, ``ops/fused_xent.py``), and
+the remat knob ``choose_remat``/``auto_remat``.
 
 Parameters are fp32 and computation runs in ``cfg.dtype`` (bf16 by
 default), as in the flax model: every projection casts its input and its
@@ -16,14 +18,22 @@ State-dict names mirror the flax parameter tree (``block0.attn.query``,
 ``ln_final``, ``lm_head`` ...); ``edl_tpu_torch.bridge`` converts between
 the two.
 
+``dtype`` may be ``torch.float32``, ``torch.bfloat16`` or
+``torch.float16`` (``lm_train --fp16``, with dynamic loss scaling).
+
 Training is ``module.train()`` (flax's ``train=True``): with
 ``dropout == 0``, which is what ``lm_train`` runs, it computes exactly
-what eval does. Dropout in training, remat and the streamed-vocab loss
-(``lm_loss_fused``) are not ported yet and raise.
+what eval does. ``remat=True`` runs each block under
+``torch.utils.checkpoint`` (flax ``nn.remat``): its activations are
+recomputed in the backward, the flash forward K1 with them. Dropout in
+training raises: no JAX trainer reaches it either (no ``apply_fn`` call
+of the JAX package passes a ``dropout`` rng stream, so a flax
+``nn.Dropout`` with ``deterministic=False`` there raises as well).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -31,9 +41,11 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from edl_tpu_torch import resolve_device
 from edl_tpu_torch.ops.flash_attention import flash_attention
+from edl_tpu_torch.ops.fused_xent import streamed_lm_xent
 from edl_tpu_torch.parallel.ring_attention import dense_attention
 
 
@@ -45,7 +57,7 @@ class TransformerConfig:
     n_layers: int = 6
     d_ff: int = 2048
     max_len: int = 2048
-    dropout: float = 0.0     # > 0 raises in training (not ported yet)
+    dropout: float = 0.0     # > 0 raises in training (see the docstring)
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False
     # "auto" = the flash kernel when the input is on CUDA and the
@@ -61,10 +73,6 @@ class TransformerConfig:
         if self.mesh is not None:
             raise NotImplementedError(
                 "a device mesh comes with the multi-GPU slice")
-        if self.remat:
-            raise NotImplementedError(
-                "remat (per-block activation checkpointing) is not ported "
-                "yet (ROADMAP Queue 1 item 6)")
         if self.attention not in ("auto", "flash", "dense"):
             raise ValueError(f"unknown attention={self.attention!r} "
                              "(auto|flash|dense)")
@@ -185,18 +193,27 @@ class Transformer(nn.Module):
                                 1.0 / math.sqrt(mod.in_features),
                                 generator=gen)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                return_hidden: bool = False) -> torch.Tensor:
+        """Logits (B, S, vocab) fp32, or with ``return_hidden`` the
+        final-LayerNorm hidden states (B, S, d_model) in ``cfg.dtype``,
+        the input of the streamed-vocab loss, which reads the lm_head
+        weight itself."""
         cfg = self.cfg
         if self.training and cfg.dropout > 0:
             raise NotImplementedError(
-                "dropout in training is not ported yet (flax nn.Dropout; "
-                "ROADMAP Queue 1 item 6)")
+                "dropout in training is not ported (flax nn.Dropout): no "
+                "JAX trainer passes it a 'dropout' rng stream either")
         s = tokens.shape[1]
         x = F.embedding(tokens.long(), self.tok_embed.weight).to(cfg.dtype)
         x = x + self.pos_embed[None, :s].to(cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks():
-            x = block(x)
+            x = (checkpoint(block, x, use_reentrant=False) if remat
+                 else block(x))
         x = self.ln_final(x)
+        if return_hidden:
+            return x
         return self.lm_head(x.float())
 
 
@@ -210,3 +227,61 @@ def lm_loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
     ll = torch.gather(logp, -1, targets[..., None])[..., 0]
     loss = -ll.mean()
     return loss, {"ppl": torch.exp(loss.detach())}
+
+
+def lm_loss_fused(model: Transformer, batch: dict, *,
+                  chunk: int = 8192) -> tuple[torch.Tensor, dict]:
+    """``lm_loss_fn`` without the (B, S, V) logits: the final hidden
+    states feed the streamed-vocab cross-entropy, which reads the lm_head
+    weight (its transpose, a view: the JAX package's (d, V) kernel)."""
+    tokens = batch["tokens"]
+    hidden = model(tokens, return_hidden=True)
+    b, s, d = hidden.shape
+    hidden = hidden[:, :-1].reshape(b * (s - 1), d)
+    targets = tokens[:, 1:].reshape(-1)
+    loss = streamed_lm_xent(hidden, model.lm_head.weight.t(), targets, chunk)
+    return loss, {"ppl": torch.exp(loss.detach())}
+
+
+def choose_remat(cfg: TransformerConfig, batch_size: int,
+                 seq_len: int | None = None, hbm_bytes: int | None = None,
+                 budget_frac: float = 0.6,
+                 device: str | torch.device = "cuda") -> bool:
+    """Should blocks be checkpointed? The JAX package's arithmetic: the
+    backward without remat keeps about 12 d_model-wide tensors a block
+    (plus the (heads, S, S) scores where attention is dense) alive at
+    once; if that exceeds ``budget_frac`` of the memory left after the
+    fp32 parameters and two fp32 moments, remat pays its recompute.
+
+    ``hbm_bytes`` defaults to the card's memory on ``device``, or 16 GiB
+    for the CPU. The dense scores count where the model on ``device``
+    runs dense attention: off the card under ``attention="auto"``. The
+    JAX package counts them wherever its backend is not a TPU, because
+    its auto attention is flash only there; on the CPU both agree.
+    """
+    dev = torch.device(device)
+    seq = seq_len or cfg.max_len
+    itemsize = torch.finfo(cfg.dtype).bits // 8
+    per_block = 12 * batch_size * seq * cfg.d_model * itemsize
+    if not cfg.use_flash(seq, dev):
+        per_block += batch_size * cfg.n_heads * seq * seq * itemsize
+    activations = cfg.n_layers * per_block
+    n_params = (cfg.vocab_size * cfg.d_model * 2          # embed + head
+                + cfg.max_len * cfg.d_model
+                + cfg.n_layers * (4 * cfg.d_model ** 2
+                                  + 2 * cfg.d_model * cfg.d_ff))
+    resident = n_params * (4 + 8)                          # fp32 + adam
+    if hbm_bytes is None:
+        hbm_bytes = (torch.cuda.get_device_properties(dev).total_memory
+                     if dev.type == "cuda" else 16 * (1 << 30))
+    return activations > budget_frac * max(hbm_bytes - resident,
+                                           hbm_bytes // 8)
+
+
+def auto_remat(cfg: TransformerConfig, batch_size: int,
+               seq_len: int | None = None, hbm_bytes: int | None = None,
+               device: str | torch.device = "cuda") -> TransformerConfig:
+    """cfg with ``remat`` set by :func:`choose_remat`."""
+    return dataclasses.replace(
+        cfg, remat=choose_remat(cfg, batch_size, seq_len, hbm_bytes,
+                                device=device))

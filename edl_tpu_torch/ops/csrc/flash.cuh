@@ -1,10 +1,11 @@
-// The warpgroup pieces the bf16 flash-attention kernels share: K1
-// (flash_fwd.cu) and K2/K3 (flash_bwd.cu), all wgmma fed by a TMA ring
-// (hopper.cuh). A block is CONSUMERS warpgroups that compute, each on
+// The warpgroup pieces the 16-bit (bf16 and fp16) flash-attention
+// kernels share: K1 (flash_fwd.cu) and K2/K3 (flash_bwd.cu), all wgmma
+// fed by a TMA ring (hopper.cuh), each compiled once per element type T
+// (hopper::Elem). A block is CONSUMERS warpgroups that compute, each on
 // WG_ROWS rows of a TILE_ROWS-row resident tile, and one producer
 // warpgroup whose first warp issues the copies; a streamed tile lands in
-// shared memory as TMA writes it (Tile); an accumulator leaves as bf16
-// rows through shared memory (store_wg).
+// shared memory as TMA writes it (Tile); an accumulator leaves as rows
+// of T through shared memory (store_wg).
 
 #pragma once
 
@@ -38,7 +39,7 @@ int set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
-// A bf16 tile of ROWS x D as TMA lands it: column blocks of COLS columns
+// A 16-bit tile of ROWS x D as TMA lands it: column blocks of COLS columns
 // (D itself up to 64, else two halves of 64), each ROWS rows of ROW_BYTES
 // swizzled across ROW_BYTES, one block after the other.
 template <int D, int ROWS>
@@ -73,17 +74,17 @@ struct Tile {
   }
 };
 
-// The tensor maps of n_maps bf16 (B, S, H, D) inputs, ptr[i] with
-// (batch, seq, head) strides st[3i..3i+2] in elements, read in boxes of
-// rows[i] rows. Returns 0 or TENSOR_MAP_FAILED + the CUresult.
-template <int D>
+// The tensor maps of n_maps (B, S, H, D) inputs of element type T, ptr[i]
+// with (batch, seq, head) strides st[3i..3i+2] in elements, read in boxes
+// of rows[i] rows. Returns 0 or TENSOR_MAP_FAILED + the CUresult.
+template <typename T, int D>
 int make_maps(CUtensorMap* m, int n_maps, const void* const* ptr,
               const long long* st, const int* rows, int B, int S, int H) {
   constexpr int COLS = D < 64 ? D : 64;
   for (int i = 0; i < n_maps; ++i)
-    if (int err = hopper::encode_bshd_bf16(&m[i], ptr[i], B, S, H, D, st[3 * i],
-                                           st[3 * i + 1], st[3 * i + 2],
-                                           rows[i], COLS))
+    if (int err = hopper::encode_bshd(&m[i], hopper::Elem<T>::MAP, ptr[i], B,
+                                      S, H, D, st[3 * i], st[3 * i + 1],
+                                      st[3 * i + 2], rows[i], COLS))
       return TENSOR_MAP_FAILED + err;
   return 0;
 }
@@ -102,19 +103,16 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   if (lane == 0) hopper::mbar_arrive(bar);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// k-step kk of an accumulator (column chunks 2kk, 2kk+1) as a bf16 A operand.
-template <int R>
+// k-step kk of an accumulator (column chunks 2kk, 2kk+1) as an A operand
+// of element type T.
+template <typename T, int R>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&acc)[R],
                                          int kk) {
-  a[0] = pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
-  a[1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
-  a[2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
-  a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+  using E = hopper::Elem<T>;
+  a[0] = E::pack(acc[8 * kk + 0], acc[8 * kk + 1]);
+  a[1] = E::pack(acc[8 * kk + 2], acc[8 * kk + 3]);
+  a[2] = E::pack(acc[8 * kk + 4], acc[8 * kk + 5]);
+  a[3] = E::pack(acc[8 * kk + 6], acc[8 * kk + 7]);
 }
 
 // 2^x in one MUFU.EX2; a result below the fp32 normal range flushes to 0.
@@ -137,12 +135,12 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // Write a warpgroup's 64 x D accumulator (rows row0.. of the (b, h) head)
-// as bf16 rows: through `stage` (64 x D x 2 bytes of shared memory, 16-byte
+// as rows of T: through `stage` (64 x D x 2 bytes of shared memory, 16-byte
 // pieces of a row rotated by the row so a warp's writes spread over the
 // banks), then 16 bytes a thread to global memory; rows at or past S are
 // not written. `bar` is the warpgroup's named barrier.
-template <int D>
-__device__ __forceinline__ void store_wg(__nv_bfloat16* out, uint8_t* stage,
+template <typename T, int D>
+__device__ __forceinline__ void store_wg(T* out, uint8_t* stage,
                                          const float (&acc)[D / 2], int b, int S,
                                          int H, int h, int row0, int bar) {
   constexpr int PIECES = D / 8;                  // 16-byte pieces a row
@@ -156,7 +154,7 @@ __device__ __forceinline__ void store_wg(__nv_bfloat16* out, uint8_t* stage,
     for (int i = 0; i < PIECES; ++i)
       *reinterpret_cast<uint32_t*>(stage + r * D * 2 + ((i ^ (r % ROT)) * 16)
                                    + tq * 4) =
-          pack_bf16(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
+          hopper::Elem<T>::pack(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
   }
   named_sync(bar, WG_THREADS);
   for (int idx = wtid; idx < WG_ROWS * PIECES; idx += WG_THREADS) {

@@ -3,9 +3,10 @@
 //
 // Replaces the TPU kernels edl_tpu/ops/flash_attention.py::_bwd_dkdv_kernel
 // (K2) and ::_bwd_dq_kernel (K3), both called from _bwd_pallas through
-// pl.pallas_call. Same contract: q, k, v, dO are (B, S, H, D) in fp32 or
-// bf16, read in place from their strides; lse (the forward's log-sum-exp)
-// and the optional cotangent dlse are fp32 (B, S, H), contiguous. With
+// pl.pallas_call. Same contract: q, k, v, dO are (B, S, H, D) in fp32,
+// bf16 or fp16, read in place from their strides; lse (the forward's
+// log-sum-exp) and the optional cotangent dlse are fp32 (B, S, H),
+// contiguous. With
 // p = exp(q.k * scale - lse) and dS = p * (dO.v - rt) * scale:
 //   K3: rt = sum_k p (dO.v) - dlse, written fp32 (B, S, H) for K2, and
 //       dQ = sum_k dS k, written in q's dtype;
@@ -39,8 +40,13 @@
 // score tile is recomputed in each kernel and never reaches device
 // memory.
 //
-// bf16 (dkdv_wgmma_kernel, dq_wgmma_kernel) runs on the Hopper tensor
-// cores, with the pieces of hopper.cuh and flash.cuh (shared with K1):
+// bf16 and fp16 (dkdv_wgmma_kernel<T, D>, dq_wgmma_kernel<T, D>, one body
+// each compiled for each element type T: the tensor maps' data type, the
+// products' PTX type and the rounding of p, dS and the gradients are T's;
+// fp16 also scales each row of dS by a power of two before rounding it,
+// see ds_row_exp; all else is shared, and the row term stays fp32) run
+// on the Hopper tensor cores, with the pieces of hopper.cuh and flash.cuh
+// (shared with K1):
 // - A block is two consumer warpgroups, each owning 64 rows of the
 //   resident tile, and a producer warpgroup whose first warp issues the
 //   copies (setmaxnreg gives its registers to the consumers: 40 against
@@ -58,9 +64,9 @@
 //   swizzle TMA wrote (64-byte at D = 32; D = 128 as two 64-column
 //   halves), and are committed as two groups, so that p = exp(S...)
 //   runs while dP still computes. p and dS are formed in registers,
-//   rounded to bf16 only as the A operand of the second products (K2:
-//   dV += p^T dO, dK += dS^T Q; K3: dQ += dS K), whose B is the same
-//   streamed tile read MN-major. The second products are waited for
+//   rounded to T (fp16: dS scaled a row at a time) only as the A operand
+//   of the second products (K2: dV += p^T dO, dK += dS^T Q; K3: dQ +=
+//   dS K), whose B is the same streamed tile read MN-major. The second products are waited for
 //   after the next tile's first ones are issued.
 // - A warpgroup issues its products on every tile, also on one that the
 //   causal mask hides from all of its rows (p and dS come out 0 there):
@@ -85,8 +91,8 @@
 // and 4 rows x D/16 columns of the sums, synchronous tile loads.
 //
 // Bounds on an H100 SXM at the training shape (B=16, S=1024, H=16, D=64,
-// causal, bf16), counting each input read once and each output written
-// once, and the visible (q, k) pairs: B*H*S(S+1)/2 = 134.3M.
+// causal, bf16 or fp16), counting each input read once and each output
+// written once, and the visible (q, k) pairs: B*H*S(S+1)/2 = 134.3M.
 // - K2: 4 products of 2*D flops per pair = 68.8 GFLOP, 69.6 us at
 //   989 TFLOP/s; q, k, v, dO in and dK, dV out (6 x 33.6 MB) plus lse
 //   and rt (2 x 1.0 MB) = 203.4 MB, 60.7 us at 3.35 TB/s. Compute bound,
@@ -427,7 +433,7 @@ dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma fed by a TMA ring
+// bf16 and fp16: wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
 // p = exp(s * scale - lse) in place of a score tile, as exp2(s * c2 - lse2)
@@ -479,11 +485,12 @@ __device__ __forceinline__ void tile_probs(bool mask, float (&sacc)[N / 2],
 }
 
 // dS = p (dP - rt) scale in place of dP; rt per column (K2: rts[] by
-// column within the tile) or per row (K3: r0, r1), as in probs().
+// column within the tile) or per row (K3: r0, r1), as in probs(); scale
+// is sc0 on row0 and sc1 on row0 + 8 (fp16: times the row's 2^k).
 template <bool ROW_RT, int N>
 __device__ __forceinline__ void grads(const float (&p)[N / 2], float (&pacc)[N / 2],
                                       const float* rts, float r0, float r1,
-                                      float scale) {
+                                      float sc0, float sc1) {
   const int tq4 = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < N / 8; ++i) {
@@ -492,7 +499,7 @@ __device__ __forceinline__ void grads(const float (&p)[N / 2], float (&pacc)[N /
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float rt_e = ROW_RT ? (e < 2 ? r.x : r.y) : ((e & 1) ? r.y : r.x);
-      pacc[4 * i + e] = p[4 * i + e] * (pacc[4 * i + e] - rt_e) * scale;
+      pacc[4 * i + e] = p[4 * i + e] * (pacc[4 * i + e] - rt_e) * (e < 2 ? sc0 : sc1);
     }
   }
 }
@@ -509,6 +516,100 @@ __device__ __forceinline__ void row_terms(const float (&p)[N / 2],
     rt0 = fmaf(p[4 * i + 1], pacc[4 * i + 1], rt0);
     rt1 = fmaf(p[4 * i + 2], pacc[4 * i + 2], rt1);
     rt1 = fmaf(p[4 * i + 3], pacc[4 * i + 3], rt1);
+  }
+}
+
+// fp16's narrow range. dS = p (dP - rt) scale is a small difference
+// times a probability: at the training shape its elements sit near
+// 1e-5, below fp16's smallest normal (6.1e-5), where rounding to fp16
+// keeps a few bits or none; and dQ (dK) sums them against keys (queries)
+// that share a large mean, so the rounding of sum_k dS is multiplied into
+// the gradient (the bf16 row-term fault, above, by another road). bf16
+// has fp32's exponent range and needs none of this. The fp16 bodies
+// therefore multiply each row of dS by a power of two 2^k before it
+// becomes an A operand, and the fp32 accumulator's row by 2^-k at the
+// end; both multiplies are exact. k is fixed for the whole loop, from a
+// bound B on the row's |dS| known before it, such that 2^k B lies in
+// [2^13, 2^14): far from fp16's 65504, and however loose the bound, the
+// row's elements stay normal unless they are 2^27 below it. (Scaling
+// each tile to its own maximum instead, and rescaling the accumulator
+// when a row's scale shrinks, makes ptxas serialize every wgmma of the
+// kernel: non-wgmma instructions then write an accumulator inside the
+// pipelined loop.) The bounds: |dS_ij| <= scale (p_ij |dP_ij| + |rt_i|).
+// - K3's rows are q rows: B_i = scale (max_j p_ij |dP_ij| + |rt_i|), both
+//   terms from the first sweep, which forms p and dP for the row term.
+// - K2's rows are kv rows: |dP_ij| <= |dO_i| |v_j|, so B_j = scale
+//   (max_i |dO_i| |v_j| + max_i |rt_i|), the two maxima over the head's
+//   rows written by K3 (head_max: atomicMax on the bits of values >= 0,
+//   so the same inputs give the same bits), |v_j| from K2's resident V.
+
+// The exponent k that takes a row bound B to [2^13, 2^14): 13 - e for
+// B = f 2^e, f in [1, 2), with e clamped to [-100, 127] (a row of zeros
+// takes 2^113; inf or NaN 2^-114, and the gradient comes out
+// non-finite, as it should).
+__device__ __forceinline__ int ds_row_exp(float bound) {
+  return 13 - max(-100,
+                  min(127, int((__float_as_uint(bound) >> 23) & 0xff) - 127));
+}
+
+// 2^k for k in [-126, 127], built from its bits.
+__device__ __forceinline__ float pow2(int k) {
+  return __uint_as_float(uint32_t(127 + k) << 23);
+}
+
+// K3's max_j p_ij |dP_ij| of this thread's rows row0 (registers 4i + 0,
+// 1) and row0 + 8 (4i + 2, 3), over one tile.
+template <int N>
+__device__ __forceinline__ void pdp_absmax(const float (&p)[N / 2],
+                                           const float (&pacc)[N / 2],
+                                           float& a0, float& a1) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    a0 = fmaxf(a0, fmaxf(fabsf(p[4 * i + 0] * pacc[4 * i + 0]),
+                         fabsf(p[4 * i + 1] * pacc[4 * i + 1])));
+    a1 = fmaxf(a1, fmaxf(fabsf(p[4 * i + 2] * pacc[4 * i + 2]),
+                         fabsf(p[4 * i + 3] * pacc[4 * i + 3])));
+  }
+}
+
+// The squared L2 norm of row r of a resident tile as TMA wrote it, over
+// the row's 4 threads (tq: this thread's quarter). The swizzle permutes
+// 16-byte pieces within a row, so a row's bytes are where they were.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ float row_sq_norm(const uint8_t* tile, int r,
+                                             int tq) {
+  using Tl = Tile<D, ROWS>;
+  constexpr int QUARTER = Tl::ROW_BYTES / 4;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / Tl::COLS; ++c) {
+    const uint4* piece = reinterpret_cast<const uint4*>(
+        tile + c * Tl::BLOCK_BYTES + r * Tl::ROW_BYTES + tq * QUARTER);
+#pragma unroll
+    for (int i = 0; i < QUARTER / 16; ++i) {
+      const uint4 w = piece[i];
+      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = hopper::Elem<T>::unpack(words[j]);
+        acc = fmaf(f.x, f.x, fmaf(f.y, f.y, acc));
+      }
+    }
+  }
+  return quad_sum(acc);
+}
+
+// The accumulator's rows multiplied by 2^-k0, 2^-k1 (exact).
+template <int D>
+__device__ __forceinline__ void unscale_rows(float (&acc)[D / 2], int k0,
+                                             int k1) {
+  const float u0 = pow2(-k0), u1 = pow2(-k1);
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    acc[4 * i + 0] *= u0;
+    acc[4 * i + 1] *= u0;
+    acc[4 * i + 2] *= u1;
+    acc[4 * i + 3] *= u1;
   }
 }
 
@@ -529,15 +630,16 @@ struct K2Smem {
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-// K2, bf16: one block per (128-row kv tile, batch*head).
-template <int D>
+// K2, bf16 or fp16 (T): one block per (128-row kv tile, batch*head).
+template <typename T, int D>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   const __grid_constant__ CUtensorMap tdo,
                   const float* __restrict__ lse, const float* __restrict__ rt,
-                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                  const float* __restrict__ head_max, T* __restrict__ dk,
+                  T* __restrict__ dv,
                   int S, int H, float scale, int causal) {
   using L = K2Smem<D>;
   constexpr int BQ = L::BQ, STAGES = L::STAGES;
@@ -615,6 +717,20 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < BQ / 2; ++i) sacc[i] = pacc[i] = 0.f;
 
   hopper::mbar_wait(kv_full, 0);
+  // dS's scale on this thread's kv rows kr0, kr0 + 8: fp16 also takes
+  // each row's 2^k from its bound (see ds_row_exp)
+  float sc0 = scale, sc1 = scale;
+  int ks0 = 0, ks1 = 0;
+  if constexpr (hopper::Elem<T>::F16) {
+    const int vr = wg * WG_ROWS + ((tid % WG_THREADS) >> 5) * 16 + g;
+    const float mo = sqrtf(head_max[2 * bh]), mr = head_max[2 * bh + 1];
+    ks0 = ds_row_exp(scale * fmaf(
+        mo, sqrtf(row_sq_norm<T, D, TILE_ROWS>(Vs, vr, tq4)), mr));
+    ks1 = ds_row_exp(scale * fmaf(
+        mo, sqrtf(row_sq_norm<T, D, TILE_ROWS>(Vs, vr + 8, tq4)), mr));
+    sc0 = scale * pow2(ks0);
+    sc1 = scale * pow2(ks1);
+  }
   int prev = -1;     // the stage the last tile's dV, dK products may still read
   for (int j = q_first, it = 0; j < n_q; ++j, ++it) {
     const int s = it % STAGES;
@@ -632,13 +748,13 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      hopper::wgmma_ss<BQ>(sacc, L::KV::k_desc(Ks, wg * WG_ROWS, kk),
-                           L::Q::k_desc(Qst, 0, kk), kk > 0);
+      hopper::wgmma_ss<BQ, T>(sacc, L::KV::k_desc(Ks, wg * WG_ROWS, kk),
+                              L::Q::k_desc(Qst, 0, kk), kk > 0);
     hopper::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      hopper::wgmma_ss<BQ>(pacc, L::KV::k_desc(Vs, wg * WG_ROWS, kk),
-                           L::Q::k_desc(Ost, 0, kk), kk > 0);
+      hopper::wgmma_ss<BQ, T>(pacc, L::KV::k_desc(Vs, wg * WG_ROWS, kk),
+                              L::Q::k_desc(Ost, 0, kk), kk > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();        // S^T and the last tile's dV, dK
     hopper::fence_regs(sacc);
@@ -653,12 +769,12 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           sacc, lse_rt, 0.f, 0.f, c2, q0, kr0, S, causal);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(pacc);
-    grads<false, BQ>(sacc, pacc, lse_rt + BQ, 0.f, 0.f, scale);
+    grads<false, BQ>(sacc, pacc, lse_rt + BQ, 0.f, 0.f, sc0, sc1);
     uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      acc_to_a(pa[kk], sacc, kk);
-      acc_to_a(sa[kk], pacc, kk);
+      acc_to_a<T>(pa[kk], sacc, kk);
+      acc_to_a<T>(sa[kk], pacc, kk);
     }
 
     // dV += p^T dO and dK += dS^T Q, q as the k dimension; waited for
@@ -668,8 +784,8 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      hopper::wgmma_rs<D>(dva, pa[kk], L::Q::mn_desc(Ost, kk), 1);
-      hopper::wgmma_rs<D>(dka, sa[kk], L::Q::mn_desc(Qst, kk), 1);
+      hopper::wgmma_rs<D, T>(dva, pa[kk], L::Q::mn_desc(Ost, kk), 1);
+      hopper::wgmma_rs<D, T>(dka, sa[kk], L::Q::mn_desc(Qst, kk), 1);
     }
     hopper::wgmma_commit();
     prev = s;
@@ -681,8 +797,9 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   // both warpgroups are done with K and V: their tiles stage the output
   named_sync(1, CONSUMERS * WG_THREADS);
-  store_wg<D>(dk, Ks + wg * WG_ROWS * D * 2, dka, b, S, H, h, kw, 2 + wg);
-  store_wg<D>(dv, Vs + wg * WG_ROWS * D * 2, dva, b, S, H, h, kw, 2 + wg);
+  if constexpr (hopper::Elem<T>::F16) unscale_rows<D>(dka, ks0, ks1);
+  store_wg<T, D>(dk, Ks + wg * WG_ROWS * D * 2, dka, b, S, H, h, kw, 2 + wg);
+  store_wg<T, D>(dv, Vs + wg * WG_ROWS * D * 2, dva, b, S, H, h, kw, 2 + wg);
 }
 
 // K3's shared memory: Q, dO (TILE_ROWS rows, resident), a ring of STAGES
@@ -702,7 +819,7 @@ struct K3Smem {
 
 // K3's S = Q K^T and dP = dO V^T for the kv tile at st: warpgroup wg's
 // 64 q rows x BK kv columns, committed as two groups, S first.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void dq_scores(float (&sacc)[K3Smem<D>::BK / 2],
                                           float (&pacc)[K3Smem<D>::BK / 2],
                                           const uint8_t* Qs, const uint8_t* Os,
@@ -713,28 +830,29 @@ __device__ __forceinline__ void dq_scores(float (&sacc)[K3Smem<D>::BK / 2],
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    hopper::wgmma_ss<L::BK>(sacc, L::QO::k_desc(Qs, wg * WG_ROWS, kk),
-                            L::KV::k_desc(st, 0, kk), kk > 0);
+    hopper::wgmma_ss<L::BK, T>(sacc, L::QO::k_desc(Qs, wg * WG_ROWS, kk),
+                               L::KV::k_desc(st, 0, kk), kk > 0);
   hopper::wgmma_commit();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    hopper::wgmma_ss<L::BK>(pacc, L::QO::k_desc(Os, wg * WG_ROWS, kk),
-                            L::KV::k_desc(st + L::KV::BYTES, 0, kk), kk > 0);
+    hopper::wgmma_ss<L::BK, T>(pacc, L::QO::k_desc(Os, wg * WG_ROWS, kk),
+                               L::KV::k_desc(st + L::KV::BYTES, 0, kk), kk > 0);
   hopper::wgmma_commit();
 }
 
-// K3, bf16: one block per (128-row q tile, batch*head). Two sweeps over
-// the visible kv tiles through one ring: the first sums the row term
-// r = sum_j p dP in fp32 (and writes rt = r - dlse for K2), the second
-// accumulates dQ.
-template <int D>
+// K3, bf16 or fp16 (T): one block per (128-row q tile, batch*head). Two
+// sweeps over the visible kv tiles through one ring: the first sums the
+// row term r = sum_j p dP in fp32 (and writes rt = r - dlse for K2), the
+// second accumulates dQ.
+template <typename T, int D>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 const __grid_constant__ CUtensorMap tdo,
                 const float* __restrict__ lse, const float* __restrict__ dlse,
-                float* __restrict__ rt_out, __nv_bfloat16* __restrict__ dq,
+                float* __restrict__ rt_out, float* __restrict__ head_max,
+                T* __restrict__ dq,
                 int S, int H, float scale, int causal) {
   using L = K3Smem<D>;
   constexpr int BK = L::BK, STAGES = L::STAGES;
@@ -808,11 +926,12 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // diagonal (its p comes out 0): wgmmas under a branch make ptxas
   // serialize them.
   float rt0 = 0.f, rt1 = 0.f;
+  float am0 = 0.f, am1 = 0.f;     // fp16: max p |dP| of the rows
   for (int it = 0; it < n_kv; ++it) {
     const int s = it % STAGES;
     const int k0 = it * BK;
     hopper::mbar_wait(&full[s], (it / STAGES) & 1);
-    dq_scores<D>(sacc, pacc, Qs, Os, smem + L::RING + s * L::STAGE, wg);
+    dq_scores<T, D>(sacc, pacc, Qs, Os, smem + L::RING + s * L::STAGE, wg);
     hopper::wgmma_wait<1>();
     hopper::fence_regs(sacc);
     tile_probs<true, BK>((causal && k0 + BK - 1 > qw) || k0 + BK > S, sacc,
@@ -821,6 +940,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::fence_regs(pacc);
     release(&empty[s], lane);
     row_terms<BK>(sacc, pacc, rt0, rt1);
+    if constexpr (hopper::Elem<T>::F16) pdp_absmax<BK>(sacc, pacc, am0, am1);
   }
   rt0 = quad_sum(rt0);
   rt1 = quad_sum(rt1);
@@ -832,6 +952,32 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (dlse != nullptr) rt1 -= dlse[r1];
     if (tq4 == 0) rt_out[r1] = rt1;
   }
+  // dS's scale on the rows: fp16 also takes each row's 2^k from its
+  // bound, and folds the head's largest |dO_i|^2 and |rt_i| over this
+  // warp's rows into head_max, K2's bound (see ds_row_exp)
+  float sc0 = scale, sc1 = scale;
+  int ks0 = 0, ks1 = 0;
+  if constexpr (hopper::Elem<T>::F16) {
+    ks0 = ds_row_exp(scale * (quad_max(am0) + fabsf(rt0)));
+    ks1 = ds_row_exp(scale * (quad_max(am1) + fabsf(rt1)));
+    sc0 = scale * pow2(ks0);
+    sc1 = scale * pow2(ks1);
+    const int qr = wg * WG_ROWS + ((tid % WG_THREADS) >> 5) * 16 + g;
+    const float n0 = row_sq_norm<T, D, TILE_ROWS>(Os, qr, tq4);
+    const float n1 = row_sq_norm<T, D, TILE_ROWS>(Os, qr + 8, tq4);
+    float mo = fmaxf(row0 < S ? n0 : 0.f, row1 < S ? n1 : 0.f);
+    float mr = fmaxf(row0 < S ? fabsf(rt0) : 0.f, row1 < S ? fabsf(rt1) : 0.f);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      mo = fmaxf(mo, __shfl_xor_sync(0xffffffffu, mo, off));
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, off));
+    }
+    if (lane == 0) {
+      unsigned* hm = reinterpret_cast<unsigned*>(head_max) + 2 * bh;
+      atomicMax(hm, __float_as_uint(mo));
+      atomicMax(hm + 1, __float_as_uint(mr));
+    }
+  }
 
   // sweep 2: dQ += dS K, kv as the k dimension
   int prev = -1;     // the stage the last tile's dQ product may still read
@@ -840,7 +986,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int k0 = (it - n_kv) * BK;
     const uint8_t* st = smem + L::RING + s * L::STAGE;
     hopper::mbar_wait(&full[s], (it / STAGES) & 1);
-    dq_scores<D>(sacc, pacc, Qs, Os, st, wg);
+    dq_scores<T, D>(sacc, pacc, Qs, Os, st, wg);
     hopper::wgmma_wait<1>();        // S and the last tile's dQ
     hopper::fence_regs(sacc);
     hopper::fence_regs(dqa);
@@ -851,16 +997,16 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          nullptr, lse0, lse1, c2, k0, row0, S, causal);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(pacc);
-    grads<true, BK>(sacc, pacc, nullptr, rt0, rt1, scale);
+    grads<true, BK>(sacc, pacc, nullptr, rt0, rt1, sc0, sc1);
     uint32_t sa[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(sa[kk], pacc, kk);
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<T>(sa[kk], pacc, kk);
 
     hopper::fence_regs(dqa);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      hopper::wgmma_rs<D>(dqa, sa[kk], L::KV::mn_desc(st, kk), 1);
+      hopper::wgmma_rs<D, T>(dqa, sa[kk], L::KV::mn_desc(st, kk), 1);
     hopper::wgmma_commit();
     prev = s;
   }
@@ -870,7 +1016,8 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   // both warpgroups are done with Q: it stages the output
   named_sync(1, CONSUMERS * WG_THREADS);
-  store_wg<D>(dq, Qs + wg * WG_ROWS * D * 2, dqa, b, S, H, h, qw, 2 + wg);
+  if constexpr (hopper::Elem<T>::F16) unscale_rows<D>(dqa, ks0, ks1);
+  store_wg<T, D>(dq, Qs + wg * WG_ROWS * D * 2, dqa, b, S, H, h, qw, 2 + wg);
 }
 
 // ---------------------------------------------------------------------------
@@ -879,7 +1026,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // The tensor maps of q, k, v and dO, streamed in boxes of q_rows (q, dO)
 // and kv_rows (k, v) rows. Returns 0 or TENSOR_MAP_FAILED + the CUresult.
-template <int D>
+template <typename T, int D>
 int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
              const void* dout, int B, int S, int H, const Strides& st,
              int q_rows, int kv_rows) {
@@ -887,60 +1034,88 @@ int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
   const long long s[12] = {st.qb, st.qs, st.qh, st.kb, st.ks, st.kh,
                           st.vb, st.vs, st.vh, st.ob, st.os, st.oh};
   const int rows[4] = {q_rows, kv_rows, kv_rows, q_rows};
-  return make_maps<D>(m, 4, ptr, s, rows, B, S, H);
+  return make_maps<T, D>(m, 4, ptr, s, rows, B, S, H);
 }
+// K2's and K3's wgmma bodies for element type T.
+template <typename T, int D>
+int launch_dkdv_wgmma(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* rt,
+                      const float* head_max, void* dk, void* dv, int B, int S,
+                      int H,
+                      const Strides& st, float scale, int causal,
+                      cudaStream_t stream) {
+  using L = K2Smem<D>;
+  CUtensorMap m[4];
+  if (int err = bwd_maps<T, D>(m, q, k, v, dout, B, S, H, st, L::BQ, TILE_ROWS))
+    return err;
+  if (int err = set_smem(dkdv_wgmma_kernel<T, D>, L::BYTES)) return err;
+  const dim3 grid((S + TILE_ROWS - 1) / TILE_ROWS, B * H);
+  dkdv_wgmma_kernel<T, D><<<grid, TC_THREADS, L::BYTES, stream>>>(
+      m[0], m[1], m[2], m[3], lse, rt, head_max, static_cast<T*>(dk),
+      static_cast<T*>(dv), S, H, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* dlse,
+                    float* rt, float* head_max, void* dq, int B, int S, int H,
+                    const Strides& st,
+                    float scale, int causal, cudaStream_t stream) {
+  using L = K3Smem<D>;
+  CUtensorMap m[4];
+  if (int err = bwd_maps<T, D>(m, q, k, v, dout, B, S, H, st, TILE_ROWS, L::BK))
+    return err;
+  if (int err = set_smem(dq_wgmma_kernel<T, D>, L::BYTES)) return err;
+  const dim3 grid((S + TILE_ROWS - 1) / TILE_ROWS, B * H);
+  dq_wgmma_kernel<T, D><<<grid, TC_THREADS, L::BYTES, stream>>>(
+      m[0], m[1], m[2], m[3], lse, dlse, rt, head_max, static_cast<T*>(dq), S,
+      H, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                const float* lse, const float* rt, void* dk, void* dv, int B,
-                int S, int H, const Strides& st, float scale, int causal,
-                int dtype, cudaStream_t stream) {
-  if (dtype == 0) {
-    const dim3 grid((S + BT - 1) / BT, B * H);
-    const size_t smem = fma_smem_floats(D) * sizeof(float);
-    if (int err = set_smem(dkdv_fma_kernel<D>, smem)) return err;
-    dkdv_fma_kernel<D><<<grid, THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse, rt,
-        static_cast<float*>(dk), static_cast<float*>(dv), S, H, st, scale,
-        causal);
-  } else {
-    using L = K2Smem<D>;
-    CUtensorMap m[4];
-    if (int err = bwd_maps<D>(m, q, k, v, dout, B, S, H, st, L::BQ, TILE_ROWS))
-      return err;
-    if (int err = set_smem(dkdv_wgmma_kernel<D>, L::BYTES)) return err;
-    const dim3 grid((S + TILE_ROWS - 1) / TILE_ROWS, B * H);
-    dkdv_wgmma_kernel<D><<<grid, TC_THREADS, L::BYTES, stream>>>(
-        m[0], m[1], m[2], m[3], lse, rt, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv), S, H, scale, causal);
-  }
+                const float* lse, const float* rt, const float* head_max,
+                void* dk, void* dv, int B, int S, int H, const Strides& st,
+                float scale, int causal, int dtype, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_dkdv_wgmma<__nv_bfloat16, D>(q, k, v, dout, lse, rt,
+                                               head_max, dk, dv, B, S, H, st,
+                                               scale, causal, stream);
+  if (dtype == 2)
+    return launch_dkdv_wgmma<__half, D>(q, k, v, dout, lse, rt, head_max, dk,
+                                        dv, B, S, H, st, scale, causal, stream);
+  const dim3 grid((S + BT - 1) / BT, B * H);
+  const size_t smem = fma_smem_floats(D) * sizeof(float);
+  if (int err = set_smem(dkdv_fma_kernel<D>, smem)) return err;
+  dkdv_fma_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, rt,
+      static_cast<float*>(dk), static_cast<float*>(dv), S, H, st, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* dlse, float* rt, void* dq, int B,
-              int S, int H, const Strides& st, float scale, int causal,
-              int dtype, cudaStream_t stream) {
-  if (dtype == 0) {
-    const dim3 grid((S + BT - 1) / BT, B * H);
-    const size_t smem = fma_smem_floats(D) * sizeof(float);
-    if (int err = set_smem(dq_fma_kernel<D>, smem)) return err;
-    dq_fma_kernel<D><<<grid, THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        dlse, rt, static_cast<float*>(dq), S, H, st, scale, causal);
-  } else {
-    using L = K3Smem<D>;
-    CUtensorMap m[4];
-    if (int err = bwd_maps<D>(m, q, k, v, dout, B, S, H, st, TILE_ROWS, L::BK))
-      return err;
-    if (int err = set_smem(dq_wgmma_kernel<D>, L::BYTES)) return err;
-    const dim3 grid((S + TILE_ROWS - 1) / TILE_ROWS, B * H);
-    dq_wgmma_kernel<D><<<grid, TC_THREADS, L::BYTES, stream>>>(
-        m[0], m[1], m[2], m[3], lse, dlse, rt, static_cast<__nv_bfloat16*>(dq),
-        S, H, scale, causal);
-  }
+              const float* lse, const float* dlse, float* rt, float* head_max,
+              void* dq, int B, int S, int H, const Strides& st, float scale,
+              int causal, int dtype, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_dq_wgmma<__nv_bfloat16, D>(q, k, v, dout, lse, dlse, rt,
+                                             head_max, dq, B, S, H, st, scale,
+                                             causal, stream);
+  if (dtype == 2)
+    return launch_dq_wgmma<__half, D>(q, k, v, dout, lse, dlse, rt, head_max,
+                                      dq, B, S, H, st, scale, causal, stream);
+  const dim3 grid((S + BT - 1) / BT, B * H);
+  const size_t smem = fma_smem_floats(D) * sizeof(float);
+  if (int err = set_smem(dq_fma_kernel<D>, smem)) return err;
+  dq_fma_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      dlse, rt, static_cast<float*>(dq), S, H, st, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -953,44 +1128,49 @@ Strides to_strides(const long long* s) {
 
 extern "C" {
 
-// dtype: 0 = fp32 (the FMA bodies), 1 = bf16 (the wgmma bodies, whose TMA
-// copies need 16-byte aligned data and (batch, seq, head) strides in
-// multiples of 8 elements). strides: 12 values in elements, the
-// (batch, seq, head) strides of q, k, v and dO in that order; the head
-// dimension is contiguous. lse, dlse (may be null: zero) and rt are
-// (B, S, H) fp32 contiguous: edl_flash_bwd_dq writes rt, which
-// edl_flash_bwd_dkdv then reads. The gradients are (B, S, H, D)
+// dtype: 0 = fp32 (the FMA bodies), 1 = bf16 and 2 = fp16 (the wgmma
+// bodies, whose TMA copies need 16-byte aligned data and (batch, seq,
+// head) strides in multiples of 8 elements). strides: 12 values in
+// elements, the (batch, seq, head) strides of q, k, v and dO in that
+// order; the head dimension is contiguous. lse, dlse (may be null: zero)
+// and rt are (B, S, H) fp32 contiguous: edl_flash_bwd_dq writes rt, which
+// edl_flash_bwd_dkdv then reads. head_max, (B, H, 2) fp32, is used by the
+// fp16 bodies only (null otherwise): zeroed by the caller, raised by
+// edl_flash_bwd_dq to each head's largest |dO_i|^2 and |rt_i|, read by
+// edl_flash_bwd_dkdv (see ds_row_exp). The gradients are (B, S, H, D)
 // contiguous in the input dtype. Each returns a cudaError_t (0 =
 // launched), or TENSOR_MAP_FAILED plus the CUresult when a
 // tensor map cannot be made.
 int edl_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* rt,
-                       void* dk, void* dv, int B, int S, int H, int D,
+                       const float* head_max, void* dk, void* dv, int B, int S,
+                       int H, int D,
                        const long long* strides, float scale, int causal,
                        int dtype, void* stream) {
   const Strides st = to_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 32: return launch_dkdv<32>(q, k, v, dout, lse, rt, dk, dv, B, S, H, st, scale, causal, dtype, s);
-    case 64: return launch_dkdv<64>(q, k, v, dout, lse, rt, dk, dv, B, S, H, st, scale, causal, dtype, s);
-    case 128: return launch_dkdv<128>(q, k, v, dout, lse, rt, dk, dv, B, S, H, st, scale, causal, dtype, s);
+    case 32: return launch_dkdv<32>(q, k, v, dout, lse, rt, head_max, dk, dv, B, S, H, st, scale, causal, dtype, s);
+    case 64: return launch_dkdv<64>(q, k, v, dout, lse, rt, head_max, dk, dv, B, S, H, st, scale, causal, dtype, s);
+    case 128: return launch_dkdv<128>(q, k, v, dout, lse, rt, head_max, dk, dv, B, S, H, st, scale, causal, dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* dlse,
-                     float* rt, void* dq, int B, int S, int H, int D,
+                     float* rt, float* head_max, void* dq, int B, int S,
+                     int H, int D,
                      const long long* strides, float scale, int causal,
                      int dtype, void* stream) {
   const Strides st = to_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype < 0 || dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 32: return launch_dq<32>(q, k, v, dout, lse, dlse, rt, dq, B, S, H, st, scale, causal, dtype, s);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, dlse, rt, dq, B, S, H, st, scale, causal, dtype, s);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, dlse, rt, dq, B, S, H, st, scale, causal, dtype, s);
+    case 32: return launch_dq<32>(q, k, v, dout, lse, dlse, rt, head_max, dq, B, S, H, st, scale, causal, dtype, s);
+    case 64: return launch_dq<64>(q, k, v, dout, lse, dlse, rt, head_max, dq, B, S, H, st, scale, causal, dtype, s);
+    case 128: return launch_dq<128>(q, k, v, dout, lse, dlse, rt, head_max, dq, B, S, H, st, scale, causal, dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel edl_tpu/ops/flash_attention.py::_fwd_kernel
 // (called from _fwd through pl.pallas_call). Same contract: q, k, v are
-// (B, S, H, D) in fp32 or bf16, read in place from their strides (no
+// (B, S, H, D) in fp32, bf16 or fp16, read in place from their strides (no
 // transposed copies); o is written (B, S, H, D) contiguous in the input
 // dtype, and the log-sum-exp lse = m + log(max(l, 1e-30)) in fp32, laid
 // out (B, S, H).
@@ -18,8 +18,11 @@
 // sum in a fixed order: the same inputs give the same bits on every
 // launch.
 //
-// bf16 (flash_fwd_wgmma_kernel) runs on the Hopper tensor cores, with the
-// pieces of hopper.cuh and flash.cuh that K2/K3 (flash_bwd.cu) use:
+// bf16 and fp16 (flash_fwd_wgmma_kernel<T, D>, one body compiled for each
+// element type T: the tensor map's data type, the products' PTX type and
+// the rounding of P and o are T's, all else is shared) run on the Hopper
+// tensor cores, with the pieces of hopper.cuh and flash.cuh that K2/K3
+// (flash_bwd.cu) use:
 // - A persistent grid, one block a SM, each block walking items c,
 //   c + gridDim.x, ... At S = 1024 an item has 4.5 kv tiles on average
 //   under the causal mask, and one block per item exposed each item's
@@ -36,7 +39,7 @@
 //   qkv projection needs no copy; rows past S read as zero.
 // - S = Q K^T is a wgmma with both operands in shared memory, K-major (Q,
 //   the loop-invariant operand, is never held in registers). O += P V
-//   takes P as the register A operand, rounded to bf16 from S's fp32
+//   takes P as the register A operand, rounded to T from S's fp32
 //   accumulator, and V read MN-major; l stays the fp32 sum of the
 //   unrounded p, reduced across a row's 4 threads once, at the end.
 // - Softmax in the log2 domain: t = s * scale * log2(e), p = 2^(t - m) by
@@ -61,9 +64,10 @@
 // tile loads.
 //
 // Bound on an H100 SXM at the serving path's shape (B=8, S=1024, H=16,
-// D=64, causal, bf16): 2 matmuls x 2 flops x B*H*D*S(S+1)/2 = 17.2 GFLOP,
-// 17 us at 989 TFLOP/s (bf16 tensor cores); q, k, v, o = 67 MB, 20 us at
-// 3.35 TB/s. Memory sets the bound, about 20 us a launch. Per 128 x 128
+// D=64, causal, bf16 or fp16): 2 matmuls x 2 flops x B*H*D*S(S+1)/2 =
+// 17.2 GFLOP, 17 us at 989 TFLOP/s (bf16 and fp16 tensor cores alike);
+// q, k, v, o = 67 MB, 20 us at 3.35 TB/s. Memory sets the bound, about
+// 20 us a launch. Per 128 x 128
 // tile at D = 64 the 16,384 exp2 take as many cycles of a SM's 16 MUFU
 // lanes (1,024) as the two products take of its tensor cores at their
 // peak, so the softmax runs under the products.
@@ -265,7 +269,7 @@ int launch_fma(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma fed by a TMA ring
+// bf16 and fp16: wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
 using flash::CONSUMERS;
@@ -392,41 +396,42 @@ __device__ __forceinline__ void tile_softmax(float (&sacc)[N / 2], float& m0,
 
 // K1's S = Q K^T for the kv tile at Kst: warpgroup wg's 64 q rows x BK kv
 // columns, one commit group.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void fwd_scores(float (&sacc)[FwdSmem<D>::BK / 2],
                                            const uint8_t* Qs, const uint8_t* Kst,
                                            int wg) {
   using L = FwdSmem<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    hopper::wgmma_ss<L::BK>(sacc, L::Q::k_desc(Qs, wg * WG_ROWS, kk),
-                            L::KV::k_desc(Kst, 0, kk), kk > 0);
+    hopper::wgmma_ss<L::BK, T>(sacc, L::Q::k_desc(Qs, wg * WG_ROWS, kk),
+                               L::KV::k_desc(Kst, 0, kk), kk > 0);
   hopper::wgmma_commit();
 }
 
 // K1's O += P V for the kv tile whose V is at Vst, kv as the k dimension,
 // one commit group.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void fwd_pv(float (&oacc)[D / 2],
                                        const uint32_t (&pa)[FwdSmem<D>::BK / 16][4],
                                        const uint8_t* Vst) {
   using L = FwdSmem<D>;
 #pragma unroll
   for (int kk = 0; kk < L::BK / 16; ++kk)
-    hopper::wgmma_rs<D>(oacc, pa[kk], L::KV::mn_desc(Vst, kk), 1);
+    hopper::wgmma_rs<D, T>(oacc, pa[kk], L::KV::mn_desc(Vst, kk), 1);
   hopper::wgmma_commit();
 }
 
-// K1, bf16: a persistent grid; block c takes work items c, c + gridDim.x,
-// ... (FwdTile). The producer streams each item's Q and K/V tiles through
-// one ring, so the next item's copies run while the consumers finish this
-// one; a consumer warp frees Q once its last S product is done.
-template <int D>
+// K1, bf16 or fp16 (T): a persistent grid; block c takes work items c,
+// c + gridDim.x, ... (FwdTile). The producer streams each item's Q and
+// K/V tiles through one ring, so the next item's copies run while the
+// consumers finish this one; a consumer warp frees Q once its last S
+// product is done.
+template <typename T, int D>
 __global__ void __launch_bounds__(flash::TC_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       T* __restrict__ o, float* __restrict__ lse,
                        int B, int S, int H, float scale, int causal) {
   using L = FwdSmem<D>;
   constexpr int BK = L::BK, STAGES = L::STAGES;
@@ -505,14 +510,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::mbar_wait(&full[s], (it / STAGES) & 1);
     hopper::fence_regs(sacc);
     hopper::wgmma_fence();
-    fwd_scores<D>(sacc, Qs, smem + L::RING + s * L::STAGE, wg);
+    fwd_scores<T, D>(sacc, Qs, smem + L::RING + s * L::STAGE, wg);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sacc);
     if (w.n_kv == 1) flash::release(q_empty, lane);
     tile_softmax<BK>(sacc, m0, m1, l0, l1, corr0, corr1, c2, 0, qw, row0, S,
                      causal);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) flash::acc_to_a(pa[kk], sacc, kk);
+    for (int kk = 0; kk < BK / 16; ++kk) flash::acc_to_a<T>(pa[kk], sacc, kk);
 
     int prev = s;      // the stage whose V the pending O += P V reads
     ++it;
@@ -525,8 +530,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::fence_regs(sacc);
       hopper::fence_regs(oacc);
       hopper::wgmma_fence();
-      fwd_scores<D>(sacc, Qs, st, wg);
-      fwd_pv<D>(oacc, pa, smem + L::RING + prev * L::STAGE + L::KV::BYTES);
+      fwd_scores<T, D>(sacc, Qs, st, wg);
+      fwd_pv<T, D>(oacc, pa, smem + L::RING + prev * L::STAGE + L::KV::BYTES);
       hopper::wgmma_wait<1>();
       hopper::fence_regs(sacc);
       if (kv == w.n_kv - 1) flash::release(q_empty, lane);
@@ -543,13 +548,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         oacc[4 * i + 3] *= corr1;
       }
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) flash::acc_to_a(pa[kk], sacc, kk);
+      for (int kk = 0; kk < BK / 16; ++kk) flash::acc_to_a<T>(pa[kk], sacc, kk);
       prev = s;
     }
     // the last tile's O += P V
     hopper::fence_regs(oacc);
     hopper::wgmma_fence();
-    fwd_pv<D>(oacc, pa, smem + L::RING + prev * L::STAGE + L::KV::BYTES);
+    fwd_pv<T, D>(oacc, pa, smem + L::RING + prev * L::STAGE + L::KV::BYTES);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(oacc);
     flash::release(&empty[prev], lane);
@@ -573,11 +578,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     // the warpgroup's last item is done with the staging tile
     flash::named_sync(2 + wg, WG_THREADS);
-    flash::store_wg<D>(o, stage, oacc, w.b, S, H, w.h, qw, 2 + wg);
+    flash::store_wg<T, D>(o, stage, oacc, w.b, S, H, w.h, qw, 2 + wg);
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  void* lse, int B, int S, int H, const long long* st,
                  float scale, int causal, cudaStream_t stream) {
@@ -585,8 +590,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   CUtensorMap m[3];
   const void* ptr[3] = {q, k, v};
   const int rows[3] = {TILE_ROWS, L::BK, L::BK};
-  if (int err = flash::make_maps<D>(m, 3, ptr, st, rows, B, S, H)) return err;
-  if (int err = flash::set_smem(flash_fwd_wgmma_kernel<D>, L::BYTES)) return err;
+  if (int err = flash::make_maps<T, D>(m, 3, ptr, st, rows, B, S, H)) return err;
+  if (int err = flash::set_smem(flash_fwd_wgmma_kernel<T, D>, L::BYTES))
+    return err;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -594,10 +600,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long items = (long long)B * H * ((S + TILE_ROWS - 1) / TILE_ROWS);
   const long long grid = items < sms ? items : sms;    // one block a SM
-  flash_fwd_wgmma_kernel<D><<<static_cast<unsigned>(grid), flash::TC_THREADS,
-                              L::BYTES, stream>>>(
-      m[0], m[1], m[2], static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      B, S, H, scale, causal);
+  flash_fwd_wgmma_kernel<T, D><<<static_cast<unsigned>(grid),
+                                 flash::TC_THREADS, L::BYTES, stream>>>(
+      m[0], m[1], m[2], static_cast<T*>(o), static_cast<float*>(lse), B, S, H,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -612,13 +618,14 @@ int dispatch_fma(const void* q, const void* k, const void* v, void* o, void* lse
   }
 }
 
+template <typename T>
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int S, int H, int D, const long long* st,
                    float scale, int causal, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch_wgmma<32>(q, k, v, o, lse, B, S, H, st, scale, causal, stream);
-    case 64: return launch_wgmma<64>(q, k, v, o, lse, B, S, H, st, scale, causal, stream);
-    case 128: return launch_wgmma<128>(q, k, v, o, lse, B, S, H, st, scale, causal, stream);
+    case 32: return launch_wgmma<T, 32>(q, k, v, o, lse, B, S, H, st, scale, causal, stream);
+    case 64: return launch_wgmma<T, 64>(q, k, v, o, lse, B, S, H, st, scale, causal, stream);
+    case 128: return launch_wgmma<T, 128>(q, k, v, o, lse, B, S, H, st, scale, causal, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -627,9 +634,9 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = fp32 (the FMA body), 1 = bf16 (the wgmma body, whose TMA
-// copies need 16-byte aligned data and (batch, seq, head) strides in
-// multiples of 8 elements). Strides are in elements, (batch, seq, head)
+// dtype: 0 = fp32 (the FMA body), 1 = bf16 and 2 = fp16 (the wgmma body,
+// whose TMA copies need 16-byte aligned data and (batch, seq, head)
+// strides in multiples of 8 elements). Strides are in elements, (batch, seq, head)
 // for each of q, k, v; the head dimension is contiguous. Returns a
 // cudaError_t (0 = launched), or TENSOR_MAP_FAILED plus the CUresult
 // when a tensor map cannot be made.
@@ -644,7 +651,11 @@ int edl_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0)
     return dispatch_fma(q, k, v, o, lse, B, S, H, D, st, scale, causal, s);
   if (dtype == 1)
-    return dispatch_wgmma(q, k, v, o, lse, B, S, H, D, st, scale, causal, s);
+    return dispatch_wgmma<__nv_bfloat16>(q, k, v, o, lse, B, S, H, D, st, scale,
+                                         causal, s);
+  if (dtype == 2)
+    return dispatch_wgmma<__half>(q, k, v, o, lse, B, S, H, D, st, scale, causal,
+                                  s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

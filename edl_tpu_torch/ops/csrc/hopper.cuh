@@ -17,7 +17,8 @@
 // - setmaxnreg: a warpgroup that only issues copies hands registers to
 //   the warpgroups that compute.
 // - wgmma: a warpgroup (four consecutive warps, 128 threads) issues an
-//   asynchronous 64 x N x 16 product with fp32 accumulators in registers.
+//   asynchronous 64 x N x 16 product of bf16 or fp16 operands (Elem) with
+//   fp32 accumulators in registers.
 //   B comes from shared memory through a descriptor, A from shared memory
 //   (wgmma_ss) or from registers (wgmma_rs). The accumulator of an
 //   m64nN product is, per warp w, rows 16w + lane/4 (+8) and columns
@@ -30,10 +31,48 @@
 
 #include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
+
+// The 16-bit element types the wgmma bodies take: bf16 and fp16 are read
+// by the tensor cores at the same rate and laid out alike (2 bytes, the
+// same swizzles and descriptors); they differ in the tensor map's data
+// type, the PTX type of the products and the conversion from fp32.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr bool F16 = false;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // two fp32 values rounded to nearest, lo in the low half
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  // two packed values as fp32, the low half first
+  static __device__ __forceinline__ float2 unpack(uint32_t w) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+  }
+};
+
+template <>
+struct Elem<__half> {
+  static constexpr bool F16 = true;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  // two fp32 values rounded to nearest (past 65504: inf), lo in the low half
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t w) {
+    return __half22float2(*reinterpret_cast<__half2*>(&w));
+  }
+};
 
 // ---------------------------------------------------------------------------
 // host: tensor maps
@@ -59,16 +98,18 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A map over a bf16 (B, S, H, D) view with the given (batch, seq, head)
-// strides in elements (the head dim contiguous), read in boxes of
-// box_rows sequence rows x box_cols head-dim columns of one (batch, head).
+// A map over a 16-bit (B, S, H, D) view of data type `type` (Elem::MAP)
+// with the given (batch, seq, head) strides in elements (the head dim
+// contiguous), read in boxes of box_rows sequence rows x box_cols
+// head-dim columns of one (batch, head).
 // Its dims, innermost first, are (D, H, S, B): a box's coordinates are
 // (column, head, row, batch). box_cols x 2 bytes is the swizzle span:
 // 128 (64 columns) or 64 (32 columns), the layouts desc_k/desc_mn read.
 // Rows past S read as zero. Returns the CUresult of the encoding.
-inline int encode_bshd_bf16(CUtensorMap* map, const void* ptr, int B, int S,
-                            int H, int D, long long sb, long long ss,
-                            long long sh, int box_rows, int box_cols) {
+inline int encode_bshd(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* ptr, int B, int S, int H, int D,
+                       long long sb, long long ss, long long sh, int box_rows,
+                       int box_cols) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S),
@@ -78,8 +119,8 @@ inline int encode_bshd_bf16(CUtensorMap* map, const void* ptr, int B, int S,
   const cuuint32_t box[4] = {cuuint32_t(box_cols), 1, cuuint32_t(box_rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
       box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
@@ -173,7 +214,7 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // device: wgmma
 // ---------------------------------------------------------------------------
 
-// The descriptor of a bf16 operand in shared memory, as TMA left it: rows
+// The descriptor of a 16-bit operand in shared memory, as TMA left it: rows
 // of ROW_BYTES (128: a 128-byte swizzle, 64: a 64-byte one), each group of
 // 8 rows one swizzle atom of 8 x ROW_BYTES bytes. Bits: start address
 // >> 4 at 0, leading offset >> 4 at 16, stride offset >> 4 at 32, the
@@ -233,172 +274,121 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// d (64 x N fp32) = a * b (+ d if accumulate): bf16 A (64 x 16) and B
-// (N x 16) both K-major in shared memory.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int accumulate);
+// The wgmma forms below, one asm statement each, for the element type
+// string TY ("bf16" or "f16") of A and B; the operand lists are the
+// accumulator's registers d[0..N/2), then the descriptors or A registers.
+#define HOPPER_ACC16                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define HOPPER_ACC32                                                        \
+  HOPPER_ACC16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+      "+f"(d[30]), "+f"(d[31])
+#define HOPPER_ACC64                                                        \
+  HOPPER_ACC32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define HOPPER_REGS16                                                       \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HOPPER_REGS32                                                       \
+  HOPPER_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, "                \
+                "%24, %25, %26, %27, %28, %29, %30, %31"
+#define HOPPER_REGS64                                                       \
+  HOPPER_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, "                \
+                "%40, %41, %42, %43, %44, %45, %46, %47, "                  \
+                "%48, %49, %50, %51, %52, %53, %54, %55, "                  \
+                "%56, %57, %58, %59, %60, %61, %62, %63"
+// both operands from shared memory: descriptors %R, %R+1, accumulate %R+2
+#define HOPPER_WGMMA_SS(N, TY, REGS, ACC, R, R1, R2)                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" R2 ", 0;\n"             \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY  \
+               " {" REGS "}, %" R ", %" R1 ", p, 1, 1, 0, 0;\n}\n"          \
+               : ACC                                                        \
+               : "l"(a), "l"(b), "r"(accumulate))
+// A from registers %R..%R+3, B's descriptor %R+4, accumulate %R+5
+#define HOPPER_WGMMA_RS(N, TY, REGS, ACC, R, R1, R2, R3, R4, R5)            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" R5 ", 0;\n"             \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY  \
+               " {" REGS "}, {%" R ", %" R1 ", %" R2 ", %" R3 "}, %" R4     \
+               ", p, 1, 1, 1;\n}\n"                                         \
+               : ACC                                                        \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),        \
+                 "r"(accumulate))
 
-// d (64 x N fp32) = a * b (+ d if accumulate): bf16 A (64 x 16) from
-// registers in the accumulator layout, B (16 x N) MN-major in shared
-// memory. The A registers must keep their values until the wait that
-// covers the product. ptxas has been seen to give a register to another
-// value while a wgmma in flight would still read it (an A operand loaded
-// once before a loop, overwritten inside it); chip_smoke.py's build phase
-// reads the SASS for such writes.
-template <int N>
+// d (64 x N fp32) = a * b (+ d if accumulate): A (64 x 16) and B (N x 16)
+// of element type T (Elem), both K-major in shared memory.
+template <int N, typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 32) {
+    if constexpr (Elem<T>::F16)
+      HOPPER_WGMMA_SS(32, "f16", HOPPER_REGS16, HOPPER_ACC16, "16", "17", "18");
+    else
+      HOPPER_WGMMA_SS(32, "bf16", HOPPER_REGS16, HOPPER_ACC16, "16", "17", "18");
+  } else if constexpr (N == 64) {
+    if constexpr (Elem<T>::F16)
+      HOPPER_WGMMA_SS(64, "f16", HOPPER_REGS32, HOPPER_ACC32, "32", "33", "34");
+    else
+      HOPPER_WGMMA_SS(64, "bf16", HOPPER_REGS32, HOPPER_ACC32, "32", "33", "34");
+  } else {
+    if constexpr (Elem<T>::F16)
+      HOPPER_WGMMA_SS(128, "f16", HOPPER_REGS64, HOPPER_ACC64, "64", "65", "66");
+    else
+      HOPPER_WGMMA_SS(128, "bf16", HOPPER_REGS64, HOPPER_ACC64, "64", "65", "66");
+  }
+}
+
+// d (64 x N fp32) = a * b (+ d if accumulate): A (64 x 16) of element type
+// T from registers in the accumulator layout (Elem<T>::pack of two fp32
+// values a register), B (16 x N) MN-major in shared memory. The A
+// registers must keep their values until the wait that covers the
+// product. ptxas has been seen to give a register to another value while
+// a wgmma in flight would still read it (an A operand loaded once before
+// a loop, overwritten inside it); chip_smoke.py's build phase reads the
+// SASS for such writes.
+template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
-                                         int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15 "
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
+                                         int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 32) {
+    if constexpr (Elem<T>::F16)
+      HOPPER_WGMMA_RS(32, "f16", HOPPER_REGS16, HOPPER_ACC16, "16", "17", "18",
+                      "19", "20", "21");
+    else
+      HOPPER_WGMMA_RS(32, "bf16", HOPPER_REGS16, HOPPER_ACC16, "16", "17",
+                      "18", "19", "20", "21");
+  } else if constexpr (N == 64) {
+    if constexpr (Elem<T>::F16)
+      HOPPER_WGMMA_RS(64, "f16", HOPPER_REGS32, HOPPER_ACC32, "32", "33", "34",
+                      "35", "36", "37");
+    else
+      HOPPER_WGMMA_RS(64, "bf16", HOPPER_REGS32, HOPPER_ACC32, "32", "33",
+                      "34", "35", "36", "37");
+  } else {
+    if constexpr (Elem<T>::F16)
+      HOPPER_WGMMA_RS(128, "f16", HOPPER_REGS64, HOPPER_ACC64, "64", "65",
+                      "66", "67", "68", "69");
+    else
+      HOPPER_WGMMA_RS(128, "bf16", HOPPER_REGS64, HOPPER_ACC64, "64", "65",
+                      "66", "67", "68", "69");
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15 "
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
+#undef HOPPER_WGMMA_RS
+#undef HOPPER_WGMMA_SS
+#undef HOPPER_REGS64
+#undef HOPPER_REGS32
+#undef HOPPER_REGS16
+#undef HOPPER_ACC64
+#undef HOPPER_ACC32
+#undef HOPPER_ACC16
 
 }  // namespace hopper

@@ -2,7 +2,7 @@
 their plain PyTorch versions (port of ``edl_tpu.ops.flash_attention``).
 
 Public API and layout contract are the JAX package's: q, k, v (B, S, H, D)
-in, o (B, S, H, D) out in q's dtype, lse (B, S, H) fp32;
+in fp32, bf16 or fp16, o (B, S, H, D) out in q's dtype, lse (B, S, H) fp32;
 ``flash_attention_lse`` returns both, ``flash_attention`` only o. One
 ``torch.autograd.Function`` serves both and takes both cotangents, dO and
 dlse, as the JAX package's custom_vjp does. Sequences must fit
@@ -31,7 +31,9 @@ from edl_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' dtype argument: the fp32 FMA bodies, or the wgmma bodies
+# compiled for bf16 and for fp16
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _fwd_blockwise(q, k, v, *, blk: int, scale: float, causal: bool):
@@ -128,11 +130,11 @@ _ARGTYPES = {
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                              ctypes.c_void_p])},
     "flash_bwd": {
-        "edl_flash_bwd_dkdv": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        "edl_flash_bwd_dkdv": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                                + [ctypes.c_void_p, ctypes.c_float,
                                   ctypes.c_int, ctypes.c_int,
                                   ctypes.c_void_p]),
-        "edl_flash_bwd_dq": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        "edl_flash_bwd_dq": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                              + [ctypes.c_void_p, ctypes.c_float,
                                 ctypes.c_int, ctypes.c_int,
                                 ctypes.c_void_p])},
@@ -151,14 +153,16 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def _check_kernel_inputs(kernel: str, *ts: torch.Tensor) -> None:
-    """What the kernels take: fp32 or bf16 alike, one device, head dims
-    32/64/128 with the head dim contiguous, at most 65535 batch*heads,
-    and for bf16 (the wgmma bodies, fed by TMA) 16-byte aligned data and
-    (batch, seq, head) strides in multiples of 8 elements."""
+    """What the kernels take: fp32, bf16 or fp16 alike, one device, head
+    dims 32/64/128 with the head dim contiguous, at most 65535
+    batch*heads, and for bf16 and fp16 (the wgmma bodies, fed by TMA)
+    16-byte aligned data and (batch, seq, head) strides in multiples of 8
+    elements."""
     q = ts[0]
     b, s, h, d = q.shape
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{kernel} takes fp32 or bf16, got {q.dtype}")
+        raise TypeError(f"{kernel} takes fp32 or bf16 or fp16, got "
+                        f"{q.dtype}")
     if any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"{kernel}: dtype mismatch: "
                         + " ".join(str(t.dtype) for t in ts))
@@ -172,8 +176,8 @@ def _check_kernel_inputs(kernel: str, *ts: torch.Tensor) -> None:
                          "(stride 1)")
     if b * h > 65535:
         raise ValueError(f"batch*heads {b * h} exceeds the grid limit 65535")
-    if q.dtype == torch.bfloat16 and any(_misaligned(t) for t in ts):
-        raise ValueError(f"the bf16 {kernel} reads 16-byte rows: it needs "
+    if q.dtype != torch.float32 and any(_misaligned(t) for t in ts):
+        raise ValueError(f"the 16-bit {kernel} reads 16-byte rows: it needs "
                          "16-byte aligned data and (batch, seq, head) "
                          "strides in multiples of 8 elements")
 
@@ -192,8 +196,9 @@ def _fwd_cuda(q, k, v, *, scale: float, causal: bool):
     """Launch the forward kernel (K1). Returns (o, lse) as
     `_fwd_blockwise`.
 
-    bf16 runs the wgmma body fed by TMA copies, fp32 the FMA body (fp32
-    stays off the tensor cores: TF32 would break the 2e-5 fp32 bound)."""
+    bf16 and fp16 run the wgmma body (compiled for each) fed by TMA
+    copies, fp32 the FMA body (fp32 stays off the tensor cores: TF32
+    would break the 2e-5 fp32 bound)."""
     b, s, h, d = q.shape
     _check_kernel_inputs("flash_fwd", q, k, v)
     lib = _library("flash_fwd")
@@ -222,12 +227,18 @@ def _bwd_args(q, k, v, do, *rows):
 
 def flash_bwd_dq(q, k, v, do, lse, dlse=None, *, scale: float,
                  causal: bool):
-    """Launch K3: (dq, rt). dq is (B, S, H, D) contiguous in q's dtype;
-    rt = sum_k p dP - dlse is the (B, S, H) fp32 row term K2 takes. lse
-    and dlse (None: zero) are (B, S, H) fp32 contiguous."""
+    """Launch K3: (dq, rt, head_max). dq is (B, S, H, D) contiguous in
+    q's dtype; rt = sum_k p dP - dlse is the (B, S, H) fp32 row term K2
+    takes. For fp16, head_max (B, H, 2) fp32 holds each head's largest
+    |dO_i|^2 and |rt_i|, from which K2 bounds its dS rows (see
+    ``csrc/flash_bwd.cu``, ds_row_exp); None otherwise. lse and dlse
+    (None: zero) are (B, S, H) fp32 contiguous."""
     rt = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ptrs, dims, strides = _bwd_args(q, k, v, do, lse, dlse, rt)
+    head_max = (torch.zeros((q.shape[0], q.shape[2], 2), dtype=torch.float32,
+                            device=q.device)
+                if q.dtype == torch.float16 else None)
+    ptrs, dims, strides = _bwd_args(q, k, v, do, lse, dlse, rt, head_max)
     lib = _library("flash_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -236,13 +247,18 @@ def flash_bwd_dq(q, k, v, do, lse, dlse=None, *, scale: float,
             _DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, "flash_bwd_dq", err)
     flash_bwd_dq.launches += 1
-    return dq, rt
+    return dq, rt, head_max
 
 
-def flash_bwd_dkdv(q, k, v, do, lse, rt, *, scale: float, causal: bool):
+def flash_bwd_dkdv(q, k, v, do, lse, rt, head_max=None, *, scale: float,
+                   causal: bool):
     """Launch K2: (dk, dv), (B, S, H, D) contiguous in k's and v's
-    dtypes, from the row term rt that K3 wrote."""
-    ptrs, dims, strides = _bwd_args(q, k, v, do, lse, rt)
+    dtypes, from the row term rt (and, for fp16, the head maxima) that K3
+    wrote."""
+    if q.dtype == torch.float16 and head_max is None:
+        raise ValueError("the fp16 flash_bwd_dkdv takes the head_max that "
+                         "flash_bwd_dq returned")
+    ptrs, dims, strides = _bwd_args(q, k, v, do, lse, rt, head_max)
     lib = _library("flash_bwd")
     dk = torch.empty(q.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=v.dtype, device=q.device)
@@ -264,16 +280,16 @@ def _bwd_cuda(q, k, v, lse, do, *, scale: float, causal: bool,
               dlse=None):
     """The backward on the card: K3 (dq and the row term), then K2.
     Returns (dq, dk, dv) as `_bwd_blockwise`."""
-    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+    if do.stride(-1) != 1 or (do.dtype != torch.float32
                               and _misaligned(do)):
         do = do.contiguous()
     _check_kernel_inputs("flash_bwd", q, k, v, do)
     lse = lse.float().contiguous()
     if dlse is not None:
         dlse = dlse.float().contiguous()
-    dq, rt = flash_bwd_dq(q, k, v, do, lse, dlse, scale=scale,
-                          causal=causal)
-    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, rt, scale=scale,
+    dq, rt, head_max = flash_bwd_dq(q, k, v, do, lse, dlse, scale=scale,
+                                    causal=causal)
+    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, rt, head_max, scale=scale,
                             causal=causal)
     return dq, dk, dv
 

@@ -34,6 +34,11 @@ The step count and the schedule live on the host: lr, c1 = 1 - b1^t and
 c2 = 1 - b2^t are fp32 values computed there (c1/c2 in fp32, as the
 JAX package computes them) and passed to the kernel by value, so a step
 reads nothing back from the card.
+
+``python -m edl_tpu_torch.train.fused_opt smoke [--quant int8|fp8]
+[--device cpu]`` runs the gate (``update_parity_gate``) and the
+quantized-moment convergence smoke (``convergence_smoke``) and exits 0
+only when both pass.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import Callable, NamedTuple, Sequence, Union
 import numpy as np
 import torch
 
+from edl_tpu_torch import resolve_device
 from edl_tpu_torch.ops import opt_kernels as ok
 from edl_tpu_torch.train import comm as comm_lib
 
@@ -239,12 +245,17 @@ def make_fused_tx(optimizer: str, learning_rate: ScheduleOrFloat,
     return factory(learning_rate, quant=quant, **kw)
 
 
-def opt_state_bytes(opt_state: FusedOptState) -> int:
+def opt_state_bytes(opt_state) -> int:
     """Resident optimizer-state bytes: the moment buffers, or every tensor
-    of their QPlanes (the parameter buffers are the model's own weights).
-    The quantized modes must cut it >= 1.8x."""
-    return sum(t.numel() * t.element_size()
-               for t in _moment_tensors(opt_state))
+    of their QPlanes (the parameter buffers are the model's own weights);
+    for an unfused ``torch.optim`` optimizer, every tensor of its state
+    (made at its first step). The quantized modes must cut it >= 1.8x."""
+    if isinstance(opt_state, torch.optim.Optimizer):
+        tensors = [t for st in opt_state.state.values() for t in st.values()
+                   if isinstance(t, torch.Tensor)]
+    else:
+        tensors = _moment_tensors(opt_state)
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _moment_tensors(state: FusedOptState) -> list[torch.Tensor]:
@@ -340,3 +351,119 @@ def update_parity_gate(seed: int = 0, steps: int = 3, lr: float = 0.1,
     report["ok"] = all(v for k, v in report.items()
                        if k.endswith("_bitwise"))
     return report
+
+
+# -- convergence-parity smoke (the gate for quantized moments) ---------------
+
+
+def convergence_smoke(quant: str = "int8", steps: int = 40,
+                      envelope: float = 0.25, weights: dict | None = None,
+                      device: str | torch.device = "cuda") -> dict:
+    """Quantized-moment convergence against the dense optimizer, the JAX
+    package's smoke on one device: momentum-SGD trains the BatchNorm CNN
+    (``comm._smoke_cnn``: dense ``state.sgd(0.05, 0.9)`` against
+    ``fused_sgd(0.05, 0.9, quant=...)``, K6 on a card), Adam trains the
+    Markov transformer (``comm._smoke_transformer``: ``state.adamw(1e-2)``
+    against ``fused_adam(1e-2, quant=...)``, K7), each pair from the same
+    init. Both runs must learn, the quantized run must keep at least
+    ``1 - envelope`` of the dense run's loss improvement (a relative
+    envelope: one bound across models whose losses differ 40x), and its
+    optimizer state must be >= 1.8x smaller. ``weights`` ({"cnn_sgdm":
+    state_dict, "transformer_adam": state_dict}) replaces the port's
+    seeded init, e.g. with the JAX package's bridged one. The models and
+    batches live on ``device`` (CUDA unless the caller asks for the CPU;
+    raises where CUDA is asked for and absent)."""
+    from edl_tpu_torch.train import state as state_lib
+    from edl_tpu_torch.train.step import make_train_step
+
+    dev = resolve_device(device)
+    world = 1
+    report: dict = {"quant": quant, "steps": steps, "envelope": envelope,
+                    "world": world}
+
+    def run(name, loss_fn, state_fn, quant_tx, batch):
+        if weights is not None:
+            state_fn = comm_lib._loaded(state_fn, weights[name])
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        step = make_train_step(loss_fn)
+        s_a = state_fn()
+        fresh = state_fn()
+        s_b = state_lib.TrainState.create(model=fresh.model, tx=quant_tx,
+                                          params=fresh.params)
+        first = last_a = last_b = None
+        for _ in range(steps):
+            s_a, m_a = step(s_a, batch)
+            s_b, m_b = step(s_b, batch)
+            if first is None:
+                first = float(m_a["loss"])
+            last_a, last_b = float(m_a["loss"]), float(m_b["loss"])
+        delta = abs(last_a - last_b)
+        improvement = max(first - last_a, 1e-9)
+        report[name] = {
+            "loss_initial": round(first, 4),
+            "loss_dense": round(last_a, 4),
+            "loss_quant": round(last_b, 4),
+            "delta_rel": round(delta / improvement, 5),
+            "opt_bytes_dense": opt_state_bytes(s_a.opt_state),
+            "opt_bytes_quant": opt_state_bytes(s_b.opt_state),
+            "learned": last_a < first and last_b < first,
+            "within_envelope": delta <= envelope * improvement}
+
+    loss_fn, state_fn, batch = comm_lib._smoke_cnn(world, dev)
+    run("cnn_sgdm", loss_fn, state_fn,
+        fused_sgd(0.05, 0.9, quant=quant, bucket_mb=0.05), batch)
+
+    loss_fn, tr_state_fn, batch = comm_lib._smoke_transformer(world, dev)
+    lr = 1e-2
+
+    def adam_state_fn():
+        state = tr_state_fn()
+        return state_lib.TrainState.create(
+            model=state.model, tx=state_lib.adamw(lr), params=state.params)
+
+    run("transformer_adam", loss_fn, adam_state_fn,
+        fused_adam(lr, quant=quant, bucket_mb=0.05), batch)
+
+    report["ok"] = all(
+        report[k]["learned"] and report[k]["within_envelope"]
+        and report[k]["opt_bytes_dense"]
+        >= 1.8 * report[k]["opt_bytes_quant"]
+        for k in ("cnn_sgdm", "transformer_adam"))
+    return report
+
+
+def _main(argv=None) -> int:
+    import argparse
+    import json
+
+    parser = argparse.ArgumentParser(prog="edl_tpu_torch.train.fused_opt")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    smoke = sub.add_parser(
+        "smoke", help="fused-optimizer gate: kernel equivalence (K4-K7 "
+                      "against their plain versions, bit for bit) + "
+                      "quantized-moment convergence parity against the "
+                      "dense optimizer")
+    smoke.add_argument("--quant", choices=("int8", "fp8"),
+                       default="int8")
+    smoke.add_argument("--steps", type=int, default=40)
+    smoke.add_argument("--envelope", type=float, default=0.25,
+                       help="RELATIVE loss envelope: the quantized run "
+                            "must keep >= 1-envelope of dense's loss "
+                            "improvement")
+    smoke.add_argument("--device", default="cuda",
+                       help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+    gate = update_parity_gate(device=device)
+    conv = convergence_smoke(quant=args.quant, steps=args.steps,
+                             envelope=args.envelope, device=device)
+    report = {"kernel_gate": gate, "convergence": conv,
+              "ok": gate["ok"] and conv["ok"]}
+    print(json.dumps({"fused_opt_smoke": report}))
+    return 0 if report["ok"] else 1
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(_main())

@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 _SPEC = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
@@ -343,3 +344,160 @@ def test_version_at_reads_meta(tmp_path):
     (tmp_path / ".tmp-ckpt-x").mkdir()
     assert cs.version_at(str(tmp_path), 15) == 3
     assert cs.version_at(str(tmp_path), 5) is None
+
+
+# -- the fp16 bodies ---------------------------------------------------------
+
+K1_F16 = ("_ZN45_GLOBAL__N__418534f1_12_flash_fwd_cu_71b00afc22flash_fwd_"
+          "wgmma_kernelI6__halfLi128EEEv14CUtensorMap_stS2_S2_PT_Pfiiifi")
+K1_BF16 = ("_ZN45_GLOBAL__N__418534f1_12_flash_fwd_cu_71b00afc22flash_fwd_"
+           "wgmma_kernelI13__nv_bfloat16Li64EEEv14CUtensorMap_stS2_S2_PT_"
+           "Pfiiifi")
+K2_F16 = ("_ZN45_GLOBAL__N__da1476e7_12_flash_bwd_cu_a119745d17dkdv_wgmma_"
+          "kernelI6__halfLi64EEEv14CUtensorMap_stS2_S2_S2_PKfS4_PT_S6_iifi")
+
+
+@pytest.mark.parametrize("mangled,name", [
+    (K1_F16, "flash_fwd_wgmma_kernel<__half,128>"),
+    (K1_BF16, "flash_fwd_wgmma_kernel<__nv_bfloat16,64>"),
+    (K2_F16, "dkdv_wgmma_kernel<__half,64>"),
+    # a truncated argument list keeps the plain name
+    ("_ZN1a6kernelI", "kernel"),
+    ("_ZN1a6kernelI6__hal", "kernel"),
+])
+def test_kernel_name_of_a_type_template(mangled, name):
+    assert cs.kernel_name(mangled) == name
+
+
+# A wgmma loop of each body: the tile's product, its wait, the pack of
+# the next A operand (fp16 or bf16) and its product, a TMA load.
+def _body(pack="F2FP.F16.F32.PACK_AB"):
+    return ["UTMALDG.4D [UR8], [UR14]",
+            "HGMMA.64x64x16.F32 R56, gdesc[UR16], RZ, !UPT, gsb0",
+            "WARPGROUP.DEPBAR.LE gsb0, 0x0",
+            f"{pack} R8, R57, R56",
+            "HGMMA.64x64x16.F32 R88, R8, gdesc[UR8].tnspB, R88, gsb0",
+            "WARPGROUP.DEPBAR.LE gsb0, 0x0",
+            "EXIT"]
+
+
+def _ptxas(*mangled, spill=0):
+    return "\n".join(
+        line for m in mangled for line in (
+            f"ptxas info    : Compiling entry function '{m}' for 'sm_90a'",
+            f"    0 bytes stack frame, {spill} bytes spill stores, 0 bytes "
+            "spill loads", "ptxas info    : Used 168 registers"))
+
+
+class _FakeBuild:
+    def __init__(self, tmp_path):
+        self.tmp = tmp_path
+
+    def nvcc(self):
+        return str(self.tmp / "nvcc")
+
+    def library_path(self, name):
+        return self.tmp / f"lib{name}.so"
+
+
+def _flash_build(monkeypatch, tmp_path, functions: dict, spill=0):
+    """flash_build on canned SASS: each library of FLASH_LIBS holds
+    ``functions`` ({mangled: body})."""
+    sass = "\n".join(_sass(body, m) for m, body in functions.items())
+    monkeypatch.setattr(cs.subprocess, "run", lambda *a, **kw:
+                        type("Out", (), {"stdout": sass})())
+    logs = {lib: _ptxas(*functions, spill=spill) for lib in cs.FLASH_LIBS}
+    return cs.flash_build(_FakeBuild(tmp_path), logs)
+
+
+def test_flash_build_passes_with_both_types(monkeypatch, tmp_path, capsys):
+    reports = _flash_build(monkeypatch, tmp_path, {
+        K1_F16: _body(), K1_BF16: _body("F2FP.BF16.F32.PACK_AB")})
+    for lib in cs.FLASH_LIBS:
+        assert reports[lib]["ok"]
+        assert reports[lib]["types"] == ["__half", "__nv_bfloat16"]
+        k = reports[lib]["kernels"]["flash_fwd_wgmma_kernel<__half,128>"]
+        assert k["HGMMA"] == 2 and k["UTMALDG"] == 1
+        assert k["a_operand_hazards"] == [] and k["spill_bytes"] == 0
+
+
+@pytest.mark.parametrize("case", ["bf16_only", "fp16_hazard", "fp16_spill",
+                                  "fp16_no_tma"])
+def test_flash_build_fails_without_a_sound_fp16_body(monkeypatch, tmp_path,
+                                                     capsys, case):
+    """No fp16 instantiation, or an fp16 body that writes its wgmma's A
+    operand while the product runs, spills, or holds no TMA load: the
+    build phase fails, as it does for a bf16 body."""
+    body = _body()
+    if case == "fp16_hazard":      # R9 written while the product reads it
+        body.insert(5, "IADD3 R9, R2, 0x1, RZ")
+    if case == "fp16_no_tma":
+        body = body[1:]
+    functions = ({K1_BF16: _body("F2FP.BF16.F32.PACK_AB")}
+                 if case == "bf16_only"
+                 else {K1_F16: body, K1_BF16: _body("F2FP.BF16.F32.PACK_AB")})
+    with pytest.raises(SystemExit):
+        _flash_build(monkeypatch, tmp_path, functions,
+                     spill=8 if case == "fp16_spill" else 0)
+    assert "16-bit flash bodies" in capsys.readouterr().err
+
+
+# -- the LM runs of this slice -----------------------------------------------
+
+
+def test_lm_want_counts_each_run_s_launches():
+    from edl_tpu_torch.ops import opt_kernels
+
+    base = {"flash_fwd": 8, "flash_bwd_dkdv": 8, "flash_bwd_dq": 8}
+    assert cs.lm_want(opt_kernels, 60) == {**base, "adam_fp32": 1,
+                                           "adam_q": 0}
+    assert cs.lm_want(opt_kernels, 60, quant=True) == {
+        **base, "adam_fp32": 0, "adam_q": 1}
+    # remat: each block's forward again in the backward
+    assert cs.lm_want(opt_kernels, 60, k1=16)["flash_fwd"] == 16
+    # a skipped fp16 step launches the flash kernels and no optimizer
+    assert cs.lm_want(opt_kernels, 60, optimizer=False) == {
+        **base, "adam_fp32": 0, "adam_q": 0}
+    many = opt_kernels.ADAM_TABLE_MAX + 1
+    assert cs.lm_want(opt_kernels, many)["adam_fp32"] == 2
+
+
+def test_the_new_lm_runs_take_the_train_phase_s_argv():
+    from edl_tpu_torch.examples import lm_train
+
+    for argv, flags in ((cs.TRAIN_FP16_ARGV, ["--fp16"]),
+                        (cs.TRAIN_FUSED_LOSS_ARGV, ["--bf16",
+                                                    "--fused-loss"]),
+                        (cs.TRAIN_REMAT_ARGV, ["--bf16", "--remat", "on"])):
+        assert [a for a in argv if a not in flags] == [
+            a for a in cs.TRAIN_ARGV if a != "--bf16"]
+        assert all(f in argv for f in flags)
+        assert argv[argv.index("--fused-opt") + 1] == "fp32"
+    assert "--bf16" not in cs.TRAIN_FP16_ARGV
+    # every flag is one lm_train takes (the parser errors otherwise)
+    with pytest.raises(SystemExit, match="0"):
+        lm_train.main(["--data-dir", "x", *cs.TRAIN_FP16_ARGV,
+                       "--fused-loss", "--remat", "auto", "--help"])
+
+
+def test_the_new_phases_are_documented_and_run():
+    """Phases 11-14 are in the module docstring; main() drives them after
+    every earlier phase, from the train phase's result."""
+    import ast
+    import inspect
+
+    for phase in ("11. train_fp16", "12. train_fused_loss",
+                  "13. train_remat", "14. fused_opt_smoke"):
+        assert phase in cs.__doc__
+    line = {n.func.id: n.lineno for n in ast.walk(ast.parse(
+        inspect.getsource(cs.main))) if isinstance(n, ast.Call)
+        and isinstance(n.func, ast.Name)}
+    order = [line[f] for f in (
+        "phase_train", "phase_train_int8", "phase_resume",
+        "phase_train_fp16", "phase_train_fused_loss", "phase_train_remat",
+        "phase_fused_opt_smoke")]
+    assert order == sorted(order)
+    assert cs.FLASH_KERNELS == ("flash_fwd", "flash_bwd_dkdv",
+                                "flash_bwd_dq")
+    assert cs.WGMMA_TYPES == ("__nv_bfloat16", "__half")
+    assert cs.ATOL[torch.float16] == cs.ATOL[torch.bfloat16]

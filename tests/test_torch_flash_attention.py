@@ -25,7 +25,7 @@ from edl_tpu_torch.ops import _build
 jfa = importlib.import_module("edl_tpu.ops.flash_attention")
 tfa = importlib.import_module("edl_tpu_torch.ops.flash_attention")
 
-ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+ATOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 3e-2}
 
 
 def _qkv(b=2, s=256, h=4, d=32, seed=0):
@@ -67,6 +67,21 @@ def test_matches_jax(jax_path, causal, dtype):
     assert tlse.dtype == torch.float32 and tlse.shape == (2, 256, 4)
     np.testing.assert_allclose(_np(to), _np(jo), atol=ATOL[dtype])
     np.testing.assert_allclose(_np(tlse), _np(jlse), atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp16_matches_jax(jax_path, causal):
+    """fp16 (lm_train --fp16): the plain version computes in fp32 and
+    rounds o to fp16, as the JAX function does; held at the bf16 bound."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(seed=5), "float16")
+    jo, jlse = jfa.flash_attention_lse(jq, jk, jv, causal=causal,
+                                       block_q=128, block_k=128)
+    to, tlse = tfa.flash_attention_lse(tq, tk, tv, causal=causal,
+                                       block_q=128, block_k=128)
+    assert to.dtype == torch.float16 and jo.dtype == jnp.float16
+    assert tlse.dtype == torch.float32
+    np.testing.assert_allclose(_np(to), _np(jo), atol=ATOL["float16"])
+    np.testing.assert_allclose(_np(tlse), _np(jlse), atol=ATOL["float16"])
 
 
 @pytest.mark.parametrize("s,block_q,block_k", [(256, 128, 256),
@@ -141,12 +156,26 @@ def _cases_rejected_before_launch():
     bf = f32.to(torch.bfloat16)
     odd = torch.zeros((1, 128, 2, 70), dtype=torch.bfloat16)[..., :64]
     return [
-        ((f32.half(),) * 3, {}, TypeError, "fp32 or bf16"),
+        ((f32.double(),) * 3, {}, TypeError, "fp32 or bf16"),
         ((bf, bf, f32), {}, TypeError, "mismatch"),
         ((torch.zeros((1, 128, 2, 48)),) * 3, {}, ValueError, "head dims"),
         ((f32.transpose(2, 3),) * 3, {}, ValueError, "head dims|contiguous"),
         ((odd,) * 3, {}, ValueError, "16-byte"),
     ]
+
+
+def test_kernel_wrapper_takes_fp16_with_the_16_bit_checks():
+    """fp16 passes the dtype check (dtype code 2: the wgmma body compiled
+    for fp16) and meets the 16-byte row check of the TMA copies."""
+    assert tfa._DTYPE_CODES[torch.float16] == 2
+    half = torch.zeros((1, 128, 2, 64), dtype=torch.float16)
+    tfa._check_kernel_inputs("flash_fwd", half, half, half)
+    odd = torch.zeros((1, 128, 2, 70), dtype=torch.float16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._check_kernel_inputs("flash_fwd", odd, odd, odd)
+    with pytest.raises(TypeError, match="mismatch"):
+        tfa._check_kernel_inputs("flash_fwd", half, half,
+                                 half.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("args,kw,exc,match", _cases_rejected_before_launch())

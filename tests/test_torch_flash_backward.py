@@ -23,7 +23,7 @@ import torch
 jfa = importlib.import_module("edl_tpu.ops.flash_attention")
 tfa = importlib.import_module("edl_tpu_torch.ops.flash_attention")
 
-ATOL = {"float32": 5e-5, "bfloat16": 3e-2}
+ATOL = {"float32": 5e-5, "bfloat16": 3e-2, "float16": 3e-2}
 
 
 def _arrays(b=2, s=128, h=2, d=32, seed=0):
@@ -117,6 +117,39 @@ def test_autograd_through_both_outputs_matches_jax_grad(jax_path, causal):
         np.testing.assert_allclose(_np(g), _np(w), atol=5e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("with_dlse", [False, True])
+def test_fp16_plain_backward_matches_jax_blockwise(with_dlse, causal):
+    """fp16 through the plain backward (fp32 inside, gradients rounded to
+    fp16) against the JAX package's XLA backward, at the bf16 bound."""
+    plain_vs_jax("xla_blockwise", with_dlse, causal, "float16")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp16_autograd_matches_jax_grad(jax_path, causal):
+    """fp16 gradients through both outputs against jax.grad of the JAX
+    function in fp16, in both of its off-TPU dispatch modes."""
+    q, k, v, _, _ = _arrays(h=1, seed=6)
+
+    def j_loss(q, k, v):
+        o, lse = jfa.flash_attention_lse(q, k, v, causal=causal,
+                                         block_q=64, block_k=64)
+        return (jnp.sum(jnp.sin(o.astype(jnp.float32)))
+                + jnp.sum(jnp.cos(lse)))
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a, jnp.float16) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).half().requires_grad_()
+                  for a in (q, k, v))
+    o, lse = tfa.flash_attention_lse(tq, tk, tv, causal=causal,
+                                     block_q=64, block_k=64)
+    got = torch.autograd.grad(o.float().sin().sum() + lse.cos().sum(),
+                              (tq, tk, tv))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16 and w.dtype == jnp.float16
+        np.testing.assert_allclose(_np(g), _np(w), atol=ATOL["float16"])
+
+
 def test_flash_attention_grad_with_lse_unused_matches_jax():
     """`flash_attention` drops lse: its cotangent is undefined on the
     port's side, zero on JAX's, and both fold it away."""
@@ -145,7 +178,7 @@ def _bwd_rejected():
     f32 = torch.zeros((1, 128, 2, 64))
     bf = f32.to(torch.bfloat16)
     return [
-        ((f32.half(),) * 4, TypeError, "fp32 or bf16"),
+        ((f32.double(),) * 4, TypeError, "fp32 or bf16"),
         ((bf, bf, f32, bf), TypeError, "mismatch"),
         ((torch.zeros((1, 128, 2, 48)),) * 4, ValueError, "head dims"),
     ]
@@ -160,3 +193,12 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take(args, exc,
     with pytest.raises(exc, match=match):
         tfa._bwd_cuda(q, k, v, torch.zeros(q.shape[:3]), do, scale=0.125,
                       causal=True)
+
+
+def test_fp16_dkdv_needs_the_head_maxima():
+    """The fp16 K2 bounds its dS rows with the head maxima K3 returns:
+    called without them it raises before it builds or launches."""
+    h = torch.zeros((1, 128, 2, 64), dtype=torch.float16)
+    rows = torch.zeros((1, 128, 2))
+    with pytest.raises(ValueError, match="head_max"):
+        tfa.flash_bwd_dkdv(h, h, h, h, rows, rows, scale=0.125, causal=True)

@@ -319,3 +319,104 @@ def test_shared_header_is_in_the_digest(monkeypatch, tmp_path):
         f.write("// edited\n")
     for name, path in before.items():
         assert _build.library_path(name) != path
+
+
+# -- the convergence smoke and the smoke CLI ---------------------------------
+
+# the report's keys, the JAX package's (edl_tpu/train/fused_opt.py,
+# convergence_smoke)
+SMOKE_KEYS = {"quant", "steps", "envelope", "world", "cnn_sgdm",
+              "transformer_adam", "ok"}
+SMOKE_RUN_KEYS = {"loss_initial", "loss_dense", "loss_quant", "delta_rel",
+                  "opt_bytes_dense", "opt_bytes_quant", "learned",
+                  "within_envelope"}
+
+
+@pytest.fixture(scope="module")
+def jax_smoke_problems():
+    """The JAX package's smoke problems on one device: {name: (loss_fn,
+    state, batch, the state's variables bridged to the port)}."""
+    from edl_tpu.parallel import mesh as jmesh
+
+    mesh = jmesh.make_mesh(jmesh.MeshSpec({"dp": -1}),
+                           devices=jax.devices()[:1])
+    out = {}
+    for name, (loss_fn, state, batch) in (
+            ("cnn_sgdm", jcomm._smoke_cnn(1)),
+            ("transformer_adam", jcomm._smoke_transformer(1, mesh))):
+        host = jax.tree.map(np.asarray, jax.device_get(state))
+        sd = (bridge.flax_to_torch(host.params) if name == "transformer_adam"
+              else bridge.flax_variables_to_torch(
+                  {"params": host.params, "batch_stats": host.batch_stats}))
+        out[name] = (loss_fn, state, batch, sd)
+    return out
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_convergence_smoke_on_the_cpu_from_the_jax_weights(
+        jax_smoke_problems, quant):
+    """From the JAX package's init: both problems learn, the quantized
+    runs stay within the 0.25 envelope with the state cut >= 1.8x, the
+    report has the JAX package's keys, and each run's first loss is the
+    JAX loss function's on the same weights and batch (rounded to 4
+    places, as both reports round it)."""
+    weights = {n: p[3] for n, p in jax_smoke_problems.items()}
+    report = tfo.convergence_smoke(quant, weights=weights, device="cpu")
+    assert report.keys() == SMOKE_KEYS
+    assert report["ok"] and report["world"] == 1 and report["quant"] == quant
+    for name, (loss_fn, state, batch, _) in jax_smoke_problems.items():
+        run = report[name]
+        assert run.keys() == SMOKE_RUN_KEYS
+        assert run["learned"] and run["within_envelope"]
+        assert run["opt_bytes_dense"] >= 1.8 * run["opt_bytes_quant"]
+        assert run["delta_rel"] <= 0.25
+        want = float(loss_fn(state, state.params, batch)[0])
+        assert abs(run["loss_initial"] - want) <= 1e-4, (name, want)
+
+
+def test_convergence_smoke_asks_for_cuda_unless_told_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        tfo.convergence_smoke(steps=1)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        tfo._main(["smoke", "--steps", "1"])
+
+
+def test_opt_state_bytes_of_an_unfused_optimizer():
+    p = torch.nn.Parameter(torch.zeros(10))
+    opt = torch.optim.SGD([p], lr=0.1, momentum=0.9)
+    assert tfo.opt_state_bytes(opt) == 0          # made at the first step
+    p.grad = torch.ones(10)
+    opt.step()
+    assert tfo.opt_state_bytes(opt) == 40
+
+
+def test_smoke_cli_on_the_cpu():
+    """python -m edl_tpu_torch.train.fused_opt smoke --device cpu: the
+    gate and the convergence smoke, one JSON line, exit 0."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="2")
+    out = subprocess.run(
+        [sys.executable, "-m", "edl_tpu_torch.train.fused_opt", "smoke",
+         "--device", "cpu", "--quant", "fp8"], capture_output=True,
+        text=True, timeout=300, env=env, cwd=root)
+    assert out.returncode == 0, out.stderr[-2000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])["fused_opt_smoke"]
+    assert report["ok"] and report["kernel_gate"]["ok"]
+    assert report["convergence"]["quant"] == "fp8"
+    assert report["convergence"].keys() == SMOKE_KEYS
+
+
+def test_smoke_cli_exits_nonzero_when_a_gate_fails(monkeypatch, capsys):
+    monkeypatch.setattr(tfo, "update_parity_gate",
+                        lambda device: {"ok": False, "device": str(device)})
+    monkeypatch.setattr(tfo, "convergence_smoke",
+                        lambda **kw: {"ok": True, "steps": kw["steps"]})
+    assert tfo._main(["smoke", "--device", "cpu"]) == 1
+    line = capsys.readouterr().out.strip()
+    assert '"fused_opt_smoke"' in line and '"ok": false' in line

@@ -15,6 +15,7 @@ each gradient by its own magnitude, so an element whose gradient were
 within rounding of zero could move further; none is at these sizes.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -28,7 +29,9 @@ from edl_tpu.data import pipeline as jpipe
 from edl_tpu.models.transformer import Transformer as JTransformer
 from edl_tpu.models.transformer import TransformerConfig as JConfig
 from edl_tpu.models.transformer import lm_loss_fn as j_lm_loss_fn
+from edl_tpu.models.transformer import lm_loss_fused as j_lm_loss_fused
 from edl_tpu.ops import opt_kernels as jok
+from edl_tpu.train import amp as jamp
 from edl_tpu.train import fused_opt as jfo
 from edl_tpu.train import lr as jlr
 from edl_tpu.train.state import TrainState as JTrainState
@@ -37,9 +40,10 @@ from edl_tpu_torch import bridge
 from edl_tpu_torch.data import pipeline as tpipe
 from edl_tpu_torch.examples import lm_train
 from edl_tpu_torch.models.transformer import (Transformer, TransformerConfig,
-                                              lm_loss_fn)
+                                              lm_loss_fn, lm_loss_fused)
 from edl_tpu_torch.ops import opt_kernels as tok
 from edl_tpu_torch.parallel import distributed
+from edl_tpu_torch.train import amp
 from edl_tpu_torch.train import fused_opt as tfo
 from edl_tpu_torch.train import lr as tlr
 from edl_tpu_torch.train.comm import CommConfig, CommTrainStep
@@ -72,9 +76,10 @@ def shards(tmp_path_factory):
     return sorted(str(d / f) for f in os.listdir(d) if f.startswith("train"))
 
 
-def _model(params, attention="flash"):
-    model = Transformer(TransformerConfig(**SMALL, dtype=torch.float32,
-                                          attention=attention), device="cpu")
+def _model(params, attention="flash", remat=False, dtype=torch.float32):
+    model = Transformer(TransformerConfig(**SMALL, dtype=dtype,
+                                          attention=attention, remat=remat),
+                        device="cpu")
     model.load_state_dict(bridge.flax_to_torch(params))
     return model.train()
 
@@ -85,23 +90,24 @@ def _close(got_tree, want_tree, atol):
 
 
 def _three_steps(flax_params, shards, fused_opt, param_atol,
-                 grad_atol=1e-5):
+                 grad_atol=1e-5, fused_loss=False, remat=False):
     schedule_args = (3e-3, 4, 1)
     jmodel = JTransformer(JConfig(**SMALL, dtype=jnp.float32,
-                                  attention="flash"))
+                                  attention="flash", remat=remat))
     jtx = jfo.make_fused_tx("adam", jlr.cosine_with_warmup(*schedule_args),
                             fused_opt, weight_decay=0.01)
     jstate = JTrainState.create(apply_fn=jmodel.apply, params=flax_params,
                                 tx=jtx)
-    jstep = j_make_train_step(j_lm_loss_fn, donate=False)
-    jgrad = jax.jit(jax.grad(lambda p, s, b: j_lm_loss_fn(s, p, b)[0]))
+    jloss = j_lm_loss_fused if fused_loss else j_lm_loss_fn
+    jstep = j_make_train_step(jloss, donate=False)
+    jgrad = jax.jit(jax.grad(lambda p, s, b: jloss(s, p, b)[0]))
 
-    model = _model(flax_params)
+    model = _model(flax_params, remat=remat)
     ttx = tfo.make_fused_tx("adam", tlr.cosine_with_warmup(*schedule_args),
                             fused_opt, weight_decay=0.01)
     state = TrainState.create(model=model, tx=ttx,
                               params=bridge.flax_named_parameters(model))
-    step = make_train_step(lm_loss_fn)
+    step = make_train_step(lm_loss_fused if fused_loss else lm_loss_fn)
 
     jbatches = jpipe.DataLoader(jpipe.FileSource(shards), 8, seed=0,
                                 num_workers=0).epoch(0)
@@ -127,6 +133,76 @@ def _three_steps(flax_params, shards, fused_opt, param_atol,
 
 def test_three_train_steps_match_jax(flax_params, shards):
     _three_steps(flax_params, shards, "fp32", 1e-5)
+
+
+@pytest.mark.parametrize("fused_loss,remat", [(True, False), (False, True),
+                                              (True, True)])
+def test_three_fused_loss_and_remat_steps_match_jax(flax_params, shards,
+                                                    fused_loss, remat):
+    """lm_loss_fused (the streamed-vocab loss) and remat blocks on both
+    sides: the same bounds as the plain steps."""
+    _three_steps(flax_params, shards, "fp32", 1e-5, fused_loss=fused_loss,
+                 remat=remat)
+
+
+# fp16 activations, loss-scaled: the losses within FP16_LOSS_ATOL of
+# JAX's, and the parameters after each step within FP16_PARAM_ATOL, with
+# all but FP16_PARAM_FRAC of the elements within 1e-4 (measured: losses
+# 6e-5 apart; 2 of 107,136 elements more than 1e-3 apart). fp16 rounds
+# the residual stream and each projection at places that differ between
+# the frameworks, and Adam's early steps move an element by about lr
+# whatever its gradient's size, so an element whose gradient is within
+# fp16 rounding of zero may step the other way (2 lr = 6e-3). Tighter
+# than the bf16 bounds (6e-2 on logits).
+FP16_LOSS_ATOL = 5e-4
+FP16_PARAM_ATOL = 1e-2
+FP16_PARAM_FRAC = 1e-3
+
+
+@pytest.mark.parametrize("fused_loss", [False, True])
+def test_three_fp16_train_steps_match_jax(flax_params, shards, fused_loss):
+    """Three loss-scaled fp16 steps of the tiny LM (fused Adam with fp32
+    moments) against the JAX package's make_train_step(loss_scale=True):
+    the loss, the finite flag, the loss scale and the parameters."""
+    schedule_args = (3e-3, 4, 1)
+    jmodel = JTransformer(JConfig(**SMALL, dtype=jnp.float16,
+                                  attention="flash"))
+    jstate = JTrainState.create(
+        apply_fn=jmodel.apply, params=flax_params,
+        tx=jfo.make_fused_tx("adam", jlr.cosine_with_warmup(*schedule_args),
+                             "fp32", weight_decay=0.01))
+    jstep = j_make_train_step(j_lm_loss_fused if fused_loss
+                              else j_lm_loss_fn, donate=False,
+                              loss_scale=True)
+    model = _model(flax_params, dtype=torch.float16)
+    state = TrainState.create(
+        model=model, params=bridge.flax_named_parameters(model),
+        tx=tfo.make_fused_tx("adam", tlr.cosine_with_warmup(*schedule_args),
+                             "fp32", weight_decay=0.01))
+    step = make_train_step(lm_loss_fused if fused_loss else lm_loss_fn,
+                           loss_scale=True)
+    ls, jls = amp.DynamicLossScale.create(), jamp.DynamicLossScale.create()
+    jbatches = jpipe.DataLoader(jpipe.FileSource(shards), 8, seed=0,
+                                num_workers=0).epoch(0)
+    tbatches = tpipe.DataLoader(tpipe.FileSource(shards), 8, seed=0,
+                                num_workers=0).epoch(0)
+    for jb, tb in zip(jbatches, tbatches):
+        jstate, jm, jls = jstep(jstate, jb, jls)
+        state, tm, ls = step(state, {"tokens": torch.from_numpy(tb["tokens"])},
+                             ls)
+        assert bool(tm["finite"]) == bool(jm["finite"]) is True
+        assert float(tm["loss_scale"]) == float(jm["loss_scale"])
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   atol=FP16_LOSS_ATOL)
+        diffs = np.concatenate([
+            np.abs(np.asarray(a) - np.asarray(b)).ravel() for a, b in zip(
+                jax.tree.leaves(bridge.torch_to_flax(model.state_dict(),
+                                                     SMALL["n_heads"])),
+                jax.tree.leaves(jstate.params))])
+        assert diffs.max() <= FP16_PARAM_ATOL, diffs.max()
+        assert np.mean(diffs > 1e-4) <= FP16_PARAM_FRAC
+    assert state.step == int(jstate.step) == 3
+    assert model.block0.attn.query.weight.dtype == torch.float32
 
 
 def test_three_int8_train_steps_match_jax(flax_params, shards, monkeypatch):
@@ -191,11 +267,73 @@ def test_lm_train_main_on_the_cpu(tmp_path, capsys, fused_opt):
     assert np.isfinite(loss) and loss < np.log(256) + 0.5
 
 
+def _run_lm_train(tmp_path, capsys, monkeypatch, flags):
+    """lm_train.main with ``flags`` on the CPU, recording the config the
+    model was built with, every loss function a step or the eval ran and
+    the loss-scaled steps. Returns (final eval loss, record)."""
+    seen = {"losses": set()}
+    built = Transformer.__init__
+
+    def record_init(self, cfg, **kw):
+        seen["cfg"] = cfg
+        built(self, cfg, **kw)
+
+    def record(fn, name):
+        def wrapped(*args, **kw):
+            seen["losses"].add(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(Transformer, "__init__", record_init)
+    monkeypatch.setattr(lm_train, "lm_loss_fn", record(lm_loss_fn, "dense"))
+    monkeypatch.setattr(lm_train, "lm_loss_fused",
+                        record(lm_loss_fused, "fused"))
+    reads = amp.read_finite.reads
+    rc = lm_train.main(["--data-dir", str(tmp_path), *TINY_ARGV,
+                        "--fused-opt", "fp32", "--lr", "3e-3",
+                        "--warmup-steps", "1", *flags])
+    seen["scaled"] = amp.read_finite.reads - reads
+    assert rc == 0
+    final = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("final_eval_loss=")]
+    assert len(final) == 1
+    return float(final[0].split("=")[1]), seen
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fp16"], ["--fused-loss"], ["--remat", "on"], ["--remat", "auto"],
+    ["--fp16", "--fused-loss", "--remat", "on"]])
+def test_lm_train_new_paths_on_the_cpu(tmp_path, capsys, monkeypatch, flags):
+    """--fp16 (fp16 activations, a loss-scaled step: 6 steps, each reading
+    its finite flag once), --fused-loss (the streamed loss, for training
+    and eval: the dense loss never runs), --remat on|auto (auto: the tiny
+    model's activations fit 16 GiB, no remat)."""
+    loss, seen = _run_lm_train(tmp_path, capsys, monkeypatch, flags)
+    assert np.isfinite(loss) and loss < np.log(256) + 0.5
+    cfg = seen["cfg"]
+    assert cfg.dtype == (torch.float16 if "--fp16" in flags
+                         else torch.float32)
+    assert seen["scaled"] == (6 if "--fp16" in flags else 0)
+    assert seen["losses"] == ({"fused"} if "--fused-loss" in flags
+                              else {"dense"})
+    assert cfg.remat == ("on" in flags)
+
+
+def test_lm_train_remat_auto_follows_choose_remat(tmp_path, capsys,
+                                                  monkeypatch):
+    """--remat auto takes auto_remat's choice for the local batch."""
+    monkeypatch.setattr(lm_train, "auto_remat",
+                        lambda cfg, bs, device: dataclasses.replace(
+                            cfg, remat=bs == 8 and device.type == "cpu"))
+    _, seen = _run_lm_train(tmp_path, capsys, monkeypatch,
+                            ["--remat", "auto"])
+    assert seen["cfg"].remat
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--moe"], 14), (["--mesh", "fsdp"], 10), (["--fsdp"], 10),
     (["--mesh", "sp"], 14), (["--dcn-compress", "int8"], 11),
-    (["--comm-bucket-mb", "4"], 11), (["--fp16"], 4),
-    (["--fused-loss"], 14), (["--remat", "on"], 6), (["--remat", "auto"], 6)])
+    (["--comm-bucket-mb", "4"], 11)])
 def test_unported_flags_exit_before_any_work(tmp_path, flags, item):
     data_dir = tmp_path / "never-written"
     with pytest.raises(SystemExit, match=f"item {item}"):
@@ -242,8 +380,12 @@ def test_lm_train_refuses_a_world_above_one(tmp_path, monkeypatch):
 
 
 def test_step_options_and_dropout_raise():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make_train_step(lm_loss_fn, loss_scale=True)
+    """loss_scale and comm exclude each other, as in the JAX package;
+    train-mode dropout raises."""
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        make_train_step(lm_loss_fn, loss_scale=True,
+                        comm=CommConfig(compress="int8"))
+    assert callable(make_train_step(lm_loss_fn, loss_scale=True))
     step = make_train_step(lm_loss_fn, comm=CommConfig(compress="int8"))
     assert isinstance(step, CommTrainStep) and step.config.compress == "int8"
     model = Transformer(TransformerConfig(**SMALL, dropout=0.1),

@@ -70,6 +70,28 @@ def test_logits_match_jax(params, dtype, attention, seq):
     assert agree >= (1.0 if dtype == "float32" else 0.95), agree
 
 
+@pytest.mark.parametrize("seq", [128, 256])
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_fp16_logits_match_jax(params, attention, seq):
+    """fp16 activations (lm_train --fp16) at the bf16 bounds: fp16 rounds
+    at the same places, to a finer mantissa."""
+    jmodel = JTransformer(JConfig(**SMALL, dtype=jnp.float16,
+                                  attention=attention))
+    tmodel = Transformer(TransformerConfig(**SMALL, dtype=torch.float16,
+                                           attention=attention),
+                         device="cpu")
+    tmodel.load_state_dict(flax_to_torch(params))
+    toks = _tokens(2, seq, seed=4)
+    want = np.asarray(jax.jit(jmodel.apply, static_argnames="train")(
+        {"params": params}, toks, train=False))
+    with torch.inference_mode():
+        got = tmodel(torch.from_numpy(toks)).numpy()
+        hidden = tmodel(torch.from_numpy(toks), return_hidden=True)
+    assert got.dtype == np.float32 and hidden.dtype == torch.float16
+    np.testing.assert_allclose(got, want, atol=ATOL["bfloat16"])
+    assert np.mean(got.argmax(-1) == want.argmax(-1)) >= 0.95
+
+
 def test_auto_attention_rule():
     cfg = TransformerConfig(**SMALL)
     assert not cfg.use_flash(128, "cpu")         # CPU: dense, as JAX on CPU
@@ -80,8 +102,7 @@ def test_auto_attention_rule():
         128, "cuda")
 
 
-@pytest.mark.parametrize("kw", [{"moe": True}, {"remat": True},
-                                {"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"moe": True}, {"mesh": object()}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         TransformerConfig(**SMALL, **kw)
