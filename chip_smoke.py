@@ -158,7 +158,29 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              versions) and the quantized-moment convergence smoke (the
              CNN with K6, the transformer with K7, one entry call a
              step, against the dense optimizers: both learn, within the
-             0.25 envelope, state >= 1.8x smaller); exits 0.
+             0.25 envelope, state >= 1.8x smaller); exits 0;
+15. elastic — ResNet50_vd (RESNET_ARGV, 6 epochs of the 1,280 synthetic
+             images, --fused-opt fp32 --dcn-compress int8, one shared
+             --ckpt-dir) through two resizes under the port's launcher:
+             the port's store server (python -m edl_tpu_torch.coord.server)
+             and launchers (python -m edl_tpu_torch.collective.launch,
+             each in its own session, EDL_TPU_RESIZE_P2P=0, lease TTL
+             2 s, barrier stable 0.5 s) whose trainer is this script
+             re-entered with --elastic-worker (gloo, both ranks on cuda:0,
+             64 images a rank); a world of two seals a checkpoint, the pod
+             holding rank 0 is SIGKILLed (launcher group and trainer
+             session), the survivor stop-resumes into a world of one, seals
+             an epoch, a fresh launcher grows the world back to two, which
+             completes the job. Gates: the cluster documents show worlds
+             2 -> 1 -> 2 with rising versions; each generation sealed its
+             own epochs and together they cover each epoch once; one K4
+             every step of every generation, one K8 call every step of
+             both two-rank generations (none in the world of one, which
+             reduces nothing); losses finite; the last generation's first
+             loss below the first's; the launchers not killed exit 0 and
+             /<job>/complete is set; no process of the job outlives it;
+             all within ELASTIC_TIMEOUT_S. Prints each generation's step
+             ms and images/s and both downtimes.
 
 The kernels phase also holds K1 and K2/K3's fp16 bodies against their
 plain versions (the bf16 bounds; bit for bit between two launches on the
@@ -3407,6 +3429,426 @@ def phase_resume(ok_mod, card: str) -> dict:
             for n, r in runs.items()}
 
 
+# -- 15. elastic: ResNet50_vd through two resizes under the port's launcher --
+
+# The job: the port's store server, launchers of the port
+# (python -m edl_tpu_torch.collective.launch, each in its own session,
+# stop-resume: EDL_TPU_RESIZE_P2P=0) whose trainer is this script
+# re-entered with --elastic-worker, two gloo ranks on cuda:0 as in phase
+# 9. Lease TTL and barrier stable time as tests/test_imagenet_multipod.py
+# sets them.
+ELASTIC_EPOCHS = 6
+ELASTIC_TIMEOUT_S = 300
+ELASTIC_ENV = {"EDL_TPU_LEASE_TTL": "2.0", "EDL_TPU_BARRIER_STABLE": "0.5",
+               "EDL_TPU_NODES_RANGE": "1:2", "EDL_TPU_RESIZE_P2P": "0"}
+ELASTIC_WORLDS = [2, 1, 2]
+
+
+def elastic_argv(data_dir: str, ckpt_dir: str) -> list:
+    """imagenet_train's argv in every generation: RESNET_ARGV (128 images
+    a step, so 64 a rank in a world of two) for ELASTIC_EPOCHS epochs, K4
+    (--fused-opt fp32), the int8 wire (K8 in a world of two) and the
+    shared checkpoint dir."""
+    argv = list(RESNET_ARGV)
+    argv[argv.index("--epochs") + 1] = str(ELASTIC_EPOCHS)
+    return ["--data-dir", data_dir, *argv, "--fused-opt", "fp32",
+            "--dcn-compress", "int8", "--ckpt-dir", ckpt_dir]
+
+
+def elastic_worker(out_dir: str, argv_json: str) -> int:
+    """One trainer of one generation, started by a launcher (its env names
+    the rank, world and cluster version): join the world over gloo, run
+    imagenet_train.main, and keep this (generation, rank)'s JSON up to
+    date after every step: each step's host ms, loss and K4/K8 launches
+    (counts set to 0 just before the run), and the epochs whose
+    checkpoint this generation saw sealed (rank 0 writes; the loop waits
+    on the save after each epoch's eval). A generation is killed at any
+    point, so the file is rewritten (atomically) as it goes."""
+    sys.path.insert(0, str(HERE))
+    t_start = time.time()
+    from edl_tpu_torch.examples import imagenet_train
+    from edl_tpu_torch.ops import opt_kernels as ok_mod
+    from edl_tpu_torch.ops import pack as pack_mod
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.train import benchlog, checkpoint, comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = distributed.init_from_env(backend="gloo")
+    torch.cuda.set_device(distributed.rank_device("cuda", env.rank))
+    counters = {"sgdm_fp32": ok_mod.sgdm_fp32, "pack_int8": pack_mod.pack_int8}
+    record = {"version": env.cluster_version, "rank": env.rank,
+              "world": env.world_size, "pod": env.pod_id, "pid": os.getpid(),
+              "t_start": t_start, "t_first_step": None, "steps": [],
+              "evaluated": [], "epochs": [], "rc": None}
+    path = Path(out_dir, f"elastic.v{env.cluster_version}.rank{env.rank}"
+                ".json")
+
+    def write():
+        tmp = path.with_suffix(f".tmp{os.getpid()}")
+        tmp.write_text(json.dumps(record))
+        os.replace(tmp, path)
+
+    step_fn = comm.CommTrainStep._step
+    epoch_fn = benchlog.BenchmarkLog.epoch
+    wait_fn = checkpoint.CheckpointManager.wait
+
+    def timed_step(self, state, batch):
+        torch.cuda.synchronize()
+        c0 = {n: c.launches for n, c in counters.items()}
+        t0 = time.perf_counter()
+        state, metrics = step_fn(self, state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if record["t_first_step"] is None:
+            record["t_first_step"] = time.time()
+        record["steps"].append({
+            "ms": ms, "loss": float(metrics["loss"]),
+            "launches": {n: c.launches - c0[n] for n, c in counters.items()}})
+        write()
+        return state, metrics
+
+    def evaluated(self, epoch, **results):
+        record["evaluated"].append(epoch)
+        return epoch_fn(self, epoch, **results)
+
+    def sealed(self, *a, **kw):
+        out = wait_fn(self, *a, **kw)
+        # every epoch evaluated so far is now durable: the loop saves
+        # before eval and waits on the save after it
+        record["epochs"] += [e for e in record["evaluated"]
+                             if e not in record["epochs"]]
+        write()
+        return out
+
+    comm.CommTrainStep._step = timed_step
+    benchlog.BenchmarkLog.epoch = evaluated
+    checkpoint.CheckpointManager.wait = sealed
+    for c in counters.values():
+        c.launches = 0
+    write()
+    try:
+        record["rc"] = imagenet_train.main(json.loads(argv_json))
+    finally:
+        comm.CommTrainStep._step = step_fn
+        benchlog.BenchmarkLog.epoch = epoch_fn
+        checkpoint.CheckpointManager.wait = wait_fn
+    write()
+    return 0
+
+
+def elastic_job_id(prefix: str = "chip-elastic") -> str:
+    """A job id that only this run holds: its processes are found (in
+    /proc) and killed by it, so two runs on one host never reach each
+    other's launchers, trainers or store keys."""
+    import uuid
+
+    return f"{prefix}-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+
+
+def pids_with_env(**want) -> list[int]:
+    """PIDs of this host whose environment holds every given variable (a
+    pod's launcher and its trainer, which runs in its own session). Match
+    on a job id from elastic_job_id, which no other run shares."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            env = Path(f"/proc/{pid}/environ").read_bytes().decode(
+                "utf-8", "replace").split("\0")
+        except OSError:
+            continue
+        if all(f"{k}={v}" in env for k, v in want.items()):
+            out.append(int(pid))
+    return out
+
+
+def kill_groups(pids) -> None:
+    """SIGKILL the process group of each live pid: pass only pids that
+    cannot have been reused (a child not yet reaped, or one pids_with_env
+    has just found)."""
+    import signal
+
+    for pid in pids:
+        try:
+            os.killpg(os.getpgid(pid), signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+
+
+def elastic_generations(records: list[dict]) -> list[dict]:
+    """The worker records grouped by cluster version, in version order:
+    each generation's world, its ranks' records (by rank), the epochs it
+    sealed (rank 0's) and its steps (rank 0's)."""
+    gens: dict[int, dict] = {}
+    for rec in records:
+        g = gens.setdefault(rec["version"], {"version": rec["version"],
+                                             "world": rec["world"],
+                                             "ranks": {}})
+        g["ranks"][rec["rank"]] = rec
+    out = []
+    for v in sorted(gens):
+        g = gens[v]
+        r0 = g["ranks"].get(0, {"epochs": [], "steps": []})
+        out.append(dict(g, epochs=list(r0["epochs"]), steps=r0["steps"]))
+    return out
+
+
+def elastic_want(world: int) -> dict:
+    """The launches of a step of one rank in an elastic generation: one K4
+    over every optimizer bucket, and one K8 call over every compressed
+    bucket in a world of two (a world of one reduces nothing: the comm
+    step skips the wire, so K8 does not run)."""
+    return {"sgdm_fp32": 1, "pack_int8": int(world > 1)}
+
+
+def elastic_gates(records: list[dict], docs: list[tuple[int, int]],
+                  epochs: int = ELASTIC_EPOCHS) -> list[dict]:
+    """The elastic phase's gates over the worker records and the cluster
+    documents seen in the store ((version, world) in the order seen),
+    each fatal: worlds ELASTIC_WORLDS with rising versions; a generation
+    for each, with every rank of its world; each generation sealed its
+    own epochs, at least one, and together they cover every epoch once;
+    each step's launches elastic_want's on every rank; every loss finite;
+    the last generation's first loss below the first's. Returns the
+    generations."""
+    versions = [v for v, _ in docs]
+    if [w for _, w in docs] != ELASTIC_WORLDS or versions != sorted(
+            set(versions)):
+        fail(f"elastic: cluster documents {docs}, want worlds "
+             f"{ELASTIC_WORLDS} with rising versions")
+    gens = elastic_generations(records)
+    if [(g["version"], g["world"]) for g in gens] != docs:
+        fail(f"elastic: trainers ran generations "
+             f"{[(g['version'], g['world']) for g in gens]}, the store "
+             f"published {docs}")
+    for g in gens:
+        if sorted(g["ranks"]) != list(range(g["world"])):
+            fail(f"elastic v{g['version']}: ranks {sorted(g['ranks'])} of a "
+                 f"world of {g['world']}")
+        if not g["epochs"]:
+            fail(f"elastic v{g['version']} sealed no epoch")
+        for rank, rec in g["ranks"].items():
+            want = elastic_want(g["world"])
+            if not rec["steps"]:
+                fail(f"elastic v{g['version']} rank {rank} took no step")
+            for i, st in enumerate(rec["steps"]):
+                if st["launches"] != want:
+                    fail(f"elastic v{g['version']} rank {rank} step "
+                         f"{i + 1} launched {st['launches']}, want {want}")
+                if not np.isfinite(st["loss"]):
+                    fail(f"elastic v{g['version']} rank {rank} step "
+                         f"{i + 1}: loss {st['loss']}")
+    trained = [e for g in gens for e in g["epochs"]]
+    if trained != list(range(epochs)):
+        fail(f"elastic: the generations sealed epochs "
+             f"{[g['epochs'] for g in gens]}, want each of "
+             f"0..{epochs - 1} once, in order")
+    first, last = gens[0]["steps"][0]["loss"], gens[-1]["steps"][0]["loss"]
+    if not last < first:
+        fail(f"elastic: the last generation's first loss {last} is not "
+             f"below the first generation's {first} (it restarted)")
+    return gens
+
+
+def generation_summary(g: dict) -> dict:
+    """A generation's printed numbers: its world, epochs, steps, the
+    median host ms of its steps after the first (which autotunes) and
+    the images/s that gives at 128 images a step, its first and last
+    loss, and its K4/K8 launches summed over its ranks."""
+    ms = [st["ms"] for st in g["steps"][1:]] or [g["steps"][0]["ms"]]
+    step_ms = float(np.median(ms))
+    return {"version": g["version"], "world": g["world"],
+            "epochs": g["epochs"], "steps": len(g["steps"]),
+            "step_ms_median": step_ms, "step_ms_min": min(ms),
+            "step_ms_max": max(ms), "images_per_s": 128 / (step_ms / 1e3),
+            "loss_first": g["steps"][0]["loss"],
+            "loss_last": g["steps"][-1]["loss"],
+            "launches": {n: sum(st["launches"][n] for rec in
+                                g["ranks"].values() for st in rec["steps"])
+                         for n in ("sgdm_fp32", "pack_int8")}}
+
+
+def phase_elastic(card: str) -> dict:
+    """ResNet50_vd through two resizes under the port's launcher: the
+    store server; launchers podA and podB form a world of two; once rank
+    0's trainer has seen a checkpoint sealed, the pod holding rank 0 is
+    SIGKILLed (its launcher's group and its trainer's session): the
+    survivor re-forms a world of one and resumes; once that generation
+    has sealed an epoch, a fresh launcher podC starts and the world
+    returns to two and completes the job. Gates: elastic_gates; the
+    launchers that were not killed exit 0 and the store holds
+    /<job>/complete; no process of the job outlives the phase; all
+    within ELASTIC_TIMEOUT_S. Prints each generation's step ms and
+    images/s and each resize's downtime (the kill, or the new launcher's
+    start, to the end of the new generation's first step) and the cold
+    start (the two launchers' start to the first step). Returns the
+    launches by path."""
+    import tempfile
+
+    from edl_tpu_torch.collective.barrier import read_cluster
+    from edl_tpu_torch.coord.client import StoreClient
+    from edl_tpu_torch.examples.imagenet_train import make_synthetic_shards
+
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    deadline = t_phase + ELASTIC_TIMEOUT_S
+    job = elastic_job_id()
+    procs: dict[str, subprocess.Popen] = {}
+    logs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data, ckpt, out = tmp / "data", tmp / "ckpt", tmp / "out"
+        out.mkdir()
+        make_synthetic_shards(str(data), RESNET_SHARDS, 256, 224, 1000)
+        port = free_port()
+        base = {k: v for k, v in os.environ.items()
+                if not k.startswith("EDL_TPU_")}
+        base["PYTHONPATH"] = os.pathsep.join(
+            [str(HERE), base.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+
+        def spawn(name, cmd, env):
+            logs.append(open(out / f"{name}.log", "wb"))
+            procs[name] = subprocess.Popen(
+                cmd, env=env, stdout=logs[-1], stderr=subprocess.STDOUT,
+                cwd=str(HERE), start_new_session=True)
+            return time.time()
+
+        worker = [sys.executable, str(Path(__file__).resolve()),
+                  "--elastic-worker", str(out),
+                  json.dumps(elastic_argv(str(data), str(ckpt)))]
+
+        def launcher(pod):
+            env = dict(base, EDL_TPU_JOB_ID=job,
+                       EDL_TPU_STORE_ENDPOINTS=f"127.0.0.1:{port}",
+                       EDL_TPU_POD_ID=pod, EDL_TPU_CHECKPOINT_PATH=str(ckpt),
+                       EDL_TPU_LOG_DIR=str(out / f"log_{pod}"),
+                       **ELASTIC_ENV)
+            return spawn(pod, [sys.executable, "-m",
+                               "edl_tpu_torch.collective.launch", "--",
+                               *worker], env)
+
+        def records() -> list[dict]:
+            # each file is whole: the worker writes by rename
+            return [json.loads(f.read_text())
+                    for f in sorted(out.glob("elastic.v*.rank*.json"))]
+
+        def gen(version: int, rank: int = 0) -> dict | None:
+            f = out / f"elastic.v{version}.rank{rank}.json"
+            return json.loads(f.read_text()) if f.exists() else None
+
+        docs: list[tuple[int, int]] = []
+        coordinators: dict[int, str] = {}
+
+        def poll_doc():
+            c = read_cluster(client, job)
+            if c is not None and (not docs or docs[-1][0] != c.version):
+                docs.append((c.version, c.world_size))
+                coordinators[c.version] = c.coordinator
+            return c
+
+        def show_logs():
+            for name in procs:
+                tail = (out / f"{name}.log").read_text(errors="replace")
+                print(f"--- elastic {name} ---\n{tail[-3000:]}",
+                      file=sys.stderr, flush=True)
+
+        def wait_for(cond, what):
+            while time.monotonic() < deadline:
+                poll_doc()
+                if cond():
+                    return
+                time.sleep(0.1)
+            fail(f"elastic: {what} did not happen within "
+                 f"{ELASTIC_TIMEOUT_S} s")
+
+        client = None
+        try:
+            spawn("store", [sys.executable, "-m",
+                            "edl_tpu_torch.coord.server", "--host",
+                            "127.0.0.1", "--port", str(port),
+                            "--sweep_interval", "0.05"], base)
+            client = StoreClient(f"127.0.0.1:{port}", timeout=5.0,
+                                 connect_retries=200, retry_interval=0.1)
+            t0 = {pod: launcher(pod) for pod in ("podA", "podB")}
+            wait_for(lambda: (poll_doc() is not None
+                              and docs[-1][1] == 2
+                              and (gen(docs[-1][0]) or {}).get("epochs")),
+                     "a checkpoint sealed by the world of two")
+            v1 = docs[-1][0]
+            cluster = read_cluster(client, job)
+            leader = cluster.pods[0].pod_id        # rank 0: writer, leader
+            survivor = next(p for p in ("podA", "podB") if p != leader)
+            t_kill = time.time()
+            kill_groups([procs[leader].pid, *pids_with_env(
+                EDL_TPU_JOB_ID=job, EDL_TPU_POD_ID=leader)])
+            wait_for(lambda: (docs[-1][0] > v1 and docs[-1][1] == 1
+                              and (gen(docs[-1][0]) or {}).get("epochs")),
+                     "a checkpoint sealed by the world of one")
+            v2 = docs[-1][0]
+            t_grow = launcher("podC")
+            wait_for(lambda: all(procs[p].poll() is not None
+                                 for p in (survivor, "podC")),
+                     "the job's end")
+            poll_doc()
+            codes = {p: procs[p].poll() for p in (survivor, "podC")}
+            complete = client.get(f"/{job}/complete") is not None
+            if any(codes.values()) or not complete:
+                fail(f"elastic: launchers exited {codes}, "
+                     f"complete={complete}")
+            # no process of the job outlives it: the trainers are gone
+            # once their launchers have exited
+            lingering = pids_with_env(EDL_TPU_JOB_ID=job)
+            ends = {p: [ln.rsplit(": ", 1)[1] for ln in (out / f"{p}.log")
+                        .read_text(errors="replace").splitlines()
+                        if "generation v" in ln and " ends: " in ln]
+                    for p in (survivor, "podC")}
+            recs = records()
+        except BaseException:
+            show_logs()
+            raise
+        finally:
+            kill_groups([p.pid for n, p in procs.items()
+                         if n != "store" and p.poll() is None]
+                        + pids_with_env(EDL_TPU_JOB_ID=job))
+            if client is not None:
+                client.close()
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+    if lingering:
+        fail(f"elastic: processes {lingering} of the job outlived it")
+    gens = elastic_gates(recs, docs)
+    g2 = next(g for g in gens if g["version"] == v2)
+    g3 = gens[-1]
+
+    def first_step(g):
+        return min(rec["t_first_step"] for rec in g["ranks"].values())
+
+    result = {"phase": "elastic", "card": card, "job": job,
+              "env": ELASTIC_ENV, "epochs": ELASTIC_EPOCHS,
+              "cluster_documents": docs,
+              # rank 0's rendezvous endpoint by version: a repeat is a
+              # port the previous generation's trainer had bound
+              "coordinators": coordinators, "killed": leader,
+              "survivor": survivor,
+              "survivor_generation_ends": ends[survivor],
+              "grown_generation_ends": ends["podC"],
+              "generations": [generation_summary(g) for g in gens],
+              "downtime_s": {"shrink": first_step(g2) - t_kill,
+                             "grow": first_step(g3) - t_grow},
+              "cold_start_s": first_step(gens[0]) - max(t0.values()),
+              "seconds": time.monotonic() - t_phase}
+    emit(result)
+    launches = {n: sum(g["launches"][n] for g in result["generations"])
+                for n in ("sgdm_fp32", "pack_int8")}
+    return {"elastic": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -3481,6 +3923,7 @@ def main() -> int:
                                                              lm_bf16)
     launches["train_remat"], _ = phase_train_remat(fa, ok_mod, lm_bf16)
     launches["fused_opt_smoke"] = phase_fused_opt_smoke(ok_mod, fo)
+    launches.update(phase_elastic(card))
     for name in FLASH_KERNELS:
         fp16[name]["launches"] = launches["train_fp16"][name]
     emit({"seconds": time.monotonic() - t_start, "card": card})
@@ -3511,4 +3954,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--world-worker"]:
         sys.exit(world_worker(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(elastic_worker(*sys.argv[2:4]))
     sys.exit(main())

@@ -4,17 +4,19 @@ Module paths mirror ``edl_tpu``'s, so each counterpart is found under the
 same name. The package imports torch and numpy, never jax or anything of
 ``edl_tpu``: where it needs a jax-free helper of the JAX package it keeps
 its own trimmed copy. Entry points run on CUDA unless the caller passes
-``device="cpu"``; asking for CUDA where there is none raises.
+``device="cpu"``; asking for CUDA where there is none raises. The
+package itself imports torch only where it is used, so the elastic
+launcher and the store (``collective/``, ``coord/``) start without it.
 """
 
 from __future__ import annotations
 
-import torch
 
+def resolve_device(device="cuda"):
+    """``device`` (a str or torch.device) as a torch.device; raises when
+    CUDA is asked for and absent (never a quiet move to the CPU)."""
+    import torch
 
-def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """``device`` as a torch.device; raises when CUDA is asked for and
-    absent (never a quiet move to the CPU)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA was requested but torch.cuda.is_available() "

@@ -1,1 +1,1 @@
-"""Job-environment contract of the port (the trainer's half)."""
+"""The elastic launcher (stop-resume) and the job-environment contract."""

@@ -1,1 +1,2 @@
-"""Trimmed copies of the ``edl_tpu.obs`` pieces the serving shell calls."""
+"""Trimmed copies of the ``edl_tpu.obs`` pieces the port calls: metrics,
+spans and the flight recorder."""

@@ -1,12 +1,14 @@
 """Causal spans across the wire seams (trimmed copy of
-``edl_tpu.obs.trace``: the receiving half of the in-band context and the
-span the teacher server opens per admission decision, and the finished
-spans utils/timeline emits).
+``edl_tpu.obs.trace``: the in-band context both ways, the scoped span,
+the span the teacher server opens per admission decision, and the
+finished spans utils/timeline emits).
 
-A sender (the JAX package's clients) attaches its span context to a
-tensor frame's ``meta`` under the reserved ``"_tc"`` key; the port's
-server pops it with :func:`extract` and parents its span onto it, so a
-JAX client's trace continues through a port server.
+A sender attaches the span context current on its thread to a request
+(the store wire's frames, a tensor frame's ``meta``) under the reserved
+``"_tc"`` key (:func:`attach`); the receiving server pops it with
+:func:`extract` and parents its span onto it, so a trace continues
+across the hop, between the port and the JAX package in either
+direction. :func:`span` makes a span current for its body.
 
 Enablement: ``EDL_TPU_TRACE`` — unset/0 = off (a span is one attribute
 read and an ``if``), ``1`` = on with the sink directory ``./edl_trace``,
@@ -18,6 +20,7 @@ ring (:func:`finished`).
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import threading
@@ -29,6 +32,7 @@ from edl_tpu_torch.utils import config
 DEFAULT_DIR = "edl_trace"
 RING_CAP = 4096
 
+_tls = threading.local()
 _lock = threading.Lock()
 _ring: collections.deque = collections.deque(maxlen=RING_CAP)
 _file = None          # guarded-by: _lock
@@ -72,6 +76,11 @@ def enabled() -> bool:
 
 def _new_id() -> str:
     return os.urandom(8).hex()
+
+
+def current() -> tuple[str, str] | None:
+    """The active ``(trace_id, span_id)`` on this thread, or None."""
+    return getattr(_tls, "ctx", None)
 
 
 def _emit(record: dict) -> None:
@@ -131,15 +140,36 @@ class Span:
 
 def start_span(name: str, parent: tuple[str, str] | None = None,
                attrs: dict | None = None) -> Span | None:
-    """Begin a span (None when tracing is off), a child of ``parent`` or
-    the root of a new trace."""
+    """Begin a span (None when tracing is off), a child of ``parent``,
+    else of the thread's current span, else the root of a new trace.
+    Does not alter the thread's current context: :func:`span` does."""
     if not enabled():
         return None
-    if parent is not None:
-        trace_id, parent_id = parent
+    ctx = parent if parent is not None else current()
+    if ctx is not None:
+        trace_id, parent_id = ctx
     else:
         trace_id, parent_id = _new_id(), None
     return Span(name, trace_id, _new_id(), parent_id, attrs)
+
+
+@contextlib.contextmanager
+def span(name: str, parent: tuple[str, str] | None = None,
+         attrs: dict | None = None):
+    """Scoped span: spans started inside the body (this thread, or remote
+    through the wire seams) parent onto it. Yields the Span (None when
+    tracing is off)."""
+    if not enabled():
+        yield None
+        return
+    s = start_span(name, parent=parent, attrs=attrs)
+    prev = current()
+    _tls.ctx = s.context
+    try:
+        yield s
+    finally:
+        _tls.ctx = prev
+        s.end()
 
 
 def event(name: str, dur_s: float) -> None:
@@ -160,6 +190,25 @@ def parse_context(raw) -> tuple[str, str] | None:
             and all(isinstance(x, str) and 0 < len(x) <= 64 for x in raw)):
         return (raw[0], raw[1])
     return None
+
+
+def inject() -> list[str] | None:
+    """The current context in wire shape (``["tid", "sid"]``), or None
+    when tracing is off or no span is active."""
+    ctx = current() if enabled() else None
+    return [ctx[0], ctx[1]] if ctx is not None else None
+
+
+def attach(d: dict) -> dict:
+    """Copy-on-write attach of the current context to a wire dict under
+    the reserved ``"_tc"`` key. Returns ``d`` untouched when there is
+    nothing to add."""
+    ctx = inject()
+    if ctx is None or "_tc" in d:
+        return d
+    out = dict(d)
+    out["_tc"] = ctx
+    return out
 
 
 def extract(d: dict) -> tuple[str, str] | None:

@@ -24,7 +24,8 @@ process group where the JAX package takes an axis name and index groups.
 Without a process group the world is one rank and each is the identity.
 On the gloo backend a CUDA tensor goes through host memory: the choice
 is made by the backend's name, for every op, never by catching an error
-of a CUDA collective. ``reform_world`` comes with the elastic items.
+of a CUDA collective. ``reform_world`` comes with the live half of the
+elastic trainer side (ROADMAP Queue 1 item 16b).
 """
 
 from __future__ import annotations
@@ -76,8 +77,14 @@ def init_from_env(env: TrainerEnv | None = None, *,
 
 
 def shutdown() -> None:
-    """Leave the world (no-op when none was joined)."""
+    """Leave the world (no-op when none was joined), after a barrier: no
+    rank leaves before every rank has come to leave, as the JAX package's
+    ``jax.distributed.shutdown`` waits at its coordination service's
+    shutdown barrier. Under the elastic launcher this keeps rank 0 (the
+    checkpoint writer) alive to seal the last checkpoint: a rank that
+    exits first completes the job, and the launchers stop the rest."""
     if is_initialized():
+        dist.barrier()
         dist.destroy_process_group()
 
 

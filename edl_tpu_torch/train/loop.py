@@ -25,9 +25,11 @@ drives (``data_fn.close``). In a world of several ranks the status
 counts the world, the step's metrics are already the world's means, rank
 0 logs and writes checkpoints, and every rank restores.
 
-Elastic reform, p2p migration and the graceful SIGTERM stop come with
-the elastic trainer side (ROADMAP Queue 1 item 16); the utilization
-publisher with the multi-GPU world (item 10).
+Under the elastic launcher a generation is this loop in a fresh
+process, resuming from the latest sealed checkpoint (stop-resume).
+In-place reform, p2p migration, the graceful SIGTERM stop and the
+utilization publisher come with the live half of the elastic trainer
+side (ROADMAP Queue 1 item 16b).
 """
 
 from __future__ import annotations

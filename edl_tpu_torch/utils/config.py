@@ -42,9 +42,30 @@ ENV_VARS: dict[str, str] = {
     "EDL_TPU_CLUSTER_JSON": "serialized Cluster doc handed to trainers",
     "EDL_TPU_CLUSTER_VERSION": "cluster generation the trainer launched "
                                "into",
-    "EDL_TPU_STORE_ENDPOINTS": "coordination store endpoints",
+    "EDL_TPU_STORE_ENDPOINTS": "coordination store endpoints "
+                               "(comma-joined for failover)",
     "EDL_TPU_SLICES": "multi-slice topology: number of slices",
     "EDL_TPU_SLICE_ID": "this trainer's slice index (rank-contiguous)",
+    # store client (coord/client.StoreClient) and watches (coord/store)
+    "EDL_TPU_RELAY_ENDPOINTS": "watch relay tier endpoints (refused: "
+                               "ROADMAP Queue 1 item 17)",
+    "EDL_TPU_WATCH_RESYNC_S": "resync safety-net period for event-driven "
+                              "watch consumers",
+    "EDL_TPU_FLIGHT_RECORDER_N": "flight-recorder ring capacity per "
+                                 "process (0 = off)",
+    # launcher (collective/job_env.JobEnv)
+    "EDL_TPU_NODES_RANGE": "elastic node range 'min:max'",
+    "EDL_TPU_NPROC_PERNODE": "trainer processes per node (0 = auto)",
+    "EDL_TPU_UP_LIMIT_NODES": "hard ceiling on world growth",
+    "EDL_TPU_LOG_DIR": "launcher workerlog directory",
+    "EDL_TPU_LEASE_TTL": "store lease TTL seconds for pod claims",
+    "EDL_TPU_BARRIER_STABLE": "seconds membership must hold still to pass "
+                              "the barrier",
+    "EDL_TPU_BARRIER_TIMEOUT": "elastic barrier hard timeout seconds",
+    "EDL_TPU_REJOIN_DELAY": "pod rejoin backoff seconds after a kick",
+    "EDL_TPU_RESIZE_P2P": "peer-to-peer live state migration (0 = "
+                          "stop-resume from checkpoints; 1 is not ported "
+                          "yet, ROADMAP Queue 1 item 16b)",
     # train loop (train/loop.LoopConfig)
     "EDL_TPU_NUM_EPOCHS": "epochs to train",
     "EDL_TPU_LOG_EVERY": "log metrics every N steps",
@@ -152,3 +173,12 @@ def from_env(cls: type[T], **overrides: Any) -> T:
                 break
     kwargs.update(overrides)
     return cls(**kwargs)
+
+
+def describe(cfg: Any) -> str:
+    """Pretty one-per-line dump of a config dataclass."""
+    lines = [f"----------- {type(cfg).__name__} -----------"]
+    for f in dataclasses.fields(cfg):
+        lines.append(f"{f.name}: {getattr(cfg, f.name)}")
+    lines.append("------------------------------------------")
+    return "\n".join(lines)

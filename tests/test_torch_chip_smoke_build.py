@@ -501,3 +501,128 @@ def test_the_new_phases_are_documented_and_run():
                                 "flash_bwd_dq")
     assert cs.WGMMA_TYPES == ("__nv_bfloat16", "__half")
     assert cs.ATOL[torch.float16] == cs.ATOL[torch.bfloat16]
+
+
+# -- the elastic phase --------------------------------------------------------
+
+def test_the_elastic_worker_s_argv():
+    """Every generation runs imagenet_train at RESNET_ARGV's model, size,
+    classes and batch (64 images a rank at world 2) for ELASTIC_EPOCHS,
+    with K4 (--fused-opt fp32), the int8 wire and the shared checkpoint
+    dir; the flags are imagenet_train's."""
+    from edl_tpu_torch.examples import imagenet_train
+
+    argv = cs.elastic_argv("D", "C")
+    for flag, value in (("--data-dir", "D"), ("--ckpt-dir", "C"),
+                        ("--fused-opt", "fp32"), ("--dcn-compress", "int8"),
+                        ("--epochs", str(cs.ELASTIC_EPOCHS)),
+                        ("--batch-size", "128")):
+        assert argv[argv.index(flag) + 1] == value
+    for flag in ("--model", "--image-size", "--num-classes", "--bf16"):
+        i = cs.RESNET_ARGV.index(flag)
+        assert argv[argv.index(flag):argv.index(flag) + 2] == \
+            cs.RESNET_ARGV[i:i + 2]
+    assert "--make-synthetic" not in argv
+    args = imagenet_train._parser().parse_args(argv)
+    assert args.model == "ResNet50_vd" and args.batch_size // 2 == 64
+    assert cs.ELASTIC_ENV["EDL_TPU_RESIZE_P2P"] == "0"
+    assert cs.ELASTIC_WORLDS == [2, 1, 2]
+
+
+def _gen_records(worlds=(2, 1, 2), epochs=((0,), (1, 2), (3, 4, 5)),
+                 first_losses=(6.9, 6.0, 5.0)):
+    """Worker records of a 2 -> 1 -> 2 job (versions 1, 2, 3), rank 0's
+    sealed epochs as given, three steps a rank with elastic_want's
+    launches."""
+    recs = []
+    for v, (world, eps, loss) in enumerate(zip(worlds, epochs,
+                                               first_losses), start=1):
+        for rank in range(world):
+            steps = [{"ms": 150.0 + i, "loss": loss - 0.1 * i,
+                      "launches": cs.elastic_want(world)} for i in range(3)]
+            recs.append({"version": v, "rank": rank, "world": world,
+                         "epochs": list(eps), "steps": steps,
+                         "t_first_step": 100.0 * v})
+    return recs
+
+
+DOCS = [(1, 2), (2, 1), (3, 2)]
+
+
+def test_elastic_gates_pass_a_two_one_two_job():
+    gens = cs.elastic_gates(_gen_records(), DOCS)
+    assert [g["world"] for g in gens] == [2, 1, 2]
+    summary = cs.generation_summary(gens[0])
+    assert summary["launches"] == {"sgdm_fp32": 6, "pack_int8": 6}
+    assert summary["step_ms_median"] == 151.5
+    assert cs.generation_summary(gens[1])["launches"] == {
+        "sgdm_fp32": 3, "pack_int8": 0}
+    assert cs.elastic_want(1) == {"sgdm_fp32": 1, "pack_int8": 0}
+
+
+@pytest.mark.parametrize("case", [
+    "repeated_epoch", "missing_epoch", "restarted", "worlds",
+    "falling_version", "k8_in_world_of_one", "no_k8", "lost_rank",
+    "nan", "empty_generation"])
+def test_elastic_gates_fail(case, capsys):
+    recs, docs = _gen_records(), list(DOCS)
+    if case == "repeated_epoch":
+        recs = _gen_records(epochs=((0,), (0, 1, 2), (3, 4, 5)))
+    elif case == "missing_epoch":
+        recs = _gen_records(epochs=((0,), (2,), (3, 4, 5)))
+    elif case == "restarted":          # the last generation began afresh
+        recs = _gen_records(first_losses=(6.9, 6.0, 6.95))
+    elif case == "worlds":
+        recs = _gen_records(worlds=(2, 2, 2))
+        docs = [(1, 2), (2, 2), (3, 2)]
+    elif case == "falling_version":
+        docs = [(3, 2), (2, 1), (1, 2)]
+    elif case == "k8_in_world_of_one":
+        recs[2]["steps"][1]["launches"] = cs.elastic_want(2)
+    elif case == "no_k8":
+        recs[0]["steps"][2]["launches"] = cs.elastic_want(1)
+    elif case == "lost_rank":
+        recs = [r for r in recs if not (r["version"] == 3
+                                        and r["rank"] == 1)]
+    elif case == "nan":
+        recs[4]["steps"][0]["loss"] = float("nan")
+    elif case == "empty_generation":
+        recs = _gen_records(epochs=((0, 1, 2), (), (3, 4, 5)))
+    with pytest.raises(SystemExit):
+        cs.elastic_gates(recs, docs)
+    assert "elastic" in capsys.readouterr().err
+
+
+def test_the_elastic_phase_is_documented_and_run():
+    """Phase 15 is in the docstring; main() drives it last, before the
+    kernels line, whose paths gain ``elastic``; the script re-enters
+    itself as the launchers' trainer."""
+    import ast
+    import inspect
+
+    assert "15. elastic" in cs.__doc__
+    src = inspect.getsource(cs.main)
+    calls = [n.func.id for n in ast.walk(ast.parse(src))
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert calls.index("phase_elastic") > calls.index(
+        "phase_fused_opt_smoke")
+    assert src.index("phase_elastic(") < src.index('"kernels": kernels')
+    main_src = Path(cs.__file__).read_text()
+    assert '["--elastic-worker"]' in main_src
+    assert "edl_tpu_torch.coord.server" in inspect.getsource(cs.phase_elastic)
+    assert "edl_tpu.coord" not in main_src
+
+
+def test_the_elastic_job_id_is_this_run_s_alone():
+    """The phase finds and kills its processes by their job id, so the id
+    names this process and is new on every call: two runs on one host
+    never match each other's processes."""
+    import inspect
+    import os
+
+    a, b = cs.elastic_job_id(), cs.elastic_job_id("solo")
+    assert a.startswith(f"chip-elastic-{os.getpid()}-")
+    assert b.startswith(f"solo-{os.getpid()}-") and a != cs.elastic_job_id()
+    src = inspect.getsource(cs.phase_elastic)
+    assert "job = elastic_job_id()" in src and "chip-elastic" not in src
+    assert cs.pids_with_env(EDL_TPU_JOB_ID=a) == []

@@ -3,9 +3,15 @@ imports jax, flax, optax, msgpack, ml_dtypes or anything of edl_tpu (an
 AST check, so function-scoped imports count too): the checkpoint payload
 is written without the msgpack package and read without ml_dtypes, which
 the card's machine lacks. cv2 is imported only inside a function of
-data/image.py, the JPEG plane, so every other plane runs without it."""
+data/image.py, the JPEG plane, so every other plane runs without it. The
+elastic launcher's modules and the coordination store import no torch
+(nor numpy), so a launcher starts fast and holds no CUDA context: by the
+same AST check, and by importing their entry points in a fresh
+interpreter."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -63,3 +69,39 @@ def test_cv2_only_lazily_in_the_jpeg_plane(path):
     top = {n.lineno for n in tree.body
            if isinstance(n, (ast.Import, ast.ImportFrom))}
     assert uses and not top & set(uses)
+
+
+PKG = ROOT / "edl_tpu_torch"
+LAUNCHER_SIDE = sorted(
+    [PKG / "collective" / f"{m}.py" for m in (
+        "launch", "register", "barrier", "watcher", "process", "cluster",
+        "job_env")] + list((PKG / "coord").glob("*.py"))
+    + [PKG / "utils" / f"{m}.py" for m in (
+        "backoff", "unique_name", "net", "config", "exceptions",
+        "logging")]
+    + [PKG / "obs" / f"{m}.py" for m in ("recorder", "trace", "metrics")])
+
+
+def test_the_glob_collects_the_launcher_side():
+    assert set(LAUNCHER_SIDE) <= set(FILES)
+    assert PKG / "coord" / "server.py" in LAUNCHER_SIDE
+
+
+@pytest.mark.parametrize("path", LAUNCHER_SIDE,
+                         ids=[str(p.relative_to(ROOT)) for p in LAUNCHER_SIDE])
+def test_the_launcher_side_imports_no_torch(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [f"{path.name}:{line} imports {mod}"
+           for mod, line in _imported(tree)
+           if mod.split(".")[0] in ("torch", "numpy", "triton")]
+    assert not bad, bad
+
+
+def test_launcher_and_store_server_start_without_torch():
+    code = ("import sys; import edl_tpu_torch.collective.launch, "
+            "edl_tpu_torch.coord.server; "
+            "print(sorted(m for m in ('torch', 'numpy') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

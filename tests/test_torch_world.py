@@ -377,8 +377,22 @@ def _task_wires_reduce(inputs: dict, directory: Path) -> dict:
             **_task_reduce(inputs, directory)}
 
 
-TASKS = {"imagenet": _task_imagenet, "wires_reduce": _task_wires_reduce,
-         "comm_steps": _task_comm_steps, "phased_reduce": _task_phased_reduce}
+def _task_shutdown(inputs: dict, directory: Path) -> dict:
+    """Rank 0 comes to shutdown late; each rank's wall clock when it
+    called shutdown and when it returned."""
+    from edl_tpu_torch.parallel import distributed
+
+    if distributed.rank() == 0:
+        time.sleep(float(inputs["delay"]))
+    t_enter = time.time()
+    distributed.shutdown()
+    return {"enter": np.array(t_enter), "left": np.array(time.time()),
+            "shut_down": np.array(not distributed.is_initialized())}
+
+
+TASKS = {"imagenet": _task_imagenet, "shutdown": _task_shutdown,
+         "wires_reduce": _task_wires_reduce, "comm_steps": _task_comm_steps,
+         "phased_reduce": _task_phased_reduce}
 
 
 # -- the tests ---------------------------------------------------------------
@@ -512,6 +526,16 @@ def test_comm_flags_in_a_world_of_one_run_the_comm_step(
     assert log["dcn_compress"] == compress and log["world_size"] == 1
     assert log["comm_steps"] == 4 and log["dcn_bytes_per_step"] == 0
     assert log["comm_buckets"] >= 1
+
+
+def test_shutdown_waits_for_every_rank(tmp_path):
+    """No rank leaves the world before every rank has come to leave it
+    (jax.distributed.shutdown's barrier): under the elastic launcher a
+    rank that exits completes the job and the launchers stop the rest,
+    so rank 0 must not be stopped while it seals the last checkpoint."""
+    r0, r1 = run_world("shutdown", 2, tmp_path, {"delay": np.array(1.5)})
+    assert bool(r0["shut_down"]) and bool(r1["shut_down"])
+    assert float(r1["left"]) >= float(r0["enter"]) > float(r1["enter"])
 
 
 def test_empty_coordinator_raises_before_connecting():
