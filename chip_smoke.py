@@ -98,7 +98,8 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              world of two ranks sharing the card (this script re-entered
              with --world-worker, gloo, every collective staged through
              host memory; 64 images a rank), --fused-opt fp32, from the
-             same init on the same shards: --dcn-compress int8 and
+             same init on the same shards (kept for phases 15 and 16):
+             --dcn-compress int8 and
              --comm-bucket-mb 4 (bucketed dense). Per step and rank:
              exactly one K8 call over every compressed bucket (none
              dense) and one K4 over every optimizer bucket; step and
@@ -159,7 +160,7 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              CNN with K6, the transformer with K7, one entry call a
              step, against the dense optimizers: both learn, within the
              0.25 envelope, state >= 1.8x smaller); exits 0;
-15. elastic — ResNet50_vd (RESNET_ARGV, 6 epochs of the 1,280 synthetic
+15. elastic — ResNet50_vd (RESNET_ARGV, 3 epochs of the 1,280 synthetic
              images, --fused-opt fp32 --dcn-compress int8, one shared
              --ckpt-dir) through two resizes under the port's launcher:
              the port's store server (python -m edl_tpu_torch.coord.server)
@@ -181,6 +182,25 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              /<job>/complete is set; no process of the job outlives it;
              all within ELASTIC_TIMEOUT_S. Prints each generation's step
              ms and images/s and both downtimes.
+16. elastic_live — the same job, model, data and flags with live state
+             migration (EDL_TPU_RESIZE_P2P=1, donor linger and adoption
+             wait raised past a generation's start on this card): a world
+             of two seals a checkpoint; SIGTERM to the launcher of the pod
+             holding rank 0 (a shrink) releases its trainer as a donor
+             (its live state sealed, its process group left) and the world
+             re-forms at one, the survivor restoring from the donor's
+             memory; once that world seals an epoch a fresh launcher
+             grows it back to two in place: the survivor keeps its
+             process through the reform ladder and the newcomer restores
+             from the survivor's memory. Gates: phase 15's, and the
+             survivor's pid kept with one in-place "adopted" ack (quiesce,
+             mesh-reform, peer-restore, re-jit, first-step); every "peers"
+             restore moved the donor's advertised bytes (> 0); both ranks'
+             parameters hash alike after the grown world's first step; the
+             leaver's launcher exits 143, the others 0; no process of the
+             job, the donor included, outlives it. Prints both downtimes
+             beside phase 15's, the adoption gap, each reform phase's
+             seconds and each peer restore's bytes and seconds.
 
 The kernels phase also holds K1 and K2/K3's fp16 bodies against their
 plain versions (the bf16 bounds; bit for bit between two launches on the
@@ -199,6 +219,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from dataclasses import replace
@@ -3008,9 +3029,11 @@ def world_summary(name: str, ranks: list[dict], blog_dir: Path) -> dict:
     return result
 
 
-def phase_train_resnet_world() -> dict:
+def phase_train_resnet_world(data: Path) -> dict:
     """imagenet_train at RESNET_ARGV over a world of two ranks on one
-    card (gloo), --fused-opt fp32, from the same init on the same shards:
+    card (gloo), --fused-opt fp32, from the same init on the same shards
+    (the first run's rank 0 writes them into ``data``, which the elastic
+    phases read after):
     --dcn-compress int8 (K8 on every compressed bucket) and
     --comm-bucket-mb 4 (bucketed dense); then loss_parity_gate on
     ResNet50_vd. Gates: world_summary's for each run; the int8 run's last
@@ -3018,14 +3041,12 @@ def phase_train_resnet_world() -> dict:
     dense with an int8 loss delta <= GATE_ENVELOPE; the int8 wire's bytes
     <= DCN_CUT_MAX x the same plan's fp32 leg. Returns each run's
     launches."""
-    import tempfile
-
     torch.cuda.empty_cache()
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for name, flags in WORLD_RUNS:
-            argv = ["--data-dir", str(tmp / "data"), *RESNET_ARGV,
+            argv = ["--data-dir", str(data), *RESNET_ARGV,
                     "--fused-opt", "fp32", *flags, "--benchmark-log",
                     str(tmp / name)]
             if not runs:
@@ -3432,12 +3453,12 @@ def phase_resume(ok_mod, card: str) -> dict:
 # -- 15. elastic: ResNet50_vd through two resizes under the port's launcher --
 
 # The job: the port's store server, launchers of the port
-# (python -m edl_tpu_torch.collective.launch, each in its own session,
-# stop-resume: EDL_TPU_RESIZE_P2P=0) whose trainer is this script
-# re-entered with --elastic-worker, two gloo ranks on cuda:0 as in phase
-# 9. Lease TTL and barrier stable time as tests/test_imagenet_multipod.py
-# sets them.
-ELASTIC_EPOCHS = 6
+# (python -m edl_tpu_torch.collective.launch, each in its own session)
+# whose trainer is this script re-entered with --elastic-worker, two gloo
+# ranks on cuda:0 as in phase 9. Lease TTL and barrier stable time as
+# tests/test_imagenet_multipod.py sets them. Phase 15 runs stop-resume
+# (EDL_TPU_RESIZE_P2P=0); phase 16 the live half (ELASTIC_LIVE_ENV).
+ELASTIC_EPOCHS = 3
 ELASTIC_TIMEOUT_S = 300
 ELASTIC_ENV = {"EDL_TPU_LEASE_TTL": "2.0", "EDL_TPU_BARRIER_STABLE": "0.5",
                "EDL_TPU_NODES_RANGE": "1:2", "EDL_TPU_RESIZE_P2P": "0"}
@@ -3455,15 +3476,28 @@ def elastic_argv(data_dir: str, ckpt_dir: str) -> list:
             "--dcn-compress", "int8", "--ckpt-dir", ckpt_dir]
 
 
+def params_sha256(state) -> str:
+    """sha256 of a TrainState's parameters, in order, as host bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, p in state.params:
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def elastic_worker(out_dir: str, argv_json: str) -> int:
-    """One trainer of one generation, started by a launcher (its env names
-    the rank, world and cluster version): join the world over gloo, run
-    imagenet_train.main, and keep this (generation, rank)'s JSON up to
-    date after every step: each step's host ms, loss and K4/K8 launches
-    (counts set to 0 just before the run), and the epochs whose
-    checkpoint this generation saw sealed (rank 0 writes; the loop waits
-    on the save after each epoch's eval). A generation is killed at any
-    point, so the file is rewritten (atomically) as it goes."""
+    """One trainer started by a launcher (its env names the rank, world
+    and cluster version): join the world over gloo, run
+    imagenet_train.main, and keep its generation's record up to date
+    after every step: each step's host ms, loss and K4/K8 launches (counts
+    set to 0 just before the run), the parameters' sha256 after the
+    generation's first step, and the epochs whose checkpoint this
+    generation saw sealed (rank 0 writes; the loop waits on the save
+    after each epoch's eval). A trainer that adopts a resize in place
+    (phase 16) closes its record there and opens the new generation's,
+    same pid. A generation is killed at any point, so each file is
+    rewritten (atomically) as it goes."""
     sys.path.insert(0, str(HERE))
     t_start = time.time()
     from edl_tpu_torch.examples import imagenet_train
@@ -3471,27 +3505,34 @@ def elastic_worker(out_dir: str, argv_json: str) -> int:
     from edl_tpu_torch.ops import pack as pack_mod
     from edl_tpu_torch.parallel import distributed
     from edl_tpu_torch.train import benchlog, checkpoint, comm
+    from edl_tpu_torch.train import loop as loop_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = distributed.init_from_env(backend="gloo")
     torch.cuda.set_device(distributed.rank_device("cuda", env.rank))
     counters = {"sgdm_fp32": ok_mod.sgdm_fp32, "pack_int8": pack_mod.pack_int8}
-    record = {"version": env.cluster_version, "rank": env.rank,
-              "world": env.world_size, "pod": env.pod_id, "pid": os.getpid(),
-              "t_start": t_start, "t_first_step": None, "steps": [],
-              "evaluated": [], "epochs": [], "rc": None}
-    path = Path(out_dir, f"elastic.v{env.cluster_version}.rank{env.rank}"
-                ".json")
+    cur: dict = {}
+
+    def open_record(version, rank, world, t0, adopted):
+        cur["rec"] = {"version": version, "rank": rank, "world": world,
+                      "pod": env.pod_id, "pid": os.getpid(),
+                      "adopted": adopted, "t_start": t0,
+                      "t_first_step": None, "first_sha256": None,
+                      "steps": [], "evaluated": [], "epochs": [], "rc": None}
 
     def write():
+        rec = cur["rec"]
+        path = Path(out_dir, f"elastic.v{rec['version']}.rank{rec['rank']}"
+                    ".json")
         tmp = path.with_suffix(f".tmp{os.getpid()}")
-        tmp.write_text(json.dumps(record))
+        tmp.write_text(json.dumps(rec))
         os.replace(tmp, path)
 
     step_fn = comm.CommTrainStep._step
     epoch_fn = benchlog.BenchmarkLog.epoch
     wait_fn = checkpoint.CheckpointManager.wait
+    adopt_fn = loop_mod.TrainLoop._adopt
 
     def timed_step(self, state, batch):
         torch.cuda.synchronize()
@@ -3500,39 +3541,56 @@ def elastic_worker(out_dir: str, argv_json: str) -> int:
         state, metrics = step_fn(self, state, batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        if record["t_first_step"] is None:
-            record["t_first_step"] = time.time()
-        record["steps"].append({
+        rec = cur["rec"]
+        if rec["t_first_step"] is None:
+            rec["t_first_step"] = time.time()
+            rec["first_sha256"] = params_sha256(state)
+        rec["steps"].append({
             "ms": ms, "loss": float(metrics["loss"]),
             "launches": {n: c.launches - c0[n] for n, c in counters.items()}})
         write()
         return state, metrics
 
     def evaluated(self, epoch, **results):
-        record["evaluated"].append(epoch)
+        cur["rec"]["evaluated"].append(epoch)
         return epoch_fn(self, epoch, **results)
 
     def sealed(self, *a, **kw):
         out = wait_fn(self, *a, **kw)
         # every epoch evaluated so far is now durable: the loop saves
         # before eval and waits on the save after it
-        record["epochs"] += [e for e in record["evaluated"]
-                             if e not in record["epochs"]]
+        rec = cur["rec"]
+        rec["epochs"] += [e for e in rec["evaluated"]
+                          if e not in rec["epochs"]]
         write()
+        return out
+
+    def adopt(self, reform):
+        t0 = time.time()
+        out = adopt_fn(self, reform)
+        if out == "reform":
+            write()
+            open_record(reform.generation, reform.rank, reform.world_size,
+                        t0, True)
+            write()
         return out
 
     comm.CommTrainStep._step = timed_step
     benchlog.BenchmarkLog.epoch = evaluated
     checkpoint.CheckpointManager.wait = sealed
+    loop_mod.TrainLoop._adopt = adopt
     for c in counters.values():
         c.launches = 0
+    open_record(env.cluster_version, env.rank, env.world_size, t_start,
+                False)
     write()
     try:
-        record["rc"] = imagenet_train.main(json.loads(argv_json))
+        cur["rec"]["rc"] = imagenet_train.main(json.loads(argv_json))
     finally:
         comm.CommTrainStep._step = step_fn
         benchlog.BenchmarkLog.epoch = epoch_fn
         checkpoint.CheckpointManager.wait = wait_fn
+        loop_mod.TrainLoop._adopt = adopt_fn
     write()
     return 0
 
@@ -3577,6 +3635,140 @@ def kill_groups(pids) -> None:
             pass
 
 
+class ElasticJob:
+    """One elastic job on this host: the port's store server (python -m
+    edl_tpu_torch.coord.server), the launchers started for it (python -m
+    edl_tpu_torch.collective.launch, each in its own session, whose
+    trainer is this script re-entered with --elastic-worker), what the
+    store showed while it ran (cluster documents, migration acks and
+    donor adverts, by poll()), and its cleanup: leaving the block kills
+    every process of the job, by process group and by the job id
+    (elastic_job_id) in /proc."""
+
+    def __init__(self, root: Path, data: Path, env: dict, timeout_s: float,
+                 name: str):
+        from edl_tpu_torch.coord.client import StoreClient
+
+        self.name, self.timeout_s = name, timeout_s
+        self.job = elastic_job_id()
+        self.out, self.ckpt = root / "out", root / "ckpt"
+        self.out.mkdir(parents=True)
+        self.env = env
+        self.deadline = time.monotonic() + timeout_s
+        self.procs: dict[str, subprocess.Popen] = {}
+        self.logs = []
+        self.docs: list[tuple[int, int]] = []
+        self.coordinators: dict[int, str] = {}
+        self.acks: dict[tuple, dict] = {}
+        self.adverts: dict[tuple, dict] = {}
+        self.port = free_port()
+        self.base = {k: v for k, v in os.environ.items()
+                     if not k.startswith("EDL_TPU_")}
+        self.base["PYTHONPATH"] = os.pathsep.join(
+            [str(HERE), self.base.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+        self.worker = [sys.executable, str(Path(__file__).resolve()),
+                       "--elastic-worker", str(self.out),
+                       json.dumps(elastic_argv(str(data), str(self.ckpt)))]
+        self.client = None
+        self.spawn("store", [sys.executable, "-m",
+                             "edl_tpu_torch.coord.server", "--host",
+                             "127.0.0.1", "--port", str(self.port),
+                             "--sweep_interval", "0.05"], self.base)
+        self.client = StoreClient(f"127.0.0.1:{self.port}", timeout=5.0,
+                                  connect_retries=200, retry_interval=0.1)
+
+    def spawn(self, name: str, cmd: list, env: dict) -> float:
+        self.logs.append(open(self.out / f"{name}.log", "wb"))
+        self.procs[name] = subprocess.Popen(
+            cmd, env=env, stdout=self.logs[-1], stderr=subprocess.STDOUT,
+            cwd=str(HERE), start_new_session=True)
+        return time.time()
+
+    def launcher(self, pod: str) -> float:
+        """Start pod's launcher; returns its start time."""
+        env = dict(self.base, EDL_TPU_JOB_ID=self.job,
+                   EDL_TPU_STORE_ENDPOINTS=f"127.0.0.1:{self.port}",
+                   EDL_TPU_POD_ID=pod, EDL_TPU_CHECKPOINT_PATH=str(self.ckpt),
+                   EDL_TPU_LOG_DIR=str(self.out / f"log_{pod}"), **self.env)
+        return self.spawn(pod, [sys.executable, "-m",
+                                "edl_tpu_torch.collective.launch", "--",
+                                *self.worker], env)
+
+    def records(self) -> list[dict]:
+        # each file is whole: the worker writes by rename
+        return [json.loads(f.read_text())
+                for f in sorted(self.out.glob("elastic.v*.rank*.json"))]
+
+    def gen(self, version: int, rank: int = 0) -> dict | None:
+        f = self.out / f"elastic.v{version}.rank{rank}.json"
+        return json.loads(f.read_text()) if f.exists() else None
+
+    def sealed(self, world: int) -> bool:
+        """The newest cluster is a world of ``world`` whose rank 0 has
+        sealed an epoch."""
+        return bool(self.docs and self.docs[-1][1] == world
+                    and (self.gen(self.docs[-1][0]) or {}).get("epochs"))
+
+    def poll(self):
+        """The cluster document (a new version is recorded), and every
+        migration ack and donor advert the store holds now."""
+        from edl_tpu_torch.collective import migration as mig
+        from edl_tpu_torch.collective.barrier import read_cluster
+
+        c = read_cluster(self.client, self.job)
+        if c is not None and (not self.docs or self.docs[-1][0] != c.version):
+            self.docs.append((c.version, c.world_size))
+            self.coordinators[c.version] = c.coordinator
+        for prefix, seen, key in (
+                (mig.ack_prefix(self.job), self.acks, ("pod_id", "ts")),
+                (mig.donors_prefix(self.job), self.adverts,
+                 ("pod_id", "version"))):
+            recs, _ = self.client.get_prefix(prefix)
+            for r in recs:
+                doc = json.loads(r.value)
+                seen[tuple(doc[k] for k in key)] = doc
+        return c
+
+    def wait_for(self, cond, what: str) -> None:
+        while time.monotonic() < self.deadline:
+            self.poll()
+            if cond():
+                return
+            time.sleep(0.1)
+        fail(f"{self.name}: {what} did not happen within {self.timeout_s} s")
+
+    def ends(self, pod: str) -> list[str]:
+        """The restart reasons pod's launcher logged, generation by
+        generation."""
+        return [ln.rsplit(": ", 1)[1] for ln in (self.out / f"{pod}.log")
+                .read_text(errors="replace").splitlines()
+                if "generation v" in ln and " ends: " in ln]
+
+    def show_logs(self) -> None:
+        for name in self.procs:
+            tail = (self.out / f"{name}.log").read_text(errors="replace")
+            print(f"--- {self.name} {name} ---\n{tail[-3000:]}",
+                  file=sys.stderr, flush=True)
+
+    def __enter__(self) -> "ElasticJob":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> None:
+        if exc_type is not None:
+            self.show_logs()
+        kill_groups([p.pid for n, p in self.procs.items()
+                     if n != "store" and p.poll() is None]
+                    + pids_with_env(EDL_TPU_JOB_ID=self.job))
+        if self.client is not None:
+            self.client.close()
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in self.logs:
+            f.close()
+
+
 def elastic_generations(records: list[dict]) -> list[dict]:
     """The worker records grouped by cluster version, in version order:
     each generation's world, its ranks' records (by rank), the epochs it
@@ -3605,7 +3797,7 @@ def elastic_want(world: int) -> dict:
 
 def elastic_gates(records: list[dict], docs: list[tuple[int, int]],
                   epochs: int = ELASTIC_EPOCHS) -> list[dict]:
-    """The elastic phase's gates over the worker records and the cluster
+    """The elastic phases' gates over the worker records and the cluster
     documents seen in the store ((version, world) in the order seen),
     each fatal: worlds ELASTIC_WORLDS with rising versions; a generation
     for each, with every rank of its world; each generation sealed its
@@ -3670,9 +3862,14 @@ def generation_summary(g: dict) -> dict:
                          for n in ("sgdm_fp32", "pack_int8")}}
 
 
-def phase_elastic(card: str) -> dict:
-    """ResNet50_vd through two resizes under the port's launcher: the
-    store server; launchers podA and podB form a world of two; once rank
+def first_step(g: dict) -> float:
+    """When a generation's first step ended (its earliest rank's)."""
+    return min(rec["t_first_step"] for rec in g["ranks"].values())
+
+
+def phase_elastic(card: str, data: Path) -> tuple[dict, dict]:
+    """ResNet50_vd through two resizes under the port's launcher,
+    stop-resume: launchers podA and podB form a world of two; once rank
     0's trainer has seen a checkpoint sealed, the pod holding rank 0 is
     SIGKILLed (its launcher's group and its trainer's session): the
     survivor re-forms a world of one and resumes; once that generation
@@ -3684,169 +3881,214 @@ def phase_elastic(card: str) -> dict:
     images/s and each resize's downtime (the kill, or the new launcher's
     start, to the end of the new generation's first step) and the cold
     start (the two launchers' start to the first step). Returns the
-    launches by path."""
-    import tempfile
-
-    from edl_tpu_torch.collective.barrier import read_cluster
-    from edl_tpu_torch.coord.client import StoreClient
-    from edl_tpu_torch.examples.imagenet_train import make_synthetic_shards
-
+    launches by path and the result."""
     torch.cuda.empty_cache()
     t_phase = time.monotonic()
-    deadline = t_phase + ELASTIC_TIMEOUT_S
-    job = elastic_job_id()
-    procs: dict[str, subprocess.Popen] = {}
-    logs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        data, ckpt, out = tmp / "data", tmp / "ckpt", tmp / "out"
-        out.mkdir()
-        make_synthetic_shards(str(data), RESNET_SHARDS, 256, 224, 1000)
-        port = free_port()
-        base = {k: v for k, v in os.environ.items()
-                if not k.startswith("EDL_TPU_")}
-        base["PYTHONPATH"] = os.pathsep.join(
-            [str(HERE), base.get("PYTHONPATH", "")]).rstrip(os.pathsep)
-
-        def spawn(name, cmd, env):
-            logs.append(open(out / f"{name}.log", "wb"))
-            procs[name] = subprocess.Popen(
-                cmd, env=env, stdout=logs[-1], stderr=subprocess.STDOUT,
-                cwd=str(HERE), start_new_session=True)
-            return time.time()
-
-        worker = [sys.executable, str(Path(__file__).resolve()),
-                  "--elastic-worker", str(out),
-                  json.dumps(elastic_argv(str(data), str(ckpt)))]
-
-        def launcher(pod):
-            env = dict(base, EDL_TPU_JOB_ID=job,
-                       EDL_TPU_STORE_ENDPOINTS=f"127.0.0.1:{port}",
-                       EDL_TPU_POD_ID=pod, EDL_TPU_CHECKPOINT_PATH=str(ckpt),
-                       EDL_TPU_LOG_DIR=str(out / f"log_{pod}"),
-                       **ELASTIC_ENV)
-            return spawn(pod, [sys.executable, "-m",
-                               "edl_tpu_torch.collective.launch", "--",
-                               *worker], env)
-
-        def records() -> list[dict]:
-            # each file is whole: the worker writes by rename
-            return [json.loads(f.read_text())
-                    for f in sorted(out.glob("elastic.v*.rank*.json"))]
-
-        def gen(version: int, rank: int = 0) -> dict | None:
-            f = out / f"elastic.v{version}.rank{rank}.json"
-            return json.loads(f.read_text()) if f.exists() else None
-
-        docs: list[tuple[int, int]] = []
-        coordinators: dict[int, str] = {}
-
-        def poll_doc():
-            c = read_cluster(client, job)
-            if c is not None and (not docs or docs[-1][0] != c.version):
-                docs.append((c.version, c.world_size))
-                coordinators[c.version] = c.coordinator
-            return c
-
-        def show_logs():
-            for name in procs:
-                tail = (out / f"{name}.log").read_text(errors="replace")
-                print(f"--- elastic {name} ---\n{tail[-3000:]}",
-                      file=sys.stderr, flush=True)
-
-        def wait_for(cond, what):
-            while time.monotonic() < deadline:
-                poll_doc()
-                if cond():
-                    return
-                time.sleep(0.1)
-            fail(f"elastic: {what} did not happen within "
-                 f"{ELASTIC_TIMEOUT_S} s")
-
-        client = None
-        try:
-            spawn("store", [sys.executable, "-m",
-                            "edl_tpu_torch.coord.server", "--host",
-                            "127.0.0.1", "--port", str(port),
-                            "--sweep_interval", "0.05"], base)
-            client = StoreClient(f"127.0.0.1:{port}", timeout=5.0,
-                                 connect_retries=200, retry_interval=0.1)
-            t0 = {pod: launcher(pod) for pod in ("podA", "podB")}
-            wait_for(lambda: (poll_doc() is not None
-                              and docs[-1][1] == 2
-                              and (gen(docs[-1][0]) or {}).get("epochs")),
+    with tempfile.TemporaryDirectory() as tmp, ElasticJob(
+            Path(tmp), data, ELASTIC_ENV, ELASTIC_TIMEOUT_S,
+            "elastic") as job:
+        t0 = {pod: job.launcher(pod) for pod in ("podA", "podB")}
+        job.wait_for(lambda: job.sealed(2),
                      "a checkpoint sealed by the world of two")
-            v1 = docs[-1][0]
-            cluster = read_cluster(client, job)
-            leader = cluster.pods[0].pod_id        # rank 0: writer, leader
-            survivor = next(p for p in ("podA", "podB") if p != leader)
-            t_kill = time.time()
-            kill_groups([procs[leader].pid, *pids_with_env(
-                EDL_TPU_JOB_ID=job, EDL_TPU_POD_ID=leader)])
-            wait_for(lambda: (docs[-1][0] > v1 and docs[-1][1] == 1
-                              and (gen(docs[-1][0]) or {}).get("epochs")),
+        v1 = job.docs[-1][0]
+        leader = job.poll().pods[0].pod_id      # rank 0: writer, leader
+        survivor = next(p for p in ("podA", "podB") if p != leader)
+        t_kill = time.time()
+        kill_groups([job.procs[leader].pid, *pids_with_env(
+            EDL_TPU_JOB_ID=job.job, EDL_TPU_POD_ID=leader)])
+        job.wait_for(lambda: job.docs[-1][0] > v1 and job.sealed(1),
                      "a checkpoint sealed by the world of one")
-            v2 = docs[-1][0]
-            t_grow = launcher("podC")
-            wait_for(lambda: all(procs[p].poll() is not None
+        v2 = job.docs[-1][0]
+        t_grow = job.launcher("podC")
+        job.wait_for(lambda: all(job.procs[p].poll() is not None
                                  for p in (survivor, "podC")),
                      "the job's end")
-            poll_doc()
-            codes = {p: procs[p].poll() for p in (survivor, "podC")}
-            complete = client.get(f"/{job}/complete") is not None
-            if any(codes.values()) or not complete:
-                fail(f"elastic: launchers exited {codes}, "
-                     f"complete={complete}")
-            # no process of the job outlives it: the trainers are gone
-            # once their launchers have exited
-            lingering = pids_with_env(EDL_TPU_JOB_ID=job)
-            ends = {p: [ln.rsplit(": ", 1)[1] for ln in (out / f"{p}.log")
-                        .read_text(errors="replace").splitlines()
-                        if "generation v" in ln and " ends: " in ln]
-                    for p in (survivor, "podC")}
-            recs = records()
-        except BaseException:
-            show_logs()
-            raise
-        finally:
-            kill_groups([p.pid for n, p in procs.items()
-                         if n != "store" and p.poll() is None]
-                        + pids_with_env(EDL_TPU_JOB_ID=job))
-            if client is not None:
-                client.close()
-            for p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-            for f in logs:
-                f.close()
+        job.poll()
+        codes = {p: job.procs[p].poll() for p in (survivor, "podC")}
+        complete = job.client.get(f"/{job.job}/complete") is not None
+        if any(codes.values()) or not complete:
+            fail(f"elastic: launchers exited {codes}, complete={complete}")
+        # no process of the job outlives it: the trainers are gone once
+        # their launchers have exited
+        lingering = pids_with_env(EDL_TPU_JOB_ID=job.job)
+        ends = {p: job.ends(p) for p in (survivor, "podC")}
+        recs, docs = job.records(), job.docs
     if lingering:
         fail(f"elastic: processes {lingering} of the job outlived it")
     gens = elastic_gates(recs, docs)
     g2 = next(g for g in gens if g["version"] == v2)
-    g3 = gens[-1]
-
-    def first_step(g):
-        return min(rec["t_first_step"] for rec in g["ranks"].values())
-
-    result = {"phase": "elastic", "card": card, "job": job,
+    result = {"phase": "elastic", "card": card, "job": job.job,
               "env": ELASTIC_ENV, "epochs": ELASTIC_EPOCHS,
               "cluster_documents": docs,
               # rank 0's rendezvous endpoint by version: a repeat is a
               # port the previous generation's trainer had bound
-              "coordinators": coordinators, "killed": leader,
+              "coordinators": job.coordinators, "killed": leader,
               "survivor": survivor,
               "survivor_generation_ends": ends[survivor],
               "grown_generation_ends": ends["podC"],
               "generations": [generation_summary(g) for g in gens],
               "downtime_s": {"shrink": first_step(g2) - t_kill,
-                             "grow": first_step(g3) - t_grow},
+                             "grow": first_step(gens[-1]) - t_grow},
               "cold_start_s": first_step(gens[0]) - max(t0.values()),
               "seconds": time.monotonic() - t_phase}
     emit(result)
     launches = {n: sum(g["launches"][n] for g in result["generations"])
                 for n in ("sgdm_fp32", "pack_int8")}
-    return {"elastic": launches}
+    return {"elastic": launches}, result
+
+
+# -- 16. elastic_live: the same job with live state migration ----------------
+
+# Live migration, the launcher's default. The JAX package's defaults for
+# the donor's linger and the launcher's wait for an adoption (10 s each)
+# are shorter than a generation's start on this card (13.6-15.6 s,
+# PERF.md): a donor would leave before the respawned survivor fetched
+# from it, and the launcher would give up on an in-place grow whose
+# rendezvous still waits for the newcomer's trainer. So the job raises
+# both, and the mesh-reform budget with them, as the JAX package's reform
+# demo raises EDL_TPU_ADOPT_TIMEOUT (edl_tpu/examples/elastic_demo.py:
+# 795-797). A donor still leaves as soon as every live rank has acked,
+# so a long linger costs nothing when the restore comes.
+ELASTIC_LIVE_ENV = dict(ELASTIC_ENV, EDL_TPU_RESIZE_P2P="1",
+                        EDL_TPU_DONOR_LINGER="120",
+                        EDL_TPU_ADOPT_TIMEOUT="120",
+                        EDL_TPU_REFORM_MESH_S="120")
+ELASTIC_LIVE_TIMEOUT_S = 300
+# the reform ladder's phases in the JAX package's order, as an in-place
+# grow with a re-formed world walks them
+REFORM_PHASES = ["quiesce", "mesh-reform", "peer-restore", "re-jit",
+                 "first-step"]
+
+
+def elastic_live_gates(records: list[dict], docs: list[tuple[int, int]],
+                       acks: list[dict], adverts: list[dict],
+                       survivor: str) -> dict:
+    """Phase 16's gates beyond elastic_gates (which they run first), each
+    fatal, after the JAX reform demo's audit: the grown world's survivor
+    kept its pid (its record of the grown generation is an adoption) and
+    acked mode ``adopted`` at that generation from that pid, with an
+    in-place reform whose phases are REFORM_PHASES; at least one ack of
+    mode ``peers`` moved as many bytes as the donor advert of the
+    version it restored quoted, more than 0; after the grown world's
+    first step both ranks' parameters hash alike. Returns the facts."""
+    gens = elastic_gates(records, docs)
+    grown = gens[-1]
+    mine = [r for r in grown["ranks"].values() if r["pod"] == survivor]
+    before = [r for g in gens[:-1] for r in g["ranks"].values()
+              if r["pod"] == survivor]
+    if len(mine) != 1 or not mine[0]["adopted"] or not before \
+            or mine[0]["pid"] != before[-1]["pid"]:
+        fail(f"elastic_live: the survivor {survivor} did not keep its "
+             f"process into v{grown['version']} "
+             f"({[(r['version'], r['pid'], r['adopted']) for r in before + mine]})")
+    pid = mine[0]["pid"]
+    adopted = [a for a in acks if a["mode"] == "adopted"]
+    if len(adopted) != 1 or adopted[0]["pod_id"] != survivor \
+            or adopted[0]["pid"] != pid \
+            or adopted[0]["generation"] != grown["version"]:
+        fail(f"elastic_live: adoption acks {adopted}, want one of "
+             f"{survivor} pid {pid} at v{grown['version']}")
+    reform = adopted[0].get("reform") or {}
+    phases = [p["phase"] for p in reform.get("phases", [])]
+    if reform.get("result") != "in-place" or phases != REFORM_PHASES \
+            or not all(p["ok"] for p in reform["phases"]):
+        fail(f"elastic_live: the adoption's reform {reform}, want "
+             f"in-place through {REFORM_PHASES}")
+    nbytes = {a["version"]: a["nbytes"] for a in adverts}
+    peers = [a for a in acks if a["mode"] == "peers"]
+    if not peers or any(a["bytes_from_peers"] <= 0
+                        or a["bytes_from_peers"] != nbytes.get(a["version"])
+                        for a in peers):
+        fail(f"elastic_live: peer restores {peers} against the donor "
+             f"adverts {nbytes}: want one or more, each of the donor's "
+             f"advertised bytes")
+    digests = {r["rank"]: r["first_sha256"] for r in grown["ranks"].values()}
+    if len(set(digests.values())) != 1 or None in digests.values():
+        fail(f"elastic_live: the grown world's parameters after its first "
+             f"step differ across ranks: {digests}")
+    return {"generations": gens, "adopted": adopted[0], "peers": peers,
+            "params_sha256": digests[0]}
+
+
+def phase_elastic_live(card: str, data: Path, stop_resume: dict) -> dict:
+    """The phase-15 job with live state migration (ELASTIC_LIVE_ENV):
+    launchers podA and podB form a world of two; once rank 0 has sealed a
+    checkpoint, SIGTERM goes to the launcher of the pod holding rank 0
+    (the writer, so the pod holding a sealed snapshot), as a shrink
+    delivers it: the launcher releases its trainer, which seals its live
+    state, leaves its process group and lingers as a donor, and the
+    world re-forms at one; once that world has sealed an epoch a fresh
+    launcher podC starts: the survivor adopts the world of two in place
+    and podC's trainer restores from peers; the job completes. Gates:
+    elastic_live_gates; the leaver's launcher exits 143, the others 0,
+    and the store holds /<job>/complete; no process of the job outlives
+    the phase, the lingering donor included; all within
+    ELASTIC_LIVE_TIMEOUT_S. Prints each resize's downtime (the SIGTERM to
+    the world of one's first step; podC's start to the grown world's
+    first step) beside phase 15's, the survivor's adoption gap (its ack's
+    downtime_s), each reform phase's seconds, and each peer restore's
+    bytes and seconds. Returns the launches by path."""
+    import signal
+
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp, ElasticJob(
+            Path(tmp), data, ELASTIC_LIVE_ENV, ELASTIC_LIVE_TIMEOUT_S,
+            "elastic_live") as job:
+        for pod in ("podA", "podB"):
+            job.launcher(pod)
+        job.wait_for(lambda: job.sealed(2),
+                     "a checkpoint sealed by the world of two")
+        v1 = job.docs[-1][0]
+        leader = job.poll().pods[0].pod_id
+        survivor = next(p for p in ("podA", "podB") if p != leader)
+        t_term = time.time()
+        os.kill(job.procs[leader].pid, signal.SIGTERM)   # the launcher only
+        job.wait_for(lambda: job.docs[-1][0] > v1 and job.sealed(1),
+                     "a checkpoint sealed by the world of one")
+        v2 = job.docs[-1][0]
+        t_grow = job.launcher("podC")
+        job.wait_for(lambda: all(job.procs[p].poll() is not None
+                                 for p in job.procs if p != "store"),
+                     "the job's end")
+        job.wait_for(lambda: not pids_with_env(EDL_TPU_JOB_ID=job.job),
+                     "the exit of every process of the job")
+        codes = {p: job.procs[p].poll() for p in (leader, survivor, "podC")}
+        complete = job.client.get(f"/{job.job}/complete") is not None
+        if codes != {leader: 143, survivor: 0, "podC": 0} or not complete:
+            fail(f"elastic_live: launchers exited {codes} (want 143 for "
+                 f"the leaver, 0 for the others), complete={complete}")
+        ends = {p: job.ends(p) for p in (survivor, "podC")}
+        recs, docs = job.records(), job.docs
+        acks = sorted(job.acks.values(), key=lambda a: a["ts"])
+        adverts = list(job.adverts.values())
+    facts = elastic_live_gates(recs, docs, acks, adverts, survivor)
+    gens = facts["generations"]
+    g2 = next(g for g in gens if g["version"] == v2)
+    adopted = facts["adopted"]
+    result = {"phase": "elastic_live", "card": card, "job": job.job,
+              "env": ELASTIC_LIVE_ENV, "epochs": ELASTIC_EPOCHS,
+              "cluster_documents": docs, "leaver": leader,
+              "survivor": survivor,
+              "survivor_generation_ends": ends[survivor],
+              "grown_generation_ends": ends["podC"],
+              "generations": [generation_summary(g) for g in gens],
+              "downtime_s": {"shrink": first_step(g2) - t_term,
+                             "grow": first_step(gens[-1]) - t_grow},
+              "stop_resume_downtime_s": stop_resume["downtime_s"],
+              "adoption_gap_s": adopted["downtime_s"],
+              "reform_phase_s": {p["phase"]: p["s"]
+                                 for p in adopted["reform"]["phases"]},
+              "peer_restores": [{k: a[k] for k in (
+                  "pod_id", "generation", "version", "bytes_from_peers",
+                  "restore_s")} for a in facts["peers"]],
+              "donor_nbytes": sorted({a["nbytes"] for a in adverts}),
+              "params_sha256": facts["params_sha256"],
+              "acks": acks, "seconds": time.monotonic() - t_phase}
+    emit(result)
+    launches = {n: sum(g["launches"][n] for g in result["generations"])
+                for n in ("sgdm_fp32", "pack_int8")}
+    return {"elastic_live": launches}
 
 
 def main() -> int:
@@ -3916,14 +4158,19 @@ def main() -> int:
     launches["train_int8"] = phase_train_int8(fa, ok_mod, lm_bf16)
     resnet_launches, _ = phase_train_resnet(ok_mod)
     launches.update(resnet_launches)
-    launches.update(phase_train_resnet_world())
-    launches.update(phase_resume(ok_mod, card))
-    launches["train_fp16"], _ = phase_train_fp16(fa, ok_mod, lm_bf16)
-    launches["train_fused_loss"], _ = phase_train_fused_loss(fa, ok_mod,
-                                                             lm_bf16)
-    launches["train_remat"], _ = phase_train_remat(fa, ok_mod, lm_bf16)
-    launches["fused_opt_smoke"] = phase_fused_opt_smoke(ok_mod, fo)
-    launches.update(phase_elastic(card))
+    with tempfile.TemporaryDirectory() as tmp:
+        # phase 9 writes the synthetic shards the elastic phases read
+        data = Path(tmp) / "data"
+        launches.update(phase_train_resnet_world(data))
+        launches.update(phase_resume(ok_mod, card))
+        launches["train_fp16"], _ = phase_train_fp16(fa, ok_mod, lm_bf16)
+        launches["train_fused_loss"], _ = phase_train_fused_loss(
+            fa, ok_mod, lm_bf16)
+        launches["train_remat"], _ = phase_train_remat(fa, ok_mod, lm_bf16)
+        launches["fused_opt_smoke"] = phase_fused_opt_smoke(ok_mod, fo)
+        elastic, stop_resume = phase_elastic(card, data)
+        launches.update(elastic)
+        launches.update(phase_elastic_live(card, data, stop_resume))
     for name in FLASH_KERNELS:
         fp16[name]["launches"] = launches["train_fp16"][name]
     emit({"seconds": time.monotonic() - t_start, "card": card})

@@ -39,16 +39,20 @@ class JobEnv:
     # re-claiming (must exceed peers' watcher poll interval so the blip is
     # observed).
     rejoin_delay_secs: float = field(3.0, env="EDL_TPU_REJOIN_DELAY")
-    # Peer-to-peer live state migration: on a membership change,
-    # surviving trainers adopt the new world in place and serve their
-    # sealed snapshot to (re)starting peers. 0 is the pure
-    # stop-resume-from-disk recipe, the only one the port's launcher
-    # runs yet (ROADMAP Queue 1 item 16b); the default is the JAX
-    # package's.
+    # Peer-to-peer live state migration (collective/migration.py): on a
+    # membership change, surviving trainers adopt the new world IN PLACE
+    # and every trainer serves its sealed snapshot to (re)starting
+    # peers, with disk as the fallback. 0 restores the pure
+    # stop-resume-from-disk recipe.
     resize_p2p: bool = field(True, env="EDL_TPU_RESIZE_P2P")
-    # The JAX package's job_server, donor_linger_secs and
-    # adopt_timeout_secs are left out: the last two belong to live
-    # migration (item 16b), and nothing reads the first.
+    # How long a SIGTERM'd trainer keeps serving its snapshot to the
+    # re-formed world before exiting (early-exits once every live pod has
+    # acked).
+    donor_linger_secs: float = field(10.0, env="EDL_TPU_DONOR_LINGER")
+    # How long the launcher waits for its trainer to ack an in-place
+    # adoption before falling back to stop-resume with a donor linger.
+    adopt_timeout_secs: float = field(10.0, env="EDL_TPU_ADOPT_TIMEOUT")
+    # The JAX package's job_server is left out: nothing reads it.
 
     def __post_init__(self):
         if not self.pod_id:

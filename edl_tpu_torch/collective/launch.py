@@ -1,25 +1,31 @@
-"""Elastic launcher, stop-resume: register -> barrier -> spawn trainer ->
-watch -> loop (port of ``edl_tpu.collective.launch`` without its live
-migration branch). One launcher per pod; it imports no torch, so it
-starts fast and holds no CUDA context.
+"""Elastic launcher: register -> barrier -> spawn trainer -> watch -> loop
+(port of ``edl_tpu.collective.launch``). One launcher per pod; it
+imports no torch, so it starts fast and holds no CUDA context.
 
 Lifecycle per generation:
   1. claim a rank slot (CAS, leased)                       register.py
   2. barrier until leader publishes a Cluster snapshot     barrier.py
   3. spawn ONE trainer process with the EDL_TPU_* env       process.py
   4. watch: membership change | lease lost | trainer exit  watcher.py
-  5. stop-resume: kill trainer, go to 2 (or 1); the trainer
-     resumes from the latest checkpoint in the new world
+  5. a membership change under live migration (EDL_TPU_RESIZE_P2P=1,
+     the default): re-form the world first, with the claim held, and
+     wait for the running trainer to adopt it in place (its "adopted"
+     ack, migration.wait_adopted); else stop-resume with the old trainer
+     kept alive as a lingering donor, so the new one restores its state
+     from memory                                           migration.py
+  6. any other restart, or EDL_TPU_RESIZE_P2P=0: stop-resume: kill the
+     trainer, go to 2 (or 1); the trainer resumes from the latest
+     checkpoint in the new world
 
 The restart reasons are the JAX package's: ``complete`` (the trainer
 exited 0, or another pod published ``/<job>/complete``), ``lease_lost``,
-``membership``, ``crash`` and ``crash_loop``. Live state migration
-(``EDL_TPU_RESIZE_P2P=1``, the JAX package's default) is not ported:
-the launcher exits before it claims a rank unless the job sets
-``EDL_TPU_RESIZE_P2P=0``, the pure stop-resume recipe.
+``membership``, ``crash`` and ``crash_loop``. A SIGTERM to the launcher
+(a shrink) releases a live-migration trainer as a donor (it stops
+gracefully and lingers, bounded, in its own session) and kills it
+outright under ``EDL_TPU_RESIZE_P2P=0``.
 
 CLI (the trainer picks its own device on its command line):
-  EDL_TPU_RESIZE_P2P=0 python -m edl_tpu_torch.collective.launch \\
+  python -m edl_tpu_torch.collective.launch \\
       --store 127.0.0.1:2379 --nodes-range 1:4 -- \\
       python -m edl_tpu_torch.examples.imagenet_train --ckpt-dir D ...
 """
@@ -27,17 +33,20 @@ CLI (the trainer picks its own device on its command line):
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import time
 
 from edl_tpu_torch.collective import barrier as bar
+from edl_tpu_torch.collective import migration as mig
 from edl_tpu_torch.collective import register as reg
 from edl_tpu_torch.collective.cluster import Pod
 from edl_tpu_torch.collective.job_env import (JobEnv, local_addr,
                                               trainer_environ)
-from edl_tpu_torch.collective.process import start_trainer, \
-    terminate_trainer
+from edl_tpu_torch.collective.process import (release_trainer,
+                                              start_trainer,
+                                              terminate_trainer)
 from edl_tpu_torch.collective.watcher import ClusterWatcher
 from edl_tpu_torch.coord.client import StoreClient
 from edl_tpu_torch.coord.store import Store
@@ -48,16 +57,6 @@ from edl_tpu_torch.utils.logging import get_logger
 
 log = get_logger("edl_tpu_torch.collective.launch")
 
-RESIZE_P2P_UNPORTED = ("EDL_TPU_RESIZE_P2P=1 (live state migration) is not "
-                       "ported yet (ROADMAP Queue 1 item 16)")
-
-
-def _refuse_unported(job: JobEnv) -> None:
-    """Exit before any rank is claimed on what this port lacks."""
-    if job.resize_p2p:
-        raise SystemExit(RESIZE_P2P_UNPORTED)
-
-
 def _job_complete(store: Store, job_id: str) -> bool:
     return store.get(reg.complete_key(job_id)) is not None
 
@@ -67,7 +66,6 @@ def launch(job: JobEnv, trainer_cmd: list[str], *, store: Store | None = None,
            n_devices: int | None = None,
            healthy_generation_secs: float = 60.0) -> int:
     """Run the elastic loop until the job completes. Returns exit code."""
-    _refuse_unported(job)
     owns_store = store is None
     if store is None:
         store = StoreClient(job.store_endpoints)  # closed in the finally
@@ -90,6 +88,25 @@ def launch(job: JobEnv, trainer_cmd: list[str], *, store: Store | None = None,
     trainer = None
     watcher = None
     cluster = None
+    # Donors released into their linger window: trainers that keep
+    # serving their sealed snapshot to the re-formed world. Reaped each
+    # poll; force-killed past the deadline.
+    lingering: list[list] = []  # [TrainerProc, kill_deadline]
+
+    def _reap_lingering() -> None:
+        now = time.monotonic()
+        for item in list(lingering):
+            tp, deadline = item
+            if not tp.alive():
+                lingering.remove(item)
+            elif now > deadline:
+                log.warning("donor pid=%d outlived its linger window; "
+                            "killing group", tp.pid)
+                try:
+                    os.killpg(os.getpgid(tp.pid), signal.SIGKILL)
+                except (ProcessLookupError, PermissionError):
+                    pass
+                lingering.remove(item)
 
     try:
         while True:
@@ -114,6 +131,7 @@ def launch(job: JobEnv, trainer_cmd: list[str], *, store: Store | None = None,
             restart_reason = None
             while restart_reason is None:
                 time.sleep(poll)
+                _reap_lingering()
                 if _job_complete(store, job.job_id):
                     restart_reason = "complete"
                 elif register.lost.is_set():
@@ -150,6 +168,40 @@ def launch(job: JobEnv, trainer_cmd: list[str], *, store: Store | None = None,
             watcher.stop()
             log.info("generation v%d ends: %s", cluster.version,
                      restart_reason)
+            if restart_reason == "membership" and job.resize_p2p \
+                    and trainer.alive():
+                # Live migration: re-form the world FIRST (our claim is
+                # still held, the trainer keeps training), then let the
+                # running trainer adopt the new generation in place. Its
+                # reform watch follows the leader-published cluster; we
+                # only wait for its "adopted" ack.
+                cluster = bar.cluster_barrier(
+                    store, job.job_id, pod.pod_id,
+                    after_version=last_version, min_nodes=job.min_nodes,
+                    stable_secs=job.barrier_stable_secs,
+                    timeout=job.barrier_timeout)
+                last_version = cluster.version
+                if cluster.rank_of(pod.pod_id) >= 0 and mig.wait_adopted(
+                        store, job.job_id, pod.pod_id, cluster.version,
+                        timeout=job.adopt_timeout_secs,
+                        is_alive=trainer.alive):
+                    log.info("trainer pid=%d adopted cluster v%d in "
+                             "place", trainer.pid, cluster.version)
+                    crashes = 0
+                    continue  # same trainer; fresh watcher at loop top
+                # Adoption unavailable (the trainer died, has no
+                # migration service, or stalled): stop-resume, with the
+                # old trainer kept alive as a DONOR so the replacement
+                # restores its state from memory instead of disk.
+                log.info("in-place adoption unavailable — stop-resume "
+                         "with donor linger (pid=%d)", trainer.pid)
+                release_trainer(trainer)
+                lingering.append([trainer,
+                                  time.monotonic()
+                                  + job.donor_linger_secs + 5.0])
+                trainer = None
+                crashes = 0
+                continue  # cluster already re-formed: respawn directly
             terminate_trainer(trainer)
             trainer = None
             cluster = None
@@ -186,7 +238,15 @@ def launch(job: JobEnv, trainer_cmd: list[str], *, store: Store | None = None,
         if watcher is not None:
             watcher.stop()
         if trainer is not None:
-            terminate_trainer(trainer)
+            if job.resize_p2p:
+                # Shrink/shutdown: the trainer turns SIGTERM into a
+                # graceful stop and lingers as a donor (own session, so
+                # it outlives this launcher). Its linger is self-bounded;
+                # releasing the claim below lets it exit early when
+                # nobody is left to serve.
+                release_trainer(trainer)
+            else:
+                terminate_trainer(trainer)
         register.release()
         if owns_store:
             try:
@@ -198,8 +258,7 @@ def launch(job: JobEnv, trainer_cmd: list[str], *, store: Store | None = None,
 def parse_args(argv=None) -> tuple[JobEnv, list[str]]:
     parser = argparse.ArgumentParser(
         prog="edl_tpu_torch.collective.launch",
-        description="Elastic job launcher, stop-resume (flag else "
-                    "EDL_TPU_* env)")
+        description="Elastic job launcher (flag else EDL_TPU_* env)")
     parser.add_argument("--job-id", default=None)
     parser.add_argument("--pod-id", default=None)
     parser.add_argument("--store", dest="store_endpoints", default=None,
@@ -231,11 +290,11 @@ def _raise_exit(signum, frame):
 def main(argv=None) -> int:
     # A shrink (or an operator's Ctrl-C on a remote shell) delivers
     # SIGTERM to the launcher only: the trainer runs in its own session.
-    # Convert it to SystemExit so launch()'s finally block kills the trainer
-    # tree and releases the rank claim instead of orphaning a trainer that
-    # keeps writing checkpoints against a stale world.
+    # Convert it to SystemExit so launch()'s finally block releases (or
+    # kills) the trainer tree and releases the rank claim instead of
+    # orphaning a trainer that keeps writing checkpoints against a stale
+    # world.
     job, cmd = parse_args(argv)
-    _refuse_unported(job)
     signal.signal(signal.SIGTERM, _raise_exit)
     return launch(job, cmd)
 

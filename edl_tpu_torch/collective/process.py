@@ -4,7 +4,8 @@
 ONE trainer process per launcher, started in its own session (so its own
 process group) with stdout+stderr in ``{log_dir}/workerlog.{rank}``; the
 signals go to the whole group, so the trainer's loader workers die with
-it.
+it. ``release_trainer`` SIGTERMs the group without waiting: the donor
+path of live state migration.
 """
 
 from __future__ import annotations
@@ -50,6 +51,24 @@ def start_trainer(cmd: list[str], env: dict, log_dir: str,
     log.info("started trainer rank=%d pid=%d log=%s", rank, proc.pid,
              log_path)
     return TrainerProc(proc=proc, log_path=log_path, cmd=list(cmd))
+
+
+def release_trainer(tp: TrainerProc) -> None:
+    """SIGTERM the trainer group and return at once: the donor path of the
+    state-migration plane. A migration-enabled trainer turns SIGTERM into
+    a graceful stop and a bounded donor linger (it keeps serving its
+    sealed snapshot to the re-formed world), so the caller neither blocks
+    on it nor escalates to SIGKILL as ``terminate_trainer`` does. The
+    caller owns the eventual force-kill deadline (launch.py's reap of
+    lingering donors)."""
+    if not tp.alive():
+        return
+    try:
+        os.killpg(os.getpgid(tp.pid), signal.SIGTERM)
+        log.info("released trainer pid=%d (graceful stop + donor linger)",
+                 tp.pid)
+    except (ProcessLookupError, PermissionError):
+        pass
 
 
 def terminate_trainer(tp: TrainerProc, grace: float = 10.0) -> None:

@@ -34,6 +34,16 @@ global-batch BatchNorm statistics, is not ported, so a world above one
 without them exits. Rank 0 writes the synthetic data (the others wait
 at a barrier), logs, writes checkpoints and the benchmark log.
 
+Under the elastic launcher with live migration (``EDL_TPU_RESIZE_P2P=1``,
+the default) a trainer whose pod stays in a resized world adopts it in
+place: the loop's ``reform_mesh`` hook re-forms the process group
+(``distributed.reform_world``) and rebuilds the comm step for the new
+world, and ``on_reform`` re-derives this rank's loader shard for the new
+(rank, world) with the global batch unchanged; the epoch resumes at its
+step cursor. The JAX package's CLI passes its loop neither hook; there a
+survivor keeps its old device world, which the port, whose device world
+is its process group, cannot (ROADMAP Queue 3).
+
   python -m edl_tpu_torch.examples.imagenet_train --device cpu \\
       --make-synthetic 2 --data-dir "$(mktemp -d)" --rows-per-file 32 \\
       --model ResNetTiny --image-size 32 --num-classes 10 \\
@@ -90,6 +100,7 @@ from edl_tpu_torch.train.fused_opt import make_fused_tx
 from edl_tpu_torch.train.loop import LoopConfig, TrainLoop
 from edl_tpu_torch.utils import config
 from edl_tpu_torch.utils.config import from_env
+from edl_tpu_torch.utils.exceptions import EdlError
 from edl_tpu_torch.utils.logging import get_logger
 
 log = get_logger("edl_tpu_torch.examples.imagenet_train")
@@ -372,10 +383,13 @@ def main(argv=None) -> int:
                     if args.no_augment
                     else train_image_transform(args.image_size,
                                                rotate=args.rotate))
-        loader = DataLoader(source, local_bs, rank=rank, world=world,
-                            seed=args.seed, sample_transforms=(sample_t,),
-                            decode_threads=args.decode_threads,
-                            num_workers=loader_workers)
+
+        def make_loader(rank: int, world: int) -> DataLoader:
+            return DataLoader(source, args.batch_size // world, rank=rank,
+                              world=world, seed=args.seed,
+                              sample_transforms=(sample_t,),
+                              decode_threads=args.decode_threads,
+                              num_workers=loader_workers)
         normalize = "imagenet"  # uint8 off the wire; normalized on the card
         n_files = len(source)
     else:
@@ -404,11 +418,18 @@ def main(argv=None) -> int:
         # loader ships raw bytes and the per-step seed
         transforms = () if (args.no_augment or augment_device) \
             else (random_flip_lr, random_crop)
-        loader = DataLoader(source, local_bs, rank=rank, world=world,
-                            seed=args.seed, transforms=transforms,
-                            num_workers=loader_workers,
-                            emit_batch_seed=augment_device)
-    steps_per_epoch = loader.steps_per_epoch()
+
+        def make_loader(rank: int, world: int) -> DataLoader:
+            return DataLoader(source, args.batch_size // world, rank=rank,
+                              world=world, seed=args.seed,
+                              transforms=transforms,
+                              num_workers=loader_workers,
+                              emit_batch_seed=augment_device)
+    # what changes when the world is re-formed in place (reform_mesh and
+    # on_reform below): this rank's shard of the global batch
+    w = {"rank": rank, "world": world, "local_bs": local_bs,
+         "loader": make_loader(rank, world)}
+    steps_per_epoch = w["loader"].steps_per_epoch()
     log.info("world=%d rank=%d device=%s format=%s shards=%d samples=%d "
              "steps/epoch=%d loader_workers=%d augment_device=%s", world,
              rank, device, args.data_format, n_files, len(source),
@@ -430,13 +451,16 @@ def main(argv=None) -> int:
         tx = state_lib.sgd(schedule, momentum=args.momentum,
                            weight_decay=args.weight_decay)
     state = create_state(model, tx)
-    # with device augmentation the augment normalizes (one pass after
-    # crop/flip); the step must not normalize twice
-    step = make_classification_step(
-        args.num_classes, smoothing=args.label_smoothing,
-        mixup_alpha=args.mixup_alpha, seed=args.seed,
-        normalize=None if augment_device else normalize, comm=comm_cfg,
-        topology=distributed.slice_topology(env))
+
+    def make_step(world_env: TrainerEnv):
+        # with device augmentation the augment normalizes (one pass after
+        # crop/flip); the step must not normalize twice
+        return make_classification_step(
+            args.num_classes, smoothing=args.label_smoothing,
+            mixup_alpha=args.mixup_alpha, seed=args.seed,
+            normalize=None if augment_device else normalize, comm=comm_cfg,
+            topology=distributed.slice_topology(world_env))
+    step = make_step(env)
     if comm_cfg is not None:
         log.info("manual gradient path: bucket=%.1fMiB compress=%s",
                  comm_cfg.bucket_mb, comm_cfg.compress)
@@ -448,7 +472,7 @@ def main(argv=None) -> int:
         log.info("device-side augmentation: crop(pad=4)+flip+normalize "
                  "on the prefetch stream from loader-emitted seeds")
 
-    eval_batches = _eval_batches(args, local_bs, val_path)
+    w["eval_batches"] = _eval_batches(args, local_bs, val_path)
     blog = BenchmarkLog(args.model, batch_size=args.batch_size,
                         world_size=world)
     epoch_t0 = [time.perf_counter()]
@@ -458,13 +482,13 @@ def main(argv=None) -> int:
             torch.cuda.synchronize(device)   # the epoch's queued steps
         elapsed = time.perf_counter() - epoch_t0[0]
         # per-trainer rate; benchlog multiplies its max by world_size
-        rate = steps_per_epoch * local_bs / max(elapsed, 1e-9)
+        rate = steps_per_epoch * w["local_bs"] / max(elapsed, 1e-9)
         results = {"examples_per_sec": rate}
-        if eval_batches is not None:
+        if w["eval_batches"] is not None:
             # rank r evaluates batches r, r + W, ...; the world's means
             sums = torch.zeros(3, dtype=torch.float64, device=device)
-            for i, hb in enumerate(eval_batches()):
-                if i % world != rank:
+            for i, hb in enumerate(w["eval_batches"]()):
+                if i % w["world"] != w["rank"]:
                     continue
                 ev = eval_step(state, {
                     "image": torch.as_tensor(hb["image"], device=device),
@@ -492,11 +516,45 @@ def main(argv=None) -> int:
     depth = loop_cfg.prefetch_batches or 2
     if prefetch:
         loop_cfg = dataclasses.replace(loop_cfg, prefetch_batches=0)
+
+    def reform_mesh(new_rank: int, new_world: int, cluster):
+        """An adopted resize: re-form the process group in the new world
+        (a trainer keeps its card) and return the step built for it."""
+        if new_world > 1 and comm_cfg is None:
+            # typed: the reform machine downgrades to stop-resume, whose
+            # fresh trainer then exits on the same refusal
+            raise EdlError(_unported(
+                f"a world of {new_world} without --dcn-compress/"
+                "--comm-bucket-mb", 10))
+        new_env = dataclasses.replace(
+            env, rank=new_rank, world_size=new_world,
+            coordinator=cluster.coordinator,
+            cluster_json=cluster.to_json(),
+            cluster_version=cluster.version)
+        distributed.reform_world(new_env, device=device)
+        return make_step(new_env)
+
+    def on_reform(new_rank: int, new_world: int, cluster):
+        """This rank's shard of the same global batch in the new world."""
+        del cluster
+        if args.batch_size % new_world:
+            raise SystemExit(f"global batch {args.batch_size} not divisible "
+                             f"by world {new_world}")
+        w["loader"].close()
+        w.update(rank=new_rank, world=new_world,
+                 local_bs=args.batch_size // new_world,
+                 loader=make_loader(new_rank, new_world))
+        w["eval_batches"] = _eval_batches(args, w["local_bs"], val_path)
+        blog.result["world_size"] = new_world
+        log.info("reformed: world=%d rank=%d local batch %d", new_world,
+                 new_rank, w["local_bs"])
+
     loop = TrainLoop(step, state, device=device, config=loop_cfg,
-                     eval_fn=eval_fn)
+                     eval_fn=eval_fn, reform_mesh=reform_mesh,
+                     on_reform=on_reform)
 
     def data_fn(epoch):
-        batches = loader.epoch(epoch)
+        batches = w["loader"].epoch(epoch)
         if prefetch:
             return prefetch_to_device(batches, device, size=depth,
                                       augment=augment)
@@ -504,13 +562,13 @@ def main(argv=None) -> int:
 
     # TrainLoop closes the data plane it drives (decode pool, mp workers
     # and their shm ring) when the run ends, crash paths included
-    data_fn.close = loader.close
+    data_fn.close = lambda: w["loader"].close()
     status = loop.run(data_fn)
     blog.extra(**loop.ckpt_stats())  # save-stall / restore accounting
     if comm_cfg is not None:
-        blog.extra(**step.stats())  # bucket plan + wire accounting
-    if rank == 0 and args.benchmark_log:
-        blog.write(args.benchmark_log, rank)
+        blog.extra(**loop.step_fn.stats())  # bucket plan + wire accounting
+    if w["rank"] == 0 and args.benchmark_log:
+        blog.write(args.benchmark_log, w["rank"])
     final = blog.finalize().get("final", {})
     log.info("done: epoch=%d step=%d %s", status.epoch, status.step,
              {k: round(v, 4) for k, v in final.items()})

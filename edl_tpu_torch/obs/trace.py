@@ -172,6 +172,14 @@ def span(name: str, parent: tuple[str, str] | None = None,
         s.end()
 
 
+def instant(name: str, parent: tuple[str, str] | None = None,
+            attrs: dict | None = None) -> None:
+    """Zero-duration marker span (the 'first fresh util' tick)."""
+    s = start_span(name, parent=parent, attrs=attrs)
+    if s is not None:
+        s.end()
+
+
 def event(name: str, dur_s: float) -> None:
     """Emit a finished root span measured elsewhere (utils/timeline's
     path: the operation happened, only its duration is known)."""

@@ -163,11 +163,23 @@ def _sgdm_math(p, g, m, lr, mu: float, wd: float):
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """The fp32 square root, correctly rounded on any device. torch's
-    vectorized CPU sqrt is an ulp off for some inputs, while JAX's and
-    the kernels' (__fsqrt_rn) are not; the float64 root rounded once to
-    fp32 is correctly rounded (53 >= 2 x 24 + 2 bits)."""
-    return torch.sqrt(x.double()).float()
+    """The fp32 square root of fp32 ``x``, correctly rounded on any device,
+    as JAX's and the kernels' (__fsqrt_rn) are. torch's CPU roots are not:
+    its vectorized fp32 root is an ulp off for some inputs, and its
+    float64 root, usually within an ulp, comes on some first calls in a
+    process from a path accurate to about 2^-34, which can flip an fp32
+    rounding. So the float64 root rounded to fp32 is only a candidate r,
+    moved to the neighbour that is the correct rounding: r is right when
+    (r - ulp/2)^2 <= x < (r + ulp/2)^2, where the midpoints (25 bits) and
+    their squares (50 bits) are exact in float64. No fp32 x has its root
+    on a midpoint, so there are no ties."""
+    r = torch.sqrt(x.double()).float()
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    down = torch.nextafter(r, torch.zeros_like(r))
+    xd, rd = x.double(), r.double()
+    hi, lo = (rd + up.double()) * 0.5, (rd + down.double()) * 0.5
+    r = torch.where(xd >= hi * hi, up, r)
+    return torch.where(xd < lo * lo, down, r)
 
 
 def _adam_math(p, g, m, v, lr, c1, c2, b1: float, b2: float,

@@ -24,8 +24,14 @@ process group where the JAX package takes an axis name and index groups.
 Without a process group the world is one rank and each is the identity.
 On the gloo backend a CUDA tensor goes through host memory: the choice
 is made by the backend's name, for every op, never by catching an error
-of a CUDA collective. ``reform_world`` comes with the live half of the
-elastic trainer side (ROADMAP Queue 1 item 16b).
+of a CUDA collective.
+
+``reform_world`` re-forms the world in place for the elastic trainer's
+reform state machine (``collective/reform.py``): it drops the current
+process group without a barrier (a peer may be gone) and joins the new
+``(rank, world, coordinator)``, on the backend the process first joined
+with. A rank keeps the card it started on: the world changes, the
+trainer's device does not.
 """
 
 from __future__ import annotations
@@ -45,6 +51,9 @@ log = get_logger("edl_tpu_torch.parallel.distributed")
 # How long a rank waits for the others to join, and for a collective.
 TIMEOUT = timedelta(minutes=5)
 
+# the backend this process joined a world with (reform_world reuses it)
+_backend: str | None = None
+
 
 def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
@@ -54,9 +63,17 @@ def init_from_env(env: TrainerEnv | None = None, *,
                   backend: str | None = None,
                   device: str | torch.device = "cuda") -> TrainerEnv:
     """Join the world described by the EDL_TPU_* env (no-op for a world
-    of one or a repeat call). ``backend`` defaults to nccl for a CUDA
-    ``device`` and gloo otherwise. Returns the parsed TrainerEnv."""
+    of one or a repeat call). ``backend`` defaults to the one an earlier
+    call chose, else nccl for a CUDA ``device`` and gloo otherwise; the
+    first call's backend, in a world of one too, is the one
+    ``reform_world`` joins with. Returns the parsed TrainerEnv."""
+    global _backend
     env = env or TrainerEnv.from_environ()
+    backend = backend or _default_backend(device)
+    if _backend is None:
+        # the first call's backend is this process's, a world of one's
+        # too: a world it grows into in place joins on it
+        _backend = backend
     if env.world_size <= 1 or is_initialized():
         return env
     if not env.coordinator:
@@ -66,14 +83,65 @@ def init_from_env(env: TrainerEnv | None = None, *,
     if not 0 <= env.rank < env.world_size:
         raise EdlError(f"EDL_TPU_RANK={env.rank} outside a world of "
                        f"{env.world_size}")
-    if backend is None:
-        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     log.info("joining world: rank=%d/%d coordinator=%s backend=%s",
              env.rank, env.world_size, env.coordinator, backend)
+    _join(env, backend, TIMEOUT)
+    return env
+
+
+def _default_backend(device) -> str:
+    return _backend or ("nccl" if torch.device(device).type == "cuda"
+                        else "gloo")
+
+
+def _join(env: TrainerEnv, backend: str, timeout: timedelta) -> None:
     dist.init_process_group(backend, init_method=f"tcp://{env.coordinator}",
                             rank=env.rank, world_size=env.world_size,
-                            timeout=TIMEOUT)
+                            timeout=timeout)
+
+
+def reform_world(env: TrainerEnv, *, backend: str | None = None,
+                 device: str | torch.device = "cuda",
+                 timeout: timedelta = TIMEOUT) -> TrainerEnv:
+    """Tear down the current process group and join the world ``env``
+    describes: the mesh-re-formation primitive of the reform state
+    machine. A surviving process keeps running and rejoins under its new
+    (rank, world, coordinator). The teardown takes no barrier, since a
+    peer may be gone. A world of one only tears down. ``backend``
+    defaults to the one ``init_from_env`` chose for this process, else
+    nccl for a CUDA ``device`` and gloo otherwise; ``timeout`` bounds the
+    rendezvous and the new group's collectives.
+
+    Every failure (a coordinator that never comes up, a backend that
+    cannot join) raises ``EdlError``, the typed failure the machine's
+    mesh-reform phase downgrades on, never a bare crash."""
+    backend = backend or _default_backend(device)
+    try:
+        if is_initialized():
+            dist.destroy_process_group()
+        if env.world_size > 1:
+            if not env.coordinator:
+                raise EdlError(f"a world of {env.world_size} needs a "
+                               "coordinator")
+            log.info("re-forming world: rank=%d/%d coordinator=%s "
+                     "backend=%s", env.rank, env.world_size,
+                     env.coordinator, backend)
+            _join(env, backend, timeout)
+    except EdlError:
+        raise
+    except Exception as exc:  # noqa: BLE001 — typed for the reform
+        # machine's mesh-reform downgrade (stop-resume), never a crash
+        raise EdlError(f"world re-formation failed: {exc}") from exc
     return env
+
+
+def leave() -> None:
+    """Leave the world now, without a barrier (no-op when none was
+    joined): a rank that stops while its peers run on drops its sockets
+    at once, so a peer blocked in a collective with it raises instead of
+    waiting for this process to exit."""
+    if is_initialized():
+        dist.destroy_process_group()
 
 
 def shutdown() -> None:

@@ -33,9 +33,15 @@ epoch-end and shutdown barriers; a failed background write raises
 ``CheckpointWriteError`` on the next save/wait/close. Sync and async
 saves write identical bytes.
 
-The state-migration retention API (``retain_sealed``,
-``sealed_snapshot``) is not ported: it comes with the elastic trainer
-side (ROADMAP Queue 1 item 16).
+Sealed-snapshot retention (the state-migration donor plane,
+``collective/migration.py``): with ``retain_sealed`` set, the newest
+successfully sealed save's host tree is kept in memory and
+``sealed_snapshot()`` serves it as a chunk table and chunks, so a donor
+answers peers without reading the disk; ``on_sealed`` is called after each
+such seal. A retained arena never returns to the staging pool: a fetch may
+still be reading the previous snapshot when a newer one seals, and copying
+the next snapshot over it would serve torn bytes. It is dropped instead,
+and freed once its last reader lets go.
 """
 
 from __future__ import annotations
@@ -93,6 +99,11 @@ class CheckpointManager:
         self._write_error: BaseException | None = None  # guarded-by: _cond
         self._arenas: list[list[torch.Tensor]] = []   # guarded-by: _cond
         self._arena_key: tuple | None = None  # guarded-by: _cond
+        # sealed-snapshot retention (the migration donor plane)
+        self.retain_sealed = False
+        self._sealed: dict | None = None    # guarded-by: _cond
+        # called (no args, outside the lock) after each retention update
+        self.on_sealed = None
         self._tl = timeline("ckpt")
         self._stats = {  # guarded-by: _cond
             "saves_async": 0, "saves_sync": 0, "superseded": 0,
@@ -152,7 +163,10 @@ class CheckpointManager:
                 "status": TrainStatus.from_dict(status.to_dict())}
 
     def _recycle(self, job: dict) -> None:  # holds-lock: _cond
-        if job["key"] == self._arena_key and len(self._arenas) < 2:
+        retained = (self._sealed is not None
+                    and self._sealed["arena"] is job["arena"])
+        if (not retained and job["key"] == self._arena_key
+                and len(self._arenas) < 2):
             self._arenas.append(job["arena"])
 
     # -- save --------------------------------------------------------------
@@ -220,7 +234,9 @@ class CheckpointManager:
         if job["event"] is not None:
             job["event"].synchronize()
         tree = job["build"]([a.numpy() for a in job["arena"]])
-        return self._write_tree(tree, job["status"])
+        version = self._write_tree(tree, job["status"])
+        self._retain(tree, job["arena"], version, job["status"])
+        return version
 
     def _write_tree(self, tree, status: TrainStatus) -> int:
         latest = self.latest_version()
@@ -313,6 +329,48 @@ class CheckpointManager:
                 path = os.path.join(self.directory, name)
                 log.info("startup GC: removing stale partial save %s", path)
                 shutil.rmtree(path, ignore_errors=True)
+
+    # -- sealed-snapshot retention (state-migration donors) ----------------
+
+    def _retain(self, tree, arena: list, version: int,
+                status: TrainStatus) -> None:
+        """Keep the just-sealed save's host tree for peer serving (no-op
+        unless ``retain_sealed``). The previous retained tree is dropped,
+        never recycled into the staging pool."""
+        with self._cond:
+            if not self.retain_sealed:
+                return
+            self._sealed = {"payload": tree, "arena": arena,
+                            "version": version, "view": None,
+                            # isolated from the loop's live cursor
+                            "status": TrainStatus.from_dict(
+                                status.to_dict())}
+            cb = self.on_sealed
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — serving is best-effort;
+                log.exception("on_sealed hook failed")  # never fail a save
+
+    def sealed_snapshot(self) -> dict | None:
+        """The newest sealed save as a serve-ready view, ``{version,
+        status, process_index, leaves, chunks}``: ``leaves`` is the
+        self-describing chunk table of the sharded format (with each
+        chunk's crc32) and ``chunks`` maps chunk file names to host
+        arrays. The donor manifest and payload a migration server answers
+        peers with; None until a save seals with ``retain_sealed`` set."""
+        with self._cond:
+            rec = self._sealed
+        if rec is None:
+            return None
+        if rec["view"] is None:   # built once a seal (crc32s included)
+            snap = sc.snapshot_host_tree(rec["payload"])
+            rec["view"] = {"version": rec["version"],
+                           "status": rec["status"].to_dict(),
+                           "process_index": snap["process_index"],
+                           "leaves": snap["leaves"],
+                           "chunks": dict(snap["chunks"])}
+        return rec["view"]
 
     # -- the writer --------------------------------------------------------
 
@@ -469,11 +527,22 @@ class CheckpointManager:
             "every local sealed checkpoint failed its integrity check "
             f"under {self.directory}") from last_exc
 
+    def restore_local(self, state):
+        """Restore this directory's latest sealed version into ``state``
+        without agreeing on the version with the world (no collective):
+        the disk fallback of an in-place reform, which one rank runs
+        alone. Returns (state, status), or None when there is none."""
+        version = self.latest_version()
+        return None if version is None else self._load(state, version)
+
     def _restore_version(self, state, version: int | None):
-        t0 = time.perf_counter()
         version = self._pick_version(version)
         if version is None:
             return None
+        return self._load(state, version)
+
+    def _load(self, state, version: int):
+        t0 = time.perf_counter()
         tree, status = self._read(version)
         bridge.flax_to_state(tree, state)
         if next(state.model.parameters()).is_cuda:

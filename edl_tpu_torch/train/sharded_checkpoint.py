@@ -16,6 +16,13 @@ The result is the state dict ``serialization.msgpack_restore`` gives for
 the replicated format, rebuilt from the keys, so one ``flax_to_state``
 writes either into the live state. Restoring into sharded tensors waits
 for FSDP (ROADMAP Queue 1 item 10).
+
+``restore_from_index`` is the same assembly with the chunk source
+abstracted (``load(fname) -> ndarray``): the state-migration plane
+(``collective/migration.py``) drives it with a loader that fetches chunks
+from donors' memory, so a peer restore assembles exactly what a disk
+restore of the same chunks does. ``snapshot_nbytes`` is what a donor
+advertises: its chunks' bytes as stored.
 """
 
 from __future__ import annotations
@@ -70,8 +77,9 @@ def key_path(key: str) -> tuple[str, ...]:
 
 
 def snapshot_host_tree(tree) -> dict:
-    """The leaf table and whole-array chunks of a host tree, process 0's
-    (``write`` records each chunk's crc32)."""
+    """The leaf table and whole-array chunks of a host tree, process 0's.
+    Each chunk's crc32 is recorded here, not only when it is written, so
+    a donor serving this view hands peers the checksums to verify."""
     chunks, table = [], []
     for i, (key, leaf) in enumerate(keyed_leaves(tree)):
         arr = np.asarray(leaf)
@@ -81,8 +89,20 @@ def snapshot_host_tree(tree) -> dict:
         table.append({"key": key, "shape": list(arr.shape),
                       "dtype": str(arr.dtype),
                       "chunks": [{"offset": list(offset),
-                                  "shape": list(arr.shape), "file": fname}]})
+                                  "shape": list(arr.shape), "file": fname,
+                                  "crc32": ckpt_io.chunk_crc32(arr)}]})
     return {"leaves": table, "chunks": chunks, "process_index": 0}
+
+
+def snapshot_nbytes(snap: dict) -> int:
+    """Total payload bytes of a snapshot's chunks, as stored: what a donor
+    advert quotes and a full peer restore moves over the wire. Takes the
+    ``snapshot_host_tree`` list of ``(fname, array)`` pairs and the
+    ``sealed_snapshot`` fname -> array dict alike."""
+    chunks = snap["chunks"]
+    arrays = chunks.values() if isinstance(chunks, dict) else (
+        a for _, a in chunks)
+    return int(sum(a.nbytes for a in arrays))
 
 
 def save_tree(directory: str, tree) -> list[str]:
@@ -103,22 +123,44 @@ def restore_state_dict(directory: str, threads: int | None = None) -> dict:
     merged = ckpt_io.read_merged_index(directory)
     files = ckpt_io.ChunkFiles(directory,
                                crcs=ckpt_io.checksum_map(merged))
+    try:
+        return tree_from_index(merged, files.load, threads)
+    finally:
+        files.close()
+
+
+def restore_from_index(merged: dict[str, dict], load, target,
+                       threads: int | None = None):
+    """Assemble every leaf of ``merged`` (a merged leaf table) through
+    ``load(fname) -> ndarray`` and write the tree into ``target``, a
+    TrainState, in place (``bridge.flax_to_state``); returns it. Nothing
+    is written until every chunk has arrived, so a source that fails
+    part way leaves ``target`` as it was."""
+    tree = tree_from_index(merged, load, threads)
+    from edl_tpu_torch import bridge
+
+    bridge.flax_to_state(tree, target)
+    return target
+
+
+def tree_from_index(merged: dict[str, dict], load,
+                    threads: int | None = None) -> dict:
+    """Every leaf of ``merged`` assembled whole (a coverage hole raises)
+    from chunks read through ``load``, on ``threads`` readers, as a
+    nested state dict keyed by the leaves' paths."""
     threads = restore_threads() if threads is None else threads
 
     def read(item):
         key, entry = item
         full = tuple(slice(0, s) for s in entry["shape"])
-        return key, ckpt_io.read_region(files.load, entry, full)
+        return key, ckpt_io.read_region(load, entry, full)
 
-    try:
-        if threads > 1 and len(merged) > 1:
-            with ThreadPoolExecutor(max_workers=threads,
-                                    thread_name_prefix="edl-ckpt-read") as ex:
-                arrays = list(ex.map(read, merged.items()))
-        else:
-            arrays = [read(item) for item in merged.items()]
-    finally:
-        files.close()
+    if threads > 1 and len(merged) > 1:
+        with ThreadPoolExecutor(max_workers=threads,
+                                thread_name_prefix="edl-ckpt-read") as ex:
+            arrays = list(ex.map(read, merged.items()))
+    else:
+        arrays = [read(item) for item in merged.items()]
     out: dict = {}
     for key, arr in arrays:
         node = out

@@ -64,8 +64,26 @@ ENV_VARS: dict[str, str] = {
     "EDL_TPU_BARRIER_TIMEOUT": "elastic barrier hard timeout seconds",
     "EDL_TPU_REJOIN_DELAY": "pod rejoin backoff seconds after a kick",
     "EDL_TPU_RESIZE_P2P": "peer-to-peer live state migration (0 = "
-                          "stop-resume from checkpoints; 1 is not ported "
-                          "yet, ROADMAP Queue 1 item 16b)",
+                          "stop-resume from disk)",
+    "EDL_TPU_DONOR_LINGER": "seconds a released trainer keeps serving its "
+                            "sealed snapshot",
+    "EDL_TPU_ADOPT_TIMEOUT": "launcher wait for in-place adoption before "
+                             "stop-resume",
+    # reform state machine (collective/reform.ReformConfig)
+    "EDL_TPU_REFORM_QUIESCE_S": "reform quiesce-phase deadline seconds "
+                                "(step/ckpt drain; stop-resume downgrade)",
+    "EDL_TPU_REFORM_MESH_S": "reform mesh-re-formation deadline seconds "
+                             "(stop-resume downgrade)",
+    "EDL_TPU_REFORM_RESTORE_S": "reform peer/disk restore deadline seconds "
+                                "(peer failure downgrades to disk)",
+    "EDL_TPU_REFORM_REJIT_S": "reform re-jit + first-step deadline seconds "
+                              "(advisory past dispatch; launcher adopt "
+                              "timeout is the hard bound)",
+    # utilization publishing (coord/collector.UtilizationPublisher)
+    "EDL_TPU_PUBLISH_UTIL": "trainer utilization publishing (0 = off)",
+    "EDL_TPU_STORE_SHARDS": "shard-group count when splitting a flat "
+                            "replica list (refused above 1: ROADMAP Queue "
+                            "1 item 17)",
     # train loop (train/loop.LoopConfig)
     "EDL_TPU_NUM_EPOCHS": "epochs to train",
     "EDL_TPU_LOG_EVERY": "log metrics every N steps",
@@ -128,6 +146,11 @@ def env_int(name: str, default: int = 0) -> int:
         return int(value) if value else default
     except ValueError:
         return default
+
+
+def env_present(name: str) -> bool:
+    """Is the declared knob set at all (the 'under the launcher?' probe)."""
+    return _declared(name) in os.environ
 
 
 def env_flag(name: str, default: bool = False) -> bool:

@@ -527,22 +527,43 @@ def test_the_elastic_worker_s_argv():
     assert args.model == "ResNet50_vd" and args.batch_size // 2 == 64
     assert cs.ELASTIC_ENV["EDL_TPU_RESIZE_P2P"] == "0"
     assert cs.ELASTIC_WORLDS == [2, 1, 2]
+    live = cs.ELASTIC_LIVE_ENV
+    assert live["EDL_TPU_RESIZE_P2P"] == "1"
+    assert {k: v for k, v in live.items() if k in cs.ELASTIC_ENV
+            and k != "EDL_TPU_RESIZE_P2P"} == {
+        k: v for k, v in cs.ELASTIC_ENV.items() if k != "EDL_TPU_RESIZE_P2P"}
+    # longer than a generation's start on the card (PERF.md: 13.6-15.6 s)
+    for knob in ("EDL_TPU_DONOR_LINGER", "EDL_TPU_ADOPT_TIMEOUT",
+                 "EDL_TPU_REFORM_MESH_S"):
+        assert float(live[knob]) >= 60
 
 
-def _gen_records(worlds=(2, 1, 2), epochs=((0,), (1, 2), (3, 4, 5)),
+# the pods of a 2 -> 1 -> 2 job: the leaver holds rank 0 of v1, the
+# survivor rank 1 of v1, rank 0 of v2 and rank 1 of v3, the newcomer
+# rank 0 of v3
+PODS = {(1, 0): "podA", (1, 1): "podB", (2, 0): "podB", (3, 0): "podC",
+        (3, 1): "podB"}
+
+
+def _gen_records(worlds=(2, 1, 2), epochs=((0,), (1,), (2,)),
                  first_losses=(6.9, 6.0, 5.0)):
     """Worker records of a 2 -> 1 -> 2 job (versions 1, 2, 3), rank 0's
     sealed epochs as given, three steps a rank with elastic_want's
-    launches."""
+    launches; the survivor's v3 record its v2 trainer's, adopted."""
     recs = []
     for v, (world, eps, loss) in enumerate(zip(worlds, epochs,
                                                first_losses), start=1):
         for rank in range(world):
             steps = [{"ms": 150.0 + i, "loss": loss - 0.1 * i,
                       "launches": cs.elastic_want(world)} for i in range(3)]
+            pod = PODS.get((v, rank), f"pod{v}{rank}")
             recs.append({"version": v, "rank": rank, "world": world,
+                         "pod": pod, "pid": 1000 * v + rank,
+                         "adopted": False, "first_sha256": f"h{v}",
                          "epochs": list(eps), "steps": steps,
                          "t_first_step": 100.0 * v})
+    survivor = [r for r in recs if r["pod"] == "podB"]
+    survivor[-1].update(pid=survivor[-2]["pid"], adopted=True)
     return recs
 
 
@@ -567,9 +588,9 @@ def test_elastic_gates_pass_a_two_one_two_job():
 def test_elastic_gates_fail(case, capsys):
     recs, docs = _gen_records(), list(DOCS)
     if case == "repeated_epoch":
-        recs = _gen_records(epochs=((0,), (0, 1, 2), (3, 4, 5)))
+        recs = _gen_records(epochs=((0,), (0, 1), (2,)))
     elif case == "missing_epoch":
-        recs = _gen_records(epochs=((0,), (2,), (3, 4, 5)))
+        recs = _gen_records(epochs=((0,), (2,), (2,)))
     elif case == "restarted":          # the last generation began afresh
         recs = _gen_records(first_losses=(6.9, 6.0, 6.95))
     elif case == "worlds":
@@ -587,29 +608,33 @@ def test_elastic_gates_fail(case, capsys):
     elif case == "nan":
         recs[4]["steps"][0]["loss"] = float("nan")
     elif case == "empty_generation":
-        recs = _gen_records(epochs=((0, 1, 2), (), (3, 4, 5)))
+        recs = _gen_records(epochs=((0, 1), (), (2,)))
     with pytest.raises(SystemExit):
         cs.elastic_gates(recs, docs)
     assert "elastic" in capsys.readouterr().err
 
 
 def test_the_elastic_phase_is_documented_and_run():
-    """Phase 15 is in the docstring; main() drives it last, before the
-    kernels line, whose paths gain ``elastic``; the script re-enters
-    itself as the launchers' trainer."""
+    """Phases 15 and 16 are in the docstring; main() drives them last, in
+    that order, on one data dir, before the kernels line, whose paths
+    gain ``elastic`` and ``elastic_live``; the script re-enters itself as
+    the launchers' trainer, under the port's store server."""
     import ast
     import inspect
 
-    assert "15. elastic" in cs.__doc__
+    assert "15. elastic" in cs.__doc__ and "16. elastic_live" in cs.__doc__
     src = inspect.getsource(cs.main)
     calls = [n.func.id for n in ast.walk(ast.parse(src))
              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
     assert calls.index("phase_elastic") > calls.index(
         "phase_fused_opt_smoke")
-    assert src.index("phase_elastic(") < src.index('"kernels": kernels')
+    assert calls.index("phase_elastic_live") > calls.index("phase_elastic")
+    assert src.index("phase_elastic_live(") < src.index('"kernels": kernels')
     main_src = Path(cs.__file__).read_text()
     assert '["--elastic-worker"]' in main_src
-    assert "edl_tpu_torch.coord.server" in inspect.getsource(cs.phase_elastic)
+    assert "edl_tpu_torch.coord.server" in inspect.getsource(cs.ElasticJob.__init__)
+    for phase in (cs.phase_elastic, cs.phase_elastic_live):
+        assert "ElasticJob(" in inspect.getsource(phase)
     assert "edl_tpu.coord" not in main_src
 
 
@@ -623,6 +648,84 @@ def test_the_elastic_job_id_is_this_run_s_alone():
     a, b = cs.elastic_job_id(), cs.elastic_job_id("solo")
     assert a.startswith(f"chip-elastic-{os.getpid()}-")
     assert b.startswith(f"solo-{os.getpid()}-") and a != cs.elastic_job_id()
-    src = inspect.getsource(cs.phase_elastic)
-    assert "job = elastic_job_id()" in src and "chip-elastic" not in src
+    src = inspect.getsource(cs.ElasticJob.__init__)
+    assert "self.job = elastic_job_id()" in src and "chip-elastic" not in src
     assert cs.pids_with_env(EDL_TPU_JOB_ID=a) == []
+
+
+# -- phase 16: elastic_live's gates on fake records ----------------------------
+
+DOCS_LIVE = [(1, 2), (2, 1), (3, 2)]
+
+
+def _live_inputs():
+    """A passing 2 -> 1 -> 2 live job: records, the survivor's adoption
+    ack and the two peer restores' acks, the donors' adverts."""
+    recs = _gen_records()
+    reform = {"generation": 3, "result": "in-place", "restore": "peers",
+              "error": None, "phases": [{"phase": p, "s": 0.5, "ok": True}
+                                        for p in cs.REFORM_PHASES]}
+    acks = [{"pod_id": "podB", "mode": "peers", "generation": 2,
+             "version": 4, "pid": 2000, "bytes_from_peers": 205_000_000,
+             "restore_s": 0.4, "ts": 1.0},
+            {"pod_id": "podB", "mode": "adopted", "generation": 3,
+             "version": None, "pid": 2000, "bytes_from_peers": 205_000_000,
+             "downtime_s": 16.0, "reform": reform, "ts": 2.0},
+            {"pod_id": "podC", "mode": "peers", "generation": 3,
+             "version": 7, "pid": 3000, "bytes_from_peers": 205_000_000,
+             "restore_s": 0.5, "ts": 2.1}]
+    adverts = [{"pod_id": "podA", "version": 4, "nbytes": 205_000_000},
+               {"pod_id": "podB", "version": 7, "nbytes": 205_000_000}]
+    for r in recs:
+        if r["version"] == 3:
+            r["first_sha256"] = "same"
+    return recs, acks, adverts
+
+
+def test_elastic_live_gates_pass_an_in_place_grow():
+    recs, acks, adverts = _live_inputs()
+    facts = cs.elastic_live_gates(recs, DOCS_LIVE, acks, adverts, "podB")
+    assert facts["adopted"]["pid"] == 2000
+    assert [a["pod_id"] for a in facts["peers"]] == ["podB", "podC"]
+    assert facts["params_sha256"] == "same"
+    assert [g["version"] for g in facts["generations"]] == [1, 2, 3]
+
+
+@pytest.mark.parametrize("case", [
+    "respawned", "not_adopted", "no_adoption_ack", "stale_adoption_ack",
+    "adoption_by_another_pid", "downgraded", "phase_order", "no_peers",
+    "short_transfer", "empty_transfer", "params_differ", "elastic_gate"])
+def test_elastic_live_gates_fail(case, capsys):
+    recs, acks, adverts = _live_inputs()
+    grown = next(r for r in recs if r["version"] == 3 and r["pod"] == "podB")
+    if case == "respawned":           # a new process took the grown world
+        grown["pid"] = 4242
+    elif case == "not_adopted":
+        grown["adopted"] = False
+    elif case == "no_adoption_ack":
+        acks = [a for a in acks if a["mode"] != "adopted"]
+    elif case == "stale_adoption_ack":
+        acks[1]["generation"] = 2
+    elif case == "adoption_by_another_pid":
+        acks[1]["pid"] = 4242
+    elif case == "downgraded":
+        acks[1]["reform"]["result"] = "stop-resume"
+    elif case == "phase_order":
+        acks[1]["reform"]["phases"].reverse()
+    elif case == "no_peers":
+        acks = [a for a in acks if a["mode"] != "peers"]
+    elif case == "short_transfer":
+        acks[2]["bytes_from_peers"] -= 4
+    elif case == "empty_transfer":
+        for a in acks:
+            a["bytes_from_peers"] = 0
+        for a in adverts:
+            a["nbytes"] = 0
+    elif case == "params_differ":
+        next(r for r in recs if r["version"] == 3
+             and r["rank"] == 0)["first_sha256"] = "other"
+    elif case == "elastic_gate":      # phase 15's gates run first
+        recs[2]["steps"][1]["launches"] = cs.elastic_want(2)
+    with pytest.raises(SystemExit):
+        cs.elastic_live_gates(recs, DOCS_LIVE, acks, adverts, "podB")
+    assert "elastic" in capsys.readouterr().err

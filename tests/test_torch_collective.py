@@ -2,12 +2,14 @@
 the port's InMemStore, no processes: the cases of tests/test_collective.py,
 the cluster document and the trainer env block byte for byte the JAX
 package's, a launcher run through every restart reason with a fake
-trainer, and the EDL_TPU_RESIZE_P2P=1 refusal (the launcher exits before
-it claims a rank, and writes nothing to the store).
+trainer, and the launcher's live branch (EDL_TPU_RESIZE_P2P=1, the
+default): ``wait_adopted`` and a trainer that never adopts, released as
+a donor and reaped at its deadline.
 """
 
 import dataclasses
-import signal
+import json
+import os
 import sys
 import threading
 import time
@@ -19,6 +21,7 @@ from edl_tpu.collective import job_env as jax_job_env
 from edl_tpu_torch.collective import barrier as bar
 from edl_tpu_torch.collective import cluster as port_cluster
 from edl_tpu_torch.collective import launch
+from edl_tpu_torch.collective import migration as mig
 from edl_tpu_torch.collective import register as reg
 from edl_tpu_torch.collective.cluster import Cluster, Pod, form_cluster
 from edl_tpu_torch.collective.job_env import (JobEnv, TrainerEnv,
@@ -236,9 +239,8 @@ def test_trainer_environ_is_the_jax_package_s(monkeypatch, slices):
     assert ours["EDL_TPU_SOMETHING_ELSE"] == "kept"
 
 
-# the JAX package's JobEnv fields the port leaves out: live migration's
-# two (item 16b) and one that nothing reads
-NOT_PORTED = {"job_server", "donor_linger_secs", "adopt_timeout_secs"}
+# the JAX package's JobEnv field the port leaves out: nothing reads it
+NOT_PORTED = {"job_server"}
 
 
 def test_job_env_fields_env_names_and_defaults_are_the_jax_package_s(
@@ -258,7 +260,7 @@ def test_job_env_fields_env_names_and_defaults_are_the_jax_package_s(
     assert a["resize_p2p"] is True
     left_out = {f.metadata["env"] for f in dataclasses.fields(
         jax_job_env.JobEnv) if f.name in NOT_PORTED}
-    assert len(left_out) == 3 and not left_out & set(config.ENV_VARS)
+    assert len(left_out) == 1 and not left_out & set(config.ENV_VARS)
     for rank, world, n in ((0, 4, 2), (3, 4, 2), (0, 2, 4), (1, 1, 0)):
         assert slice_of_rank(rank, world, n) == \
             jax_job_env.slice_of_rank(rank, world, n)
@@ -266,24 +268,94 @@ def test_job_env_fields_env_names_and_defaults_are_the_jax_package_s(
 
 # -- the launcher -------------------------------------------------------------
 
-def test_resize_p2p_refusal_claims_no_rank(monkeypatch):
-    """EDL_TPU_RESIZE_P2P=1, the JAX package's default, exits before any
-    rank is claimed: no key is written to the store."""
+def test_wait_adopted_takes_only_an_adoption_at_the_generation():
+    """True only for an "adopted" ack at the awaited generation or later;
+    a restore ack or an older generation times out into False, and an ack
+    that lands while the launcher waits wakes it."""
     store = InMemStore()
-    monkeypatch.setattr(launch, "StoreClient", lambda *_: store)
-    for env in ({"EDL_TPU_RESIZE_P2P": "1"}, {}):
-        monkeypatch.delenv("EDL_TPU_RESIZE_P2P", raising=False)
-        for k, v in env.items():
-            monkeypatch.setenv(k, v)
-        handler = signal.getsignal(signal.SIGTERM)
-        with pytest.raises(SystemExit, match="item 16") as exc:
-            launch.main(["--job-id", JOB, "--", "true"])
-        assert "EDL_TPU_RESIZE_P2P=1" in str(exc.value)
-        assert signal.getsignal(signal.SIGTERM) is handler
-        assert store.get_prefix("")[0] == [] and store.current_revision == 0
-    with pytest.raises(SystemExit, match="item 16"):
-        launch.launch(JobEnv(job_id=JOB), ["true"], store=store)
-    assert store.current_revision == 0
+    key = mig.ack_key(JOB, "pod0")
+    assert not mig.wait_adopted(store, JOB, "pod0", 3, timeout=0.3)
+    for doc in ({"mode": "peers", "generation": 3},
+                {"mode": "adopted", "generation": 2}):
+        store.put(key, json.dumps(doc))
+        assert not mig.wait_adopted(store, JOB, "pod0", 3, timeout=0.3)
+    timer = threading.Timer(0.2, store.put, (key, json.dumps(
+        {"mode": "adopted", "generation": 4})))
+    timer.start()
+    t0 = time.monotonic()
+    assert mig.wait_adopted(store, JOB, "pod0", 3, timeout=10.0)
+    assert time.monotonic() - t0 < 3.0
+    timer.join()
+
+
+def test_wait_adopted_gives_up_at_once_on_a_dead_trainer():
+    t0 = time.monotonic()
+    assert not mig.wait_adopted(InMemStore(), JOB, "pod0", 1, timeout=30.0,
+                                is_alive=lambda: False)
+    assert time.monotonic() - t0 < 2.0
+
+
+TRAINER_BY_GENERATION = (
+    "import os, signal, sys, time\n"
+    "v = os.environ['EDL_TPU_CLUSTER_VERSION']\n"
+    "open(os.path.join(sys.argv[1], 'v' + v), 'w').write(str(os.getpid()))\n"
+    "if v == '1':\n"
+    "    signal.signal(signal.SIGTERM, signal.SIG_IGN)\n"
+    "    time.sleep(120)\n"
+    "time.sleep(7)\n")
+
+
+def _gone_or_zombie(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def test_unadopting_trainer_is_released_as_a_donor_and_reaped(tmp_path):
+    """Live migration on (the default): a second pod joins; the running
+    trainer never acks an adoption, so after EDL_TPU_ADOPT_TIMEOUT the
+    launcher releases it (SIGTERM, no wait), spawns the new generation's
+    trainer at once in the world it has already re-formed, and SIGKILLs
+    the old one (which ignores SIGTERM) at its linger deadline
+    (EDL_TPU_DONOR_LINGER + 5 s), while the new one still runs."""
+    store = InMemStore()
+    job = JobEnv(job_id=JOB, pod_id="pod0", barrier_stable_secs=0.1,
+                 rejoin_delay_secs=0.1, lease_ttl=5.0,
+                 adopt_timeout_secs=0.5, donor_linger_secs=0.2,
+                 log_dir=str(tmp_path / "log"))
+    assert job.resize_p2p
+    trainer = [sys.executable, "-c", TRAINER_BY_GENERATION, str(tmp_path)]
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(launch.launch(
+        job, trainer, store=store, poll=0.05)), daemon=True)
+    t.start()
+    other = None
+    try:
+        deadline = time.monotonic() + 30
+        while not (tmp_path / "v1").exists():
+            assert time.monotonic() < deadline, "first trainer never ran"
+            time.sleep(0.05)
+        other = reg.PodRegister(store, JOB, make_pod(1), max_nodes=4,
+                                ttl=5.0)
+        other.claim()
+        t.join(timeout=60)
+        donor = int((tmp_path / "v1").read_text())
+        assert rc == [0] and not t.is_alive()
+        assert (tmp_path / "v2").read_text() != str(donor)
+        assert _gone_or_zombie(donor), "the lingering donor was never reaped"
+    finally:
+        if other is not None:
+            other.release()
+        if (tmp_path / "v1").exists():
+            pid = int((tmp_path / "v1").read_text())
+            if not _gone_or_zombie(pid):
+                os.kill(pid, 9)
+    assert store.get(reg.complete_key(JOB)) is not None
+    assert bar.read_cluster(store, JOB).world_size == 2
+    logs = "".join(p.read_text() for p in (tmp_path / "log").iterdir())
+    assert logs.count("==== start rank=") == 2
 
 
 def test_launcher_runs_to_complete_through_a_crash(tmp_path):

@@ -90,7 +90,8 @@ class Job:
         self.procs.append(proc)
         return proc
 
-    def launcher(self, pod: str, trainer_argv: list) -> subprocess.Popen:
+    def launcher(self, pod: str, trainer_argv: list,
+                 extra_env: dict | None = None) -> subprocess.Popen:
         env = base_env({
             "EDL_TPU_JOB_ID": self.name,
             "EDL_TPU_STORE_ENDPOINTS": f"127.0.0.1:{self.port}",
@@ -101,6 +102,7 @@ class Job:
             "EDL_TPU_BARRIER_STABLE": "0.5",
             "EDL_TPU_NODES_RANGE": "1:4",
             "EDL_TPU_RESIZE_P2P": "0",
+            **(extra_env or {}),
         })
         return self._spawn(pod, [sys.executable, "-m",
                                  "edl_tpu_torch.collective.launch", "--",

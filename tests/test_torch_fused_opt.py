@@ -34,6 +34,7 @@ from edl_tpu_torch.ops import opt_kernels as tok
 from edl_tpu_torch.train import comm as tcomm
 from edl_tpu_torch.train import fused_opt as tfo
 from edl_tpu_torch.train import state as tstate
+from test_torch_world import one_torch_thread  # noqa: F401
 
 SMALL = dict(vocab_size=256, d_model=64, n_heads=2, n_layers=2, d_ff=128,
              max_len=128)
@@ -71,6 +72,90 @@ def test_sgdm_math_matches_jax(wd):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                    atol=1e-8)
+
+
+@pytest.mark.parametrize("rel_err", [2.0 ** -34, 2.0 ** -30],
+                         ids=["2^-34", "2^-30"])
+def test_root_is_correctly_rounded_from_an_inexact_sqrt(rel_err,
+                                                        monkeypatch):
+    """The plain Adam's root stays numpy's correctly rounded fp32 root
+    when torch's float64 sqrt is off by ``rel_err``, as its CPU kernel is
+    on some first calls in a process (about 2^-34): that made the update
+    parity gate's first Adam update an ulp off at a few elements, and
+    ``adam_off_kernel_bitwise`` false now and then."""
+    rng = np.random.default_rng(5)
+    x = np.abs(rng.normal(0, 1, 200_000)).astype(np.float32) \
+        * np.float32(2.0) ** rng.integers(-40, 40, 200_000).astype(np.float32)
+    x[:4] = (0.0, 1.0, 4.0, np.float32(2.0) ** -149)
+    sqrt = torch.sqrt
+    wobble = torch.from_numpy(rng.uniform(-rel_err, rel_err, x.size))
+
+    def inexact(t):
+        out = sqrt(t)
+        return out * (1 + wobble) if t.dtype == torch.float64 else out
+    monkeypatch.setattr(torch, "sqrt", inexact)
+    got = tok._sqrt_rn(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got.view(np.int32), np.sqrt(x).view(np.int32))
+
+
+def _adam_numpy(p, g, m, v, lr, c1, c2, b1, b2, eps, wd):
+    """The Adam update in numpy's fp32, each operation correctly rounded,
+    in the JAX package's expression order."""
+    f = np.float32
+    m_new = f(1 - b1) * g + f(b1) * m
+    v_new = f(1 - b2) * (g * g) + f(b2) * np.maximum(v, f(0))
+    u = (m_new / f(c1)) / (np.sqrt(v_new / f(c2)) + f(eps))
+    if wd:
+        u = u + f(wd) * p
+    return p + u * -f(lr), m_new, v_new
+
+
+@pytest.mark.parametrize("threads", [1, 2, 3, 8])
+def test_plain_updates_are_steady_across_threads_and_offsets(threads):
+    """The plain Adam and momentum-SGD give one result for a bucket
+    stepped whole or in slices that start at odd offsets, under any
+    intra-op thread count (a CPU kernel's SIMD body and scalar tail split
+    where its chunks end, which moves with all three), equal to numpy's
+    correctly rounded fp32 bit for bit; and the update parity gate holds
+    under that thread count."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        rng = np.random.default_rng(threads)
+        n = 70_001          # above one chunk of a CPU kernel's range
+        p, g, m = (rng.normal(0, s, n).astype(np.float32)
+                   for s in (0.1, 0.02, 0.02))
+        v = (rng.normal(0, 0.02, n) ** 2).astype(np.float32)
+        args = (3e-4, 0.1, 1e-3, 0.9, 0.999, 1e-8, 1e-4)
+        want = _adam_numpy(p, g, m, v, *np.float32(args[:3]), *args[3:])
+        cuts = [0, 1, 4_099, 32_771, n]     # odd offsets, odd lengths
+        whole = [torch.from_numpy(a.copy()) for a in (p, g, m, v)]
+        sliced = [torch.from_numpy(a.copy()) for a in (p, g, m, v)]
+        with torch.no_grad():
+            tok._adam_plain(*whole, *args, "off")
+            for lo, hi in zip(cuts, cuts[1:]):
+                tok._adam_plain(*(t[lo:hi] for t in sliced), *args, "off")
+        for w, a, b in zip(want, whole[:1] + whole[2:],
+                           sliced[:1] + sliced[2:]):
+            assert np.array_equal(w.view(np.int32), a.numpy().view(np.int32))
+            assert tfo.bitwise_equal(a, b)
+        sg_whole = [torch.from_numpy(a.copy()) for a in (p, g, m)]
+        sg_sliced = [torch.from_numpy(a.copy()) for a in (p, g, m)]
+        with torch.no_grad():
+            tok._sgdm_plain(*sg_whole, 0.1, 0.9, 1e-4, "off")
+            for lo, hi in zip(cuts, cuts[1:]):
+                tok._sgdm_plain(*(t[lo:hi] for t in sg_sliced), 0.1, 0.9,
+                                1e-4, "off")
+        gd = g + np.float32(1e-4) * p
+        m_want = gd + np.float32(0.9) * m
+        p_want = p + m_want * -np.float32(0.1)
+        for w, a, b in zip((p_want, m_want), sg_whole[:1] + sg_whole[2:],
+                           sg_sliced[:1] + sg_sliced[2:]):
+            assert np.array_equal(w.view(np.int32), a.numpy().view(np.int32))
+            assert tfo.bitwise_equal(a, b)
+        assert tfo.update_parity_gate(device="cpu")["ok"]
+    finally:
+        torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module")

@@ -4,10 +4,11 @@ AST check, so function-scoped imports count too): the checkpoint payload
 is written without the msgpack package and read without ml_dtypes, which
 the card's machine lacks. cv2 is imported only inside a function of
 data/image.py, the JPEG plane, so every other plane runs without it. The
-elastic launcher's modules and the coordination store import no torch
-(nor numpy), so a launcher starts fast and holds no CUDA context: by the
-same AST check, and by importing their entry points in a fresh
-interpreter."""
+elastic launcher's modules, the reform machine and the coordination store
+(the utilization publisher too) import no torch (nor numpy), so a
+launcher starts fast and holds no CUDA context: by the same AST check,
+and by importing their entry points, and the migration plane the
+launcher waits on, in a fresh interpreter."""
 
 import ast
 import subprocess
@@ -75,7 +76,7 @@ PKG = ROOT / "edl_tpu_torch"
 LAUNCHER_SIDE = sorted(
     [PKG / "collective" / f"{m}.py" for m in (
         "launch", "register", "barrier", "watcher", "process", "cluster",
-        "job_env")] + list((PKG / "coord").glob("*.py"))
+        "job_env", "reform")] + list((PKG / "coord").glob("*.py"))
     + [PKG / "utils" / f"{m}.py" for m in (
         "backoff", "unique_name", "net", "config", "exceptions",
         "logging")]
@@ -98,8 +99,12 @@ def test_the_launcher_side_imports_no_torch(path):
 
 
 def test_launcher_and_store_server_start_without_torch():
+    """The launcher reaches the migration plane (wait_adopted), whose
+    tensor wire and checkpoint chunks are imported only where a snapshot
+    is served or fetched."""
     code = ("import sys; import edl_tpu_torch.collective.launch, "
-            "edl_tpu_torch.coord.server; "
+            "edl_tpu_torch.collective.migration, "
+            "edl_tpu_torch.coord.server, edl_tpu_torch.coord.collector; "
             "print(sorted(m for m in ('torch', 'numpy') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          capture_output=True, text=True, timeout=60)
