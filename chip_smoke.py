@@ -29,7 +29,9 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              Adam, int8 and fp8) over 3 steps of a 4 MiB, a ragged, an
              all-zero and a pinned-abs-max bucket with wd 0 and 1e-4
              (p, moments, quantized payloads and scales), K5, K6 and K7
-             in one table over those four buckets, each step also
+             in one table over those four buckets, K5 and K7 (int8) over
+             rank 0's FSDP slices of the base LM (its shard plan's
+             buckets), two steps each, each step also
              repeated in a second launch and held against the first, the
              fused optimizer's gate (every optimizer x quant mode), and
              (in the timing phase) two steps over every bucket of the
@@ -39,10 +41,12 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              fp8 m) and ResNet50_vd's (K4 as one launch over all 24
              buckets; K6 as one entry call, int8 and fp8);
              K8 (the int8 gradient pack: q and the scale's bits) on the
-             CPU tests' grid, a 4 MiB shard and every compressed bucket
+             CPU tests' grid, a 4 MiB shard, every compressed bucket
              of ResNet50_vd's comm plan at world 2 filled with the real
-             gradients of steps 1 and 2, each shard alone and each set
-             as one table;
+             gradients of steps 1 and 2, and every compressed bucket of
+             the base LM's (phase 17's int8 run: 60 buckets, lm_head and
+             the token table 33,554,432 elements each) with a step's,
+             each shard alone and each set as one table;
 3. timing  — each kernel at its main path's shape: its time, its plain
              version's, one PyTorch library call computing the same
              function (timed only, never used by the port; none for
@@ -201,6 +205,40 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              job, the donor included, outlives it. Prints both downtimes
              beside phase 15's, the adoption gap, each reform phase's
              seconds and each peer restore's bytes and seconds.
+17. lm_world — lm_train at the base config (bf16, fused fp32 Adam, 16
+             rows a step, 8 a rank, 10 steps) over two ranks sharing the
+             card (gloo, this script re-entered with --world-worker): (a)
+             --mesh dp (the SPMD world step), (b) --mesh fsdp
+             --ckpt-sharded (each rank its slices of the sharded leaves,
+             gathered in the forward, reduce-scattered in the backward,
+             K5 over its slices' buckets, per-rank chunks), (c) --mesh dp
+             --dcn-compress int8 --comm-bucket-mb 4 (the comm step, K8).
+             Gates: every step 8 K1, 8 K2, 8 K3 and one K5 launch a rank,
+             and one K8 call in (c); the ranks' final states (parameters
+             and moments, (b)'s gathered) hash alike; (b)'s losses within
+             1e-3 relative of (a)'s; (b) holds a rank the replicated
+             leaves and half the sharded ones (101,222,400 of 168,855,552
+             parameter elements), its moments the same within the
+             buckets' padding; (b)'s chunks restore into a fresh world of
+             two and a world of one to the saved state's hash; losses
+             finite and falling; (c) within 0.25 x (a)'s improvement of
+             (a). Prints the step ms, the reduction ms and each rank's
+             peak.
+18. resnet_spmd_world — imagenet_train at RESNET_ARGV over two ranks on
+             the card without a comm flag (the SPMD world step, global-
+             batch BatchNorm), --fused-opt fp32, from the same init on
+             phase 9's shards, two epochs (one climbs under the warmup);
+             then one epoch with --dgc-sparsity 0.99 --dgc-rampup-epochs
+             0 (the plain optimizer). Gates: one K4 launch a step and rank
+             (none under DGC), no K8; the ranks' parameters and BatchNorm
+             buffers hash alike; against a world of one on the same
+             128-image global batch, the first step's loss within 3e-5
+             relative and an fp32 world step's gradients within 1e-2
+             (relative L2), while two controls miss each limit: per-rank
+             statistics (each 64-image half alone) and, for the
+             gradients, the BatchNorm backward's all-reduce left out;
+             losses finite, the second epoch's mean below the first's;
+             DGC's last update at most 2% nonzero.
 
 The kernels phase also holds K1 and K2/K3's fp16 bodies against their
 plain versions (the bf16 bounds; bit for bit between two launches on the
@@ -2659,13 +2697,54 @@ def resnet_comm_buckets(gen, world: int = 2) -> list[list[torch.Tensor]]:
     return steps
 
 
+def lm_comm_buckets(gen, world: int = 2) -> list[torch.Tensor]:
+    """Every compressed bucket of the base LM's comm plan at ``world``
+    ranks (phase 17's --dcn-compress int8 --comm-bucket-mb 4: a flat
+    world, so each rank is its own slice and K8 packs whole buckets; a
+    leaf above 4 MiB, as lm_head and the token table, is a bucket of its
+    own), filled with the real gradients of a step: one rank's share of
+    phase 17's batch (16 / world rows of 1024 seeded random tokens),
+    lm_loss_fn, the step's 1/W scaling. The first step's residual is
+    zero, so these are what K8 packs at step 1."""
+    from edl_tpu_torch.bridge import flax_named_parameters
+    from edl_tpu_torch.models.transformer import Transformer, lm_loss_fn
+    from edl_tpu_torch.train import comm
+
+    cfg = base_config()
+    model = Transformer(cfg, device="cuda", seed=0)
+    named = flax_named_parameters(model)
+    plan = comm.plan_buckets([p for _, p in named], 4.0, align=world)
+    config = comm.CommConfig(compress="int8")
+    tokens = torch.randint(0, cfg.vocab_size, (16 // world, cfg.max_len),
+                           generator=gen, device="cuda")
+    loss, _ = lm_loss_fn(model, {"tokens": tokens})
+    loss.backward()
+    grads = [p.grad * (1.0 / world) for _, p in named]
+    bufs = [buf for buf, b in zip(comm.pack_buckets(grads, plan),
+                                  plan.buckets)
+            if comm._needs_residual(b, 1, world, config)]
+    finite = all(bool(torch.isfinite(b).all()) for b in bufs)
+    emit({"phase": "kernels", "kernel": "pack_int8",
+          "plan": f"base LM comm plan at world {world}", "step": 1,
+          "buckets": plan.n_buckets, "compressed": len(bufs),
+          "elems": sum(b.numel() for b in bufs),
+          "largest": max(b.numel() for b in bufs), "loss": loss.item(),
+          "finite": finite})
+    if not finite:
+        fail("the base LM's step 1 gradients are not finite")
+    del model, named, grads
+    return bufs
+
+
 def phase_kernels_pack(pack_mod, gen) -> tuple[dict, list[torch.Tensor]]:
     """K8 against its plain version, bit for bit: the CPU tests' grid, a
-    4 MiB shard and every compressed bucket of ResNet50_vd's comm plan at
+    4 MiB shard, every compressed bucket of ResNet50_vd's comm plan at
     world 2 with the real gradients of steps 1 and 2 (step 2's each shard
-    alone too), each set as one table (pack_int8_buckets); a bf16 shard
-    and a strided one refused. Returns ({"pack_int8": (0.0, checks)},
-    the plan's buckets at steps 1 and 2)."""
+    alone too) and every compressed bucket of the base LM's comm plan at
+    world 2 with a step's gradients (each alone too), each set as one
+    table (pack_int8_buckets); a bf16 shard and a strided one refused.
+    Returns ({"pack_int8": (0.0, checks)}, ResNet50_vd's buckets at
+    steps 1 and 2)."""
     checks = 0
     grid = pack_grid(gen)
     for name, x in grid.items():
@@ -2690,7 +2769,15 @@ def phase_kernels_pack(pack_mod, gen) -> tuple[dict, list[torch.Tensor]]:
     for step, bufs in enumerate(steps, 1):
         pack_table_bitwise(pack_mod, f"ResNet50_vd's compressed buckets at "
                            f"step {step}", bufs)
-    return {"pack_int8": (0.0, checks + len(steps))}, steps
+        checks += 1
+    lm = lm_comm_buckets(gen)
+    for i, buf in enumerate(lm):
+        pack_bitwise(pack_mod, f"base LM bucket {i}", buf)
+        checks += 1
+    pack_table_bitwise(pack_mod, "the base LM's compressed buckets", lm)
+    del lm
+    torch.cuda.empty_cache()
+    return {"pack_int8": (0.0, checks + 1)}, steps
 
 
 # bytes an element each K8 pass moves (the abs-max pass: x read; the pack
@@ -2775,7 +2862,7 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def spawn_world(run: str, argv: list, out_dir: Path) -> list[dict]:
+def spawn_world(run: str, argv, out_dir: Path) -> list[dict]:
     """WORLD ranks of ``run`` as processes of this script, all on cuda:0,
     meeting at a TCP store on 127.0.0.1. A rank that exits non-zero, or
     any rank still running after WORLD_TIMEOUT_S, fails the run; every
@@ -2810,7 +2897,7 @@ def spawn_world(run: str, argv: list, out_dir: Path) -> list[dict]:
             tail = (out_dir / f"{run}.rank{rank}.log").read_text()[-3000:]
             print(f"--- {run} rank {rank} (exit {codes[rank]}) ---\n{tail}",
                   file=sys.stderr, flush=True)
-        fail(f"train_resnet_world {run}: ranks exited {codes} (negative: "
+        fail(f"world run {run}: ranks exited {codes} (negative: "
              f"killed at the {WORLD_TIMEOUT_S} s limit or by a peer's "
              "failure)")
     return [json.loads((out_dir / f"{run}.rank{r}.json").read_text())
@@ -2950,8 +3037,15 @@ def world_worker(run: str, out_dir: str, argv_json: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     env = distributed.init_from_env(backend="gloo")
     torch.cuda.set_device(distributed.rank_device("cuda", env.rank))
-    result = (world_gate() if run == "gate"
-              else world_train(json.loads(argv_json)))
+    argv = json.loads(argv_json)
+    if run == "gate":
+        result = world_gate()
+    elif run.startswith("lm_"):
+        result = lm_world_train(**argv)
+    elif run.startswith("spmd"):
+        result = spmd_world_train(**argv)
+    else:
+        result = world_train(argv)
     result.update(rank=env.rank, card=torch.cuda.current_device(),
                   backend="gloo")
     Path(out_dir, f"{run}.rank{env.rank}.json").write_text(
@@ -4091,6 +4185,679 @@ def phase_elastic_live(card: str, data: Path, stop_resume: dict) -> dict:
     return {"elastic_live": launches}
 
 
+# -- 17. lm_world ------------------------------------------------------------
+# lm_train at the base config over two ranks sharing the card (gloo, each
+# rank this script re-entered with --world-worker): 160 rows of 1024
+# tokens, 16 rows a step (8 a rank), one epoch = 10 steps.
+LM_WORLD_ARGV = ["--rows-per-file", "160", "--vocab", "32768", "--seq-len",
+                 "1024", "--d-model", "1024", "--n-heads", "16",
+                 "--n-layers", "8", "--d-ff", "4096", "--batch-size", "16",
+                 "--bf16", "--fused-opt", "fp32", "--epochs", "1"]
+LM_WORLD_RUNS = (("dp", ["--mesh", "dp"]),
+                 ("fsdp", ["--mesh", "fsdp", "--ckpt-sharded"]),
+                 ("int8", ["--mesh", "dp", "--dcn-compress", "int8",
+                           "--comm-bucket-mb", "4"]))
+LM_WORLD_STEPS = 10
+FSDP_LOSS_REL = 1e-3     # bf16: (b)'s losses against (a)'s
+# the base LM's elements: the token table and the LayerNorms stay whole,
+# pos_embed, qkv, out, the MLP and lm_head split on their embed dim
+BASE_LM_ELEMS = 168_855_552
+BASE_LM_REPLICATED = 33_589_248
+BASE_LM_SHARDED = 135_266_304
+
+
+def state_digest(state) -> str:
+    """sha256 over the JAX TrainState tree of ``state``, every sharded
+    leaf and moment gathered whole (collective in an FSDP world): keys,
+    dtypes and bytes."""
+    import hashlib
+
+    from edl_tpu_torch import bridge
+    from edl_tpu_torch.train import sharded_checkpoint as sc
+
+    h = hashlib.sha256()
+    tree = bridge.gather_shards(bridge.sharded_state_tree(state))
+    for key, leaf in sc.keyed_leaves(tree):
+        a = np.ascontiguousarray(np.asarray(leaf))
+        h.update(key.encode())
+        h.update(str(a.dtype).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def world_step_probe(counters: dict, steps: list, seen: dict,
+                     at_last=None, last: int = 0):
+    """Wrap the world steps (the SPMD step and the comm step) for a run:
+    each step timed on the host clock between two synchronizes, its
+    gradient reduction (``_reduce``) with CUDA events, ``counters``'
+    launches read around it, its loss; after step ``last``
+    ``seen["final"] = at_last(state)`` (on every rank: it may be
+    collective). Returns the undo function."""
+    from edl_tpu_torch.train import comm
+    from edl_tpu_torch.train import step as step_lib
+
+    saved = {cls: (cls.__call__, cls._reduce)
+             for cls in (step_lib.WorldTrainStep, comm.CommTrainStep)}
+
+    def reduce_of(orig):
+        def reduce(self, *args):
+            e0 = event()
+            out = orig(self, *args)
+            seen["reduce"] = (e0, event())
+            return out
+        return reduce
+
+    def call_of(orig):
+        def call(self, state, batch, *rest):
+            torch.cuda.synchronize()
+            c0 = {n: c.launches for n, c in counters.items()}
+            seen["reduce"] = None
+            t0 = time.perf_counter()
+            out = orig(self, state, batch, *rest)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = out[:2]
+            e = seen["reduce"]
+            steps.append({"ms": (t1 - t0) * 1e3,
+                          "reduce_ms": e[0].elapsed_time(e[1]) if e else 0.0,
+                          "launches": {n: c.launches - c0[n]
+                                       for n, c in counters.items()},
+                          "loss": float(metrics["loss"])})
+            seen["state"] = state
+            if at_last is not None and len(steps) == last:
+                seen["final"] = at_last(state)
+            return out
+        return call
+
+    for cls, (call, reduce) in saved.items():
+        cls.__call__, cls._reduce = call_of(call), reduce_of(reduce)
+
+    def undo():
+        for cls, (call, reduce) in saved.items():
+            cls.__call__, cls._reduce = call, reduce
+    return undo
+
+
+def lm_world_train(argv: list, restore_from: str = "") -> dict:
+    """One rank of lm_train.main(argv) in a world: each step through
+    world_step_probe (K1-K3, K5, K7 and K8 counted, set to 0 just before
+    the run, read just after); after the last step the state's digest
+    (gathered), this rank's parameter and moment elements and its
+    optimizer buckets; the rank's peak device memory. With
+    ``restore_from``, first a fresh fsdp state of this world restored
+    from that checkpoint dir (lm_world_restore), under "restored"."""
+    restored = lm_world_restore(restore_from) if restore_from else None
+    from edl_tpu_torch.examples import lm_train
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.ops import opt_kernels as ok_mod
+    from edl_tpu_torch.ops import pack as pack_mod
+
+    counters = {**lm_counters(fa, ok_mod), "pack_int8": pack_mod.pack_int8}
+    steps: list[dict] = []
+    seen: dict = {}
+
+    def at_last(state):
+        return {"digest": state_digest(state),
+                "param_elems": sum(p.numel()
+                                   for p in state.model.parameters()),
+                "moment_elems": sum(b.numel() for b in state.opt_state.m),
+                "buckets": len(state.opt_state.p)}
+
+    undo = world_step_probe(counters, steps, seen, at_last, LM_WORLD_STEPS)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.monotonic()
+        rc = lm_train.main(argv)
+        wall_s = time.monotonic() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        undo()
+    return {"rc": rc, "wall_s": wall_s, "steps": steps, "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "restored": restored, **seen.get("final", {})}
+
+
+def lm_world_state(world: int, seed: int):
+    """A fresh base-config LM state on the card with fused fp32 Adam:
+    sharded over fsdp in a world above one."""
+    from edl_tpu_torch.bridge import flax_named_parameters
+    from edl_tpu_torch.models.transformer import Transformer
+    from edl_tpu_torch.parallel import mesh as mesh_lib
+    from edl_tpu_torch.parallel import sharding
+    from edl_tpu_torch.train.fused_opt import make_fused_tx
+    from edl_tpu_torch.train.state import TrainState
+
+    model = Transformer(base_config(), device="cuda", seed=seed)
+    if world > 1:
+        sharding.shard_module(model, mesh_lib.make_mesh(
+            mesh_lib.MeshSpec({"fsdp": -1})))
+    return TrainState.create(
+        model=model, tx=make_fused_tx("adam", 3e-4, "fp32",
+                                      weight_decay=0.01),
+        params=flax_named_parameters(model))
+
+
+def lm_world_restore(ckpt_dir: str) -> dict:
+    """A fresh state (another seed) of this world restored from
+    ``ckpt_dir``'s latest checkpoint; its digest."""
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.train.checkpoint import CheckpointManager
+
+    state = lm_world_state(distributed.world_size(), seed=1)
+    t0 = time.monotonic()
+    _, status = CheckpointManager(ckpt_dir).restore(state)
+    restore_s = time.monotonic() - t0
+    out = {"rc": 0, "digest": state_digest(state), "step": status.step,
+           "restore_s": restore_s}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_world_summary(name: str, ranks: list[dict], ok_mod) -> dict:
+    """Phase 17's gates of one run, each fatal: rc 0 and LM_WORLD_STEPS
+    steps on each rank, every step's launches (lm_want, and one K8 call
+    in the int8 run), the ranks' final digests equal, losses finite and
+    falling. Returns the run's numbers."""
+    for rk in ranks:
+        want = {**lm_want(ok_mod, rk["buckets"]),
+                "pack_int8": int(name == "int8")}
+        if rk["rc"] != 0 or len(rk["steps"]) != LM_WORLD_STEPS:
+            fail(f"lm_world {name} rank {rk['rank']}: rc {rk['rc']}, "
+                 f"{len(rk['steps'])} steps")
+        for i, st in enumerate(rk["steps"]):
+            if st["launches"] != want:
+                fail(f"lm_world {name} rank {rk['rank']} step {i + 1} "
+                     f"launched {st['launches']}, want {want}")
+    if len({rk["digest"] for rk in ranks}) != 1:
+        fail(f"lm_world {name}: the ranks' final states differ")
+    r0 = ranks[0]
+    losses = [st["loss"] for st in r0["steps"]]
+    timed = r0["steps"][TIMED_FROM_STEP - 1:]
+    step_ms = float(np.median([st["ms"] for st in timed]))
+    result = {"phase": f"lm_world_{name}", "world": WORLD,
+              "backend": "gloo (both ranks on cuda:0, staged through host "
+                         "memory)",
+              "steps": len(losses), "wall_s": [rk["wall_s"] for rk in ranks],
+              "step_ms_median": step_ms,
+              "step_ms_min": min(st["ms"] for st in timed),
+              "step_ms_max": max(st["ms"] for st in timed),
+              "reduce_ms_median": float(np.median(
+                  [st["reduce_ms"] for st in timed])),
+              "timed_steps": f"{TIMED_FROM_STEP}-{len(losses)}",
+              "tokens_per_s": 16 * 1024 / (step_ms / 1e3),
+              "peak_gib": [rk["peak_gib"] for rk in ranks],
+              "param_elems_a_rank": r0["param_elems"],
+              "moment_elems_a_rank": r0["moment_elems"],
+              "opt_buckets": r0["buckets"],
+              "loss_first": losses[0], "loss_last": losses[-1],
+              "losses": losses,
+              "launches": {n: sum(rk["launches"][n] for rk in ranks)
+                           for n in r0["launches"]},
+              "launches_per_step_per_rank": r0["steps"][0]["launches"],
+              "digest": r0["digest"]}
+    emit(result)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"lm_world {name}: losses {losses} not finite and falling")
+    return result
+
+
+def phase_lm_world(ok_mod) -> dict:
+    """lm_train.main at the base config over two ranks on one card (gloo):
+    10 steps each of --mesh dp, --mesh fsdp --ckpt-sharded and --dcn-
+    compress int8 --comm-bucket-mb 4, fused fp32 Adam; then the fsdp
+    run's per-rank chunks restored into a fresh world of two (the int8
+    run's ranks, before they train) and a world of one (here). Gates: lm_world_summary's for
+    each run; fsdp's losses within FSDP_LOSS_REL of dp's; fsdp's
+    parameters a rank the replicated leaves and half the sharded, its
+    moments the same within the buckets' padding; both restores' digests
+    the saved state's; int8 within ENVELOPE x dp's improvement of dp.
+    Returns each run's launches."""
+    torch.cuda.empty_cache()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "ckpt"
+        for i, (name, flags) in enumerate(LM_WORLD_RUNS):
+            argv = ["--data-dir", str(tmp / "data"), *LM_WORLD_ARGV, *flags]
+            if i == 0:
+                argv += ["--make-synthetic", "1"]
+            if name == "fsdp":
+                argv += ["--ckpt-dir", str(ckpt)]
+            # the run after fsdp's is a fresh world of two: its ranks
+            # first restore the fsdp run's chunks into fsdp states
+            ranks = spawn_world(f"lm_{name}", {
+                "argv": argv,
+                "restore_from": str(ckpt) if name == "int8" else ""}, tmp)
+            if name == "int8":
+                world2 = [rk["restored"] for rk in ranks]
+            runs[name] = lm_world_summary(name, ranks, ok_mod)
+        world1 = lm_world_restore(str(ckpt))
+    lm_world_gates(runs, world2, world1)
+    return {f"lm_world_{n}": {k: v for k, v in r["launches"].items() if v}
+            for n, r in runs.items()}
+
+
+def lm_world_gates(runs: dict, world2: list[dict], world1: dict) -> dict:
+    """Phase 17's gates across its runs (see phase_lm_world), each
+    fatal; emits and returns the numbers they read."""
+    dp, fsdp, int8 = runs["dp"], runs["fsdp"], runs["int8"]
+    rel = [abs(a - b) / abs(a) for a, b in zip(dp["losses"],
+                                               fsdp["losses"])]
+    want_params = BASE_LM_REPLICATED + BASE_LM_SHARDED // 2
+    pad = fsdp["moment_elems_a_rank"] - fsdp["param_elems_a_rank"]
+    improvement = dp["loss_first"] - dp["loss_last"]
+    delta = abs(int8["loss_last"] - dp["loss_last"])
+    out = {"phase": "lm_world_gates",
+           "fsdp_vs_dp_loss_rel_max": max(rel),
+           "fsdp_losses_bitwise_dp": fsdp["losses"] == dp["losses"],
+           "fsdp_param_elems_a_rank": fsdp["param_elems_a_rank"],
+           "dp_param_elems": dp["param_elems_a_rank"],
+           "fsdp_share": fsdp["param_elems_a_rank"]
+           / dp["param_elems_a_rank"],
+           "fsdp_moment_padding": pad,
+           "restore_world2": [{k: r[k] for k in ("digest", "step",
+                                                 "restore_s")}
+                              for r in world2],
+           "restore_world1": {k: world1[k] for k in ("digest", "step",
+                                                     "restore_s")},
+           "saved_digest": fsdp["digest"],
+           "int8_vs_dp": {"loss_dp": dp["loss_last"],
+                          "loss_int8": int8["loss_last"], "delta": delta,
+                          "improvement": improvement, "envelope": ENVELOPE}}
+    emit(out)
+    if max(rel) > FSDP_LOSS_REL:
+        fail(f"lm_world fsdp losses {fsdp['losses']} off dp's "
+             f"{dp['losses']} by up to {max(rel)} relative")
+    if (dp["param_elems_a_rank"] != BASE_LM_ELEMS
+            or fsdp["param_elems_a_rank"] != want_params
+            or not 0 <= pad < 128 * fsdp["opt_buckets"]):
+        fail(f"lm_world fsdp holds {fsdp['param_elems_a_rank']} parameter "
+             f"and {fsdp['moment_elems_a_rank']} moment elements a rank, "
+             f"want {want_params} (+ padding)")
+    digests = {r["digest"] for r in world2} | {world1["digest"]}
+    if digests != {fsdp["digest"]}:
+        fail(f"lm_world: the fsdp checkpoint restored to other states "
+             f"({sorted(d[:16] for d in digests)} against "
+             f"{fsdp['digest'][:16]})")
+    if not (improvement > 0 and delta <= ENVELOPE * improvement):
+        fail(f"lm_world int8 ends at {int8['loss_last']}, {delta} from dp's "
+             f"{dp['loss_last']}, outside {ENVELOPE} x {improvement}")
+    return out
+
+
+# -- 18. resnet_spmd_world ---------------------------------------------------
+# imagenet_train at RESNET_ARGV over two ranks on one card without a comm
+# flag: the SPMD world step with global-batch BatchNorm. Two epochs (a
+# single epoch climbs under the warmup, PERF.md), then one with DGC.
+SPMD_RUNS = (("spmd", ["--fused-opt", "fp32", "--epochs", "2"]),
+             ("spmd_dgc", ["--dgc-sparsity", "0.99", "--dgc-rampup-epochs",
+                           "0", "--epochs", "1"]))
+# The first step against a world of one on the same global batch: the
+# bf16 run's loss, and an fp32 world step's whole gradient (relative L2
+# distance; in fp32 rounding alone moves it 0.08%, the distance between
+# cuDNN's convolutions and the native ones, and in bf16 rounding hides
+# the per-rank statistics: PERF.md).
+# Each limit lies between the sound world's reading and its controls'
+# (per-rank statistics; the backward's all-reduce left out), which must
+# exceed it.
+SPMD_FIRST_LOSS_REL = 3e-5
+SPMD_GRAD_REL = 1e-2
+DGC_RATIO_MAX = 0.02
+
+
+def spmd_world_train(argv: list, grads_to: str = "") -> dict:
+    """One rank of imagenet_train.main(argv) in a world (no comm flag):
+    each step through world_step_probe (K4 and K8 counted, set to 0 just
+    before the run, read just after); the final state's digest
+    (parameters and BatchNorm buffers); under DGC the last update's
+    nonzero fraction. With ``grads_to`` (a directory), first (main
+    leaves the world when it ends) rank 0 writes there the fp32
+    first-step gradients of resnet_world_fp32 (world.npy,
+    local_backward.npy)."""
+    import hashlib
+
+    from edl_tpu_torch.examples import imagenet_train
+    from edl_tpu_torch.ops import opt_kernels as ok_mod
+    from edl_tpu_torch.ops import pack as pack_mod
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.train.dgc import compression_ratio
+
+    fp32 = {}
+    if grads_to:
+        data = Path(argv[argv.index("--data-dir") + 1])
+        fp32["fp32_loss"], grads = resnet_world_fp32(data)
+        if distributed.rank() == 0:
+            for name, g in grads.items():
+                np.save(Path(grads_to, f"{name}.npy"), g.cpu().numpy())
+        del grads
+    counters = {"sgdm_fp32": ok_mod.sgdm_fp32, "pack_int8": pack_mod.pack_int8}
+    steps: list[dict] = []
+    seen: dict = {}
+    undo = world_step_probe(counters, steps, seen)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.monotonic()
+        rc = imagenet_train.main(argv)
+        wall_s = time.monotonic() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        undo()
+    state = seen.pop("state")
+    digest = hashlib.sha256()
+    for name, t in state.model.state_dict().items():
+        digest.update(name.encode())
+        digest.update(t.detach().cpu().numpy().tobytes())
+    sent = getattr(state.tx, "last_sent", None)
+    out = {"rc": rc, "wall_s": wall_s, "steps": steps, "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "digest": digest.hexdigest(),
+           "dgc_ratio": compression_ratio(sent) if sent else None, **fp32}
+    return out
+
+
+def flat_grads(params) -> torch.Tensor:
+    """The gradients of ``params`` (zeros where none), flat fp32."""
+    return torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
+                      .reshape(-1).float() for p in params])
+
+
+def resnet_batch(data: Path) -> dict:
+    """The first 128-image global batch of phase 9's shards, as the
+    world's loader deals it (seed 0), on the card."""
+    from edl_tpu_torch.data.pipeline import DataLoader, FileSource
+
+    files = sorted(str(p) for p in data.glob("train-*.npz"))
+    loader = DataLoader(FileSource(files), 128, seed=0, num_workers=0)
+    batch = next(iter(loader.epoch(0)))
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def resnet_init(dtype: torch.dtype):
+    """imagenet_train's ResNet50_vd at RESNET_ARGV (seed 0) with
+    ``dtype`` activations."""
+    from edl_tpu_torch.models.resnet import ResNet50_vd
+
+    return ResNet50_vd(num_classes=1000, dtype=dtype, device="cuda", seed=0)
+
+
+def label_smoothing() -> float:
+    from edl_tpu_torch.examples import imagenet_train
+
+    return imagenet_train._parser().parse_args(
+        ["--data-dir", "-", *RESNET_ARGV]).label_smoothing
+
+
+def resnet_grads(model, batch: dict, rows: slice,
+                 local_backward: bool = False) -> tuple[float, torch.Tensor]:
+    """imagenet_train's training loss over ``rows`` of ``batch`` and its
+    gradients, flat fp32 in flax order; the parameters are left as they
+    were. ``local_backward`` (a control): the global-batch BatchNorm's
+    backward all-reduce is left out, so each rank's dx takes only its
+    own sums of dy and dy * xhat."""
+    from edl_tpu_torch.bridge import flax_named_parameters
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.train import classification as cls
+
+    params = [p for _, p in flax_named_parameters(model)]
+    for p in params:
+        p.grad = None
+    model.train()
+    loss = cls.soft_cross_entropy(
+        model(batch["image"][rows]),
+        cls.smoothed_labels(batch["label"][rows], 1000, label_smoothing()))
+    all_reduce = distributed.all_reduce
+    if local_backward:
+        distributed.all_reduce = lambda t, group=None: t
+    try:
+        loss.backward()
+    finally:
+        distributed.all_reduce = all_reduce
+    flat = flat_grads(params)
+    for p in params:
+        p.grad = None
+    return loss.item(), flat
+
+
+def native_convolutions():
+    """cuDNN off within (PyTorch's own convolutions, TF32 off)."""
+    return torch.backends.cudnn.flags(enabled=False, allow_tf32=False)
+
+
+def resnet_world_fp32(data: Path) -> tuple[float, dict]:
+    """One rank, fp32 activations, this rank's 64 rows of the first
+    global batch, a fresh init: the local_backward control (global-batch
+    BatchNorm, the backward's all-reduce left out, the gradients
+    averaged over the world), then the SPMD world step's first call
+    (make_classification_step over the world's dp mesh) with its reduced
+    gradients. Raises unless this rank is in a world of WORLD. Returns (the world step's loss, {"world": ...,
+    "local_backward": ...} flat fp32 gradients)."""
+    from edl_tpu_torch.models.resnet import set_batch_group
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.parallel.mesh import MeshSpec
+    from edl_tpu_torch.train import classification as cls
+    from edl_tpu_torch.train import step as step_lib
+    from edl_tpu_torch.train.comm import sync_tensors
+    from edl_tpu_torch.train.fused_opt import make_fused_tx
+
+    if distributed.world_size() != WORLD:
+        raise RuntimeError(f"resnet_world_fp32 in a world of "
+                           f"{distributed.world_size()}, not {WORLD}")
+    model = resnet_init(torch.float32)
+    sync_tensors(list(model.parameters()) + list(model.buffers()))
+    batch = resnet_batch(data)
+    rows = 128 // WORLD
+    r = distributed.rank()
+    part = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+    set_batch_group(model, None, WORLD)
+    _, local = resnet_grads(model, part, slice(None), local_backward=True)
+    out = {"local_backward": distributed.all_reduce(local).div_(WORLD)}
+    state = cls.create_state(model, make_fused_tx(
+        "sgdm", 0.1, "fp32", momentum=0.9, weight_decay=1e-4))
+    step = cls.make_classification_step(
+        1000, smoothing=label_smoothing(), seed=0,
+        mesh=distributed.make_mesh_from_env(MeshSpec({"dp": -1})))
+    reduce = step_lib.WorldTrainStep._reduce
+
+    def capture(self, params):
+        reduce(self, params)
+        out["world"] = flat_grads(params)
+
+    step_lib.WorldTrainStep._reduce = capture
+    try:
+        _, metrics = step(state, part)
+    finally:
+        step_lib.WorldTrainStep._reduce = reduce
+    loss = float(metrics["loss"])
+    del state, model
+    torch.cuda.empty_cache()
+    return loss, out
+
+
+def grad_rel(g: torch.Tensor, ref: torch.Tensor) -> float:
+    """||g - ref|| / ||ref|| over the whole flat gradient, in fp64."""
+    return float((g.double() - ref.double()).norm() / ref.double().norm())
+
+
+def resnet_world_of_one(data: Path, grads_dir: Path) -> dict:
+    """A world of one (the one-card BatchNorm) on the world's first
+    128-image global batch from the same init, and the control with
+    per-rank statistics (each 64-image half alone, the halves' losses
+    and gradients averaged): their first losses with bf16 activations,
+    and with fp32 ones the gradients' relative L2 distances from the
+    world of one's: the control's, resnet_world_fp32's world step and
+    local_backward control (``grads_dir``'s .npy files), and, for the
+    rounding floor, the world of one's own under native_convolutions."""
+    batch = resnet_batch(data)
+    halves = [slice(0, 64), slice(64, 128)]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = resnet_init(dtype)
+        loss, ref = resnet_grads(model, batch, slice(0, 128))
+        local = [resnet_grads(model, batch, h) for h in halves]
+        tag = "" if dtype == torch.bfloat16 else "fp32_"
+        out[f"{tag}loss"] = loss
+        out[f"{tag}local_stats_loss"] = (local[0][0] + local[1][0]) / 2
+    with native_convolutions():
+        native = resnet_grads(model, batch, slice(0, 128))[1]
+    rel = {"local_stats": grad_rel((local[0][1] + local[1][1]) / 2, ref),
+           "native_convolutions": grad_rel(native, ref)}
+    del model, local, native
+    torch.cuda.empty_cache()
+    for name in ("world", "local_backward"):
+        g = torch.from_numpy(np.load(grads_dir / f"{name}.npy")).cuda()
+        rel[name] = grad_rel(g, ref)
+    return {**out, "grad_rel": rel, "grad_elems": ref.numel()}
+
+
+def phase_resnet_spmd_world(data: Path) -> dict:
+    """imagenet_train at RESNET_ARGV over two ranks on one card (gloo)
+    without a comm flag, --fused-opt fp32, from the same init on phase
+    9's shards, two epochs; then one epoch with --dgc-sparsity 0.99
+    --dgc-rampup-epochs 0 (the plain optimizer). Gates: one K4 launch a
+    step and rank (none under DGC) and no K8; the ranks' parameters and
+    BatchNorm buffers bitwise equal; against a world of one on the same
+    global batch, the first step's loss within SPMD_FIRST_LOSS_REL and
+    an fp32 world step's gradients within SPMD_GRAD_REL, while the
+    controls (per-rank statistics; the backward's all-reduce left out)
+    miss them; losses finite, the second epoch's mean below the
+    first's; DGC's last update at most DGC_RATIO_MAX nonzero. Returns
+    the launches."""
+    torch.cuda.empty_cache()
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, flags in SPMD_RUNS:
+            argv = ["--data-dir", str(data), *RESNET_ARGV, *flags]
+            results[name] = spmd_summary(name, spawn_world(name, {
+                "argv": argv,
+                "grads_to": str(tmp) if name == "spmd" else ""}, tmp))
+        one = resnet_world_of_one(data, tmp)
+    spmd_gates(results, one)
+    return {f"resnet_{n}_world": {k: v for k, v in r["launches"].items()
+                                  if v} for n, r in results.items()}
+
+
+def spmd_summary(name: str, ranks: list[dict]) -> dict:
+    """One phase-18 run's gates, each fatal: rc 0; one K4 launch a step
+    and rank in the fused run (none under DGC), no K8; the ranks' digests
+    equal; losses finite. Emits and returns the run's numbers."""
+    want = {"sgdm_fp32": int(name == "spmd"), "pack_int8": 0}
+    for rk in ranks:
+        if rk["rc"] != 0 or not rk["steps"]:
+            fail(f"{name} rank {rk['rank']}: rc {rk['rc']}, "
+                 f"{len(rk['steps'])} steps")
+        for i, st in enumerate(rk["steps"]):
+            if st["launches"] != want:
+                fail(f"{name} rank {rk['rank']} step {i + 1} "
+                     f"launched {st['launches']}, want {want}")
+    if len({rk["digest"] for rk in ranks}) != 1:
+        fail(f"{name}: the ranks' parameters or BatchNorm buffers differ")
+    r0 = ranks[0]
+    losses = [st["loss"] for st in r0["steps"]]
+    timed = r0["steps"][TIMED_FROM_STEP - 1:]
+    step_ms = float(np.median([st["ms"] for st in timed]))
+    result = {
+        "phase": f"resnet_{name}_world", "world": WORLD,
+        "steps": len(losses), "step_ms_median": step_ms,
+        "reduce_ms_median": float(np.median(
+            [st["reduce_ms"] for st in timed])),
+        "images_per_s": 128 / (step_ms / 1e3),
+        "peak_gib": [rk["peak_gib"] for rk in ranks],
+        "wall_s": [rk["wall_s"] for rk in ranks],
+        "losses": losses, "dgc_ratio": r0["dgc_ratio"],
+        "fp32_loss": r0.get("fp32_loss"),
+        "launches": {n: sum(rk["launches"][n] for rk in ranks)
+                     for n in r0["launches"]},
+        "launches_per_step_per_rank": r0["steps"][0]["launches"],
+        "digest": r0["digest"]}
+    emit(result)
+    if not all(np.isfinite(losses)):
+        fail(f"{name}: non-finite losses {losses}")
+    return result
+
+
+def spmd_gates(results: dict, one: dict) -> None:
+    """Phase 18's gates across its runs (see phase_resnet_spmd_world),
+    each fatal: ``one`` is resnet_world_of_one's."""
+    spmd, dgc_run = results["spmd"], results["spmd_dgc"]
+    n = RESNET_STEPS_PER_EPOCH
+    epochs = [float(np.mean(spmd["losses"][i:i + n]))
+              for i in range(0, len(spmd["losses"]), n)]
+    first = spmd["losses"][0]
+    rel = abs(first - one["loss"]) / abs(one["loss"])
+    local_rel = abs(one["local_stats_loss"] - one["loss"]) / abs(one["loss"])
+    grads = one["grad_rel"]
+    emit({"phase": "resnet_spmd_world_gates",
+          "first_loss_world": first, "first_loss_world_of_one": one["loss"],
+          "first_loss_rel": rel,
+          "first_loss_local_stats": one["local_stats_loss"],
+          "first_loss_local_stats_rel": local_rel,
+          "first_loss_rel_max": SPMD_FIRST_LOSS_REL,
+          "fp32_first_loss": {"world": spmd["fp32_loss"],
+                              "world_of_one": one["fp32_loss"],
+                              "local_stats": one["fp32_local_stats_loss"]},
+          "fp32_first_grads_rel": grads, "grad_elems": one["grad_elems"],
+          "first_grads_rel_max": SPMD_GRAD_REL,
+          "epoch_means": epochs,
+          "dgc_ratio": dgc_run["dgc_ratio"], "dgc_ratio_max": DGC_RATIO_MAX})
+    if rel > SPMD_FIRST_LOSS_REL:
+        fail(f"resnet_spmd_world: first loss {first} against a world of "
+             f"one's {one['loss']} ({rel} relative)")
+    if local_rel <= SPMD_FIRST_LOSS_REL:
+        fail(f"resnet_spmd_world: per-rank statistics' first loss is "
+             f"{local_rel} relative from a world of one's, within the "
+             f"{SPMD_FIRST_LOSS_REL} gate: it cannot tell them apart")
+    if grads["world"] > SPMD_GRAD_REL:
+        fail(f"resnet_spmd_world: the fp32 world step's gradients are "
+             f"{grads['world']} relative from a world of one's")
+    for control in ("local_stats", "local_backward"):
+        if grads[control] <= SPMD_GRAD_REL:
+            fail(f"resnet_spmd_world: the {control} control's gradients "
+                 f"are {grads[control]} relative from a world of one's, "
+                 f"within the {SPMD_GRAD_REL} gate: it cannot tell them "
+                 "apart")
+    if not (len(epochs) == 2 and epochs[1] < epochs[0]):
+        fail(f"resnet_spmd_world: epoch means {epochs} not falling")
+    if not (dgc_run["dgc_ratio"] is not None
+            and dgc_run["dgc_ratio"] <= DGC_RATIO_MAX):
+        fail(f"resnet_spmd_world dgc: nonzero fraction "
+             f"{dgc_run['dgc_ratio']} above {DGC_RATIO_MAX}")
+
+
+def phase_kernels_shards(ok_mod, fo, gen) -> dict:
+    """K5 and K7 over rank 0's slices of the base LM (fsdp over 2: the
+    buckets of a rank's shard plan), two steps each, bit for bit against
+    their plain versions (plan_bitwise). Returns the buckets checked."""
+    from edl_tpu_torch.models.transformer import Transformer
+    from edl_tpu_torch.parallel import mesh as mesh_lib
+    from edl_tpu_torch.parallel import sharding
+
+    model = Transformer(base_config(), device="cuda", seed=0)
+    specs = sharding.shard_module(
+        model, mesh_lib.Mesh(np.arange(2), ("fsdp",), rank=0))
+    elems = sum(p.numel() for p in model.parameters())
+    checks = {}
+    for name, quant in (("adam_fp32", "off"), ("adam_q", "int8")):
+        tx = fo.make_fused_tx("adam", 3e-4, "fp32" if quant == "off"
+                              else quant, weight_decay=0.01)
+        _, plan, state, g_bufs = plan_world(ok_mod, fo, model, tx, gen)
+        checks[name] = plan_bitwise(ok_mod, fo, f"{name}_fsdp_slices",
+                                    "adam", quant, tx, list(state.p),
+                                    g_bufs, 0.01)
+        del state, g_bufs
+    emit({"phase": "kernels", "what": "K5/K7 over a rank's FSDP slices of "
+          "the base LM", "sharded_leaves": len(specs),
+          "param_elems_a_rank": elems, "buckets": checks})
+    del model
+    torch.cuda.empty_cache()
+    return checks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -4128,6 +4895,8 @@ def main() -> int:
     errs.update(phase_kernels_adam(ok_mod, fo, gen))
     errs.update(phase_kernels_opt(ok_mod, fo, gen))
     for name, (_, n) in phase_kernels_tables(ok_mod, fo, gen).items():
+        errs[name] = (0.0, errs[name][1] + n)
+    for name, n in phase_kernels_shards(ok_mod, fo, gen).items():
         errs[name] = (0.0, errs[name][1] + n)
     pack_errs, pack_bufs = phase_kernels_pack(pack_mod, gen)
     errs.update(pack_errs)
@@ -4171,6 +4940,8 @@ def main() -> int:
         elastic, stop_resume = phase_elastic(card, data)
         launches.update(elastic)
         launches.update(phase_elastic_live(card, data, stop_resume))
+        launches.update(phase_lm_world(ok_mod))
+        launches.update(phase_resnet_spmd_world(data))
     for name in FLASH_KERNELS:
         fp16[name]["launches"] = launches["train_fp16"][name]
     emit({"seconds": time.monotonic() - t_start, "card": card})

@@ -128,6 +128,22 @@ def from_flax_layout(name: str, w: np.ndarray,
     return w.reshape(shape[1], -1).T.reshape(shape)    # (in, ...) -> (out, in)
 
 
+def torch_dim(name: str, flax_dim: int, ndim: int = 2) -> int:
+    """The dim of a state-dict tensor's layout that holds ``flax_dim`` of
+    its flax layout (``ndim``: the flax leaf's rank; for the attention
+    projections the merged heads x head_dim dim holds both of theirs)."""
+    path = flax_path(name)
+    if path[-1] != "kernel":
+        return flax_dim
+    if path[-2] in _QKV:                               # (d, H, Dh)
+        return 1 if flax_dim == 0 else 0
+    if path[-2] == "out":                              # (H, Dh, d)
+        return 0 if flax_dim == 2 else 1
+    if ndim == 4:                                      # HWIO -> OIHW
+        return (2, 3, 1, 0)[flax_dim]
+    return 1 - flax_dim                                # (in, out)
+
+
 def grads_to_flax(model: torch.nn.Module, n_heads: int) -> dict:
     """The model's ``.grad``s as a flax-shaped tree (None grads as
     zeros)."""
@@ -169,6 +185,29 @@ def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
     sd["ln_final.bias"] = _t(params["ln_final"]["bias"])
     sd["lm_head.weight"] = _t(np.asarray(params["lm_head"]["kernel"]).T)
     return sd
+
+
+def flax_to_torch_sharded(params: dict, mesh, coords: dict | None = None
+                          ) -> dict[str, torch.Tensor]:
+    """The shards rank ``coords`` (default: this process's) of ``mesh``
+    holds of flax transformer ``params`` (numpy), as a state dict of its
+    torch-layout slices: what ``parallel/sharding.shard_module`` leaves
+    in the module. The layout moves are shape-generic, so a flax shard
+    converts like a whole leaf (``flax_to_torch`` of the shard tree); a
+    JAX FSDP state's addressable shards, put into a tree, convert the
+    same way."""
+    from edl_tpu_torch.parallel import sharding
+
+    return flax_to_torch(sharding.shard_tree(params, mesh, coords))
+
+
+def torch_to_flax_sharded(state_dicts, mesh, n_heads: int) -> dict:
+    """Inverse of :func:`flax_to_torch_sharded`: the ranks' shard state
+    dicts (in rank order) -> the whole flax param tree."""
+    from edl_tpu_torch.parallel import sharding
+
+    return sharding.gather_tree(
+        [torch_to_flax(sd, n_heads) for sd in state_dicts], mesh)
 
 
 def torch_to_flax(state_dict: dict[str, torch.Tensor], n_heads: int
@@ -505,4 +544,214 @@ def _write_state(tree: dict, state):
                 entry["step"] = torch.tensor(float(count),
                                              dtype=torch.float32)
     state.step = int(np.asarray(tree["step"]))
+    return state
+
+
+# -- FSDP states (parallel/sharding.shard_module) ----------------------------
+#
+# A rank of a sharded world holds a slice of each leaf the rules shard.
+# Its checkpoint tree is the JAX TrainState's, with such leaves as
+# ``Shard``s: this rank's slice in the flax layout, where it lies in the
+# whole leaf, and the whole leaf's shape (what the JAX package's
+# snapshot_shards writes for an addressable shard). The fused optimizer's
+# fp32 moments live in buckets over the slices, while the JAX tree holds
+# buckets over whole leaves: each sharded leaf's moment is gathered and
+# the whole-leaf buckets written once, by rank 0.
+
+
+class Shard(collections.namedtuple("Shard", ("array", "offset", "shape"))):
+    """One rank's slice of a leaf: ``array`` (flax layout) at ``offset``
+    inside a whole leaf of ``shape``."""
+
+
+def _spec(p):
+    from edl_tpu_torch.parallel.sharding import fsdp_spec
+    return fsdp_spec(p)
+
+
+def _shard_leaf(name: str, t: torch.Tensor, spec, n_heads) -> Shard:
+    a = to_flax_layout(name, _n(t), n_heads)
+    offset = [0] * a.ndim
+    offset[spec.flax_dim] = spec.index * a.shape[spec.flax_dim]
+    shape = list(a.shape)
+    shape[spec.flax_dim] *= spec.world
+    return Shard(np.array(a, copy=True), tuple(offset), tuple(shape))
+
+
+def _full_plan(tx, state):
+    """The fused optimizer's bucket plan over the WHOLE leaves of an FSDP
+    state (the JAX package's plan), from their shapes alone."""
+    metas = [torch.empty(_spec(p).full_shape if _spec(p) else p.shape,
+                         dtype=p.dtype, device="meta")
+             for _, p in state.params]
+    return tx.plan(list(zip([n for n, _ in state.params], metas)))
+
+
+def sharded_state_tree(state) -> TrainStateTree:
+    """The JAX TrainState's tree of an FSDP ``state`` for this rank: the
+    sharded parameters (and torch.optim moments) as :class:`Shard`s,
+    every other leaf whole. Collective over the world under the fused
+    optimizer (each sharded leaf's moments are gathered)."""
+    from edl_tpu_torch.parallel.sharding import gather_like
+    from edl_tpu_torch.train import comm as comm_lib
+
+    model, tx, st = state.model, state.tx, state.opt_state
+    n_heads = _n_heads(model)
+    names = [n for n, _ in state.params]
+    specs = [_spec(p) for _, p in state.params]
+
+    def leaf(name, t, spec):
+        return (_shard_leaf(name, t, spec, n_heads) if spec is not None
+                else to_flax_layout(name, _n(t), n_heads))
+
+    params: dict = {}
+    for (name, p), spec in zip(state.params, specs):
+        _insert(params, flax_path(name), leaf(name, p, spec))
+    if _is_fused(tx):
+        if bool(st.m) and isinstance(st.m[0], tuple):
+            raise NotImplementedError(
+                "checkpoints of sharded states with quantized moments: the "
+                "JAX tree's one scale a whole-leaf bucket has no exact "
+                "counterpart over the slices' buckets (ROADMAP Queue 3)")
+        shard_plan = tx.plan(state.params)
+        full = _full_plan(tx, state)
+
+        def whole(seq):
+            leaves = comm_lib.unpack_buckets(list(seq), shard_plan)
+            leaves = [gather_like(t, s) if s is not None else t
+                      for t, s in zip(leaves, specs)]
+            return tuple(bucket_layout(_n(b), pb, names, n_heads)
+                         for b, pb in zip(comm_lib.pack_buckets(leaves, full),
+                                          full.buckets))
+
+        opt_tree = FusedOptTree(np.asarray(int(st.count), np.int32),
+                                whole(st.m), whole(st.v))
+    else:
+        kind = _torch_kind(tx)
+        slots = ("momentum_buffer",) if kind == "sgd" else (
+            "exp_avg", "exp_avg_sq")
+        trees = []
+        for slot in slots:
+            tree: dict = {}
+            for (name, p), spec in zip(state.params, specs):
+                t = st.state.get(p, {}).get(slot, torch.zeros_like(p))
+                _insert(tree, flax_path(name), leaf(name, t, spec))
+            trees.append(_key_sorted(tree))
+        c = np.asarray(int(state.step), np.int32)
+        opt_tree = ((EmptyState(), (TraceState(trees[0]), ScheduleState(c)))
+                    if kind == "sgd" else
+                    (AdamState(c, trees[0], trees[1]), EmptyState(),
+                     ScheduleState(c)))
+    stats: dict = {}
+    for name, b in _bn_buffers(model):
+        _insert(stats, flax_path(name), _n(b).copy())
+    return TrainStateTree(step=np.asarray(int(state.step), np.int32),
+                          params=_key_sorted(params), opt_state=opt_tree,
+                          batch_stats=_key_sorted(stats) if stats else None)
+
+
+def gather_shards(tree):
+    """A :func:`sharded_state_tree` with every :class:`Shard` gathered
+    whole (collective over the world, in the tree's leaf order)."""
+    from edl_tpu_torch.parallel import distributed
+
+    def walk(x):
+        if isinstance(x, Shard):
+            dim = next(d for d, (o, s, n) in enumerate(
+                zip(x.offset, x.shape, x.array.shape)) if n != s)
+            parts = distributed.all_gather(torch.from_numpy(x.array))
+            return np.concatenate([p.numpy() for p in parts], axis=dim)
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(walk(v) for v in x))
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(walk(v) for v in x)
+        return x
+
+    return walk(tree)
+
+
+@torch.no_grad()
+def flax_to_state_sharded(read, state):
+    """Write a checkpoint into an FSDP ``state`` reading only what this
+    rank holds: ``read(path, index)`` returns the region ``index`` (a
+    tuple of slices, or None for the whole leaf) of the leaf at ``path``
+    (the state dict's path of str keys, e.g. ("params", "lm_head",
+    "kernel") or ("opt_state", "m", "0")). A fused moment bucket is read
+    slot by slot, each sharded leaf's slot then cut to this rank's slice.
+    Raises ValueError on a shape or dtype that does not match."""
+    from edl_tpu_torch.train import comm as comm_lib
+
+    model, tx, st = state.model, state.tx, state.opt_state
+    n_heads = _n_heads(model)
+    names = [n for n, _ in state.params]
+    specs = [_spec(p) for _, p in state.params]
+
+    def region(prefix, name, p, spec):
+        path = prefix + flax_path(name)
+        fshape = to_flax_layout(name, np.empty(tuple(p.shape), np.int8),
+                                n_heads).shape
+        if spec is None:
+            src = read(path, None)
+        else:
+            index = [slice(0, n) for n in fshape]
+            lo = spec.index * fshape[spec.flax_dim]
+            index[spec.flax_dim] = slice(lo, lo + fshape[spec.flax_dim])
+            src = read(path, tuple(index))
+        return from_flax_layout(name, src, tuple(p.shape))
+
+    for (name, p), spec in zip(state.params, specs):
+        _put(p, region(("params",), name, p, spec), name)
+    for name, b in _bn_buffers(model):
+        _put(b, read(("batch_stats",) + flax_path(name), None), name)
+    if _is_fused(tx):
+        if bool(st.m) and isinstance(st.m[0], tuple):
+            raise NotImplementedError(
+                "restoring quantized moments into a sharded state "
+                "(ROADMAP Queue 3)")
+        full = _full_plan(tx, state)
+        shard_plan = tx.plan(state.params)
+        for key, seq in (("m", st.m), ("v", st.v)):
+            views = comm_lib.unpack_buckets(list(seq), shard_plan)
+            for i, b in enumerate(full.buckets):
+                for s in b.slots:
+                    name, spec = names[s.leaf], specs[s.leaf]
+                    flat = read(("opt_state", key, str(i)),
+                                (slice(s.offset, s.offset + s.size),))
+                    fshape = to_flax_layout(
+                        name, np.empty(s.shape, np.int8), n_heads).shape
+                    piece = np.asarray(flat).reshape(fshape)
+                    if spec is not None:
+                        n = fshape[spec.flax_dim] // spec.world
+                        index = [slice(None)] * len(fshape)
+                        index[spec.flax_dim] = slice(spec.index * n,
+                                                     (spec.index + 1) * n)
+                        piece = piece[tuple(index)]
+                    dst = views[s.leaf]
+                    _put(dst, from_flax_layout(name, piece,
+                                               tuple(dst.shape)),
+                         f"opt_state.{key}[{i}].{name}")
+        state.opt_state = st._replace(
+            count=int(np.asarray(read(("opt_state", "count"), None))))
+    else:
+        kind = _torch_kind(tx)
+        if kind == "sgd":
+            slots = (("momentum_buffer", ("opt_state", "1", "0", "trace")),)
+            count_path = ("opt_state", "1", "1", "count")
+        else:
+            slots = (("exp_avg", ("opt_state", "0", "mu")),
+                     ("exp_avg_sq", ("opt_state", "0", "nu")))
+            count_path = ("opt_state", "0", "count")
+        count = int(np.asarray(read(count_path, None)))
+        for (name, p), spec in zip(state.params, specs):
+            entry = st.state[p]
+            for slot, prefix in slots:
+                buf = torch.empty_like(p)
+                _put(buf, region(prefix, name, p, spec), f"{slot}.{name}")
+                entry[slot] = buf
+            if kind == "adamw":
+                entry["step"] = torch.tensor(float(count),
+                                             dtype=torch.float32)
+    state.step = int(np.asarray(read(("step",), None)))
     return state

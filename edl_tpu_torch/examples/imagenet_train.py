@@ -7,8 +7,11 @@ entry point, plus ``--device`` (``cuda`` unless the caller asks for
 ``cpu``): the reference's LR menu (piecewise or cosine, linear warmup),
 label smoothing, mixup, weight decay, momentum-SGD (``--fused-opt
 fp32``: one fused kernel K4 over every parameter bucket; ``int8|fp8``:
-the quantized-momentum kernel K6; ``off``: ``torch.optim.SGD``), and a
-top-1/top-5 eval after each epoch. The input planes are the JAX
+the quantized-momentum kernel K6; ``off``: ``torch.optim.SGD``), deep
+gradient compression (``--dgc-sparsity``, ``--dgc-rampup-epochs``:
+``train/dgc.py``, with the plain momentum-free SGD, exclusive with
+``--fused-opt`` as in the JAX package), and a top-1/top-5 eval after
+each epoch. The input planes are the JAX
 package's: ``--data-format npz`` (float shards, host flip/crop),
 ``jpeg`` (a file list decoded by cv2 in a thread pool) or ``packed``
 (pre-decoded fixed-stride records), each through the deterministic
@@ -25,20 +28,22 @@ exit before any work, naming the ROADMAP item that brings them.
 
 A world of ranks comes from the launcher's env (``EDL_TPU_RANK``,
 ``EDL_TPU_WORLD_SIZE``, ``EDL_TPU_COORDINATOR``; rank r trains on
-``cuda:{r % device_count}``, NCCL between cards, gloo on the CPU) and
-needs the manual gradient path: ``--dcn-compress off|topk|int8`` and/or
-``--comm-bucket-mb`` (or their env knobs) build ``train/comm``'s
-``CommTrainStep`` (bucketed reductions; int8 runs kernel K8 on a card).
-The JAX package's other multi-process path, the SPMD step with
-global-batch BatchNorm statistics, is not ported, so a world above one
-without them exits. Rank 0 writes the synthetic data (the others wait
-at a barrier), logs, writes checkpoints and the benchmark log.
+``cuda:{r % device_count}``, NCCL between cards, gloo on the CPU). By
+default it runs the JAX package's SPMD step over a dp mesh
+(``train/step.WorldTrainStep``): each rank its slice of the global
+batch, BatchNorm statistics over the global batch, the gradients
+averaged by one all-reduce per dtype. ``--dcn-compress off|topk|int8``
+and/or ``--comm-bucket-mb`` (or their env knobs) build ``train/comm``'s
+``CommTrainStep`` instead (bucketed reductions; int8 runs kernel K8 on a
+card; BatchNorm statistics local, the running buffers averaged). Rank 0
+writes the synthetic data (the others wait at a barrier), logs, writes
+checkpoints and the benchmark log.
 
 Under the elastic launcher with live migration (``EDL_TPU_RESIZE_P2P=1``,
 the default) a trainer whose pod stays in a resized world adopts it in
 place: the loop's ``reform_mesh`` hook re-forms the process group
-(``distributed.reform_world``) and rebuilds the comm step for the new
-world, and ``on_reform`` re-derives this rank's loader shard for the new
+(``distributed.reform_world``) and rebuilds the step (the SPMD step on
+the new world's mesh, or the comm step) for the new world, and ``on_reform`` re-derives this rank's loader shard for the new
 (rank, world) with the global batch unchanged; the epoch resumes at its
 step cursor. The JAX package's CLI passes its loop neither hook; there a
 survivor keeps its old device world, which the port, whose device world
@@ -59,10 +64,12 @@ is its process group, cannot (ROADMAP Queue 3).
       --batch-size 16 --epochs 1
 
   # two ranks on the CPU (gloo), one process each, sharing one data dir
-  # and a coordinator port that is free on this host ($PORT):
+  # and a coordinator port that is free on this host ($PORT); add
+  # --dcn-compress int8 for the manual gradient path, or
+  # --dgc-sparsity 0.99 --dgc-rampup-epochs 0 for DGC:
   EDL_TPU_RANK=$R EDL_TPU_WORLD_SIZE=2 EDL_TPU_COORDINATOR=127.0.0.1:$PORT \\
       python -m edl_tpu_torch.examples.imagenet_train ... --device cpu \\
-      --data-dir "$D" --dcn-compress int8
+      --data-dir "$D"
 """
 
 from __future__ import annotations
@@ -88,7 +95,9 @@ from edl_tpu_torch.data.pipeline import (DataLoader, FileSource,
                                          prefetch_to_device, random_crop,
                                          random_flip_lr)
 from edl_tpu_torch.ops.augment import make_device_augment
+from edl_tpu_torch.models.resnet import set_batch_group
 from edl_tpu_torch.parallel import distributed
+from edl_tpu_torch.parallel.mesh import MeshSpec
 from edl_tpu_torch.train import lr as lr_lib
 from edl_tpu_torch.train import state as state_lib
 from edl_tpu_torch.train.benchlog import BenchmarkLog
@@ -96,11 +105,11 @@ from edl_tpu_torch.train.classification import (create_state,
                                                 make_classification_step,
                                                 make_eval_step)
 from edl_tpu_torch.train.comm import CommConfig
+from edl_tpu_torch.train.dgc import dgc
 from edl_tpu_torch.train.fused_opt import make_fused_tx
 from edl_tpu_torch.train.loop import LoopConfig, TrainLoop
 from edl_tpu_torch.utils import config
 from edl_tpu_torch.utils.config import from_env
-from edl_tpu_torch.utils.exceptions import EdlError
 from edl_tpu_torch.utils.logging import get_logger
 
 log = get_logger("edl_tpu_torch.examples.imagenet_train")
@@ -231,8 +240,10 @@ def _parser() -> argparse.ArgumentParser:
                              "error-feedback residuals (opt state bytes "
                              "halve)")
     parser.add_argument("--dgc-sparsity", type=float, default=0.0,
-                        help="deep gradient compression (not ported yet)")
-    parser.add_argument("--dgc-rampup-epochs", type=int, default=1)
+                        help="DGC: fraction of gradient entries dropped "
+                             "per leaf (0.99 sends 1%%); 0 = off")
+    parser.add_argument("--dgc-rampup-epochs", type=int, default=1,
+                        help="dense epochs before DGC compression starts")
     parser.add_argument("--label-smoothing", type=float, default=0.1)
     parser.add_argument("--mixup-alpha", type=float, default=0.0)
     parser.add_argument("--bf16", action="store_true",
@@ -337,11 +348,6 @@ def main(argv=None) -> int:
     if dcn_compress != "off" or comm_bucket_mb > 0:
         comm_cfg = CommConfig(bucket_mb=comm_bucket_mb or 4.0,
                               compress=dcn_compress)
-    if env.world_size > 1 and comm_cfg is None:
-        raise SystemExit(_unported(
-            f"a world above 1 (EDL_TPU_WORLD_SIZE={env.world_size}) without "
-            "--dcn-compress/--comm-bucket-mb (the SPMD step with "
-            "global-batch BatchNorm statistics)", 10))
     # Fused optimizer path: CLI > env (LoopConfig binding) > off;
     # EDL_TPU_OPT_QUANT overrides just the resident-moment codec.
     fused_opt = (args.fused_opt if args.fused_opt is not None
@@ -355,6 +361,14 @@ def main(argv=None) -> int:
     if fused_opt not in ("off", "fp32", "int8", "fp8"):
         raise SystemExit(f"EDL_TPU_FUSED_OPT must be off|fp32|int8|fp8, "
                          f"got {fused_opt!r}")
+    if fused_opt != "off" and args.dgc_sparsity > 0:
+        raise SystemExit(
+            "--fused-opt and --dgc-sparsity are mutually exclusive: "
+            "DGC's momentum correction REPLACES optimizer momentum "
+            "inside an optax chain, while the fused path owns the "
+            "whole momentum update in-kernel. Pick one compression "
+            "story (DGC sparsifies the wire, fused-int8 shrinks "
+            "resident state).")
     world = max(1, env.world_size)
     rank = max(0, env.rank)
     device = distributed.rank_device(device, rank)
@@ -440,7 +454,17 @@ def main(argv=None) -> int:
                                       dtype=dtype, device=device,
                                       seed=args.seed)
     schedule = build_schedule(args, steps_per_epoch)
-    if fused_opt != "off":
+    if args.dgc_sparsity > 0:
+        # DGC's momentum correction replaces the optimizer's momentum;
+        # weight decay stays dense, applied after the compressor
+        tx = dgc(schedule, sparsity=args.dgc_sparsity,
+                 momentum=args.momentum,
+                 rampup_steps=args.dgc_rampup_epochs * steps_per_epoch,
+                 weight_decay=args.weight_decay)
+        log.info("deep gradient compression: sparsity %.4f, ramp-up %d "
+                 "steps", args.dgc_sparsity,
+                 args.dgc_rampup_epochs * steps_per_epoch)
+    elif fused_opt != "off":
         # same math as torch.optim.SGD below: decayed weights fold into
         # the momentum update in-kernel
         tx = make_fused_tx("sgdm", schedule, fused_opt,
@@ -453,13 +477,21 @@ def main(argv=None) -> int:
     state = create_state(model, tx)
 
     def make_step(world_env: TrainerEnv):
+        # without a comm flag a world above one runs the SPMD step over a
+        # dp mesh (hybrid when the job declares slices); the global-batch
+        # BatchNorm turns on at its first call and off in a world of one
+        mesh = None
+        set_batch_group(model, None, 1)
+        if comm_cfg is None and distributed.world_size() > 1:
+            mesh = distributed.make_mesh_from_env(MeshSpec({"dp": -1}),
+                                                  world_env)
         # with device augmentation the augment normalizes (one pass after
         # crop/flip); the step must not normalize twice
         return make_classification_step(
             args.num_classes, smoothing=args.label_smoothing,
             mixup_alpha=args.mixup_alpha, seed=args.seed,
             normalize=None if augment_device else normalize, comm=comm_cfg,
-            topology=distributed.slice_topology(world_env))
+            topology=distributed.slice_topology(world_env), mesh=mesh)
     step = make_step(env)
     if comm_cfg is not None:
         log.info("manual gradient path: bucket=%.1fMiB compress=%s",
@@ -520,12 +552,6 @@ def main(argv=None) -> int:
     def reform_mesh(new_rank: int, new_world: int, cluster):
         """An adopted resize: re-form the process group in the new world
         (a trainer keeps its card) and return the step built for it."""
-        if new_world > 1 and comm_cfg is None:
-            # typed: the reform machine downgrades to stop-resume, whose
-            # fresh trainer then exits on the same refusal
-            raise EdlError(_unported(
-                f"a world of {new_world} without --dcn-compress/"
-                "--comm-bucket-mb", 10))
         new_env = dataclasses.replace(
             env, rank=new_rank, world_size=new_world,
             coordinator=cluster.coordinator,
@@ -644,8 +670,6 @@ def _unported(what: str, item: int) -> str:
 def _refuse_unported(args) -> None:
     """Exit, before any work, on a flag this slice does not carry."""
     refused = [
-        (args.dgc_sparsity > 0, "--dgc-sparsity (deep gradient "
-         "compression)", 11),
         (bool(args.teachers), "--teachers (distill mode)", 12),
         (args.model not in _RESNETS,
          f"--model {args.model} (the rest of the model zoo)", 13),

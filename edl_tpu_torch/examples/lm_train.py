@@ -1,5 +1,5 @@
-"""Causal-LM pretraining over file-backed token shards, on one device
-(port of ``edl_tpu.examples.lm_train``).
+"""Causal-LM pretraining over file-backed token shards, on one card or
+over a world of ranks (port of ``edl_tpu.examples.lm_train``).
 
 Same flags, defaults and log lines as the JAX package's entry point,
 plus ``--device`` (``cuda`` unless the caller asks for ``cpu``). The
@@ -16,13 +16,33 @@ checkpoints (async by default; ``--ckpt-sharded`` for the chunk format)
 that the JAX package reads, and a run on a dir that holds one resumes
 from it; ``--loader-workers`` forks the shared-memory loader;
 ``--profile DIR`` writes a torch.profiler trace of steps 10-15. The
-flags this slice does not carry exit before any work, naming the
-ROADMAP item that brings them.
+flags this slice does not carry (``--moe``, ``--mesh sp``) exit before
+any work, naming the ROADMAP item that brings them.
+
+A world of ranks comes from the launcher's env (``EDL_TPU_RANK``,
+``EDL_TPU_WORLD_SIZE``, ``EDL_TPU_COORDINATOR``; rank r on
+``cuda:{r % device_count}``). ``--mesh dp`` runs the SPMD world step
+(``train/step.WorldTrainStep``: gradients averaged by one all-reduce per
+dtype); ``--mesh fsdp`` (or the legacy ``--fsdp``) keeps on each rank
+only its slice of every leaf the rules shard over fsdp
+(``parallel/sharding.shard_module``), gathered at the point of use and
+reduce-scattered in the backward, with the optimizer (K5, or K7 under
+``--fused-opt int8|fp8``) over the slices; ``--ckpt-sharded`` then
+writes each rank's chunks. ``--dcn-compress off|topk|int8`` and/or
+``--comm-bucket-mb`` (or their env knobs) build ``train/comm``'s
+``CommTrainStep`` over the transformer (K8 on the int8 wire). The JAX
+CLI's conflicts between these flags exit with its words.
 
   python -m edl_tpu_torch.examples.lm_train --device cpu \\
       --make-synthetic 1 --data-dir "$(mktemp -d)" --d-model 64 \\
       --n-heads 2 --n-layers 2 --d-ff 128 --vocab 256 --seq-len 128 \\
       --rows-per-file 64 --batch-size 8 --epochs 1 --fused-opt fp32
+
+  # two ranks on the CPU with the parameters sharded (one process each,
+  # one data dir, a free coordinator port $PORT)
+  EDL_TPU_RANK=$R EDL_TPU_WORLD_SIZE=2 EDL_TPU_COORDINATOR=127.0.0.1:$PORT \\
+      python -m edl_tpu_torch.examples.lm_train --device cpu ... \\
+      --mesh fsdp --fused-opt fp32
 """
 
 from __future__ import annotations
@@ -44,10 +64,13 @@ from edl_tpu_torch.models.transformer import (Transformer, TransformerConfig,
                                               auto_remat, lm_loss_fn,
                                               lm_loss_fused)
 from edl_tpu_torch.parallel import distributed
+from edl_tpu_torch.parallel.mesh import MeshSpec
+from edl_tpu_torch.parallel.sharding import shard_module
 from edl_tpu_torch.train import lr as lr_lib
 from edl_tpu_torch.train import state as state_lib
 from edl_tpu_torch.train.amp import DynamicLossScale
 from edl_tpu_torch.train.benchlog import BenchmarkLog
+from edl_tpu_torch.train.comm import CommConfig
 from edl_tpu_torch.train.fused_opt import make_fused_tx
 from edl_tpu_torch.train.loop import LoopConfig, TrainLoop
 from edl_tpu_torch.train.step import make_train_step
@@ -198,7 +221,7 @@ def main(argv=None) -> int:
             "LR ~0 (the horizon is the job TOTAL; the stop point is "
             "--epochs)")
     device = resolve_device(args.device)
-    env = distributed.init_from_env()
+    env = TrainerEnv.from_environ()
     world = max(1, env.world_size)
     rank = max(0, env.rank)
     ckpt_kw = {}
@@ -210,7 +233,6 @@ def main(argv=None) -> int:
                         ckpt_dir=args.ckpt_dir or env.checkpoint_path
                         or None, ckpt_sharded=args.ckpt_sharded,
                         profile_dir=args.profile or None, **ckpt_kw)
-    _refuse_unported_env(loop_cfg)
     loader_workers = (args.loader_workers
                       if args.loader_workers is not None
                       else loop_cfg.loader_workers)
@@ -227,10 +249,37 @@ def main(argv=None) -> int:
                          f"got {fused_opt!r}")
     if args.fp16 and fused_opt in ("int8", "fp8"):
         raise SystemExit(_FP16_QUANT)
+    kind = "fsdp" if args.fsdp else args.mesh
+    # the gradient path: CLI > env (LoopConfig binding) > off. A
+    # compressed wire implies bucketing (default 4 MiB target).
+    dcn_compress = (args.dcn_compress if args.dcn_compress is not None
+                    else loop_cfg.dcn_compress)
+    comm_bucket_mb = (args.comm_bucket_mb
+                      if args.comm_bucket_mb is not None
+                      else loop_cfg.comm_bucket_mb)
+    comm_cfg = None
+    if dcn_compress != "off" or comm_bucket_mb > 0:
+        if kind != "dp":
+            raise SystemExit(
+                f"--dcn-compress/--comm-bucket-mb own the dp gradient "
+                f"reduction; --mesh {kind} keeps the XLA-partitioned "
+                "step (fsdp/tp collectives are slice-local already)")
+        if args.fp16:
+            raise SystemExit("--dcn-compress/--comm-bucket-mb are not "
+                             "supported with --fp16 (the manual path "
+                             "owns the backward's reduction)")
+        comm_cfg = CommConfig(bucket_mb=comm_bucket_mb or 4.0,
+                              compress=dcn_compress)
+    device = distributed.rank_device(device, rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    distributed.init_from_env(env, device=device)
     if args.make_synthetic and rank == 0:
         make_synthetic_shards(args.data_dir, args.make_synthetic,
                               args.rows_per_file, args.seq_len, args.vocab,
                               args.seed)
+    if args.make_synthetic:
+        distributed.barrier()   # the others must not list a half-written dir
 
     files = sorted(os.path.join(args.data_dir, f)
                    for f in os.listdir(args.data_dir)
@@ -253,6 +302,16 @@ def main(argv=None) -> int:
         log.info("remat=%s (mode %s)", cfg.remat, args.remat)
     model = Transformer(cfg, device=device, seed=args.seed)
     model.train()
+    # the mesh (collective: every rank builds its groups): hybrid when the
+    # job declares slices, flat otherwise; only a world above one has one
+    mesh = (distributed.make_mesh_from_env(MeshSpec({kind: -1}), env)
+            if world > 1 else None)
+    if kind == "fsdp" and mesh is not None:
+        # this rank keeps its slice of each leaf the rules shard (the
+        # JAX package's init_sharded; the init is the same on every rank)
+        specs = shard_module(model, mesh)
+        log.info("fsdp: %d of %d leaves sharded over %d ranks",
+                 len(specs), len(list(model.parameters())), world)
 
     source = FileSource(files)
     loader = DataLoader(source, local_bs, rank=rank, world=world,
@@ -276,14 +335,19 @@ def main(argv=None) -> int:
         # TrainLoop's contract is step(state, batch); the loss-scale state
         # rides a closure cell. It is not checkpointed: after a restart
         # the scale re-warms from its init, as in the JAX package
-        raw_step = make_train_step(loss_fn, loss_scale=True)
+        raw_step = make_train_step(loss_fn, loss_scale=True, mesh=mesh)
         ls_box = [DynamicLossScale.create()]
 
         def step(state, batch):
             state, metrics, ls_box[0] = raw_step(state, batch, ls_box[0])
             return state, metrics
+    elif comm_cfg is not None:
+        step = make_train_step(loss_fn, comm=comm_cfg,
+                               topology=distributed.slice_topology(env))
+        log.info("manual gradient path: bucket=%.1fMiB compress=%s",
+                 comm_cfg.bucket_mb, comm_cfg.compress)
     else:
-        step = make_train_step(loss_fn)
+        step = make_train_step(loss_fn, mesh=mesh)
     log.info("world=%d rank=%d devices=%d params=%s steps/epoch=%d",
              world, rank, 1, sum(p.numel() for p in model.parameters()),
              steps_per_epoch)
@@ -332,12 +396,15 @@ def main(argv=None) -> int:
     data_fn.close = loader.close  # TrainLoop tears down the mp workers
     status = loop.run(data_fn)
     blog.extra(**loop.ckpt_stats())  # save-stall / restore accounting
+    if comm_cfg is not None:
+        blog.extra(**step.stats())  # bucket plan + wire accounting
     if rank == 0 and args.benchmark_log:
         blog.write(args.benchmark_log, rank)
     final = blog.finalize().get("final", {})
     log.info("done: epoch=%d step=%d %s", status.epoch, status.step, final)
     if "eval_loss" in final:
         print(f"final_eval_loss={final['eval_loss']:.4f}")
+    distributed.shutdown()
     return 0
 
 
@@ -355,32 +422,20 @@ _FP16_QUANT = (
 
 
 def _refuse_unported(args) -> None:
-    """Exit, before any work, on a flag this slice does not carry."""
+    """Exit, before any work, on a flag this slice does not carry (after
+    the JAX CLI's own conflict of the legacy alias)."""
     if args.fp16 and args.fused_opt in ("int8", "fp8"):
         raise SystemExit(_FP16_QUANT)
+    if args.fsdp and args.mesh != "dp":
+        raise SystemExit("--fsdp is a legacy alias of --mesh fsdp; "
+                         f"it conflicts with --mesh {args.mesh}")
     refused = [
         (args.moe, "--moe (mixture-of-experts blocks and dispatch)", 14),
-        (args.fsdp or args.mesh == "fsdp", "--mesh fsdp (sharded params)",
-         10),
         (args.mesh == "sp", "--mesh sp (ring attention)", 14),
-        (args.dcn_compress not in (None, "off"),
-         f"--dcn-compress {args.dcn_compress}", 11),
-        (args.comm_bucket_mb not in (None, 0, 0.0),
-         "--comm-bucket-mb (the bucketed gradient reduction)", 11),
-        (TrainerEnv.from_environ().world_size > 1,
-         "a world above 1 for lm_train (EDL_TPU_WORLD_SIZE > 1)", 11),
     ]
     for hit, what, item in refused:
         if hit:
             raise SystemExit(_unported(what, item))
-
-
-def _refuse_unported_env(cfg: LoopConfig) -> None:
-    """The same refusals for the env knobs that would turn them on."""
-    if cfg.dcn_compress != "off" or cfg.comm_bucket_mb > 0:
-        raise SystemExit(_unported(
-            "EDL_TPU_DCN_COMPRESS / EDL_TPU_COMM_BUCKET_MB (the bucketed "
-            "gradient reduction)", 11))
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the transformer LM and the ResNet family."""
+"""Model zoo of the port: the transformer LM, the ResNet family and the
+linear-regression smoke model."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ _ZOO = {
     "resnet": ("ResNet", "ResNet50", "ResNet101", "ResNet152",
                "ResNet50_vd", "ResNet101_vd", "ResNet152_vd", "ResNetTiny",
                "BottleneckBlock"),
+    "linear": ("LinearRegression",),
 }
 
 

@@ -25,6 +25,14 @@ flax 0.12 semantics the port keeps:
   eps 1e-5; the running averages use flax's momentum 0.9 (torch's 0.1)
   and the BIASED batch variance; ``train()``/``eval()`` is flax's
   ``use_running_average=not train``.
+- In a world that runs the SPMD step (``set_batch_group``), the batch
+  statistics are those of the GLOBAL batch, as the JAX package's
+  partitioned step takes them: each rank sums x and x^2 in fp32 over
+  (N, H, W), one staged all-reduce of the two sums runs over the data
+  group, and the mean, the biased variance E[x^2] - E[x]^2 (flax's)
+  and the running averages follow; the backward all-reduces sum(dy) and
+  sum(dy * xhat) (``_GlobalBatchNorm``, over the port's collective, not
+  ``torch.nn.SyncBatchNorm``, which calls the backend directly).
 - Init: convs ``variance_scaling(2, fan_out, normal)`` (a normal
   truncated at 2 std, std = sqrt(2 / fan_out) / 0.8796), the classifier
   ``variance_scaling(1, fan_in, uniform)`` with a zero bias, and each
@@ -47,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from edl_tpu_torch import resolve_device
+from edl_tpu_torch.parallel import distributed
 
 _TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated at +-2
 
@@ -101,12 +110,15 @@ class BatchNorm(nn.Module):
                              torch.zeros(features, device=device))
         self.register_buffer("running_var",
                              torch.ones(features, device=device))
+        self.sync = None   # (group, world) of the global-batch path
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(self.dtype)
+        if self.sync is not None:
+            return self._global(x)
         # With momentum 1, F.batch_norm writes the batch mean and the
         # UNBIASED batch variance into these scratch buffers: the
         # statistics come from the same fused pass that normalizes.
@@ -121,6 +133,67 @@ class BatchNorm(nn.Module):
             # (n - 1) / n turns the unbiased variance into the biased one
             self.running_var.mul_(m).add_(var, alpha=(1 - m) * (n - 1) / n)
         return y.to(self.dtype)
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        group, world = self.sync
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps, group, world)
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+            self.running_var.mul_(m).add_(var, alpha=1 - m)
+        return y.to(self.dtype)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the batch of every rank of ``group``
+    (``world`` ranks, each with a local batch of the same size). Returns
+    (y in fp32, batch mean, biased batch variance); the weight's and the
+    bias's gradients are this rank's sums (the step averages them over
+    the world, as every other gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group, world):
+        c = x.shape[1]
+        xf = x.float()
+        sums = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
+        distributed.all_reduce(sums, group)
+        n = (x.numel() // c) * world
+        mean = sums[:c] / n
+        var = torch.clamp_min(sums[c:] / n - mean * mean, 0.0)
+        invstd = torch.rsqrt(var + eps)
+        shape = (1, c, 1, 1)
+        y = ((xf - mean.view(shape)) * (invstd * weight).view(shape)
+             + bias.view(shape))
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.n, ctx.group = n, group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        c = x.shape[1]
+        shape = (1, c, 1, 1)
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        dy = dy.float()
+        sums = torch.cat([dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))])
+        d_bias, d_weight = sums[:c].clone(), sums[c:].clone()
+        distributed.all_reduce(sums, ctx.group)
+        dx = (weight * invstd).view(shape) * (
+            dy - (sums[:c] / ctx.n).view(shape)
+            - xhat * (sums[c:] / ctx.n).view(shape))
+        return dx.to(x.dtype), d_weight, d_bias, None, None, None
+
+
+def set_batch_group(model: nn.Module, group, world: int) -> None:
+    """Take every BatchNorm's training statistics over the batch of the
+    ``world`` ranks of ``group`` (None: the default group); a world of
+    one restores the local statistics."""
+    sync = (group, world) if world > 1 else None
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.sync = sync
 
 
 def _max_pool_same(x: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,12 @@ fp32 and returns fp32 logits. For that fp32 product to match the
 reference on a card, TF32 must be off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
 
+Under FSDP (``parallel/sharding.shard_module``) a rank holds a slice of
+each parameter the rules shard; every forward reads its weights through
+``sharding.full``, which is the parameter itself when it is whole and
+gathers the slices (its backward reduce-scatters the gradient) when it
+is not. Under ``remat`` the gather is recomputed with the block.
+
 State-dict names mirror the flax parameter tree (``block0.attn.query``,
 ``ln_final``, ``lm_head`` ...); ``edl_tpu_torch.bridge`` converts between
 the two.
@@ -47,6 +53,7 @@ from edl_tpu_torch import resolve_device
 from edl_tpu_torch.ops.flash_attention import flash_attention
 from edl_tpu_torch.ops.fused_xent import streamed_lm_xent
 from edl_tpu_torch.parallel.ring_attention import dense_attention
+from edl_tpu_torch.parallel.sharding import full
 
 
 @dataclass(frozen=True)
@@ -72,7 +79,8 @@ class TransformerConfig:
                 "mixture-of-experts blocks are not ported yet")
         if self.mesh is not None:
             raise NotImplementedError(
-                "a device mesh comes with the multi-GPU slice")
+                "cfg.mesh is the JAX model's sharding-constraint seam; the "
+                "port shards the module (parallel/sharding.shard_module)")
         if self.attention not in ("auto", "flash", "dense"):
             raise ValueError(f"unknown attention={self.attention!r} "
                              "(auto|flash|dense)")
@@ -125,14 +133,15 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         heads = (b, s, cfg.n_heads, cfg.head_dim)
-        q = F.linear(x, self.query.weight.to(cfg.dtype)).view(heads)
-        k = F.linear(x, self.key.weight.to(cfg.dtype)).view(heads)
-        v = F.linear(x, self.value.weight.to(cfg.dtype)).view(heads)
+        q = F.linear(x, full(self.query.weight).to(cfg.dtype)).view(heads)
+        k = F.linear(x, full(self.key.weight).to(cfg.dtype)).view(heads)
+        v = F.linear(x, full(self.value.weight).to(cfg.dtype)).view(heads)
         if cfg.use_flash(s, x.device):
             o = flash_attention(q, k, v, causal=True)
         else:
             o = dense_attention(q, k, v, causal=True)
-        return F.linear(o.reshape(b, s, -1), self.out.weight.to(cfg.dtype))
+        return F.linear(o.reshape(b, s, -1),
+                        full(self.out.weight).to(cfg.dtype))
 
 
 class Block(nn.Module):
@@ -148,9 +157,9 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
         x = x + self.attn(self.ln_attn(x))
-        h = F.linear(self.ln_mlp(x), self.mlp_in.weight.to(dt))
+        h = F.linear(self.ln_mlp(x), full(self.mlp_in.weight).to(dt))
         h = F.gelu(h, approximate="tanh")
-        return x + F.linear(h, self.mlp_out.weight.to(dt))
+        return x + F.linear(h, full(self.mlp_out.weight).to(dt))
 
 
 class Transformer(nn.Module):
@@ -206,7 +215,7 @@ class Transformer(nn.Module):
                 "JAX trainer passes it a 'dropout' rng stream either")
         s = tokens.shape[1]
         x = F.embedding(tokens.long(), self.tok_embed.weight).to(cfg.dtype)
-        x = x + self.pos_embed[None, :s].to(cfg.dtype)
+        x = x + full(self.pos_embed)[None, :s].to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks():
             x = (checkpoint(block, x, use_reentrant=False) if remat
@@ -214,7 +223,7 @@ class Transformer(nn.Module):
         x = self.ln_final(x)
         if return_hidden:
             return x
-        return self.lm_head(x.float())
+        return F.linear(x.float(), full(self.lm_head.weight))
 
 
 def lm_loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -239,7 +248,8 @@ def lm_loss_fused(model: Transformer, batch: dict, *,
     b, s, d = hidden.shape
     hidden = hidden[:, :-1].reshape(b * (s - 1), d)
     targets = tokens[:, 1:].reshape(-1)
-    loss = streamed_lm_xent(hidden, model.lm_head.weight.t(), targets, chunk)
+    loss = streamed_lm_xent(hidden, full(model.lm_head.weight).t(), targets,
+                            chunk)
     return loss, {"ppl": torch.exp(loss.detach())}
 
 

@@ -1,7 +1,7 @@
 """World formation from the launcher's env contract and the collectives
 the port runs over it (port of ``edl_tpu.parallel.distributed``:
-``init_from_env``, ``slice_topology``, ``is_initialized`` and
-``shutdown``).
+``init_from_env``, ``slice_topology``, ``make_mesh_from_env``,
+``is_initialized`` and ``shutdown``).
 
 A world is ranks, one card each. In the JAX package one process per host
 owns all of that host's chips and ``EDL_TPU_WORLD_SIZE`` counts
@@ -42,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from edl_tpu_torch.collective.job_env import TrainerEnv
+from edl_tpu_torch.parallel import mesh as mesh_lib
 from edl_tpu_torch.parallel.mesh import SliceTopology
 from edl_tpu_torch.utils.exceptions import EdlError
 from edl_tpu_torch.utils.logging import get_logger
@@ -187,6 +188,17 @@ def slice_topology(env: TrainerEnv | None = None,
                              f"EDL_TPU_SLICES={env.n_slices}")
         return SliceTopology(env.n_slices, world // env.n_slices)
     return SliceTopology(1, world)
+
+
+def make_mesh_from_env(spec=None, env: TrainerEnv | None = None):
+    """The mesh a launched trainer trains on, over the joined world:
+    hybrid ICI x DCN when the job declares itself multi-slice
+    (``slice_topology``), flat otherwise. Collective: every rank calls it
+    (the mesh's process groups are created world-wide)."""
+    topo = slice_topology(env, world_size())
+    if topo.is_multi_slice:
+        return mesh_lib.make_hybrid_mesh(spec, topo)
+    return mesh_lib.make_mesh(spec)
 
 
 # -- collectives -------------------------------------------------------------

@@ -4,7 +4,15 @@
 The contract is the JAX package's, and so is every byte on disk:
 
 - rank 0 writes, every rank loads; in a world rank 0 picks the version
-  and broadcasts it (``torch.distributed``);
+  and broadcasts it (``torch.distributed``). A sharded save in a world
+  (``sharded=True``) is every rank's: each writes its own chunks and
+  ``index.{rank}.json`` into the version's temp dir between the JAX
+  package's barriers (begin, clean, chunks), and rank 0 seals it
+  (``_save_sharded_world``; synchronous, as the JAX package's
+  multi-process sharded saves are). An FSDP state
+  (``parallel/sharding.shard_module``) in the replicated format is
+  gathered to rank 0, which writes it; restoring into one reads only
+  this rank's regions (``bridge.flax_to_state_sharded``);
 - a save is written into a temp dir and sealed by ``os.rename`` to
   ``ckpt-{version}``; versions increase; ``latest`` is the largest
   sealed one, so a half-written temp dir is never visible;
@@ -54,12 +62,14 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 from edl_tpu_torch import bridge
 from edl_tpu_torch.obs import metrics as obs_metrics
 from edl_tpu_torch.parallel import distributed
-from edl_tpu_torch.train import serialization
+from edl_tpu_torch.parallel.sharding import is_sharded
+from edl_tpu_torch.train import ckpt_io, serialization
 from edl_tpu_torch.train import sharded_checkpoint as sc
 from edl_tpu_torch.train.state import TrainStatus
 from edl_tpu_torch.utils import fs
@@ -79,12 +89,15 @@ class CheckpointWriteError(RuntimeError):
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 sharded: bool = False, remote: str | None = None):
+                 process_index: int | None = None, sharded: bool = False,
+                 remote: str | None = None):
         """``remote``: an optional URI root (file://, gs://, hdfs://; see
         utils/fs.py) mirroring the local dir: rank 0 uploads each sealed
         version, and a restore whose local dir lacks the wanted version
-        fetches it first."""
+        fetches it first. ``process_index`` pins this process's index
+        (default: its rank in the joined world)."""
         self.directory = directory
+        self._process_index = process_index
         self.max_to_keep = max_to_keep
         self.sharded = sharded
         self.remote = remote
@@ -115,7 +128,16 @@ class CheckpointManager:
 
     @property
     def process_index(self) -> int:
+        if self._process_index is not None:
+            return self._process_index
         return distributed.rank()
+
+    def _world_save(self, state) -> bool:
+        """Whether a save of ``state`` is collective: a sharded save in a
+        world, or an FSDP state (its moments and, in the replicated
+        format, its slices are gathered)."""
+        return ((self.sharded and distributed.world_size() > 1)
+                or is_sharded(state.model))
 
     # -- discovery ---------------------------------------------------------
 
@@ -177,6 +199,8 @@ class CheckpointManager:
         self.wait()
         t0 = time.perf_counter()
         try:
+            if self._world_save(state):
+                return self._save_world(state, status)
             if self.process_index != 0:
                 self._gc(sealed_only=True)
                 return None
@@ -199,6 +223,9 @@ class CheckpointManager:
         writer is superseded by this one (drop-to-latest); the write in
         flight is never aborted."""
         self._raise_pending_error()
+        if self._world_save(state):
+            self.save(state, status)   # collective: on this thread
+            return
         if self.process_index != 0:
             self._gc(sealed_only=True)
             return
@@ -276,6 +303,95 @@ class CheckpointManager:
             self._remote_folded = True
         if mirror_this:
             self._mirror(version)
+        self._gc()
+        return version
+
+    def _save_world(self, state, status: TrainStatus) -> int | None:
+        """The collective save: an FSDP state's tree (its slices as
+        Shards; collective), then either every rank's chunks
+        (``sharded``) or the gathered whole tree written by rank 0."""
+        if is_sharded(state.model):
+            tree = bridge.sharded_state_tree(state)
+        else:
+            tree = bridge.state_to_flax(state)
+        if not self.sharded:
+            tree = bridge.gather_shards(tree)
+            if self.process_index != 0:
+                self._gc(sealed_only=True)
+                return None
+            return self._write_tree(tree, status)
+        version = self._save_sharded_world(
+            sc.snapshot_shard_tree(tree, self.process_index), status)
+        if version is not None and not is_sharded(state.model):
+            # rank 0's whole tree serves migration donors, as an async
+            # save's does (an FSDP rank's slices are not served)
+            self._retain(tree, None, version, status)
+        return version
+
+    def _save_sharded_world(self, snap: dict, status: TrainStatus
+                            ) -> int | None:
+        """Every rank writes its chunks into the version's temp dir; rank
+        0 seals it. The JAX package's order: a begin barrier, rank 0's
+        version broadcast, rank 0 clears a stale temp dir of that
+        version and each rank its older ones, a barrier, the writes (a
+        rank that fails drops a poison marker and still reaches the next
+        barrier), a barrier, then rank 0 writes meta.json and renames."""
+        if self.remote is not None:
+            raise NotImplementedError(
+                "mirroring a sharded save of a world of ranks is not "
+                "ported (ROADMAP Queue 3)")
+        distributed.barrier()
+        latest = self.latest_version()
+        version = distributed.broadcast_int(0 if latest is None
+                                            else latest + 1)
+        os.makedirs(self.directory, exist_ok=True)
+        tmp = os.path.join(self.directory, f".tmp-ckpt-{version}")
+        if self.process_index == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for name in os.listdir(self.directory):
+            if name.startswith(".tmp-ckpt-") and name != os.path.basename(tmp):
+                shutil.rmtree(os.path.join(self.directory, name),
+                              ignore_errors=True)
+        distributed.barrier()
+        failure: BaseException | None = None
+        try:
+            ckpt_io.write_snapshot(tmp, snap)
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            failure = exc
+            try:
+                os.makedirs(tmp, exist_ok=True)
+                open(os.path.join(
+                    tmp, f"save_failed.{self.process_index}"), "w").close()
+            except OSError:
+                pass
+        distributed.barrier()
+        poisoned = [n for n in (os.listdir(tmp) if os.path.isdir(tmp)
+                                else []) if n.startswith("save_failed.")]
+        if failure is not None or poisoned:
+            if self.process_index == 0:
+                shutil.rmtree(tmp, ignore_errors=True)
+            if failure is not None:
+                raise failure
+            raise RuntimeError(f"sharded save aborted: {poisoned} failed")
+        if self.process_index != 0:
+            self._gc(sealed_only=True)
+            return None
+        try:
+            meta = {"version": version, "status": status.to_dict(),
+                    "format": "sharded",
+                    "world": {"process_count": distributed.world_size(),
+                              "device_count": distributed.world_size()}}
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(meta, f)
+            os.rename(tmp, self._path(version))
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        with self._cond:
+            self._stats["state_bytes_last"] = sum(
+                a.nbytes for _, a in snap["chunks"])
+        log.info("saved sharded checkpoint %s (epoch=%d step=%d)",
+                 self._path(version), status.epoch, status.step)
         self._gc()
         return version
 
@@ -493,6 +609,32 @@ class CheckpointManager:
             meta = json.load(f)
         return tree, TrainStatus.from_dict(meta["status"])
 
+    def _load_sharded(self, state, version: int) -> TrainStatus:
+        """Write version ``version`` into an FSDP ``state``, reading only
+        this rank's regions from the chunks (whole leaves from the
+        replicated format's tree)."""
+        path = self._path(version)
+        if sc.is_sharded_dir(path):
+            merged = ckpt_io.read_merged_index(path)
+            files = ckpt_io.ChunkFiles(path,
+                                       crcs=ckpt_io.checksum_map(merged))
+            try:
+                bridge.flax_to_state_sharded(
+                    sc.entry_reader(merged, files.load), state)
+            finally:
+                files.close()
+        else:
+            with open(os.path.join(path, "state.msgpack"), "rb") as f:
+                tree = serialization.msgpack_restore(f.read())
+
+            def read(p, index):
+                leaf = np.asarray(bridge._lookup(tree, tuple(p)))
+                return leaf if index is None else leaf[index]
+
+            bridge.flax_to_state_sharded(read, state)
+        with open(os.path.join(path, "meta.json")) as f:
+            return TrainStatus.from_dict(json.load(f)["status"])
+
     def restore_raw(self, version: int | None = None
                     ) -> tuple[dict, TrainStatus] | None:
         """The state dict of a checkpoint (either format) and its status,
@@ -543,8 +685,11 @@ class CheckpointManager:
 
     def _load(self, state, version: int):
         t0 = time.perf_counter()
-        tree, status = self._read(version)
-        bridge.flax_to_state(tree, state)
+        if is_sharded(state.model):
+            status = self._load_sharded(state, version)
+        else:
+            tree, status = self._read(version)
+            bridge.flax_to_state(tree, state)
         if next(state.model.parameters()).is_cuda:
             torch.cuda.synchronize()
         self.last_restore_s = time.perf_counter() - t0

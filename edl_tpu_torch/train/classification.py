@@ -7,7 +7,7 @@ train mode (BatchNorm statistics update the module's buffers), soft
 cross-entropy against (smoothed, optionally mixed) one-hot targets, and
 the optimizer step through ``TrainState.apply_gradients`` (with
 ``comm``, the manual gradient path of ``train/comm.py`` over the joined
-world).
+world; with a ``mesh``, the SPMD world step).
 ``make_eval_step`` runs the model in eval mode (running statistics) and
 returns top-1/top-5 accuracy. The distill steps (``make_distill_step``,
 ``make_sparse_distill_step``) come with the student side (ROADMAP Queue 1
@@ -68,13 +68,15 @@ def mixup_rng(seed: int, step: int) -> np.random.Generator:
 def make_classification_step(num_classes: int, *, smoothing: float = 0.0,
                              mixup_alpha: float = 0.0, seed: int = 0,
                              normalize: str | None = None,
-                             comm=None, topology=None) -> Callable:
+                             comm=None, topology=None,
+                             mesh=None) -> Callable:
     """``step(state, batch) -> (state, metrics)`` for {'image', 'label'}
     batches; metrics hold the loss and the batch's top-1 accuracy as
     device tensors. ``normalize`` ('imagenet' | 'unit') turns uint8
     pixels into normalized floats on the device first (the JPEG and
     packed planes ship bytes). ``comm``/``topology`` route the gradient
-    reduction through the manual bucketed path (see
+    reduction through the manual bucketed path, ``mesh`` (a world above
+    one) through the SPMD world step with global-batch BatchNorm (see
     ``make_train_step``)."""
 
     def loss_fn(model: torch.nn.Module, batch: dict,
@@ -90,7 +92,7 @@ def make_classification_step(num_classes: int, *, smoothing: float = 0.0,
             "acc1": accuracy_topk(logits.detach(), batch["label"], 1)}
 
     return make_train_step(loss_fn, with_step=True, comm=comm,
-                           topology=topology)
+                           topology=topology, mesh=mesh)
 
 
 def make_eval_step(normalize: str | None = None) -> Callable:

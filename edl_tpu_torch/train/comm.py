@@ -36,8 +36,14 @@ at the first step). Transient comm state (the residuals) is not
 checkpointed, as in the JAX package.
 
 The MoE dispatch (``MoEDispatchConfig``, ``moe_all_to_all``, ``MoEWire``,
-``MoECommStep`` and its gates) comes with ROADMAP Queue 1 item 14, DGC
-with item 11.
+``MoECommStep`` and its gates) comes with ROADMAP Queue 1 item 14.
+
+``python -m edl_tpu_torch.train.comm smoke [--compress topk|int8]
+[--steps N] [--envelope E] [--slices S] [--device cpu]`` runs the
+convergence smoke over the world the EDL_TPU_* env describes (a world of
+one without it) and prints the JAX CLI's one ``{"comm_smoke": ...}``
+line; it exits 0 only when every gate holds. ``--moe`` exits naming
+ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -514,10 +520,16 @@ def _sync_module(model: torch.nn.Module, average: bool) -> None:
     """Rank 0's parameters and buffers to every rank (``average=False``,
     one broadcast per dtype), or the floating buffers averaged over the
     world (``average=True``: the BatchNorm running statistics)."""
+    sync_tensors(list(model.buffers()) if average
+                 else list(model.parameters()) + list(model.buffers()),
+                 average)
+
+
+def sync_tensors(tensors: list, average: bool = False) -> None:
+    """Rank 0's ``tensors`` to every rank (one broadcast per dtype), or,
+    with ``average``, the floating ones averaged over the world."""
     if distributed.world_size() == 1:
         return
-    tensors = (list(model.buffers()) if average
-               else list(model.parameters()) + list(model.buffers()))
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for t in tensors:
         if t.is_floating_point() or not average:
@@ -763,3 +775,55 @@ def convergence_smoke(compress: str = "topk", steps: int = 40,
     report["ok"] = all(report[k]["learned"] and report[k]["within_envelope"]
                        for k in ("cnn", "transformer"))
     return report
+
+
+def _main(argv=None) -> int:
+    import argparse
+    import json
+
+    parser = argparse.ArgumentParser(prog="edl_tpu_torch.train.comm")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    smoke = sub.add_parser(
+        "smoke", help="convergence-parity smoke: compressed DCN leg vs "
+                      "the dense reference on the CNN + transformer tinies")
+    smoke.add_argument("--compress", choices=("topk", "int8"),
+                       default=None,
+                       help="DCN wire format (default: topk; int8 "
+                            "with --moe, which has no topk wire)")
+    smoke.add_argument("--moe", action="store_true",
+                       help="the MoE dispatch smoke (not ported yet)")
+    smoke.add_argument("--steps", type=int, default=40)
+    smoke.add_argument("--envelope", type=float, default=0.25,
+                       help="RELATIVE loss envelope: the compressed "
+                            "run must keep >= 1-envelope of dense's "
+                            "loss improvement")
+    smoke.add_argument("--slices", type=int, default=2,
+                       help="emulated slice count (1 = flat dp)")
+    smoke.add_argument("--device", default="cuda",
+                       help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    if args.moe:
+        raise SystemExit("--moe (the MoE dispatch smoke) is not ported yet "
+                         "(ROADMAP Queue 1 item 14)")
+    device = resolve_device(args.device)
+    env = distributed.init_from_env(device=device)
+    device = distributed.rank_device(device, max(0, env.rank))
+    world = distributed.world_size()
+    topo = None
+    if args.slices > 1:
+        if world % args.slices:
+            raise SystemExit(f"{world} devices not divisible by "
+                             f"--slices {args.slices}")
+        topo = mesh_lib.SliceTopology(args.slices, world // args.slices)
+    report = convergence_smoke(compress=args.compress or "topk",
+                               steps=args.steps, envelope=args.envelope,
+                               topology=topo, device=device)
+    print(json.dumps({"comm_smoke": report}))
+    distributed.shutdown()
+    return 0 if report["ok"] else 1
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(_main())

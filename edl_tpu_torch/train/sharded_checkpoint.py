@@ -14,8 +14,15 @@ leaf whole (a coverage hole raises) through a per-file handle cache that
 verifies each chunk's sealed crc32 once (``EdlCheckpointCorrupt``).
 The result is the state dict ``serialization.msgpack_restore`` gives for
 the replicated format, rebuilt from the keys, so one ``flax_to_state``
-writes either into the live state. Restoring into sharded tensors waits
-for FSDP (ROADMAP Queue 1 item 10).
+writes either into the live state.
+
+A rank of an FSDP world (``parallel/sharding.shard_module``) writes its
+own chunks (``snapshot_shard_tree`` of ``bridge.sharded_state_tree``):
+each sharded leaf's slice at its offset in the whole leaf, in the JAX
+package's FSDP layout, and its ``index.{rank}.json``; rank 0 writes the
+whole leaves. Restoring into such a state reads only the regions the
+rank holds (``bridge.flax_to_state_sharded`` over ``read_region``), from
+disk or, through ``restore_from_index``, from donors.
 
 ``restore_from_index`` is the same assembly with the chunk source
 abstracted (``load(fname) -> ndarray``): the state-migration plane
@@ -45,21 +52,25 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def keyed_leaves(tree, prefix: str = "") -> list[tuple[str, object]]:
+def keyed_leaves(tree, prefix: str = "", shard=None
+                 ) -> list[tuple[str, object]]:
     """(keystr, leaf) in jax's flatten order: NamedTuple fields in order
     (``.name``), dict keys sorted (``['k']``), tuple items (``[i]``);
-    None has no leaf."""
+    None has no leaf. Instances of ``shard`` are leaves."""
     if tree is None:
         return []
+    if shard is not None and isinstance(tree, shard):
+        return [(prefix, tree)]
     if _is_namedtuple(tree):
         return [kv for f in tree._fields
-                for kv in keyed_leaves(getattr(tree, f), f"{prefix}.{f}")]
+                for kv in keyed_leaves(getattr(tree, f), f"{prefix}.{f}",
+                                       shard)]
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
-                for kv in keyed_leaves(tree[k], f"{prefix}[{k!r}]")]
+                for kv in keyed_leaves(tree[k], f"{prefix}[{k!r}]", shard)]
     if isinstance(tree, (tuple, list)):
         return [kv for i, v in enumerate(tree)
-                for kv in keyed_leaves(v, f"{prefix}[{i}]")]
+                for kv in keyed_leaves(v, f"{prefix}[{i}]", shard)]
     return [(prefix, tree)]
 
 
@@ -105,6 +116,54 @@ def snapshot_nbytes(snap: dict) -> int:
     return int(sum(a.nbytes for a in arrays))
 
 
+def snapshot_shard_tree(tree, process_index: int) -> dict:
+    """The leaf table and this rank's chunks of a tree whose sharded
+    leaves are ``bridge.Shard``s: each Shard is this rank's chunk at its
+    offset; a whole leaf is rank 0's single chunk (the others list it
+    with no chunks, as the JAX package's non-owners do)."""
+    from edl_tpu_torch.bridge import Shard
+
+    chunks, table = [], []
+    for i, (key, leaf) in enumerate(keyed_leaves(tree, shard=Shard)):
+        if isinstance(leaf, Shard):
+            arr, offset, shape = (np.asarray(leaf.array), tuple(leaf.offset),
+                                  tuple(leaf.shape))
+            mine = True
+        else:
+            arr = np.asarray(leaf)
+            offset, shape = (0,) * arr.ndim, tuple(arr.shape)
+            mine = process_index == 0
+        entry = {"key": key, "shape": list(shape), "dtype": str(arr.dtype),
+                 "chunks": []}
+        if mine:
+            fname = ckpt_io.chunk_name(i, offset)
+            chunks.append((fname, arr))
+            entry["chunks"].append({"offset": list(offset),
+                                    "shape": list(arr.shape),
+                                    "file": fname})
+        table.append(entry)
+    return {"leaves": table, "chunks": chunks,
+            "process_index": process_index}
+
+
+def entry_reader(merged: dict[str, dict], load):
+    """``read(path, index)`` over a merged leaf table: the region
+    ``index`` (None: whole) of the leaf at ``path`` (the state dict's
+    path), assembled from chunks through ``load``."""
+    by_path = {key_path(k): e for k, e in merged.items()}
+
+    def read(path, index):
+        entry = by_path.get(tuple(path))
+        if entry is None:
+            raise ValueError(f"checkpoint has no leaf {'/'.join(path)}")
+        if index is None:
+            index = tuple(slice(0, n) for n in entry["shape"])
+        out = ckpt_io.read_region(load, entry, index)
+        return out if out.ndim else out[()]
+
+    return read
+
+
 def save_tree(directory: str, tree) -> list[str]:
     """Write ``tree`` as process 0's chunks + index; returns the files."""
     return ckpt_io.write_snapshot(directory, snapshot_host_tree(tree))
@@ -135,9 +194,16 @@ def restore_from_index(merged: dict[str, dict], load, target,
     ``load(fname) -> ndarray`` and write the tree into ``target``, a
     TrainState, in place (``bridge.flax_to_state``); returns it. Nothing
     is written until every chunk has arrived, so a source that fails
-    part way leaves ``target`` as it was."""
-    tree = tree_from_index(merged, load, threads)
+    part way leaves ``target`` as it was. An FSDP target reads only the
+    regions this rank holds (``bridge.flax_to_state_sharded``), written
+    as they arrive."""
     from edl_tpu_torch import bridge
+    from edl_tpu_torch.parallel.sharding import is_sharded
+
+    if is_sharded(target.model):
+        return bridge.flax_to_state_sharded(entry_reader(merged, load),
+                                            target)
+    tree = tree_from_index(merged, load, threads)
 
     bridge.flax_to_state(tree, target)
     return target

@@ -91,6 +91,11 @@ class TrainState:
             grads = [p.grad for _, p in self.params]
             _, self.opt_state = self.tx.fused_apply(grads, self.opt_state,
                                                     self.params)
+        elif hasattr(self.tx, "apply"):
+            # a transform over the gradient list (train/dgc.py)
+            self.opt_state = self.tx.apply([p.grad for _, p in self.params],
+                                           self.opt_state, self.params,
+                                           self.step)
         else:
             self.tx.step(self.opt_state, self.step)
         self.step += 1

@@ -18,6 +18,21 @@ With ``loss_scale=True`` (fp16 dynamic loss scaling, ``train/amp.py``)
 the step is ``step(state, batch, ls) -> (state, metrics, ls)`` and its
 metrics gain ``loss_scale`` and ``finite``. That step reads one value
 back, the finite flag, and runs the optimizer only on a finite step.
+
+With a ``mesh`` of more than one rank (``parallel/mesh.make_mesh`` over
+the joined world, data axes dp and fsdp) and no ``comm``, the step is
+the JAX package's one SPMD program done by hand (:class:`WorldTrainStep`):
+each rank runs the forward and backward on its slice of the global
+batch, BatchNorm takes the global batch's statistics
+(``models/resnet.set_batch_group``), the gradients are averaged over the
+world (one staged all-reduce per dtype over one flat buffer of the whole
+leaves, in flax leaf order; a leaf sharded over fsdp got its mean from
+the reduce-scatter of ``parallel/sharding.full``'s backward), the
+optimizer runs as on one card (on the slices of sharded leaves), and
+the loss and float metrics are averaged. Every rank starts from rank 0's
+whole parameters and buffers (a sharded leaf's slices are cut from one
+seeded init on every rank). Under ``loss_scale`` each rank's finite flag
+is all-reduced, so every rank skips the same step.
 """
 
 from __future__ import annotations
@@ -26,21 +41,26 @@ from typing import Callable
 
 import torch
 
+from edl_tpu_torch.models.resnet import set_batch_group
+from edl_tpu_torch.parallel import distributed
+from edl_tpu_torch.parallel.mesh import DATA_AXES
+from edl_tpu_torch.parallel.sharding import fsdp_spec
 from edl_tpu_torch.train import amp
-from edl_tpu_torch.train.comm import make_comm_train_step
+from edl_tpu_torch.train.comm import make_comm_train_step, sync_tensors
 
 LossFn = Callable[..., tuple[torch.Tensor, dict]]
 
 
 def make_train_step(loss_fn: LossFn, loss_scale: bool = False,
                     comm=None, with_step: bool = False,
-                    topology=None) -> Callable:
+                    topology=None, mesh=None) -> Callable:
     """Build a step from ``loss_fn(model, batch) -> (loss, aux)``.
 
     The JAX package's ``donate`` has no counterpart (the step updates in
-    place), nor its ``mesh`` (the world is the joined process group).
-    ``loss_scale`` wraps the backward in dynamic loss scaling (see the
-    module docstring); it excludes ``comm``, as in the JAX package.
+    place). ``mesh`` with more than one rank and no ``comm`` gives the
+    world step (see the module docstring); the comm path runs over the
+    joined world as it is. ``loss_scale`` wraps the backward in dynamic
+    loss scaling; it excludes ``comm``, as in the JAX package.
     """
     if comm is not None:
         if loss_scale:
@@ -50,6 +70,9 @@ def make_train_step(loss_fn: LossFn, loss_scale: bool = False,
                 "fp16 scaling is an amp-path feature)")
         return make_comm_train_step(loss_fn, config=comm, topology=topology,
                                     with_step=with_step)
+    if mesh is not None and mesh.size > 1:
+        return WorldTrainStep(loss_fn, mesh=mesh, loss_scale=loss_scale,
+                              with_step=with_step)
 
     def forward(state, batch):
         for _, p in state.params:
@@ -84,3 +107,102 @@ def make_train_step(loss_fn: LossFn, loss_scale: bool = False,
 
     return step
 
+
+class WorldTrainStep:
+    """The SPMD world step over a data-parallel ``mesh`` (axes dp and
+    fsdp); ``step(state, batch)`` or, with ``loss_scale``,
+    ``step(state, batch, ls)``. Built lazily: the first call turns on the
+    global-batch BatchNorm and broadcasts rank 0's whole parameters and
+    buffers."""
+
+    def __init__(self, loss_fn: LossFn, *, mesh, loss_scale: bool = False,
+                 with_step: bool = False):
+        others = [a for a in mesh.axis_names
+                  if a not in DATA_AXES and mesh.shape[a] > 1]
+        if others:
+            raise NotImplementedError(
+                f"the world step runs dp/fsdp meshes; axes {others} come "
+                "with ROADMAP Queue 1 item 14")
+        self.loss_fn, self.mesh = loss_fn, mesh
+        self.loss_scale, self.with_step = loss_scale, with_step
+        self.world = mesh.size
+        self.dp = mesh.axis_size("dp")
+        self.built = False
+        self.steps = 0
+
+    def _build(self, state) -> None:
+        # every data axis together is the world: the default group
+        set_batch_group(state.model, None, self.world)
+        whole = [p for _, p in state.params if fsdp_spec(p) is None]
+        sync_tensors(whole + list(state.model.buffers()))
+        self.built = True
+
+    def _reduce(self, params: list) -> None:
+        """Every gradient the world's mean, in place: the whole leaves by
+        one all-reduce per dtype of their 1/W-scaled gradients; a sharded
+        leaf's gradient is its fsdp group's mean already, and is averaged
+        over the dp axis when there is one."""
+        inv_w = 1.0 / self.world
+        by_dtype: dict[torch.dtype, list] = {}
+        for p in params:
+            spec = fsdp_spec(p)
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            if spec is None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p)
+            elif self.dp > 1:
+                distributed.all_reduce(p.grad.mul_(1.0 / self.dp),
+                                       self.mesh.group("dp"))
+        for dtype in sorted(by_dtype, key=str):
+            ps = by_dtype[dtype]
+            flat = torch.cat([p.grad.reshape(-1) for p in ps]).mul_(inv_w)
+            distributed.all_reduce(flat)
+            offset = 0
+            for p in ps:
+                p.grad = flat[offset:offset + p.numel()].view_as(p)
+                offset += p.numel()
+
+    def _forward(self, state, batch):
+        for _, p in state.params:
+            p.grad = None
+        loss, aux = (self.loss_fn(state.model, batch, state.step)
+                     if self.with_step else self.loss_fn(state.model, batch))
+        aux.pop("batch_stats", None)
+        return loss, {k: v.detach() for k, v in aux.items()}
+
+    def _metrics(self, loss, aux) -> dict:
+        """The loss and the float metrics averaged over the world: one
+        collective for all of them."""
+        floats = [k for k, v in aux.items() if v.is_floating_point()]
+        scalars = torch.stack([loss.detach().float()]
+                              + [aux[k].float() for k in floats])
+        distributed.all_reduce(scalars).div_(self.world)
+        out = {"loss": scalars[0], **aux}
+        for i, k in enumerate(floats):
+            out[k] = scalars[i + 1]
+        return out
+
+    def __call__(self, state, batch, ls=None):
+        if not self.built:
+            self._build(state)
+        params = [p for _, p in state.params]
+        loss, aux = self._forward(state, batch)
+        if not self.loss_scale:
+            loss.backward()
+            self._reduce(params)
+            state = state.apply_gradients()
+            self.steps += 1
+            return state, self._metrics(loss, aux)
+        amp.scaled_backward(loss, params, ls)
+        self._reduce(params)
+        finite = amp.all_finite(p.grad for p in params)
+        flag = finite.float().reshape(1)
+        distributed.all_reduce(flag)
+        ok = amp.read_finite(flag[0] == self.world)
+        if ok:   # every rank skips the same step
+            state = state.apply_gradients()
+        ls = amp.update_scale(ls, ok)
+        self.steps += 1
+        metrics = self._metrics(loss, aux)
+        metrics.update(loss_scale=ls.scale, finite=flag[0] == self.world)
+        return state, metrics, ls

@@ -729,3 +729,226 @@ def test_elastic_live_gates_fail(case, capsys):
     with pytest.raises(SystemExit):
         cs.elastic_live_gates(recs, DOCS_LIVE, acks, adverts, "podB")
     assert "elastic" in capsys.readouterr().err
+
+
+# -- phases 17 and 18: the world step on the card, on fake records -----------
+
+
+def _lm_rank(rank: int, name: str, buckets: int = 60, digest: str = "d" * 64,
+             param_elems: int = cs.BASE_LM_ELEMS, losses=None) -> dict:
+    from edl_tpu_torch.ops import opt_kernels as ok_mod
+    want = {**cs.lm_want(ok_mod, buckets), "pack_int8": int(name == "int8")}
+    losses = (np.linspace(10.4, 9.0, cs.LM_WORLD_STEPS) if losses is None
+              else losses)
+    return {"rank": rank, "rc": 0, "wall_s": 30.0, "peak_gib": 20.0,
+            "steps": [{"ms": 900.0, "reduce_ms": 400.0, "launches": want,
+                       "loss": float(x)} for x in losses],
+            "launches": {n: v * cs.LM_WORLD_STEPS for n, v in want.items()},
+            "digest": digest, "param_elems": param_elems,
+            "moment_elems": param_elems + 64, "buckets": buckets}
+
+
+def _lm_runs(capsys=None, **override) -> dict:
+    from edl_tpu_torch.ops import opt_kernels as ok_mod
+    half = cs.BASE_LM_REPLICATED + cs.BASE_LM_SHARDED // 2
+    runs = {}
+    for name in ("dp", "fsdp", "int8"):
+        kw = {"param_elems": half} if name == "fsdp" else {}
+        kw.update(override.get(name, {}))
+        runs[name] = cs.lm_world_summary(
+            name, [_lm_rank(r, name, **kw) for r in range(2)], ok_mod)
+    return runs
+
+
+def test_the_lm_world_runs_take_the_base_config():
+    argv = cs.LM_WORLD_ARGV
+    for flag, value in (("--vocab", "32768"), ("--d-model", "1024"),
+                        ("--n-heads", "16"), ("--n-layers", "8"),
+                        ("--d-ff", "4096"), ("--seq-len", "1024"),
+                        ("--batch-size", "16"), ("--fused-opt", "fp32")):
+        assert argv[argv.index(flag) + 1] == value
+    assert "--bf16" in argv
+    # 160 rows of 16 a step: the epoch is LM_WORLD_STEPS steps
+    assert int(argv[argv.index("--rows-per-file") + 1]) // 16 == \
+        cs.LM_WORLD_STEPS
+    runs = dict(cs.LM_WORLD_RUNS)
+    assert runs["fsdp"] == ["--mesh", "fsdp", "--ckpt-sharded"]
+    assert runs["int8"][-4:] == ["--dcn-compress", "int8",
+                                 "--comm-bucket-mb", "4"]
+    assert cs.BASE_LM_REPLICATED + cs.BASE_LM_SHARDED == cs.BASE_LM_ELEMS
+
+
+def test_k8_is_held_at_the_lm_comm_plan_s_shapes():
+    """The kernels phase packs every compressed bucket of the base LM's
+    comm plan at world 2, each alone and as one table, and counts
+    them."""
+    import inspect
+    src = inspect.getsource(cs.phase_kernels_pack)
+    assert "lm_comm_buckets(gen)" in src
+    assert 'pack_bitwise(pack_mod, f"base LM bucket {i}", buf)' in src
+    assert "pack_table_bitwise(pack_mod, \"the base LM's" in src
+    lm = inspect.getsource(cs.lm_comm_buckets)
+    assert "plan_buckets([p for _, p in named], 4.0, align=world)" in lm
+    assert "_needs_residual(b, 1, world, config)" in lm
+
+
+def test_the_world_worker_runs_each_phase_s_rank():
+    import inspect
+    src = inspect.getsource(cs.world_worker)
+    for fn in ("lm_world_train(**", "spmd_world_train(", "world_train(",
+               "world_gate("):
+        assert fn in src
+    assert "lm_world_restore(restore_from)" in inspect.getsource(
+        cs.lm_world_train)
+
+
+def test_lm_world_gates_pass(capsys):
+    runs = _lm_runs()
+    out = cs.lm_world_gates(runs, [{"digest": "d" * 64, "step": 10,
+                                    "restore_s": 1.0}] * 2,
+                            {"digest": "d" * 64, "step": 10,
+                             "restore_s": 2.0})
+    assert out["fsdp_losses_bitwise_dp"]
+    assert round(out["fsdp_share"], 4) == 0.5995
+    assert runs["int8"]["launches_per_step_per_rank"]["pack_int8"] == 1
+
+
+@pytest.mark.parametrize("case", [
+    "launch", "ranks_differ", "rising", "fsdp_loss", "elems", "restore",
+    "int8_envelope"])
+def test_lm_world_gates_fail(case, capsys):
+    from edl_tpu_torch.ops import opt_kernels as ok_mod
+    restored = [{"digest": "d" * 64, "step": 10, "restore_s": 1.0}] * 2
+    one = {"digest": "d" * 64, "step": 10, "restore_s": 1.0}
+    with pytest.raises(SystemExit):
+        if case == "launch":
+            ranks = [_lm_rank(r, "dp") for r in range(2)]
+            ranks[1]["steps"][3]["launches"] = dict(
+                ranks[1]["steps"][3]["launches"], flash_fwd=7)
+            cs.lm_world_summary("dp", ranks, ok_mod)
+        elif case == "ranks_differ":
+            cs.lm_world_summary("dp", [_lm_rank(0, "dp"),
+                                       _lm_rank(1, "dp", digest="e" * 64)],
+                                ok_mod)
+        elif case == "rising":
+            cs.lm_world_summary("dp", [_lm_rank(
+                r, "dp", losses=np.linspace(9.0, 10.0, 10))
+                for r in range(2)], ok_mod)
+        elif case == "fsdp_loss":
+            runs = _lm_runs(fsdp={"losses": np.linspace(10.5, 9.1, 10)})
+            cs.lm_world_gates(runs, restored, one)
+        elif case == "elems":
+            runs = _lm_runs(fsdp={"param_elems": cs.BASE_LM_ELEMS})
+            cs.lm_world_gates(runs, restored, one)
+        elif case == "restore":
+            cs.lm_world_gates(_lm_runs(), restored,
+                              dict(one, digest="e" * 64))
+        else:
+            runs = _lm_runs(int8={"losses": np.linspace(10.4, 10.2, 10)})
+            cs.lm_world_gates(runs, restored, one)
+    assert "lm_world" in capsys.readouterr().err
+
+
+def _spmd_rank(rank: int, name: str, losses=None, digest="d" * 64,
+               ratio=0.0101) -> dict:
+    want = {"sgdm_fp32": int(name == "spmd"), "pack_int8": 0}
+    n = 2 * cs.RESNET_STEPS_PER_EPOCH if name == "spmd" \
+        else cs.RESNET_STEPS_PER_EPOCH
+    losses = np.linspace(7.0, 6.5, n) if losses is None else losses
+    return {"rank": rank, "rc": 0, "wall_s": 20.0, "peak_gib": 12.0,
+            "fp32_loss": 7.0 if name == "spmd" else None,
+            "steps": [{"ms": 300.0, "reduce_ms": 100.0, "launches": want,
+                       "loss": float(x)} for x in losses],
+            "launches": {k: v * n for k, v in want.items()},
+            "digest": digest,
+            "dgc_ratio": ratio if name == "spmd_dgc" else None}
+
+
+def test_the_spmd_runs_take_no_comm_flag():
+    for _, flags in cs.SPMD_RUNS:
+        assert "--dcn-compress" not in flags
+        assert "--comm-bucket-mb" not in flags
+    runs = dict(cs.SPMD_RUNS)
+    assert "--fused-opt" not in runs["spmd_dgc"]
+    assert runs["spmd_dgc"][:4] == ["--dgc-sparsity", "0.99",
+                                    "--dgc-rampup-epochs", "0"]
+
+
+def _world_of_one(**grad_rel) -> dict:
+    """resnet_world_of_one's numbers for a sound world: its loss 7.0, the
+    per-rank statistics' control 1e-4 away, the gradients' distances."""
+    return {"loss": 7.0, "local_stats_loss": 7.0007, "fp32_loss": 7.0,
+            "fp32_local_stats_loss": 7.0007,
+            "grad_rel": {"world": 8e-4, "local_stats": 0.07,
+                         "local_backward": 0.7,
+                         "native_convolutions": 8e-4, **grad_rel},
+            "grad_elems": 25_600_000}
+
+
+def test_spmd_gates_pass(capsys):
+    results = {n: cs.spmd_summary(n, [_spmd_rank(r, n) for r in range(2)])
+               for n in ("spmd", "spmd_dgc")}
+    cs.spmd_gates(results, _world_of_one())
+    assert results["spmd"]["launches"] == {"sgdm_fp32": 40, "pack_int8": 0}
+    gates = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert gates["fp32_first_grads_rel"]["local_backward"] == 0.7
+    assert gates["fp32_first_loss"] == {"world": 7.0, "world_of_one": 7.0,
+                                        "local_stats": 7.0007}
+    assert cs.SPMD_FIRST_LOSS_REL == 3e-5 and cs.SPMD_GRAD_REL == 1e-2
+
+
+@pytest.mark.parametrize("case", [
+    "launch", "ranks_differ", "first_loss", "local_stats_loss", "grads",
+    "local_stats_grads", "local_backward_grads", "rising", "ratio"])
+def test_spmd_gates_fail(case, capsys):
+    ranks = {n: [_spmd_rank(r, n) for r in range(2)]
+             for n in ("spmd", "spmd_dgc")}
+    one = _world_of_one()
+    if case == "launch":
+        ranks["spmd"][0]["steps"][0]["launches"] = {"sgdm_fp32": 0,
+                                                    "pack_int8": 0}
+    elif case == "ranks_differ":
+        ranks["spmd"][1]["digest"] = "e" * 64
+    elif case == "first_loss":
+        # the world's first loss is 7.0: 1e-4 relative from this one's
+        one = dict(one, loss=7.0007)
+    elif case == "local_stats_loss":
+        # per-rank statistics' loss within the gate: it tells nothing
+        one = dict(one, local_stats_loss=7.0001)
+    elif case == "grads":
+        one = _world_of_one(world=0.036)
+    elif case == "local_stats_grads":
+        one = _world_of_one(local_stats=5e-3)
+    elif case == "local_backward_grads":
+        one = _world_of_one(local_backward=5e-3)
+    elif case == "rising":
+        ranks["spmd"] = [_spmd_rank(r, "spmd", np.linspace(6.5, 7.0, 20))
+                         for r in range(2)]
+    else:
+        ranks["spmd_dgc"] = [_spmd_rank(r, "spmd_dgc", ratio=0.05)
+                             for r in range(2)]
+    with pytest.raises(SystemExit):
+        results = {n: cs.spmd_summary(n, rk) for n, rk in ranks.items()}
+        cs.spmd_gates(results, one)
+    err = capsys.readouterr().err
+    assert "spmd" in err or "launched" in err
+
+
+def test_phases_17_and_18_are_documented_and_run():
+    import ast
+    import inspect
+
+    assert "17. lm_world" in cs.__doc__
+    assert "18. resnet_spmd_world" in cs.__doc__
+    src = inspect.getsource(cs.main)
+    calls = [n.func.id for n in ast.walk(ast.parse(src))
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert {"phase_lm_world", "phase_resnet_spmd_world",
+            "phase_kernels_shards"} <= set(calls)
+    assert (src.index("phase_elastic_live(") < src.index("phase_lm_world(")
+            < src.index("phase_resnet_spmd_world("))
+    assert src.index("phase_kernels_shards(") < src.index("phase_serve(")
+    assert src.index("phase_resnet_spmd_world(") < src.index(
+        '"kernels": kernels')
+    assert "spawn_world(" in inspect.getsource(cs.phase_lm_world)
+    assert "spawn_world(" in inspect.getsource(cs.phase_resnet_spmd_world)

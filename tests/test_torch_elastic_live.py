@@ -3,7 +3,8 @@
 and its ``imagenet_train --device cpu`` at ResNetTiny and 16 px over gloo,
 every process the port's.
 
-Worlds 2 -> 1 -> 2: SIGTERM to the launcher of the pod holding rank 0
+Worlds 2 -> 1 -> 2, with the manual gradient path (``--dcn-compress
+int8``) and with the default SPMD world step: SIGTERM to the launcher of the pod holding rank 0
 (what a shrink delivers; that pod is the checkpoint writer, so the one
 with a sealed snapshot to serve) releases its trainer as a donor, which
 seals its live state, leaves its process group and lingers; the
@@ -32,6 +33,7 @@ from tests.test_torch_elastic import (TINY, WORLD_FLAGS, Job,  # noqa: F401
                                       data_dir, run_world)
 
 EPOCHS = 5   # the schedule of test_torch_elastic.py's 2 -> 1 -> 2 test
+SPMD_FLAGS = ["--fused-opt", "fp32"]   # no comm flag: the SPMD world step
 LIVE_ENV = {"EDL_TPU_RESIZE_P2P": "1",
             # a respawned trainer's start (torch, the model) must fit in a
             # donor's linger, and the newcomer's in the survivor's
@@ -58,7 +60,18 @@ def _final_acc1(job: Job, pod: str) -> float:
 
 def test_shrink_and_in_place_grow_restore_from_peers(data_dir, tmp_path,
                                                      capsys):
-    argv = ["--data-dir", str(data_dir), *TINY, *WORLD_FLAGS, "--epochs",
+    _live_job(data_dir, tmp_path, capsys, WORLD_FLAGS)
+
+
+def test_spmd_world_shrinks_and_grows_in_place(data_dir, tmp_path, capsys):
+    """The same job without a comm flag: the SPMD world step with
+    global-batch BatchNorm, rebuilt on the new world's mesh by the
+    survivor's reform_mesh (adopted in place, not downgraded)."""
+    _live_job(data_dir, tmp_path, capsys, SPMD_FLAGS)
+
+
+def _live_job(data_dir, tmp_path, capsys, flags: list) -> None:
+    argv = ["--data-dir", str(data_dir), *TINY, *flags, "--epochs",
             str(EPOCHS), "--schedule-epochs", str(EPOCHS)]
     acks: dict[tuple, dict] = {}
 

@@ -56,6 +56,7 @@ from edl_tpu_torch.models.resnet import ResNetTiny
 from edl_tpu_torch.ops import opt_kernels as tok
 from edl_tpu_torch.train import classification as tcls
 from edl_tpu_torch.train import fused_opt as tfo
+from edl_tpu_torch.utils.exceptions import EdlError
 
 LR = 0.05
 TINY_ARGV = ["--model", "ResNetTiny", "--image-size", "32",
@@ -187,24 +188,31 @@ def test_imagenet_train_mixup_and_benchmark_log(tmp_path, capsys):
     assert {"acc1", "acc5", "examples_per_sec"} <= set(log["final"])
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--dgc-sparsity", "0.9"], 11), (["--teachers", "localhost:1"], 12),
-    (["--model", "VGG16"], 13)])
-def test_unported_flags_exit_before_any_work(tmp_path, flags, item):
+@pytest.mark.parametrize("flags,match", [
+    (["--dgc-sparsity", "0.9", "--fused-opt", "fp32"],
+     "mutually exclusive"),
+    (["--teachers", "localhost:1"], "item 12"),
+    (["--model", "VGG16"], "item 13")])
+def test_unported_flags_exit_before_any_work(tmp_path, flags, match):
+    """--teachers and other zoo models exit naming their items; DGC
+    (ported) with the fused optimizer exits with the JAX CLI's words."""
     data_dir = tmp_path / "never-written"
-    with pytest.raises(SystemExit, match=f"item {item}"):
+    with pytest.raises(SystemExit, match=match):
         imagenet_train.main(["--data-dir", str(data_dir), "--make-synthetic",
                              "1", *TINY_ARGV, *flags])
     assert not data_dir.exists()
 
 
-@pytest.mark.parametrize("env,value,item", [
-    ("EDL_TPU_WORLD_SIZE", "2", 10)])
+@pytest.mark.parametrize("env,value,match", [
+    ("EDL_TPU_WORLD_SIZE", "2", "EDL_TPU_COORDINATOR")])
 def test_unported_env_exits_before_any_work(tmp_path, monkeypatch, env,
-                                            value, item):
+                                            value, match):
+    """A world above one trains now (the SPMD world step); one without a
+    coordinator still stops before any work, with init_from_env's typed
+    error."""
     monkeypatch.setenv(env, value)
     data_dir = tmp_path / "never-written"
-    with pytest.raises(SystemExit, match=f"item {item}"):
+    with pytest.raises(EdlError, match=match):
         imagenet_train.main(["--data-dir", str(data_dir), "--make-synthetic",
                              "1", *TINY_ARGV])
     assert not data_dir.exists()

@@ -110,3 +110,30 @@ def test_launcher_and_store_server_start_without_torch():
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+WORLD_SLICE = ["parallel/mesh.py", "parallel/sharding.py",
+               "parallel/distributed.py", "train/step.py", "train/dgc.py",
+               "train/comm.py", "train/sharded_checkpoint.py",
+               "train/checkpoint.py", "models/resnet.py",
+               "models/transformer.py", "models/linear.py", "bridge.py",
+               "examples/lm_train.py", "examples/imagenet_train.py",
+               "examples/multipod_demo.py"]
+
+
+@pytest.mark.parametrize("module", WORLD_SLICE)
+def test_the_world_slice_is_checked_and_clean(module):
+    """The world step's modules are in the checked set, import no
+    forbidden package, and import torch.distributed's meshes nowhere:
+    their collectives go through the port's staged ones."""
+    path = PKG / module
+    assert path in FILES
+    tree = ast.parse(path.read_text(), filename=str(path))
+    mods = [m for m, _ in _imported(tree)]
+    assert not [m for m in mods if _forbidden(m)]
+    assert not [m for m in mods if m.startswith(
+        ("torch.distributed.device_mesh", "torch.distributed.tensor",
+         "torch.distributed.fsdp", "torch.distributed._composable"))]
+    text = path.read_text()
+    assert "SyncBatchNorm(" not in text
+    assert "convert_sync_batchnorm" not in text

@@ -16,6 +16,7 @@ within rounding of zero could move further; none is at these sizes.
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -330,25 +331,46 @@ def test_lm_train_remat_auto_follows_choose_remat(tmp_path, capsys,
     assert seen["cfg"].remat
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--moe"], 14), (["--mesh", "fsdp"], 10), (["--fsdp"], 10),
-    (["--mesh", "sp"], 14), (["--dcn-compress", "int8"], 11),
-    (["--comm-bucket-mb", "4"], 11)])
-def test_unported_flags_exit_before_any_work(tmp_path, flags, item):
+@pytest.mark.parametrize("flags,match", [
+    (["--moe"], "item 14"), (["--mesh", "sp"], "item 14"),
+    (["--fsdp", "--mesh", "sp"], "legacy alias of --mesh fsdp"),
+    (["--mesh", "fsdp", "--dcn-compress", "int8"],
+     "own the dp gradient reduction"),
+    (["--fsdp", "--comm-bucket-mb", "4"], "own the dp gradient reduction"),
+    (["--fp16", "--dcn-compress", "topk"], "not supported with --fp16")])
+def test_unported_flags_exit_before_any_work(tmp_path, flags, match):
+    """--moe and --mesh sp exit naming item 14; the conflicts of the
+    ported world flags exit with the JAX CLI's words; all before any
+    work."""
     data_dir = tmp_path / "never-written"
-    with pytest.raises(SystemExit, match=f"item {item}"):
+    with pytest.raises(SystemExit, match=match):
         lm_train.main(["--data-dir", str(data_dir), *TINY_ARGV, *flags])
     assert not data_dir.exists()
 
 
-def test_unported_env_knobs_exit(tmp_path, monkeypatch):
-    monkeypatch.setenv("EDL_TPU_DCN_COMPRESS", "topk")
-    with pytest.raises(SystemExit, match="item 11"):
-        lm_train.main(["--data-dir", str(tmp_path), *TINY_ARGV])
-    monkeypatch.delenv("EDL_TPU_DCN_COMPRESS")
-    monkeypatch.setenv("EDL_TPU_COMM_BUCKET_MB", "4")
-    with pytest.raises(SystemExit, match="item 11"):
-        lm_train.main(["--data-dir", str(tmp_path), *TINY_ARGV])
+def test_unported_env_knobs_exit(tmp_path, monkeypatch, capsys):
+    """The gradient path's env knobs: with --mesh fsdp they exit with the
+    JAX CLI's conflict before any work; alone, in a world of one, they
+    train through the comm step (its accounting in the benchmark log)."""
+    data_dir = tmp_path / "never-written"
+    for knob, value in (("EDL_TPU_DCN_COMPRESS", "topk"),
+                        ("EDL_TPU_COMM_BUCKET_MB", "4")):
+        monkeypatch.setenv(knob, value)
+        with pytest.raises(SystemExit, match="own the dp gradient"):
+            lm_train.main(["--data-dir", str(data_dir), *TINY_ARGV,
+                           "--mesh", "fsdp"])
+        assert not data_dir.exists()
+        blog = tmp_path / f"blog-{knob}"
+        assert lm_train.main(["--data-dir", str(tmp_path / "data"),
+                              *TINY_ARGV, "--fused-opt", "fp32",
+                              "--benchmark-log", str(blog)]) == 0
+        with open(blog / "log_0.json") as f:
+            log = json.load(f)
+        assert log["comm_steps"] > 0 and log["world_size"] == 1
+        assert log["dcn_compress"] == ("topk" if knob.endswith("COMPRESS")
+                                       else "off")
+        monkeypatch.delenv(knob)
+    assert "final_eval_loss=" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("quant", ["int8", "fp8"])
@@ -371,12 +393,15 @@ def test_world_of_two_needs_a_coordinator(monkeypatch):
 
 
 def test_lm_train_refuses_a_world_above_one(tmp_path, monkeypatch):
-    """lm_train's world comes with item 11; it exits before any work."""
+    """A world above one now trains (tests/test_torch_lm_world.py); one
+    without a coordinator still exits before any work, with
+    init_from_env's typed error."""
     monkeypatch.setenv("EDL_TPU_WORLD_SIZE", "2")
     data_dir = tmp_path / "never-written"
-    with pytest.raises(SystemExit, match="item 11"):
+    with pytest.raises(EdlError, match="EDL_TPU_COORDINATOR"):
         lm_train.main(["--data-dir", str(data_dir), *TINY_ARGV])
     assert not data_dir.exists()
+    assert not distributed.is_initialized()
 
 
 def test_step_options_and_dropout_raise():

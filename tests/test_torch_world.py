@@ -20,11 +20,12 @@ int8 --fused-opt fp32`` (ResNetTiny, 2 epochs): the ranks end bitwise
 equal in parameters and BatchNorm buffers, rank 0's benchmark log holds
 the JAX package's ``stats()`` keys, the loss is finite and falls; the
 top-k and bucketed dense wires, run next in the same world of processes,
-keep the ranks bitwise equal too. A world
-above one without a comm flag exits before any work, naming item 10; in a
-world of one the comm flags and env knobs train through the comm step.
+keep the ranks bitwise equal too, and so does the default without a
+comm flag, the SPMD world step (global-batch BatchNorm). In a world of
+one the comm flags and env knobs train through the comm step.
 """
 
+import importlib
 import json
 import os
 import socket
@@ -64,7 +65,8 @@ def free_port() -> int:
 
 
 class World:
-    """``world`` ranks of ``task`` (a function of this module's TASKS)
+    """``world`` ranks of ``task`` (a function of this module's TASKS, or
+    ``"module:function"`` of a test module that imports no JAX at its top)
     running as subprocesses; ``results()`` waits for them (at most
     ``timeout`` seconds, then every rank is killed and the test fails)
     and returns each rank's results, in rank order. ``inputs`` (numpy
@@ -151,7 +153,12 @@ def worker_main() -> None:
             rank=rank, world_size=world)
     with np.load(directory / "in.npz") as z:
         inputs = {k: z[k] for k in z.files}
-    out = TASKS[task](inputs, directory)
+    if ":" in task:   # a rank-side function of another test module
+        module, name = task.split(":")
+        fn = getattr(importlib.import_module(module), name)
+    else:
+        fn = TASKS[task]
+    out = fn(inputs, directory)
     np.savez(directory / f"out{rank}.npz", **out)
     distributed.shutdown()
 
@@ -164,17 +171,23 @@ def _task_imagenet(inputs: dict, directory: Path) -> dict:
     from edl_tpu_torch.examples import imagenet_train
     from edl_tpu_torch.parallel import distributed
     from edl_tpu_torch.train import comm
+    from edl_tpu_torch.train import step as step_lib
 
     seen = {}
-    call = comm.CommTrainStep.__call__
+    calls = {cls: cls.__call__ for cls in (comm.CommTrainStep,
+                                           step_lib.WorldTrainStep)}
 
-    def probe(self, state, batch):
-        state, metrics = call(self, state, batch)
-        seen["losses"].append(float(metrics["loss"]))
-        seen["state"] = state
-        return state, metrics
+    def probe(cls):
+        def call(self, state, batch):
+            state, metrics = calls[cls](self, state, batch)
+            seen["losses"].append(float(metrics["loss"]))
+            seen["state"] = state
+            seen["world_step"] = cls is step_lib.WorldTrainStep
+            return state, metrics
+        return call
 
-    comm.CommTrainStep.__call__ = probe
+    for cls in calls:
+        cls.__call__ = probe(cls)
     out = {}
     for run in as_json(inputs["runs"]):
         os.environ["EDL_TPU_COORDINATOR"] = run["coordinator"]
@@ -191,6 +204,7 @@ def _task_imagenet(inputs: dict, directory: Path) -> dict:
             "idempotent": np.array(idempotent),
             "shut_down": np.array(not distributed.is_initialized()),
             "losses": np.array(seen["losses"]),
+            "world_step": np.array(seen["world_step"]),
             **{f"sd/{k}": v.numpy() for k, v in sd.items()}}.items()})
     return out
 
@@ -411,6 +425,8 @@ STATS_KEYS = {"comm_buckets", "comm_bucket_mb", "dcn_compress",
 OTHER_WIRES = {"topk": ["--dcn-compress", "topk"],
                "bucketed_dense": ["--dcn-compress", "off",
                                   "--comm-bucket-mb", "0.05"]}
+# and the default: no comm flag, the SPMD world step
+SPMD_RUN = {"spmd": []}
 
 
 @pytest.fixture(scope="module")
@@ -426,7 +442,7 @@ def imagenet_world(tmp_path_factory):
         str(d / "blog")]}]
     runs += [{"name": name, "argv": [*data, *TINY_ARGV, "--epochs", "1",
                                      "--fused-opt", "fp32", *flags]}
-             for name, flags in OTHER_WIRES.items()]
+             for name, flags in {**OTHER_WIRES, **SPMD_RUN}.items()]
     for run in runs:
         run["coordinator"] = f"127.0.0.1:{free_port()}"
     ranks = run_world("imagenet", 2, d / "world",
@@ -436,7 +452,7 @@ def imagenet_world(tmp_path_factory):
 
 def test_imagenet_train_world_of_two_forms_and_shuts_down(imagenet_world):
     _, ranks = imagenet_world
-    for name in ("int8", *OTHER_WIRES):
+    for name in ("int8", *OTHER_WIRES, *SPMD_RUN):
         assert [int(r[f"{name}/rank"]) for r in ranks] == [0, 1]
         for r in ranks:
             assert int(r[f"{name}/rc"]) == 0
@@ -490,17 +506,20 @@ def test_imagenet_train_world_other_wires_stay_in_lockstep(imagenet_world,
         np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
 
 
-def test_world_of_two_without_a_comm_flag_exits_before_any_work(
-        tmp_path, monkeypatch):
-    from edl_tpu_torch.examples import imagenet_train
-    monkeypatch.setenv("EDL_TPU_WORLD_SIZE", "2")
-    monkeypatch.setenv("EDL_TPU_COORDINATOR", "127.0.0.1:1")
-    data_dir = tmp_path / "never-written"
-    with pytest.raises(SystemExit, match="item 10"):
-        imagenet_train.main(["--data-dir", str(data_dir), "--make-synthetic",
-                             "1", *TINY_ARGV])
-    assert not data_dir.exists()
-    assert not dist.is_initialized()
+def test_imagenet_train_world_without_a_comm_flag_runs_the_spmd_step(
+        imagenet_world):
+    """No comm flag: the SPMD world step, one epoch. Global-batch
+    BatchNorm keeps the ranks' statistics bitwise equal with no buffer
+    averaging; the loss is finite."""
+    _, (r0, r1) = imagenet_world
+    assert int(r0["spmd/rc"]) == int(r1["spmd/rc"]) == 0
+    assert bool(r0["spmd/world_step"]) and bool(r1["spmd/world_step"])
+    losses = r0["spmd/losses"]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    keys = [k for k in r0 if k.startswith("spmd/sd/")]
+    assert any(k.endswith("running_mean") for k in keys)
+    for k in keys:
+        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
 
 
 @pytest.mark.parametrize("flags,env,compress", [
