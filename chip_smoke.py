@@ -239,6 +239,36 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              gradients, the BatchNorm backward's all-reduce left out;
              losses finite, the second epoch's mean below the first's;
              DGC's last update at most 2% nonzero.
+19. distill — the distill pillar on the card (ROADMAP items 2 and 12):
+             (a) three ResNet50_vd teachers through the zoo-teacher CLI
+             (python -m edl_tpu_torch.distill.teacher_server, each its
+             own process and session, bf16 activations, float16 feeds),
+             A dense over --local-mesh dp=1 and B --serve-topk 16, both
+             restoring phase 10's last checkpoint, and C, the control,
+             with no --params: on 8 fixed images A's logits and B's top-16
+             values within DISTILL_LOGIT_REL x max(1, max |ref|) of this
+             script's own forward of the checkpoint, B's indices equal
+             wherever their rank is unambiguous, C's logits outside the
+             bound; (b) imagenet_train --teachers A --fused-opt fp32 at
+             RESNET_ARGV on phase 9's shards, 2 epochs: one K4 a step,
+             losses finite and falling, every batch in the loader's
+             order, each epoch's 1,280 rows all served; step ms, images/s,
+             the share of the step the training thread waits on the
+             reader, the answers' bytes; (c) --distill-topk 16 --teachers
+             A,B --fused-opt int8, 1 epoch, B SIGKILLed after 2 batches:
+             one K6 entry call a step, the epoch whole and in order, the
+             loss falling; (d) the port's store server, discovery server
+             and registrars (python -m), a DistillReader in discovery
+             mode over 20 batches of 16 fixed images: a teacher D (up
+             since the phase began) joins after batch 4 as its
+             registrar starts, A and its registrar are SIGKILLed after
+             batch 12; every batch in order with logits
+             within (a)'s bound of this script's forward of its rows, D
+             served rows; the balancer's assignment and the dead
+             teacher's removal times; (e) mnist_distill and nlp_distill
+             --all-in-one at their defaults, in process: exit 0, finite
+             final lines. Every process carries the phase's job id
+             (elastic_job_id) and is reaped on every path.
 
 The kernels phase also holds K1 and K2/K3's fp16 bodies against their
 plain versions (the bf16 bounds; bit for bit between two launches on the
@@ -3348,7 +3378,7 @@ def one_step_after_restore(imagenet_train, classification, bridge, fo,
             "cudnn_deterministic": True}
 
 
-def phase_resume(ok_mod, card: str) -> dict:
+def phase_resume(ok_mod, card: str, keep_ckpt: Path | None = None) -> dict:
     """The port's imagenet_train.main at RESNET_ARGV's model, size,
     classes and batch over packed records (--make-synthetic packs the
     same shards), --augment-device 1, loader_workers() forked loader
@@ -3365,7 +3395,8 @@ def phase_resume(ok_mod, card: str) -> dict:
        status) bit for bit run 1's final state, losses finite and no
        epoch mean over runs 1-2 above the first by RESUME_LOSS_SLACK;
        one step from the restored state bit for bit the same step from
-       run 1's (cudnn.deterministic);
+       run 1's (cudnn.deterministic); its last version is copied to
+       ``keep_ckpt`` (phase 19's teachers serve it);
     3. run 1 again with --ckpt-steps 5: its async save at step 15
        (step 5 of epoch 1), whose buffers steps 16-20 rewrote in place
        while it was written, bit for bit the state at step 15; that
@@ -3426,6 +3457,12 @@ def phase_resume(ok_mod, card: str) -> dict:
                            argv("fp32_resumed", "fp32", 3, tmp / "ck_fp32",
                                 "--ckpt-sync"),
                            "fp32_resumed", "sgdm_fp32", card, restored)
+            if keep_ckpt is not None:
+                from edl_tpu_torch.train.checkpoint import CheckpointManager
+                last = CheckpointManager(str(tmp / "ck_fp32")
+                                         ).latest_version()
+                shutil.copytree(tmp / "ck_fp32" / f"ckpt-{last}",
+                                keep_ckpt / f"ckpt-{last}")
             check = {"phase": "resume_fp32_check", "card": card,
                      "restored_version": restored.get("version"),
                      "status": restored.get("status"),
@@ -4858,6 +4895,574 @@ def phase_kernels_shards(ok_mod, fo, gen) -> dict:
     return checks
 
 
+# -- phase 19: distill (the zoo teacher, the reader, the discovery plane) ----
+
+DISTILL_SERVICE = "distill_resnet"
+DISTILL_TOPK = 16
+DISTILL_FIXED_ROWS = 8
+# the served logits against the in-process forward of the same
+# checkpoint, relative to max(1, max |ref|): the teacher runs the same
+# bf16 model on the same card (bit for bit at the same rows: 0.0 at 8
+# rows, H100 80GB HBM3 at 700 W), but the server coalesces requests into
+# other batch sizes than the reference's, where cuDNN may pick other
+# algorithms, and its top-k values cross the wire as fp16
+DISTILL_LOGIT_REL = 0.02
+DISTILL_STEPS_PER_EPOCH = RESNET_STEPS_PER_EPOCH
+DISCOVERY_BATCHES = 20
+DISCOVERY_ROWS = 16
+DISTILL_TIMEOUT_S = 240
+DISTILL_KILL_AFTER = 2        # (c): the teacher dies after this many batches
+
+
+class DistillPool:
+    """The processes of phase 19: teacher servers (the zoo-teacher CLI),
+    the port's store server, the discovery server and registrars, each
+    in its own session and carrying this phase's job id
+    (elastic_job_id); leaving the block kills every one of them, by
+    process group and by the job id in /proc, and reaps them."""
+
+    def __init__(self, root: Path, ckpt: Path):
+        self.root, self.ckpt = root, ckpt
+        self.job = elastic_job_id("chip-distill")
+        self.deadline = time.monotonic() + DISTILL_TIMEOUT_S
+        self.procs: dict[str, subprocess.Popen] = {}
+        self.ports: dict[str, int] = {}
+        self.logs = []
+        self.env = {k: v for k, v in os.environ.items()
+                    if not k.startswith("EDL_TPU_")}
+        self.env["PYTHONPATH"] = os.pathsep.join(
+            [str(HERE), self.env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+        self.env["EDL_TPU_JOB_ID"] = self.job
+
+    def spawn(self, name: str, module: str, *args: str) -> None:
+        self.logs.append(open(self.root / f"{name}.log", "wb"))
+        self.procs[name] = subprocess.Popen(
+            [sys.executable, "-m", module, *args], env=self.env,
+            stdout=self.logs[-1], stderr=subprocess.STDOUT, cwd=str(HERE),
+            start_new_session=True)
+
+    def teacher(self, name: str, *flags: str, params: bool = True) -> str:
+        """Start a ResNet50_vd teacher CLI on a free port; its endpoint."""
+        port = self.ports[name] = free_port()
+        self.spawn(name, "edl_tpu_torch.distill.teacher_server",
+                   "--model", "ResNet50_vd", "--num-classes", "1000",
+                   "--input-shape", "224,224,3", "--input-dtype", "float16",
+                   "--host", "127.0.0.1", "--port", str(port),
+                   *(["--params", str(self.ckpt)] if params else []), *flags)
+        return f"127.0.0.1:{port}"
+
+    def wait_ready(self, *names: str) -> float:
+        """Until each named teacher answers ping; the seconds waited."""
+        from edl_tpu_torch.distill.teacher_server import TeacherClient
+
+        t0 = time.monotonic()
+        for name in names:
+            while True:
+                if self.procs[name].poll() is not None:
+                    fail(f"distill: {name} exited "
+                         f"{self.procs[name].returncode}")
+                if time.monotonic() > self.deadline:
+                    fail(f"distill: {name} not up in {DISTILL_TIMEOUT_S} s")
+                try:
+                    client = TeacherClient(f"127.0.0.1:{self.ports[name]}",
+                                           timeout=5.0)
+                    try:
+                        if client.ping():
+                            break
+                    finally:
+                        client.close()
+                except OSError:
+                    pass
+                time.sleep(0.2)
+        return time.monotonic() - t0
+
+    def kill(self, *names: str) -> float:
+        """SIGKILL the named processes' groups; the time it was sent."""
+        t = time.monotonic()
+        kill_groups([self.procs[n].pid for n in names
+                     if self.procs[n].poll() is None])
+        for n in names:
+            self.procs[n].wait()
+        return t
+
+    def __enter__(self) -> "DistillPool":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> None:
+        if exc_type is not None:
+            for name in self.procs:
+                tail = (self.root / f"{name}.log").read_text(
+                    errors="replace")
+                print(f"--- distill {name} ---\n{tail[-3000:]}",
+                      file=sys.stderr, flush=True)
+        kill_groups([p.pid for p in self.procs.values() if p.poll() is None]
+                    + pids_with_env(EDL_TPU_JOB_ID=self.job))
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in self.logs:
+            f.close()
+
+
+def load_teacher(ckpt: Path):
+    """ResNet50_vd (bf16 activations, the CLI's) with the checkpoint's
+    params and BatchNorm statistics, in eval mode on the card: the
+    in-process reference the served logits are held against."""
+    from edl_tpu_torch import bridge
+    from edl_tpu_torch.models.resnet import ResNet50_vd
+    from edl_tpu_torch.train.checkpoint import CheckpointManager
+
+    raw, _ = CheckpointManager(str(ckpt)).restore_raw()
+    model = ResNet50_vd(num_classes=1000, device="cuda", seed=0)
+    model.load_state_dict(bridge.flax_variables_to_torch(
+        {"params": raw["params"], "batch_stats": raw["batch_stats"]}))
+    return model.eval()
+
+
+def reference_logits(model, images: np.ndarray) -> np.ndarray:
+    with torch.inference_mode():
+        return model(torch.as_tensor(images, device="cuda")).float().cpu(
+            ).numpy()
+
+
+def logit_bound(ref: np.ndarray) -> float:
+    return DISTILL_LOGIT_REL * max(1.0, float(np.abs(ref).max()))
+
+
+def topk_check(ref: np.ndarray, idx: np.ndarray, val: np.ndarray,
+               bound: float) -> dict:
+    """The served top-k against the reference logits: the values within
+    ``bound`` of the reference's k largest, and each index equal to the
+    reference's wherever its rank is unambiguous (the logit differs from
+    its neighbours in the sorted row by more than ``bound``)."""
+    order = np.argsort(-ref, axis=-1)[:, :idx.shape[1] + 1]
+    srt = np.take_along_axis(ref, order, axis=-1)
+    k = idx.shape[1]
+    val_err = float(np.abs(val.astype(np.float32) - srt[:, :k]).max())
+    checked = wrong = 0
+    for r in range(ref.shape[0]):
+        for j in range(k):
+            if (j == 0 or srt[r, j - 1] - srt[r, j] > bound) and \
+                    srt[r, j] - srt[r, j + 1] > bound:
+                checked += 1
+                wrong += int(idx[r, j] != order[r, j])
+    return {"val_max_abs_err": val_err, "indices_checked": checked,
+            "indices_wrong": wrong}
+
+
+def phase_distill_teacher(pool: DistillPool, model, eps: dict) -> dict:
+    """(a) the teacher CLI on the card: A's dense logits and B's top-k on
+    DISTILL_FIXED_ROWS fixed images against the in-process forward, and
+    C (other parameters: the seeded init) missing the bound."""
+    from edl_tpu_torch.distill.teacher_server import TeacherClient
+
+    images = np.random.default_rng(19).normal(
+        size=(DISTILL_FIXED_ROWS, 224, 224, 3)).astype(np.float16)
+    ref = reference_logits(model, images)
+    bound = logit_bound(ref)
+    out = {"bound": bound, "ref_max_abs": float(np.abs(ref).max())}
+    for name in ("A", "C"):
+        client = TeacherClient(eps[name])
+        try:
+            got = client.predict({"image": images})["logits"]
+        finally:
+            client.close()
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            fail(f"distill: teacher {name} served {got.shape} logits "
+                 "or non-finite ones")
+        out[f"{name}_max_abs_err"] = float(np.abs(got - ref).max())
+    client = TeacherClient(eps["B"], expand=False)
+    try:
+        sparse = client.predict({"image": images})
+    finally:
+        client.close()
+    out["B"] = topk_check(ref, sparse["logits.idx"], sparse["logits.val"],
+                          bound)
+    emit({"phase": "distill_teacher", **out})
+    if not out["A_max_abs_err"] <= bound:
+        fail(f"distill: teacher A's logits {out['A_max_abs_err']} from the "
+             f"in-process forward, above {bound}")
+    if not (out["B"]["val_max_abs_err"] <= bound
+            and out["B"]["indices_wrong"] == 0):
+        fail(f"distill: teacher B's top-{DISTILL_TOPK} {out['B']} against "
+             f"the in-process forward (bound {bound})")
+    if not out["C_max_abs_err"] > bound:
+        fail(f"distill: the control (other parameters) came within {bound} "
+             f"({out['C_max_abs_err']}): the gate cannot tell them apart")
+    return out
+
+
+class ReaderProbe:
+    """Wraps DistillReader.__call__ for a trainer run: the seconds the
+    training thread waited on each batch, the seconds the reader's own
+    thread waited on the loader for each, each batch's labels (the order
+    check), the served counts of each epoch, the wire bytes of the
+    teacher's answers, and an optional hook after the n-th batch."""
+
+    def __init__(self, after: int = 0, hook=None):
+        self.waits: list[float] = []
+        self.loader_waits: list[float] = []
+        self.labels: list[np.ndarray] = []
+        self.epochs: list[dict] = []
+        self.answer_bytes: list[int] = []
+        self.after, self.hook = after, hook
+
+    def __enter__(self) -> "ReaderProbe":
+        from edl_tpu_torch.distill import reader as reader_mod
+
+        self.cls = reader_mod.DistillReader
+        self.call = self.cls.__call__
+        probe = self
+
+        def timed_source(src):
+            def source():
+                it = src()
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    probe.loader_waits.append(time.perf_counter() - t0)
+                    yield batch
+            return source
+
+        def timed_call(reader):
+            # the epoch's generator reads reader.reader when it starts
+            src, reader.reader = reader.reader, timed_source(reader.reader)
+            it = probe.call(reader)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        probe.epochs.append(dict(reader.last_epoch))
+                        return
+                    probe.waits.append(time.perf_counter() - t0)
+                    probe.labels.append(np.asarray(batch["label"]).copy())
+                    probe.answer_bytes.append(sum(
+                        v.nbytes for k, v in batch.items()
+                        if k.startswith(reader.predicts)))
+                    if probe.hook is not None and \
+                            len(probe.labels) == probe.after:
+                        probe.hook()
+                    yield batch
+            finally:
+                reader.reader = src
+
+        self.cls.__call__ = timed_call
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.__call__ = self.call
+
+
+def loader_labels(data: Path, epochs: int,
+                  batch: int = 128) -> list[np.ndarray]:
+    """The labels of each batch imagenet_train's loader deals at
+    RESNET_ARGV's batch (seed 0), epoch by epoch: the order the reader
+    must keep."""
+    from edl_tpu_torch.data.pipeline import DataLoader, FileSource
+
+    files = sorted(str(p) for p in data.glob("train-*.npz"))
+    loader = DataLoader(FileSource(files), batch, seed=0, num_workers=0)
+    return [b["label"].copy() for e in range(epochs)
+            for b in loader.epoch(e)]
+
+
+def distill_student(ok_mod, data: Path, tmp: Path, name: str, kernel: str,
+                    flags: list, epochs: int, probe: ReaderProbe) -> dict:
+    """imagenet_train --teachers at RESNET_ARGV on phase 9's shards:
+    exactly one ``kernel`` call a step (K4's launch or K6's entry), the
+    losses finite and falling (the last below the first and, over two
+    epochs, the epoch means), every batch in the loader's order, and
+    each epoch's rows all served."""
+    from edl_tpu_torch.examples import imagenet_train
+    from edl_tpu_torch.train import classification
+
+    counters = {"sgdm_fp32": ok_mod.sgdm_fp32, "sgdm_q": ok_mod.sgdm_q}
+    argv = ["--data-dir", str(data), *RESNET_ARGV, "--epochs", str(epochs),
+            *flags, "--benchmark-log", str(tmp / name)]
+    with probe:
+        run = run_probed(classification, imagenet_train.main, argv,
+                         counters)
+    if run["rc"] != 0 or "final_acc1=" not in run["printed"]:
+        fail(f"distill {name}: imagenet_train returned {run['rc']} and "
+             f"printed {run['printed']!r}")
+    want = resnet_want(counters, kernel)
+    check_launches(run["steps"], want, f"distill {name}")
+    losses = [st["loss"] for st in run["steps"]]
+    steps = epochs * DISTILL_STEPS_PER_EPOCH
+    order = loader_labels(data, epochs)
+    in_order = (len(probe.labels) == steps
+                and all(np.array_equal(a, b)
+                        for a, b in zip(probe.labels, order)))
+    summary = step_summary(run["steps"])
+    epoch_means = [float(np.mean(losses[i:i + DISTILL_STEPS_PER_EPOCH]))
+                   for i in range(0, len(losses), DISTILL_STEPS_PER_EPOCH)]
+    waits_ms = [w * 1e3 for w in probe.waits]
+    step_ms = [st["ms"] for st in run["steps"]]
+    result = {"phase": f"distill_{name}", "argv": argv,
+              "steps": len(losses), "wall_s": run["wall_s"], **summary,
+              "images_per_s": 128 / (summary["step_ms_median"] / 1e3),
+              "reader_wait_ms_median": float(np.median(
+                  waits_ms[TIMED_FROM_STEP - 1:])),
+              "reader_wait_share": sum(waits_ms[TIMED_FROM_STEP - 1:])
+              / (sum(waits_ms[TIMED_FROM_STEP - 1:])
+                 + sum(step_ms[TIMED_FROM_STEP - 1:])),
+              # the reader thread's wait on the loader for each batch:
+              # the part of the training thread's wait the wire and the
+              # teacher do not explain
+              "loader_ms_median": float(np.median(
+                  [w * 1e3 for w in probe.loader_waits])),
+              "answer_bytes_per_batch": float(np.median(probe.answer_bytes)),
+              "reader_epochs": probe.epochs, "in_order": in_order,
+              "loss_first": losses[0], "loss_last": losses[-1],
+              "epoch_mean_losses": epoch_means,
+              "losses": losses, "peak_gib": run["peak_gib"],
+              "launches_per_step": want, "launches": run["launches"]}
+    emit(result)
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"distill {name}: {len(losses)} steps of {steps}, losses "
+             f"{losses}")
+    if not (losses[-1] < losses[0] and all(
+            b < a for a, b in zip(epoch_means, epoch_means[1:]))):
+        fail(f"distill {name}: the losses {losses} (epoch means "
+             f"{epoch_means}) are not falling")
+    if not in_order:
+        fail(f"distill {name}: the reader's batches are not the loader's, "
+             "in order")
+    if probe.epochs != [{"batches": DISTILL_STEPS_PER_EPOCH,
+                         "tasks": DISTILL_STEPS_PER_EPOCH * 8,
+                         "served_rows": DISTILL_STEPS_PER_EPOCH * 128}] \
+            * epochs:
+        fail(f"distill {name}: the reader served {probe.epochs}, not every "
+             "row of each epoch")
+    return result
+
+
+def discovery_stats(endpoint: str) -> dict:
+    """The discovery server's stats op (coord/wire framing)."""
+    import socket
+
+    from edl_tpu_torch.coord import wire
+
+    host, port = endpoint.rsplit(":", 1)
+    with socket.create_connection((host, int(port)), timeout=5.0) as sock:
+        wire.send_msg(sock, {"op": "stats"})
+        return wire.recv_msg(sock)["stats"]
+
+
+def phase_distill_discovery(pool: DistillPool, model, eps: dict) -> dict:
+    """(d) the elastic pool: the port's store server, the discovery
+    server and A's registrar; a DistillReader in discovery mode over
+    DISCOVERY_BATCHES batches of fixed images. After batch 4 a second
+    teacher (D, started with the others at the phase's start, outside
+    the pool until then) joins: its registrar starts; once the balancer
+    has assigned it, the reader goes on, and after batch 12 A and its
+    registrar are SIGKILLed. Every batch must come in order with logits
+    within (a)'s bound of the in-process forward on its own rows."""
+    from edl_tpu_torch.coord.client import StoreClient
+    from edl_tpu_torch.coord.registry import ServiceRegistry
+    from edl_tpu_torch.distill.discovery_server import DISTILL_ROOT
+    from edl_tpu_torch.distill.reader import DistillReader
+    from edl_tpu_torch.distill.teacher_server import TeacherClient
+
+    store = pool.ports["store"] = free_port()
+    pool.spawn("store", "edl_tpu_torch.coord.server", "--host", "127.0.0.1",
+               "--port", str(store), "--sweep_interval", "0.05")
+    disc = pool.ports["discovery"] = free_port()
+    pool.spawn("discovery", "edl_tpu_torch.distill.discovery_server",
+               "--store", f"127.0.0.1:{store}", "--host", "127.0.0.1",
+               "--port", str(disc), "--tick-interval", "0.2")
+    reg = ["--store", f"127.0.0.1:{store}", "--service", DISTILL_SERVICE,
+           "--ttl", "2", "--stats-interval", "1"]
+    pool.spawn("registrar_A", "edl_tpu_torch.distill.registrar", *reg,
+               "--server", eps["A"])
+    disc_ep = f"127.0.0.1:{disc}"
+    registry = ServiceRegistry(StoreClient(
+        f"127.0.0.1:{store}", timeout=5.0, connect_retries=200,
+        retry_interval=0.1), root=DISTILL_ROOT)
+    rng = np.random.default_rng(20)
+    images = rng.normal(size=(DISCOVERY_BATCHES, DISCOVERY_ROWS, 224, 224,
+                              3)).astype(np.float16)
+    t: dict = {}
+
+    def balanced() -> dict:
+        try:
+            return discovery_stats(disc_ep).get(DISTILL_SERVICE, {})
+        except OSError:
+            return {}
+
+    def registered() -> list[str]:
+        return [m.server for m in registry.get_service(DISTILL_SERVICE)]
+
+    def wait(cond, what: str) -> float:
+        # raised on the reader's thread, it ends the epoch with an error
+        while time.monotonic() < pool.deadline:
+            if cond():
+                return time.monotonic()
+            time.sleep(0.02)
+        raise RuntimeError(f"distill discovery: no {what} within "
+                           f"{DISTILL_TIMEOUT_S} s")
+
+    def source():
+        for i in range(DISCOVERY_BATCHES):
+            if i == 4:
+                pool.spawn("registrar_D", "edl_tpu_torch.distill.registrar",
+                           *reg, "--server", eps["D"])
+                t["registered"] = wait(lambda: eps["D"] in registered(),
+                                       "registration of the newcomer")
+                t["assigned"] = wait(
+                    lambda: balanced().get("loads", {}).get(eps["D"], 0)
+                    > 0, "assignment of the newcomer")
+                # the reader's discovery client heartbeats every 2 s
+                time.sleep(2.5)
+            if i == 12:
+                t["killed"] = pool.kill("A", "registrar_A")
+                t["expired"] = wait(lambda: eps["A"] not in registered(),
+                                    "lease expiry of the dead teacher")
+                t["dropped"] = wait(
+                    lambda: eps["A"] not in balanced().get("servers", ()),
+                    "removal of the dead teacher")
+            yield {"image": images[i],
+                   "row": np.arange(i * DISCOVERY_ROWS,
+                                    (i + 1) * DISCOVERY_ROWS)}
+
+    reader = DistillReader(source, feeds=("image",), predicts=("logits",),
+                           discovery=disc_ep, service=DISTILL_SERVICE,
+                           teacher_batch_size=DISCOVERY_ROWS)
+    got = []
+    t0 = time.monotonic()
+    try:
+        for batch in reader():
+            got.append((batch["row"].copy(), batch["logits"].copy()))
+    finally:
+        reader.close()
+        registry.store.close()
+    wall_s = time.monotonic() - t0
+    errs, bound = [], 0.0
+    for i, (rows, logits) in enumerate(got):
+        ref = reference_logits(model, images[i])
+        bound = max(bound, logit_bound(ref))
+        errs.append(float(np.abs(logits - ref).max()))
+    in_order = [int(r[0]) for r, _ in got] == [
+        i * DISCOVERY_ROWS for i in range(DISCOVERY_BATCHES)]
+    client = TeacherClient(eps["D"])
+    try:
+        d_rows = client.stats()["served_rows"]
+    finally:
+        client.close()
+    out = {"phase": "distill_discovery", "batches": len(got),
+           "in_order": in_order, "max_abs_err": max(errs), "bound": bound,
+           "reader_epoch": reader.last_epoch, "wall_s": wall_s,
+           "newcomer_rows": d_rows,
+           "assign_s": t["assigned"] - t["registered"],
+           "expiry_s": t["expired"] - t["killed"],
+           "drop_s": t["dropped"] - t["killed"]}
+    emit(out)
+    if len(got) != DISCOVERY_BATCHES or not in_order:
+        fail(f"distill discovery: {len(got)} batches, in order {in_order}")
+    if not max(errs) <= bound:
+        fail(f"distill discovery: logits {max(errs)} from the in-process "
+             f"forward on their rows, above {bound}")
+    if not d_rows > 0:
+        fail("distill discovery: the newcomer served no row")
+    return out
+
+
+def phase_distill_examples() -> dict:
+    """(e) mnist_distill and nlp_distill --all-in-one at their defaults,
+    on the card, in process: exit 0 and finite final lines."""
+    import contextlib
+    import io
+
+    from edl_tpu_torch.examples import mnist_distill, nlp_distill
+
+    out = {"phase": "distill_examples"}
+    for name, mod in (("mnist_distill", mnist_distill),
+                      ("nlp_distill", nlp_distill)):
+        printed = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(printed):
+            rc = mod.main(["--all-in-one"])
+        line = printed.getvalue().strip().splitlines()[-1]
+        vals = {k: float(v) for k, v in
+                (kv.split("=") for kv in line.split())}
+        out[name] = {"rc": rc, "seconds": time.monotonic() - t0, **vals}
+        if rc != 0 or not all(np.isfinite(list(vals.values()))):
+            fail(f"distill: {name} returned {rc} and printed {line!r}")
+    emit(out)
+    return out
+
+
+def phase_distill(ok_mod, data: Path, ckpt: Path) -> dict:
+    """Phase 19: (a) the teacher CLI (three ResNet50_vd teachers: A
+    dense over --local-mesh dp=1, B --serve-topk 16, C the control
+    without --params), (b) the dense student (--teachers A, --fused-opt
+    fp32, 2 epochs: one K4 a step), (c) the sparse student (--distill-topk
+    16 --teachers A,B --fused-opt int8, 1 epoch, B SIGKILLed after
+    DISTILL_KILL_AFTER batches: one K6 entry call a step, every batch in
+    order), (d) the discovery pool through a join and a kill, (e) the
+    small examples. Returns the launches by path."""
+    from edl_tpu_torch.distill.teacher_server import TeacherClient
+
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp, DistillPool(
+            Path(tmp), ckpt) as pool:
+        tmp = Path(tmp)
+        # D joins (d)'s pool later; its process starts with the others
+        eps = {"A": pool.teacher("A", "--local-mesh", "dp=1"),
+               "B": pool.teacher("B", "--serve-topk", str(DISTILL_TOPK)),
+               "C": pool.teacher("C", params=False), "D": pool.teacher("D")}
+        model = load_teacher(ckpt)
+        ready_s = pool.wait_ready("A", "B", "C", "D")
+        teacher = phase_distill_teacher(pool, model, eps)
+        pool.kill("C")
+        dense = distill_student(ok_mod, data, tmp, "dense", "sgdm_fp32",
+                                ["--fused-opt", "fp32", "--teachers",
+                                 eps["A"]], 2, ReaderProbe())
+        client = TeacherClient(eps["A"])
+        try:
+            a_stats = client.stats()
+        finally:
+            client.close()
+        killed = {}
+        sparse = distill_student(
+            ok_mod, data, tmp, "sparse", "sgdm_q",
+            ["--fused-opt", "int8", "--distill-topk", str(DISTILL_TOPK),
+             "--teachers", f"{eps['A']},{eps['B']}"], 1,
+            ReaderProbe(DISTILL_KILL_AFTER,
+                        lambda: killed.setdefault("t", pool.kill("B"))))
+        if "t" not in killed:
+            fail("distill sparse: teacher B was never killed")
+        discovery = phase_distill_discovery(pool, model, eps)
+        del model
+        torch.cuda.empty_cache()
+        examples = phase_distill_examples()
+    emit({"phase": "distill", "seconds": time.monotonic() - t_phase,
+          "teachers_ready_s": ready_s,
+          "teacher_rows_per_busy_s": a_stats["served_rows"]
+          / max(a_stats["busy_s"], 1e-9),
+          "teacher_rows_per_student_s": a_stats["served_rows"]
+          / dense["wall_s"],
+          "dense_step_ms": dense["step_ms_median"],
+          "dense_reader_wait_ms": dense["reader_wait_ms_median"],
+          "dense_loader_ms": dense["loader_ms_median"],
+          "sparse_step_ms": sparse["step_ms_median"],
+          "wire_answer_bytes": {"dense": dense["answer_bytes_per_batch"],
+                                "sparse": sparse["answer_bytes_per_batch"]},
+          "assign_s": discovery["assign_s"], "drop_s": discovery["drop_s"],
+          "teacher_max_abs_err": teacher["A_max_abs_err"],
+          "examples": {k: v for k, v in examples.items() if k != "phase"}})
+    return {"distill_dense": {k: v for k, v in dense["launches"].items()
+                              if v},
+            "distill_sparse": {k: v for k, v in sparse["launches"].items()
+                               if v}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -4931,7 +5536,8 @@ def main() -> int:
         # phase 9 writes the synthetic shards the elastic phases read
         data = Path(tmp) / "data"
         launches.update(phase_train_resnet_world(data))
-        launches.update(phase_resume(ok_mod, card))
+        teacher_ckpt = Path(tmp) / "teacher_ckpt"
+        launches.update(phase_resume(ok_mod, card, teacher_ckpt))
         launches["train_fp16"], _ = phase_train_fp16(fa, ok_mod, lm_bf16)
         launches["train_fused_loss"], _ = phase_train_fused_loss(
             fa, ok_mod, lm_bf16)
@@ -4942,6 +5548,7 @@ def main() -> int:
         launches.update(phase_elastic_live(card, data, stop_resume))
         launches.update(phase_lm_world(ok_mod))
         launches.update(phase_resnet_spmd_world(data))
+        launches.update(phase_distill(ok_mod, data, teacher_ckpt))
     for name in FLASH_KERNELS:
         fp16[name]["launches"] = launches["train_fp16"][name]
     emit({"seconds": time.monotonic() - t_start, "card": card})

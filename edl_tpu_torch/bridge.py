@@ -1,5 +1,6 @@
 """Weights bridge between the flax models' variable trees and the port's
-``state_dict``s: the transformer LM and the ResNet family.
+``state_dict``s: the transformer LM, the ResNet family, the MLP and the
+text classifiers.
 
 ``flax_to_torch`` takes the flax ``params`` as nested dicts of numpy
 arrays (partitioned boxes already unboxed) and returns a ``state_dict``
@@ -14,10 +15,13 @@ Layout mapping (flax kernel -> torch weight):
 - LayerNorm ``scale``/``bias`` -> ``weight``/``bias``
 - ``tok_embed/embedding`` and ``pos_embed`` copy as they are.
 
-ResNet (``flax_variables_to_torch`` / ``torch_to_flax_variables``): the
-flax ``{"params", "batch_stats"}`` tree <-> a ``state_dict`` with the
-BatchNorm buffers, module names as flax's:
-- Conv ``kernel`` HWIO <-> ``weight`` OIHW;
+ResNet, MLP and the text classifiers (``flax_variables_to_torch`` /
+``torch_to_flax_variables``): the flax ``{"params", "batch_stats"}``
+tree <-> a ``state_dict`` with the BatchNorm buffers, module names as
+flax's:
+- Conv ``kernel`` HWIO <-> ``weight`` OIHW, and a 1-D Conv's WIO <->
+  ``nn.Conv1d``'s OIW;
+- ``embed/embedding`` <-> ``embed.weight``;
 - Dense ``kernel`` (in, out) <-> ``weight`` (out, in), ``bias`` as is;
 - BatchNorm ``scale``/``bias`` <-> ``weight``/``bias``, and the
   ``batch_stats`` ``mean``/``var`` <-> ``running_mean``/``running_var``.
@@ -81,6 +85,8 @@ def flax_path(name: str) -> tuple[str, ...]:
     *mod, leaf = parts
     if leaf in _STATS:
         return (*mod, _STATS[leaf])
+    if leaf == "weight" and mod[-1] == "embed":        # nn.Embed
+        return (*mod, "embedding")
     if leaf == "weight":
         return (*mod, "scale" if _is_norm(mod[-1]) else "kernel")
     return (*mod, leaf)
@@ -112,6 +118,8 @@ def to_flax_layout(name: str, w: np.ndarray,
         return w.T.reshape(n_heads, -1, w.shape[0]).copy()
     if w.ndim == 4:                                    # OIHW -> HWIO
         return w.transpose(2, 3, 1, 0).copy()
+    if w.ndim == 3:                                    # OIW -> WIO
+        return w.transpose(2, 1, 0).copy()
     return w.T.copy()                                  # (out, in) -> (in, out)
 
 
@@ -123,6 +131,8 @@ def from_flax_layout(name: str, w: np.ndarray,
         return w.reshape(shape)
     if len(shape) == 4:                                # HWIO -> OIHW
         return w.transpose(3, 2, 0, 1).reshape(shape)
+    if len(shape) == 3:                                # WIO -> OIW
+        return w.transpose(2, 1, 0).reshape(shape)
     if flax_path(name)[-2] == "out":                   # (H, Dh, d)
         return w.reshape(-1, shape[0]).T.reshape(shape)
     return w.reshape(shape[1], -1).T.reshape(shape)    # (in, ...) -> (out, in)
@@ -141,6 +151,8 @@ def torch_dim(name: str, flax_dim: int, ndim: int = 2) -> int:
         return 0 if flax_dim == 2 else 1
     if ndim == 4:                                      # HWIO -> OIHW
         return (2, 3, 1, 0)[flax_dim]
+    if ndim == 3:                                      # WIO -> OIW
+        return (2, 1, 0)[flax_dim]
     return 1 - flax_dim                                # (in, out)
 
 
@@ -238,12 +250,15 @@ def flax_variables_to_torch(variables: dict) -> dict[str, torch.Tensor]:
     """flax ResNet ``{"params", "batch_stats"}`` (nested dicts of numpy)
     -> state_dict with the BatchNorm buffers."""
     torch_leaf = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                  "mean": "running_mean", "var": "running_var"}
+                  "embedding": "weight", "mean": "running_mean",
+                  "var": "running_var"}
     sd = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _flat(variables.get(collection, {})):
             *mod, leaf = path
             if leaf == "kernel":
+                # HWIO -> OIHW; WIO -> OIW and (in, out) -> (out, in)
+                # reverse every axis
                 arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             sd[".".join((*mod, torch_leaf[leaf]))] = _t(arr)
     return sd

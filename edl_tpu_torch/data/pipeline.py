@@ -82,6 +82,23 @@ def _npz_rows(path: str) -> int:
     return int(shape[0])
 
 
+class ArraySource:
+    """Indexable source over a dict of equal-length arrays."""
+
+    def __init__(self, arrays: dict[str, np.ndarray]):
+        lengths = {k: len(v) for k, v in arrays.items()}
+        if len(set(lengths.values())) > 1:
+            raise EdlDataError(f"ragged arrays: {lengths}")
+        self.arrays = arrays
+        self._n = next(iter(lengths.values())) if lengths else 0
+
+    def __len__(self) -> int:
+        return self._n
+
+    def batch(self, idx: np.ndarray) -> dict[str, np.ndarray]:
+        return {k: v[idx] for k, v in self.arrays.items()}
+
+
 class FileSource:
     """Random-access source over .npz shard files (file-backed ArraySource).
 

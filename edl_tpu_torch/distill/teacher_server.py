@@ -26,12 +26,16 @@ Wire compression (two independent levers; see `compress_outputs`):
   Dense clients scatter-expand transparently (`expand_outputs`); sparse
   clients (TeacherClient(expand=False)) consume idx/val as-is.
 
-The zoo-model CLI of the JAX module (``_build_model_predict``, ``main``)
-is not ported yet.
+CLI: ``python -m edl_tpu_torch.distill.teacher_server --model
+ResNet50_vd --num-classes 1000 --input-shape 224,224,3 --params <ckpt>``
+serves a zoo model (random, or restored from a checkpoint of either
+package), on the card unless ``--device cpu``; ``--local-mesh dp=N``
+drives N local cards from this one process (``sharded_teacher.py``).
 """
 
 from __future__ import annotations
 
+import argparse
 import queue
 import socket
 import socketserver
@@ -971,3 +975,155 @@ class TeacherClient:
             self._sock.close()
         except OSError:
             pass
+
+
+def _zoo_model(model_name: str, num_classes: int,
+               input_shape: tuple[int, ...], device):
+    """The zoo model, seeded (the JAX CLI's ``PRNGKey(0)`` init; the RNG
+    streams differ, so parity holds through ``--params``). Its Dense
+    layers bind their input width up front: an MLP gets the flattened
+    served shape."""
+    from edl_tpu_torch.models import get_model
+
+    kw = {"num_classes": num_classes, "device": device, "seed": 0}
+    if model_name in ("mlp", "MLP"):
+        kw["in_features"] = int(np.prod(input_shape))
+    return get_model(model_name)(**kw)
+
+
+def _restore_params(model, params_path: str) -> None:
+    """Load the ``params``/``batch_stats`` sub-trees of a trainer's
+    checkpoint (either package's; the optimizer state the serving
+    process neither has nor wants is ignored) into ``model``. A remote
+    URI (gs://, hdfs://, file://) is mirrored into a temp dir first."""
+    import tempfile
+
+    from edl_tpu_torch import bridge
+    from edl_tpu_torch.train.checkpoint import CheckpointManager
+    from edl_tpu_torch.utils.fs import split_scheme
+
+    scheme, rest = split_scheme(params_path)
+    if scheme not in ("", "file"):
+        mgr = CheckpointManager(
+            tempfile.mkdtemp(prefix="edl-teacher-params-"),
+            remote=params_path)
+    else:
+        mgr = CheckpointManager(rest if scheme == "file" else params_path)
+    try:
+        restored = mgr.restore_raw()
+        if restored is None:
+            return
+        raw, status = restored
+        tree = {"params": raw["params"]}
+        if raw.get("batch_stats"):
+            tree["batch_stats"] = raw["batch_stats"]
+        model.load_state_dict(bridge.flax_variables_to_torch(tree))
+        log.info("teacher params restored from %s (epoch=%d)",
+                 params_path, status.epoch)
+    finally:
+        mgr.close(raise_errors=False)
+
+
+def _build_model_predict(model_name: str, num_classes: int, params_path: str,
+                         input_key: str, output_key: str,
+                         input_shape: tuple[int, ...] = (32, 32, 3),
+                         input_dtype: str = "float32",
+                         serve_topk: int = 0,
+                         local_mesh: str = "",
+                         input_normalize: str = "",
+                         device: str = "cuda"):
+    """CLI helper: a zoo model's forward with seeded or restored
+    parameters on ``device`` (or over ``local_mesh``'s local devices);
+    returns ``(predict, compressed_meta)`` (meta None without
+    serve_topk). ``serve_topk > 0``: top-k runs ON THE DEVICE and only
+    (idx, val) pairs cross to the host, at 1000 classes and K=16 a 62x
+    smaller device->host copy a row. ``input_normalize`` ('imagenet' |
+    'unit') normalizes raw pixels on the device, as the teacher was
+    trained: students on the JPEG plane ship uint8."""
+    from edl_tpu_torch.distill.sharded_teacher import (parse_local_mesh,
+                                                       sharded_predict_fn)
+    from edl_tpu_torch.ops.augment import normalize_image
+
+    devices = (parse_local_mesh(local_mesh, device) if local_mesh
+               else None)
+    model = _zoo_model(model_name, num_classes, input_shape, device)
+    if serve_topk > num_classes:
+        log.warning("--serve-topk %d > %d classes; clamping", serve_topk,
+                    num_classes)
+        serve_topk = num_classes
+    if params_path:
+        _restore_params(model, params_path)
+    norm = input_normalize or None
+
+    def apply_with_norm(m, x):
+        return m(normalize_image(x, norm))
+
+    return sharded_predict_fn(
+        apply_with_norm, model, device, devices=devices,
+        input_key=input_key, output_key=output_key,
+        input_dtype=np.dtype(input_dtype), serve_topk=serve_topk,
+        classes=num_classes)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="edl_tpu_torch.distill.teacher_server",
+        description="Serve a zoo model as a distill teacher")
+    parser.add_argument("--model", default="mlp",
+                        help="edl_tpu_torch.models factory name (mlp, "
+                             "ResNet50_vd, CNNClassifier, ...)")
+    parser.add_argument("--num-classes", type=int, default=10)
+    parser.add_argument("--params", default="",
+                        help="checkpoint dir (or gs:///hdfs:// mirror URI) "
+                             "to restore params from")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=23900)
+    parser.add_argument("--input-key", default="image")
+    parser.add_argument("--output-key", default="logits")
+    parser.add_argument("--input-shape", default="32,32,3",
+                        help="per-sample input shape, e.g. 28,28,1")
+    parser.add_argument("--input-dtype", default="float32",
+                        help="float32 for images, int32 for token ids")
+    parser.add_argument("--input-normalize", default="",
+                        choices=("", "imagenet", "unit"),
+                        help="pixel normalization of feeds on the device "
+                             "(MUST match the teacher's training "
+                             "preprocessing when students ship raw "
+                             "uint8, e.g. the JPEG plane)")
+    parser.add_argument("--max-batch", type=int, default=64)
+    parser.add_argument("--max-wait-ms", type=float, default=2.0)
+    parser.add_argument("--batching", default="",
+                        choices=("", "continuous", "window"),
+                        help="batch admission mode (default: "
+                             "EDL_TPU_SERVE_BATCHING or continuous)")
+    parser.add_argument("--serve-topk", type=int, default=0,
+                        help="device-side top-k: serve only K "
+                             "(idx, fp16 val) pairs per row instead of "
+                             "the dense class row")
+    parser.add_argument("--local-mesh", default="",
+                        help="drive several local cards from this one "
+                             "process, e.g. 'dp=8' (sharded_teacher.py)")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    shape = tuple(int(x) for x in args.input_shape.split(","))
+    predict, compressed_meta = _build_model_predict(
+        args.model, args.num_classes, args.params,
+        args.input_key, args.output_key, shape,
+        args.input_dtype, args.serve_topk, args.local_mesh,
+        args.input_normalize, args.device)
+    server = TeacherServer(predict, port=args.port, host=args.host,
+                           max_batch=args.max_batch,
+                           max_wait=args.max_wait_ms / 1000.0,
+                           compressed_meta=compressed_meta,
+                           batching=args.batching or None)
+    server.start()
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -23,8 +23,14 @@ default); the inline loader places them on the training thread. ``--ckpt-dir`` w
 checkpoints (async by default, every epoch and every ``--ckpt-steps``)
 that the JAX package reads, and a run started on a dir that holds one
 resumes from it, mid-epoch included. ``--profile DIR`` writes a
-torch.profiler trace of steps 10-15. The flags this slice does not carry
-exit before any work, naming the ROADMAP item that brings them.
+torch.profiler trace of steps 10-15. ``--teachers h:p,...`` distills:
+one ``DistillReader`` (reused across epochs) sends each batch's images
+to the teacher servers and appends their logits, and the step is the
+temperature-KD step against them (``--distill-topk K``: the compressed
+wire and the sparse step on the top-K targets); in a world each rank's
+reader reads its own shard, under the SPMD world step. The flags this
+slice does not carry exit before any work, naming the ROADMAP item that
+brings them.
 
 A world of ranks comes from the launcher's env (``EDL_TPU_RANK``,
 ``EDL_TPU_WORLD_SIZE``, ``EDL_TPU_COORDINATOR``; rank r trains on
@@ -70,6 +76,13 @@ is its process group, cannot (ROADMAP Queue 3).
   EDL_TPU_RANK=$R EDL_TPU_WORLD_SIZE=2 EDL_TPU_COORDINATOR=127.0.0.1:$PORT \\
       python -m edl_tpu_torch.examples.imagenet_train ... --device cpu \\
       --data-dir "$D"
+
+  # a student distilling from a served teacher (the zoo-teacher CLI)
+  python -m edl_tpu_torch.distill.teacher_server --device cpu \\
+      --model ResNetTiny --num-classes 10 --input-shape 32,32,3 \\
+      --input-dtype float16 --host 127.0.0.1 --port 23900 &
+  python -m edl_tpu_torch.examples.imagenet_train --device cpu ... \\
+      --teachers 127.0.0.1:23900 [--distill-topk 5]
 """
 
 from __future__ import annotations
@@ -103,7 +116,9 @@ from edl_tpu_torch.train import state as state_lib
 from edl_tpu_torch.train.benchlog import BenchmarkLog
 from edl_tpu_torch.train.classification import (create_state,
                                                 make_classification_step,
-                                                make_eval_step)
+                                                make_distill_step,
+                                                make_eval_step,
+                                                make_sparse_distill_step)
 from edl_tpu_torch.train.comm import CommConfig
 from edl_tpu_torch.train.dgc import dgc
 from edl_tpu_torch.train.fused_opt import make_fused_tx
@@ -261,11 +276,19 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--rotate", action="store_true",
                         help="jpeg mode: random rotation before the crop")
     parser.add_argument("--teachers", default="",
-                        help="distill mode (not ported yet)")
+                        help="distill mode: comma-joined teacher_server "
+                             "endpoints; the loss becomes temperature-KD "
+                             "against served logits")
     parser.add_argument("--distill-temperature", type=float, default=2.0)
-    parser.add_argument("--distill-hard-weight", type=float, default=0.0)
-    parser.add_argument("--distill-topk", type=int, default=0)
-    parser.add_argument("--distill-predict-key", default="logits")
+    parser.add_argument("--distill-hard-weight", type=float, default=0.0,
+                        help="0 = pure soft labels; >0 mixes hard-label "
+                             "CE")
+    parser.add_argument("--distill-topk", type=int, default=0,
+                        help="negotiate the compressed teacher wire and "
+                             "train on sparse top-K targets")
+    parser.add_argument("--distill-predict-key", default="logits",
+                        help="teacher fetch name (teacher_server "
+                             "--output-key)")
     parser.add_argument("--ckpt-dir", default="",
                         help="checkpoint dir (default "
                              "$EDL_TPU_CHECKPOINT_PATH); a run resumes from "
@@ -323,6 +346,16 @@ def main(argv=None) -> int:
             "jpeg decode is host-side: pack the list first (python -m "
             "edl_tpu_torch.data.packed_records pack --jpeg-list train.txt "
             "--root DATA --out DATA/train.pack), then --data-format packed")
+    if augment_device and args.teachers:
+        raise SystemExit(
+            "--augment-device is not supported with --teachers (the "
+            "distill reader ships the teacher the SAME pixels the "
+            "student trains on; device-augmented pixels never exist on "
+            "host)")
+    if args.mixup_alpha > 0 and args.teachers:
+        raise SystemExit("--mixup-alpha is not supported with "
+                         "--teachers (mixed pixels would be sent to "
+                         "a teacher that expects clean inputs)")
     device = resolve_device(args.device)
     env = TrainerEnv.from_environ()
     ckpt_kw = {}
@@ -346,6 +379,11 @@ def main(argv=None) -> int:
                       else loop_cfg.comm_bucket_mb)
     comm_cfg = None
     if dcn_compress != "off" or comm_bucket_mb > 0:
+        if args.teachers:
+            raise SystemExit(
+                "--dcn-compress/--comm-bucket-mb are not supported "
+                "with --teachers (the distill steps carry their own "
+                "jit; the dp gradient wire is the student-only path)")
         comm_cfg = CommConfig(bucket_mb=comm_bucket_mb or 4.0,
                               compress=dcn_compress)
     # Fused optimizer path: CLI > env (LoopConfig binding) > off;
@@ -485,6 +523,17 @@ def main(argv=None) -> int:
         if comm_cfg is None and distributed.world_size() > 1:
             mesh = distributed.make_mesh_from_env(MeshSpec({"dp": -1}),
                                                   world_env)
+        if args.teachers:
+            # --augment-device is refused with --teachers: the step
+            # normalizes what the teacher was sent
+            kd = (make_sparse_distill_step if args.distill_topk
+                  else make_distill_step)
+            return kd(args.num_classes,
+                      temperature=args.distill_temperature,
+                      hard_weight=args.distill_hard_weight,
+                      smoothing=args.label_smoothing,
+                      predict_key=args.distill_predict_key,
+                      normalize=normalize, mesh=mesh)
         # with device augmentation the augment normalizes (one pass after
         # crop/flip); the step must not normalize twice
         return make_classification_step(
@@ -493,6 +542,28 @@ def main(argv=None) -> int:
             normalize=None if augment_device else normalize, comm=comm_cfg,
             topology=distributed.slice_topology(world_env), mesh=mesh)
     step = make_step(env)
+    distill_reader = None
+    if args.teachers:
+        from edl_tpu_torch.distill.reader import DistillReader
+        if normalize is not None:
+            # the student normalizes on the card; the teacher receives
+            # the RAW wire feeds and must apply the same preprocessing
+            log.warning(
+                "distill on the %s plane ships raw uint8 feeds: start "
+                "the teacher with --input-normalize %s (a mismatched "
+                "teacher emits out-of-distribution logits)",
+                args.data_format, normalize)
+        # ONE reader reused across epochs: data_fn retargets its source
+        # at the current epoch of this rank's loader (seed-per-pass
+        # order preserved)
+        distill_epoch = [0]
+        distill_reader = DistillReader(
+            lambda: _owned(w["loader"].epoch(distill_epoch[0]),
+                           loader_workers),
+            feeds=("image",), predicts=(args.distill_predict_key,),
+            teachers=[t for t in args.teachers.split(",") if t],
+            compress_topk=args.distill_topk,
+            sparse_predicts=bool(args.distill_topk))
     if comm_cfg is not None:
         log.info("manual gradient path: bucket=%.1fMiB compress=%s",
                  comm_cfg.bucket_mb, comm_cfg.compress)
@@ -580,7 +651,11 @@ def main(argv=None) -> int:
                      on_reform=on_reform)
 
     def data_fn(epoch):
-        batches = w["loader"].epoch(epoch)
+        if distill_reader is not None:
+            distill_epoch[0] = epoch
+            batches = distill_reader()
+        else:
+            batches = w["loader"].epoch(epoch)
         if prefetch:
             return prefetch_to_device(batches, device, size=depth,
                                       augment=augment)
@@ -589,7 +664,12 @@ def main(argv=None) -> int:
     # TrainLoop closes the data plane it drives (decode pool, mp workers
     # and their shm ring) when the run ends, crash paths included
     data_fn.close = lambda: w["loader"].close()
-    status = loop.run(data_fn)
+    try:
+        status = loop.run(data_fn)
+    finally:
+        # the error path too: the reader's discovery client thread
+        if distill_reader is not None:
+            distill_reader.close()
     blog.extra(**loop.ckpt_stats())  # save-stall / restore accounting
     if comm_cfg is not None:
         blog.extra(**loop.step_fn.stats())  # bucket plan + wire accounting
@@ -663,6 +743,17 @@ def _eval_batches(args, local_bs: int, val_path: str):
                                     + 1, local_bs))
 
 
+def _owned(batches, loader_workers: int):
+    """The loader's batches as arrays of their own: the mp loader's are
+    views over its shm ring, valid until the next batch, and the distill
+    reader holds a batch until its teachers have answered."""
+    if not loader_workers:
+        yield from batches
+        return
+    for batch in batches:
+        yield {k: np.array(v) for k, v in batch.items()}
+
+
 def _unported(what: str, item: int) -> str:
     return f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
 
@@ -670,7 +761,6 @@ def _unported(what: str, item: int) -> str:
 def _refuse_unported(args) -> None:
     """Exit, before any work, on a flag this slice does not carry."""
     refused = [
-        (bool(args.teachers), "--teachers (distill mode)", 12),
         (args.model not in _RESNETS,
          f"--model {args.model} (the rest of the model zoo)", 13),
     ]

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the transformer LM, the ResNet family and the
+"""Model zoo of the port: the transformer LM, the ResNet family, the
+MLP and the text classifiers of the distill examples, and the
 linear-regression smoke model."""
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ _ZOO = {
                "ResNet50_vd", "ResNet101_vd", "ResNet152_vd", "ResNetTiny",
                "BottleneckBlock"),
     "linear": ("LinearRegression",),
+    "mlp": ("MLP", "mlp"),
+    "bow": ("BOWClassifier", "CNNClassifier"),
 }
 
 

@@ -63,6 +63,19 @@ class Histogram:
         return out
 
     @staticmethod
+    def window(cur: dict, prev: dict) -> dict[float, int]:
+        """Exact windowed histogram: per-bucket difference of two
+        cumulative snapshots (fixed edges line up by construction).
+        Accepts string keys straight off the wire."""
+        prev_n = {float(k): int(v) for k, v in (prev or {}).items()}
+        out: dict[float, int] = {}
+        for k, v in (cur or {}).items():
+            d = int(v) - prev_n.get(float(k), 0)
+            if d > 0:
+                out[float(k)] = d
+        return out
+
+    @staticmethod
     def quantile(hist: dict, q: float) -> float | None:
         """q-quantile of a sparse ``{upper_edge: count}`` snapshot.
         Answers the bucket's UPPER edge — conservative: a p95 read from

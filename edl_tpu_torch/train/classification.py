@@ -1,5 +1,5 @@
-"""Classification losses and step builders (label smoothing, mixup),
-port of ``edl_tpu.train.classification``.
+"""Classification losses and step builders (label smoothing, mixup,
+distill), port of ``edl_tpu.train.classification``.
 
 ``make_classification_step`` returns the ``step(state, batch)`` of
 ``train/step.py`` for {'image', 'label'} batches: the model's forward in
@@ -10,8 +10,11 @@ the optimizer step through ``TrainState.apply_gradients`` (with
 world; with a ``mesh``, the SPMD world step).
 ``make_eval_step`` runs the model in eval mode (running statistics) and
 returns top-1/top-5 accuracy. The distill steps (``make_distill_step``,
-``make_sparse_distill_step``) come with the student side (ROADMAP Queue 1
-item 12).
+``make_sparse_distill_step``) train against a teacher's logits that the
+``DistillReader`` put in the batch: temperature-scaled KL against the
+dense logits, or against the teacher's top-k (``sparse_distill_kl``,
+which never forms the dense teacher tensor), optionally mixed with the
+hard-label cross-entropy; with a ``mesh``, as the SPMD world step.
 """
 
 from __future__ import annotations
@@ -44,6 +47,29 @@ def soft_cross_entropy(logits: torch.Tensor,
                                  dim=-1))
 
 
+def distill_kl(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+               temperature: float = 1.0) -> torch.Tensor:
+    """Temperature-scaled KL(teacher || student), scaled by T^2 (Hinton)."""
+    t = temperature
+    teacher = torch.softmax(teacher_logits.float() / t, dim=-1)
+    return soft_cross_entropy(student_logits / t, teacher) * t * t
+
+
+def sparse_distill_kl(student_logits: torch.Tensor,
+                      teacher_idx: torch.Tensor, teacher_val: torch.Tensor,
+                      temperature: float = 1.0) -> torch.Tensor:
+    """``distill_kl`` against a top-k teacher: (B, K) indices and values
+    off the compressed teacher wire. The teacher's probabilities
+    renormalize over its k classes (what scatter-expanding with a -inf
+    fill gives), and the student's log-probabilities are gathered at the
+    teacher's indices: the dense (B, C) teacher tensor never exists."""
+    t = temperature
+    teacher = torch.softmax(teacher_val.float() / t, dim=-1)
+    logp = torch.log_softmax(student_logits.float() / t, dim=-1)
+    logp_k = torch.gather(logp, -1, teacher_idx.long())
+    return -torch.mean(torch.sum(teacher * logp_k, dim=-1)) * t * t
+
+
 def accuracy_topk(logits: torch.Tensor, labels: torch.Tensor,
                   k: int = 1) -> torch.Tensor:
     topk = torch.topk(logits, k, dim=-1).indices
@@ -54,7 +80,11 @@ def accuracy_topk(logits: torch.Tensor, labels: torch.Tensor,
 def create_state(model: torch.nn.Module, tx) -> TrainState:
     """A TrainState for a classification model built (and initialized
     from its seed) by the caller. The optimizer follows the flax flatten
-    order of the parameters, as the JAX package's buckets do."""
+    order of the parameters, as the JAX package's buckets do. The JAX
+    package's ``input_shape``/``input_dtype`` (an init forward, int32
+    for the text students' token ids) have no counterpart: the port's
+    models size their parameters at construction and take int32 or
+    int64 ids."""
     return TrainState.create(model=model, tx=tx,
                              params=flax_named_parameters(model))
 
@@ -95,9 +125,71 @@ def make_classification_step(num_classes: int, *, smoothing: float = 0.0,
                            topology=topology, mesh=mesh)
 
 
-def make_eval_step(normalize: str | None = None) -> Callable:
+def _make_kd_step(kd_loss: Callable, num_classes: int, *,
+                  hard_weight: float, smoothing: float, input_key: str,
+                  normalize: str | None = None, mesh=None) -> Callable:
+    """The distill steps' shared plumbing: ``kd_loss(logits, batch) ->
+    loss`` is all that differs between the dense and sparse variants."""
+
+    def loss_fn(model: torch.nn.Module,
+                batch: dict) -> tuple[torch.Tensor, dict]:
+        model.train()
+        logits = model(normalize_image(batch[input_key], normalize))
+        loss = kd_loss(logits, batch)
+        if hard_weight > 0.0:
+            targets = smoothed_labels(batch["label"], num_classes, smoothing)
+            loss = ((1.0 - hard_weight) * loss
+                    + hard_weight * soft_cross_entropy(logits, targets))
+        return loss, {"acc1": accuracy_topk(logits.detach(), batch["label"],
+                                            1)}
+
+    return make_train_step(loss_fn, mesh=mesh)
+
+
+def make_distill_step(num_classes: int, *, temperature: float = 1.0,
+                      hard_weight: float = 0.0, smoothing: float = 0.0,
+                      input_key: str = "image",
+                      predict_key: str = "teacher_logits",
+                      normalize: str | None = None, mesh=None) -> Callable:
+    """Step for {input_key, 'label', predict_key} batches: the KD loss
+    (plus, with ``hard_weight``, the hard-label CE mix); the student side
+    of the DistillReader pipeline. ``mesh`` (a world above one) gives the
+    SPMD world step, as ``make_classification_step``'s does; the JAX
+    package's ``donate`` has no counterpart."""
+
+    def kd_loss(logits, batch):
+        return distill_kl(logits, batch[predict_key], temperature)
+
+    return _make_kd_step(kd_loss, num_classes, hard_weight=hard_weight,
+                         smoothing=smoothing, input_key=input_key,
+                         normalize=normalize, mesh=mesh)
+
+
+def make_sparse_distill_step(num_classes: int, *, temperature: float = 1.0,
+                             hard_weight: float = 0.0,
+                             smoothing: float = 0.0,
+                             input_key: str = "image",
+                             predict_key: str = "teacher_logits",
+                             normalize: str | None = None,
+                             mesh=None) -> Callable:
+    """``make_distill_step`` for sparse teacher targets: batches carry
+    ``{predict_key}.idx`` / ``{predict_key}.val`` (a DistillReader with
+    ``compress_topk=K, sparse_predicts=True``) instead of dense logits."""
+
+    def kd_loss(logits, batch):
+        return sparse_distill_kl(logits, batch[predict_key + ".idx"],
+                                 batch[predict_key + ".val"], temperature)
+
+    return _make_kd_step(kd_loss, num_classes, hard_weight=hard_weight,
+                         smoothing=smoothing, input_key=input_key,
+                         normalize=normalize, mesh=mesh)
+
+
+def make_eval_step(input_key: str = "image",
+                   normalize: str | None = None) -> Callable:
     """``eval_step(state, batch) -> {'acc1', 'acc5'}`` in eval mode (the
-    running statistics); the model goes back to train mode after."""
+    running statistics) over ``batch[input_key]``; the model goes back to
+    train mode after."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict[str, Any]:
@@ -105,7 +197,7 @@ def make_eval_step(normalize: str | None = None) -> Callable:
         was_training = model.training
         model.eval()
         try:
-            logits = model(normalize_image(batch["image"], normalize))
+            logits = model(normalize_image(batch[input_key], normalize))
         finally:
             model.train(was_training)
         return {"acc1": accuracy_topk(logits, batch["label"], 1),

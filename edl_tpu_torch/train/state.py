@@ -51,6 +51,15 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
                           eps=eps, weight_decay=weight_decay)
 
 
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> TorchOptimizer:
+    """torch.optim.Adam with optax.adam's defaults: the same update
+    (bias-corrected moments, eps outside the square root), rounded in
+    another order."""
+    return TorchOptimizer(torch.optim.Adam, learning_rate, betas=(b1, b2),
+                          eps=eps)
+
+
 def sgd(learning_rate, momentum: float = 0.9,
         weight_decay: float = 0.0) -> TorchOptimizer:
     """torch.optim.SGD for optax.chain(add_decayed_weights(wd),

@@ -33,6 +33,9 @@ ENV_VARS: dict[str, str] = {
     "EDL_TPU_SERVE_SHED_MS": "normal-class queue-delay budget (ms) for "
                              "overload shedding; <=0 disables the "
                              "delay-based shed rule",
+    "EDL_TPU_SERVE_RETRY_BUDGET": "reader-side bounded retry budget per "
+                                  "task on teacher shed responses",
+    "EDL_TPU_DISTILL_NOP": "distill reader no-op mode (wire debugging)",
     # trainer environment (collective/job_env.TrainerEnv)
     "EDL_TPU_JOB_ID": "job identifier shared by every pod of one job",
     "EDL_TPU_POD_ID": "this pod's unique id within the job",

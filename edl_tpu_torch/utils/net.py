@@ -40,3 +40,13 @@ def split_endpoint(endpoint: str) -> tuple[str, int]:
     host, port = endpoint.rsplit(":", 1)
     return host, int(port)
 
+
+
+def is_endpoint_alive(endpoint: str, timeout: float = 1.0) -> bool:
+    """TCP connect probe: True iff something is listening at host:port."""
+    host, port = split_endpoint(endpoint)
+    try:
+        with socket.create_connection((host, port), timeout=timeout):
+            return True
+    except OSError:
+        return False

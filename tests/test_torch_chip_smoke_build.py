@@ -14,6 +14,8 @@ clobbering patterns the gate exists for.
 
 import importlib.util
 import json
+import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -952,3 +954,121 @@ def test_phases_17_and_18_are_documented_and_run():
         '"kernels": kernels')
     assert "spawn_world(" in inspect.getsource(cs.phase_lm_world)
     assert "spawn_world(" in inspect.getsource(cs.phase_resnet_spmd_world)
+
+
+# -- phase 19: distill --------------------------------------------------------
+
+def test_phase_19_is_documented_and_run():
+    import ast
+    import inspect
+
+    assert "19. distill" in cs.__doc__
+    src = inspect.getsource(cs.main)
+    calls = [n.func.id for n in ast.walk(ast.parse(src))
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert "phase_distill" in calls
+    # the teachers serve phase 10's checkpoint, the students phase 9's
+    # shards, after every earlier phase and before the kernels line
+    assert "phase_resume(ok_mod, card, teacher_ckpt)" in src
+    assert (src.index("phase_resnet_spmd_world(") < src.index(
+        "phase_distill(") < src.index('"kernels": kernels'))
+    body = inspect.getsource(cs.phase_distill)
+    for part in ('"--local-mesh", "dp=1"', '"--serve-topk"', "params=False",
+                 '"sgdm_fp32"', '"sgdm_q"', "phase_distill_discovery(",
+                 "phase_distill_examples(", "DistillPool("):
+        assert part in body, part
+
+
+def test_logit_bound_and_topk_check():
+    ref = np.array([[3.0, 1.0, 0.99, -1.0, 2.0],
+                    [0.5, 0.51, 0.2, 0.1, 0.0]], np.float32)
+    bound = cs.logit_bound(ref)
+    assert bound == pytest.approx(cs.DISTILL_LOGIT_REL * 3.0)
+    idx = np.argsort(-ref, 1)[:, :3]
+    val = np.take_along_axis(ref, idx, 1).astype(np.float16)
+    ok = cs.topk_check(ref, idx, val, bound)
+    assert ok["indices_wrong"] == 0 and ok["val_max_abs_err"] < 1e-3
+    # row 0: 3.0 and 2.0 stand apart, 1.0 and 0.99 do not; row 1: 0.51
+    # and 0.5 do not, 0.2 does
+    assert ok["indices_checked"] == 3
+    bad = idx.copy()
+    bad[0, 0] = 3
+    assert cs.topk_check(ref, bad, val, bound)["indices_wrong"] == 1
+    ties = idx.copy()
+    ties[0, 2], ties[1, 0] = 2, 1   # ambiguous ranks are not held
+    assert cs.topk_check(ref, ties, val, bound)["indices_wrong"] == 0
+    off = val.astype(np.float32) + 0.5
+    assert cs.topk_check(ref, idx, off, bound)["val_max_abs_err"] > bound
+
+
+def test_distill_pool_reaps_its_processes(tmp_path, capsys):
+    """Every process the phase starts carries its job id and its own
+    session; leaving the block kills and reaps all of them, on the
+    success path and on a failure; wait_ready fails when one exits."""
+    (tmp_path / "sleeper.py").write_text("import time\ntime.sleep(300)\n")
+    (tmp_path / "quitter.py").write_text("raise SystemExit(3)\n")
+    with cs.DistillPool(tmp_path, tmp_path / "ck") as pool:
+        pool.env["PYTHONPATH"] += os.pathsep + str(tmp_path)
+        pool.spawn("a", "sleeper")
+        pool.spawn("b", "sleeper")
+        assert pool.job.startswith(f"chip-distill-{os.getpid()}-")
+        deadline = time.monotonic() + 30
+        while (len(cs.pids_with_env(EDL_TPU_JOB_ID=pool.job)) < 2
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        assert len(cs.pids_with_env(EDL_TPU_JOB_ID=pool.job)) == 2
+        pool.kill("a")
+        assert pool.procs["a"].returncode == -9
+    assert all(p.poll() is not None for p in pool.procs.values())
+    assert cs.pids_with_env(EDL_TPU_JOB_ID=pool.job) == []
+    with pytest.raises(SystemExit):
+        with cs.DistillPool(tmp_path, tmp_path / "ck") as pool:
+            pool.env["PYTHONPATH"] += os.pathsep + str(tmp_path)
+            pool.spawn("q", "quitter")
+            pool.ports["q"] = 1
+            pool.wait_ready("q")
+    assert "q exited 3" in capsys.readouterr().err
+
+
+def test_reader_probe_and_the_order_gate(tmp_path, capsys):
+    """imagenet_train --teachers on the CPU under ReaderProbe: a wait on
+    the reader and one on the loader, and the labels of each batch in
+    loader_labels' order, each epoch's counts, the answers' bytes, the
+    hook after its batch."""
+    from edl_tpu_torch.distill.teacher_server import (TeacherServer,
+                                                      _build_model_predict)
+    from edl_tpu_torch.examples import imagenet_train
+
+    data = tmp_path / "data"
+    imagenet_train.make_synthetic_shards(str(data), 2, 32, 32, 10, seed=0)
+    predict, _ = _build_model_predict("ResNetTiny", 10, "", "image",
+                                      "logits", (32, 32, 3), "float16", 0,
+                                      "", "", device="cpu")
+    hooked = []
+    probe = cs.ReaderProbe(3, lambda: hooked.append(len(probe.labels)))
+    with TeacherServer(predict, host="127.0.0.1") as srv, probe:
+        assert imagenet_train.main([
+            "--data-dir", str(data), "--model", "ResNetTiny",
+            "--image-size", "32", "--num-classes", "10", "--batch-size",
+            "16", "--epochs", "2", "--no-augment", "--device", "cpu",
+            "--teachers", f"127.0.0.1:{srv.port}"]) == 0
+    from edl_tpu_torch.distill.reader import DistillReader
+    assert DistillReader.__call__ is probe.call   # restored
+    assert hooked == [3] and len(probe.waits) == 8
+    assert len(probe.loader_waits) == 8   # the reader thread's, a batch
+    order = cs.loader_labels(data, 2, batch=16)
+    assert len(order) == 8
+    assert all(np.array_equal(a, b) for a, b in zip(probe.labels, order))
+    assert probe.epochs == [{"batches": 4, "tasks": 4,
+                             "served_rows": 64}] * 2
+    assert probe.answer_bytes == [16 * 10 * 4] * 8
+
+
+def test_discovery_stats_reads_the_server():
+    from edl_tpu_torch.coord.store import InMemStore
+    from edl_tpu_torch.distill.discovery_server import DiscoveryServer
+
+    with DiscoveryServer(InMemStore(), port=0, host="127.0.0.1") as srv:
+        srv.table.register("c0", cs.DISTILL_SERVICE)
+        stats = cs.discovery_stats(srv.endpoint)
+    assert stats[cs.DISTILL_SERVICE]["clients"] == 1

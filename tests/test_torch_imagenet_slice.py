@@ -191,11 +191,10 @@ def test_imagenet_train_mixup_and_benchmark_log(tmp_path, capsys):
 @pytest.mark.parametrize("flags,match", [
     (["--dgc-sparsity", "0.9", "--fused-opt", "fp32"],
      "mutually exclusive"),
-    (["--teachers", "localhost:1"], "item 12"),
     (["--model", "VGG16"], "item 13")])
 def test_unported_flags_exit_before_any_work(tmp_path, flags, match):
-    """--teachers and other zoo models exit naming their items; DGC
-    (ported) with the fused optimizer exits with the JAX CLI's words."""
+    """Other zoo models exit naming their item; DGC (ported) with the
+    fused optimizer exits with the JAX CLI's words."""
     data_dir = tmp_path / "never-written"
     with pytest.raises(SystemExit, match=match):
         imagenet_train.main(["--data-dir", str(data_dir), "--make-synthetic",

@@ -112,6 +112,48 @@ def test_launcher_and_store_server_start_without_torch():
     assert out.stdout.strip() == "[]"
 
 
+DISCOVERY_PLANE = [PKG / m for m in (
+    "coord/consistent_hash.py", "coord/registry.py", "distill/__init__.py",
+    "distill/balance.py", "distill/discovery_client.py",
+    "distill/discovery_server.py", "distill/registrar.py")]
+
+
+@pytest.mark.parametrize("path", DISCOVERY_PLANE, ids=[
+    str(p.relative_to(ROOT)) for p in DISCOVERY_PLANE])
+def test_the_discovery_plane_imports_no_torch(path):
+    """The balancer daemon, its client, the hash ring, the registry and
+    the registrar import neither torch nor numpy at any scope but the
+    registrar's stats poll (the teacher client, numpy only)."""
+    assert path in FILES
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [f"{path.name}:{line} imports {mod}"
+           for mod, line in _imported(tree)
+           if mod.split(".")[0] in ("torch", "numpy", "triton")]
+    assert not bad, bad
+
+
+def test_the_discovery_daemon_and_registrar_start_without_torch():
+    code = ("import sys; import edl_tpu_torch.distill.discovery_server, "
+            "edl_tpu_torch.distill.discovery_client, "
+            "edl_tpu_torch.distill.registrar, edl_tpu_torch.distill; "
+            "print(sorted(m for m in ('torch', 'numpy') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+DISTILL_SLICE = ["models/mlp.py", "models/bow.py", "distill/reader.py",
+                 "distill/tensor_wire.py", "distill/sharded_teacher.py",
+                 "distill/teacher_server.py", "examples/mnist_distill.py",
+                 "examples/nlp_distill.py", "examples/reader_demo.py"]
+
+
+@pytest.mark.parametrize("module", DISTILL_SLICE)
+def test_the_distill_slice_is_checked(module):
+    assert PKG / module in FILES
+
+
 WORLD_SLICE = ["parallel/mesh.py", "parallel/sharding.py",
                "parallel/distributed.py", "train/step.py", "train/dgc.py",
                "train/comm.py", "train/sharded_checkpoint.py",
