@@ -1,6 +1,6 @@
 """Weights bridge between the flax models' variable trees and the port's
-``state_dict``s: the transformer LM, the ResNet family, the MLP and the
-text classifiers.
+``state_dict``s: the transformer LM, the ResNet and VGG families, the
+MLP, the text classifiers and DeepFM.
 
 ``flax_to_torch`` takes the flax ``params`` as nested dicts of numpy
 arrays (partitioned boxes already unboxed) and returns a ``state_dict``
@@ -15,13 +15,16 @@ Layout mapping (flax kernel -> torch weight):
 - LayerNorm ``scale``/``bias`` -> ``weight``/``bias``
 - ``tok_embed/embedding`` and ``pos_embed`` copy as they are.
 
-ResNet, MLP and the text classifiers (``flax_variables_to_torch`` /
-``torch_to_flax_variables``): the flax ``{"params", "batch_stats"}``
-tree <-> a ``state_dict`` with the BatchNorm buffers, module names as
-flax's:
+ResNet, VGG, MLP, the text classifiers and DeepFM
+(``flax_variables_to_torch`` / ``torch_to_flax_variables``): the flax
+``{"params", "batch_stats"}`` tree <-> a ``state_dict`` with the
+BatchNorm buffers, module names as flax's:
 - Conv ``kernel`` HWIO <-> ``weight`` OIHW, and a 1-D Conv's WIO <->
   ``nn.Conv1d``'s OIW;
-- ``embed/embedding`` <-> ``embed.weight``;
+- ``nn.Embed`` tables as they are: ``embed/embedding`` <->
+  ``embed.weight``, DeepFM's ``sparse_embed`` and ``sparse_linear``;
+- VGG's ``fc0`` as any Dense kernel: the port flattens the last map in
+  flax's H·W·C order (``models/vgg.py``), so its rows need no permute;
 - Dense ``kernel`` (in, out) <-> ``weight`` (out, in), ``bias`` as is;
 - BatchNorm ``scale``/``bias`` <-> ``weight``/``bias``, and the
   ``batch_stats`` ``mean``/``var`` <-> ``running_mean``/``running_var``.
@@ -63,6 +66,8 @@ def _n(t: torch.Tensor) -> np.ndarray:
 
 
 _STATS = {"running_mean": "mean", "running_var": "var"}
+# nn.Embed modules (the text classifiers' and DeepFM's tables)
+_EMBEDS = ("embed", "sparse_embed", "sparse_linear")
 
 
 def _is_norm(module: str) -> bool:
@@ -85,7 +90,7 @@ def flax_path(name: str) -> tuple[str, ...]:
     *mod, leaf = parts
     if leaf in _STATS:
         return (*mod, _STATS[leaf])
-    if leaf == "weight" and mod[-1] == "embed":        # nn.Embed
+    if leaf == "weight" and mod[-1] in _EMBEDS:        # nn.Embed
         return (*mod, "embedding")
     if leaf == "weight":
         return (*mod, "scale" if _is_norm(mod[-1]) else "kernel")
@@ -395,8 +400,7 @@ def state_snapshot(state) -> tuple[list[torch.Tensor], Callable]:
         live = [p for _, p in state.params]
         kind = _torch_kind(tx)
         opt = st
-        slots = ("momentum_buffer",) if kind == "sgd" else (
-            "exp_avg", "exp_avg_sq")
+        slots = _SLOTS[kind]
         for _, p in state.params:
             for slot in slots:
                 live.append(opt.state.get(p, {}).get(slot,
@@ -436,7 +440,9 @@ def state_snapshot(state) -> tuple[list[torch.Tensor], Callable]:
             trees = [_param_tree(names, [x[i] for x in per], n_heads)
                      for i in range(len(slots))]
             c = np.asarray(step, np.int32)
-            if kind == "sgd":
+            if kind == "sgd_plain":
+                opt_tree = (EmptyState(), EmptyState())
+            elif kind == "sgd":
                 opt_tree = (EmptyState(), (TraceState(trees[0]),
                                            ScheduleState(c)))
             else:
@@ -454,10 +460,20 @@ def state_snapshot(state) -> tuple[list[torch.Tensor], Callable]:
     return live, build
 
 
+# torch.optim's state slots a checkpoint carries, by optimizer kind
+_SLOTS = {"sgd_plain": (), "sgd": ("momentum_buffer",),
+          "adamw": ("exp_avg", "exp_avg_sq")}
+
+
 def _torch_kind(tx) -> str:
+    """``sgd_plain``: SGD without momentum or weight decay, optax.sgd(lr)
+    (two empty states); ``sgd``: optax.chain(add_decayed_weights(wd),
+    sgd(lr, momentum)); ``adamw``."""
     cls = getattr(tx, "cls", None)
     if cls is torch.optim.SGD:
-        return "sgd"
+        plain = not (tx.kwargs.get("momentum") or
+                     tx.kwargs.get("weight_decay"))
+        return "sgd_plain" if plain else "sgd"
     if cls is torch.optim.AdamW:
         return "adamw"
     raise ValueError(f"no checkpoint tree for the optimizer {tx!r}")
@@ -540,7 +556,9 @@ def _write_state(tree: dict, state):
         state.opt_state = st._replace(count=int(opt["count"]))
     else:
         kind = _torch_kind(tx)
-        if kind == "sgd":
+        if kind == "sgd_plain":
+            slots = ()
+        elif kind == "sgd":
             slots = (("momentum_buffer", opt["1"]["0"]["trace"]),)
             count = int(opt["1"]["1"]["count"])
         else:
@@ -643,8 +661,7 @@ def sharded_state_tree(state) -> TrainStateTree:
                                 whole(st.m), whole(st.v))
     else:
         kind = _torch_kind(tx)
-        slots = ("momentum_buffer",) if kind == "sgd" else (
-            "exp_avg", "exp_avg_sq")
+        slots = _SLOTS[kind]
         trees = []
         for slot in slots:
             tree: dict = {}
@@ -653,10 +670,14 @@ def sharded_state_tree(state) -> TrainStateTree:
                 _insert(tree, flax_path(name), leaf(name, t, spec))
             trees.append(_key_sorted(tree))
         c = np.asarray(int(state.step), np.int32)
-        opt_tree = ((EmptyState(), (TraceState(trees[0]), ScheduleState(c)))
-                    if kind == "sgd" else
-                    (AdamState(c, trees[0], trees[1]), EmptyState(),
-                     ScheduleState(c)))
+        if kind == "sgd_plain":
+            opt_tree = (EmptyState(), EmptyState())
+        elif kind == "sgd":
+            opt_tree = (EmptyState(), (TraceState(trees[0]),
+                                       ScheduleState(c)))
+        else:
+            opt_tree = (AdamState(c, trees[0], trees[1]), EmptyState(),
+                        ScheduleState(c))
     stats: dict = {}
     for name, b in _bn_buffers(model):
         _insert(stats, flax_path(name), _n(b).copy())
@@ -751,14 +772,15 @@ def flax_to_state_sharded(read, state):
             count=int(np.asarray(read(("opt_state", "count"), None))))
     else:
         kind = _torch_kind(tx)
-        if kind == "sgd":
+        count = None
+        if kind == "sgd_plain":
+            slots = ()
+        elif kind == "sgd":
             slots = (("momentum_buffer", ("opt_state", "1", "0", "trace")),)
-            count_path = ("opt_state", "1", "1", "count")
         else:
             slots = (("exp_avg", ("opt_state", "0", "mu")),
                      ("exp_avg_sq", ("opt_state", "0", "nu")))
-            count_path = ("opt_state", "0", "count")
-        count = int(np.asarray(read(count_path, None)))
+            count = int(np.asarray(read(("opt_state", "0", "count"), None)))
         for (name, p), spec in zip(state.params, specs):
             entry = st.state[p]
             for slot, prefix in slots:

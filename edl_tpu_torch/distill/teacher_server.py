@@ -982,12 +982,14 @@ def _zoo_model(model_name: str, num_classes: int,
     """The zoo model, seeded (the JAX CLI's ``PRNGKey(0)`` init; the RNG
     streams differ, so parity holds through ``--params``). Its Dense
     layers bind their input width up front: an MLP gets the flattened
-    served shape."""
+    served shape, a VGG the served image size (its ``fc0``)."""
     from edl_tpu_torch.models import get_model
 
     kw = {"num_classes": num_classes, "device": device, "seed": 0}
     if model_name in ("mlp", "MLP"):
         kw["in_features"] = int(np.prod(input_shape))
+    if model_name.startswith("VGG"):
+        kw["image_size"] = tuple(input_shape[:2])
     return get_model(model_name)(**kw)
 
 

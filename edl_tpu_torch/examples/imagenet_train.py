@@ -28,9 +28,9 @@ one ``DistillReader`` (reused across epochs) sends each batch's images
 to the teacher servers and appends their logits, and the step is the
 temperature-KD step against them (``--distill-topk K``: the compressed
 wire and the sparse step on the top-K targets); in a world each rank's
-reader reads its own shard, under the SPMD world step. The flags this
-slice does not carry exit before any work, naming the ROADMAP item that
-brings them.
+reader reads its own shard, under the SPMD world step. ``--model`` is a
+ResNet; a VGG exits before any work, naming the reference's dropout
+fault (ROADMAP Queue 3), where the JAX CLI dies at its first step.
 
 A world of ranks comes from the launcher's env (``EDL_TPU_RANK``,
 ``EDL_TPU_WORLD_SIZE``, ``EDL_TPU_COORDINATOR``; rank r trains on
@@ -108,6 +108,7 @@ from edl_tpu_torch.data.pipeline import (DataLoader, FileSource,
                                          prefetch_to_device, random_crop,
                                          random_flip_lr)
 from edl_tpu_torch.ops.augment import make_device_augment
+from edl_tpu_torch.models import vgg
 from edl_tpu_torch.models.resnet import set_batch_group
 from edl_tpu_torch.parallel import distributed
 from edl_tpu_torch.parallel.mesh import MeshSpec
@@ -131,6 +132,7 @@ log = get_logger("edl_tpu_torch.examples.imagenet_train")
 
 _RESNETS = ("ResNet50", "ResNet101", "ResNet152", "ResNet50_vd",
             "ResNet101_vd", "ResNet152_vd", "ResNetTiny")
+_VGGS = ("VGG11", "VGG13", "VGG16", "VGG19")
 
 
 def make_synthetic_shards(data_dir: str, n_files: int, rows: int,
@@ -314,7 +316,7 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
+    _refuse_model(args)
     if args.rotate and (args.data_format != "jpeg" or args.no_augment):
         raise SystemExit("--rotate is a jpeg-mode augmentation (and is "
                          "incompatible with --no-augment)")
@@ -754,19 +756,19 @@ def _owned(batches, loader_workers: int):
         yield {k: np.array(v) for k, v in batch.items()}
 
 
-def _unported(what: str, item: int) -> str:
-    return f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
-
-
-def _refuse_unported(args) -> None:
-    """Exit, before any work, on a flag this slice does not carry."""
-    refused = [
-        (args.model not in _RESNETS,
-         f"--model {args.model} (the rest of the model zoo)", 13),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise SystemExit(_unported(what, item))
+def _refuse_model(args) -> None:
+    """Exit, before any work, on a --model this CLI cannot train. VGG:
+    the JAX CLI builds it with its default dropout of 0.5
+    (``edl_tpu/examples/imagenet_train.py:467-470``) and its first step
+    raises flax's InvalidRngError, since no ``apply_fn`` call passes a
+    dropout rng (a fault of the reference, ROADMAP Queue 3)."""
+    if args.model in _VGGS:
+        raise SystemExit(
+            f"--model {args.model}: {vgg.DROPOUT_FAULT}; the JAX CLI builds "
+            "VGG with dropout 0.5 and dies at its first step")
+    if args.model not in _RESNETS:
+        raise SystemExit(f"--model {args.model}: imagenet_train trains the "
+                         f"ResNet family {_RESNETS}")
 
 
 if __name__ == "__main__":

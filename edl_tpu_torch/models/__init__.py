@@ -1,6 +1,7 @@
-"""Model zoo of the port: the transformer LM, the ResNet family, the
-MLP and the text classifiers of the distill examples, and the
-linear-regression smoke model."""
+"""Model zoo of the port: the transformer LM, the ResNet and VGG
+families, the MLP and the text classifiers of the distill examples,
+DeepFM for CTR, and the linear-regression smoke model: every name of
+``edl_tpu.models``."""
 
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ _ZOO = {
     "linear": ("LinearRegression",),
     "mlp": ("MLP", "mlp"),
     "bow": ("BOWClassifier", "CNNClassifier"),
+    "vgg": ("VGG", "VGG11", "VGG13", "VGG16", "VGG19"),
+    "deepfm": ("DeepFM",),
 }
 
 

@@ -1072,3 +1072,101 @@ def test_discovery_stats_reads_the_server():
         srv.table.register("c0", cs.DISTILL_SERVICE)
         stats = cs.discovery_stats(srv.endpoint)
     assert stats[cs.DISTILL_SERVICE]["clients"] == 1
+
+
+# -- phase 20: zoo_ctr, and the per-phase seconds -----------------------------
+
+def test_phase_20_is_documented_and_run():
+    import ast
+    import inspect
+
+    assert "20. zoo_ctr" in cs.__doc__
+    src = inspect.getsource(cs.main)
+    calls = [n.func.id for n in ast.walk(ast.parse(src))
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert "phase_zoo_ctr" in calls
+    assert (src.index("phase_distill(") < src.index("phase_zoo_ctr(")
+            < src.index('"kernels": kernels'))
+    body = inspect.getsource(cs.phase_zoo_ctr)
+    for part in ('model="VGG16"', "params=False", '"sgdm_fp32"',
+                 "phase_vgg_teacher(", "phase_ctr(", "spawn_ctr_elastic(",
+                 "phase_ctr_elastic(",
+                 "phase_fit_a_line(", '"distill_vgg"', "DistillPool("):
+        assert part in body, part
+
+
+def test_every_phase_has_its_seconds():
+    """main laps the clock after each of the 20 phases, in order, and the
+    seconds line carries them."""
+    import inspect
+    import re
+
+    src = inspect.getsource(cs.main)
+    laps = re.findall(r'clock\.lap\("(\d+)_(\w+)"\)', src)
+    assert [int(n) for n, _ in laps] == list(range(1, 21))
+    assert '"phases": clock.seconds' in src
+    assert src.index('clock.lap("20_zoo_ctr")') < src.index(
+        '"phases": clock.seconds')
+
+
+def test_phase_clock_laps_and_total(monkeypatch):
+    now = [100.0]
+    monkeypatch.setattr(cs.time, "monotonic", lambda: now[0])
+    clock = cs.PhaseClock()
+    now[0] = 103.5
+    clock.lap("a")
+    now[0] = 104.0
+    clock.lap("b")
+    now[0] = 110.0
+    clock.lap("a")
+    assert clock.seconds == {"a": 9.5, "b": 0.5}
+    assert clock.total() == 10.0
+
+
+def test_ctr_table_reads_the_task_records():
+    from edl_tpu_torch.coord.store import InMemStore
+    from edl_tpu_torch.data.task_master import TaskMaster
+
+    store = InMemStore()
+    m = TaskMaster(store, "j", "ctr-A")
+    m.init_epoch(0, [{"file": "a"}, {"file": "b"}])
+    t = m.get_task()
+    table = cs.ctr_table(store, "j")
+    assert sorted(table) == ["/j/data/e0/task/000000",
+                             "/j/data/e0/task/000001"]
+    assert table[t._key]["state"] == "pending"
+    assert table[t._key]["owner"] == "ctr-A"
+
+
+def test_the_elastic_ctr_phase_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 20 (d) with its trainers on the CPU over small shards: the
+    first to lease is stopped holding its lease until the other leases,
+    then SIGKILLed; the survivor takes the lease after its deadline and
+    the table ends all done."""
+    from edl_tpu_torch.examples import ctr_train
+
+    data = tmp_path / "ctr_data"
+    ctr_train.make_synthetic_files(str(data), cs.CTR_SHARDS, 2048)
+    with cs.DistillPool(tmp_path, tmp_path / "ck", prefix="test-ctr",
+                        timeout=300) as pool:
+        spawn = pool.spawn
+
+        def on_the_cpu(name, module, *args):
+            if module.endswith("ctr_train"):
+                args = (*args, "--device", "cpu")
+            spawn(name, module, *args)
+
+        pool.spawn = on_the_cpu
+        out = cs.phase_ctr_elastic(pool, cs.spawn_ctr_elastic(pool, data))
+    assert out["held"] and {out["victim"], out["survivor"]} == {
+        "ctr-A", "ctr-B"}
+    assert all(s >= 0 for s in out["redispense_after_deadline_s"].values())
+    assert all(f == {"state": "done", "owner": out["survivor"],
+                     "failures": 1} for f in out["final"].values())
+    assert out["states_by_epoch"] == {e: {"done": cs.CTR_SHARDS - 1}
+                                      for e in range(cs.CTR_ELASTIC_EPOCHS)}
+    assert out["survivor_rc"] == 0 and out["survivor_auc"] > 0.5
+    # taken after the kill (how long after depends on the load: on the
+    # CPU the survivor finishes its other tasks first)
+    assert all(s > 0 for s in out["redispense_after_kill_s"].values())
+    assert cs.pids_with_env(EDL_TPU_JOB_ID=pool.job) == []

@@ -179,3 +179,44 @@ def test_the_world_slice_is_checked_and_clean(module):
     text = path.read_text()
     assert "SyncBatchNorm(" not in text
     assert "convert_sync_batchnorm" not in text
+
+
+ZOO_CTR_SLICE = ["models/vgg.py", "models/deepfm.py", "data/task_master.py",
+                 "data/task_loader.py", "data/data_server.py",
+                 "data/__init__.py", "examples/ctr_train.py",
+                 "examples/fit_a_line.py"]
+DISPENSING_PLANE = ["data/task_master.py", "data/task_loader.py",
+                    "data/data_server.py", "data/__init__.py"]
+
+
+@pytest.mark.parametrize("module", ZOO_CTR_SLICE)
+def test_the_zoo_and_ctr_slice_is_checked(module):
+    assert PKG / module in FILES
+
+
+@pytest.mark.parametrize("module", DISPENSING_PLANE)
+def test_the_dispensing_plane_imports_no_torch(module):
+    """The task dispenser, its loader and the record server import no
+    torch at any scope: a data pod or a trainer's dispensing thread holds
+    no CUDA context. DeepFM's tables keep dense gradients."""
+    tree = ast.parse((PKG / module).read_text())
+    bad = [f"{module}:{line} imports {mod}" for mod, line in _imported(tree)
+           if mod.split(".")[0] in ("torch", "triton")]
+    assert not bad, bad
+
+
+def test_the_dispensing_plane_starts_without_torch():
+    code = ("import sys; import edl_tpu_torch.data, "
+            "edl_tpu_torch.data.task_master, edl_tpu_torch.data.task_loader, "
+            "edl_tpu_torch.data.data_server; "
+            "print('torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+
+
+def test_deepfm_and_ctr_train_keep_dense_gradients():
+    for module in ("models/deepfm.py", "examples/ctr_train.py"):
+        text = (PKG / module).read_text()
+        assert "sparse=True" not in text and "SparseAdam(" not in text

@@ -264,5 +264,7 @@ def test_layout_is_channels_last_and_zoo_names_resolve():
     for name in ("ResNet50", "ResNet101", "ResNet152", "ResNet50_vd",
                  "ResNet101_vd", "ResNet152_vd", "ResNetTiny"):
         assert zoo.get_model(name) is getattr(resnet, name)
+    from edl_tpu_torch.models import vgg
+    assert zoo.get_model("VGG16") is vgg.VGG16
     with pytest.raises(AttributeError):
-        zoo.get_model("VGG16")
+        zoo.get_model("VGG17")

@@ -114,5 +114,7 @@ def test_get_model_and_seeded_init():
     a = Transformer(cfg, device="cpu", seed=5).state_dict()
     b = Transformer(cfg, device="cpu", seed=5).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(AttributeError):      # not ported yet (item 13)
-        get_model("VGG16")
+    from edl_tpu_torch.models.vgg import VGG16
+    assert get_model("VGG16") is VGG16
+    with pytest.raises(AttributeError):
+        get_model("VGG17")
