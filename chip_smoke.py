@@ -208,15 +208,28 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              beside phase 15's, the adoption gap, each reform phase's
              seconds and each peer restore's bytes and seconds.
 17. lm_world — lm_train at the base config (bf16, fused fp32 Adam, 16
-             rows a step, 8 a rank, 6 steps) over two ranks sharing the
+             rows a step, 8 a rank, 4 steps) over two ranks sharing the
              card (gloo, this script re-entered with --world-worker): (a)
              --mesh dp (the SPMD world step), (b) --mesh fsdp
              --ckpt-sharded (each rank its slices of the sharded leaves,
              gathered in the forward, reduce-scattered in the backward,
              K5 over its slices' buckets, per-rank chunks), (c) --mesh dp
-             --dcn-compress int8 --comm-bucket-mb 4 (the comm step, K8).
-             Gates: every step 8 K1, 8 K2, 8 K3 and one K5 launch a rank,
-             and one K8 call in (c); the ranks' final states (parameters
+             --dcn-compress int8 --comm-bucket-mb 4 (the comm step, K8),
+             (d) --mesh sp (every rank the 16 rows and half of each
+             sequence, ring attention's flash body: K1-K3 on each block
+             pair), (e) --moe with 4 experts, --moe-dispatch hier
+             --moe-compress int8 (the MoE comm step, K8 on the int8
+             dispatch leg). Gates: every step 8 K1, 8 K2, 8 K3 and one K5
+             launch a rank (under (d) 8 (r + 1) of K1-K3 on rank r), one
+             K8 call in (c), 16 in (e); (d)'s step 1 loss within 2e-4 of
+             a one-rank dense forward (beside how far three faults of the
+             sp loss would move it), and its ring's flash body within
+             3e-2 x max(1, max |dense|) of the dense body on one step's
+             q/k/v, forward and gradients; (e)'s first int8 leg packed
+             by K8 bit for bit _pack_plain, moe_parity_gate on the JAX
+             test's tiny MoE over 16 inits and row seeds, each int8 step
+             1 loss within 5e-3 of flat's and each loss within 1e-3 of
+             the CPU's; the ranks' final states (parameters
              and moments, (b)'s gathered) hash alike; (b)'s losses within
              1e-3 relative of (a)'s; (b) holds a rank the replicated
              leaves and half the sharded ones (101,222,400 of 168,855,552
@@ -2939,14 +2952,16 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def spawn_world(runs: list, out_dir: Path) -> dict[str, list[dict]]:
+def spawn_world(runs: list, out_dir: Path,
+                meanwhile=None) -> dict[str, list[dict]]:
     """The ``runs`` ([(name, argv), ...]) in turn in one world of WORLD
     ranks: processes of this script, all on cuda:0, that join a fresh
     process group for each run at a TCP store on 127.0.0.1 (one process
     start a rank for all of them). A rank that exits non-zero, or any
     rank still running after WORLD_TIMEOUT_S a run, fails the runs;
-    every rank is stopped before this returns. Returns each run's ranks'
-    JSON by name."""
+    every rank is stopped before this returns. ``meanwhile()``, when
+    given, is called at each poll while the ranks run (this process's
+    own work beside theirs). Returns each run's ranks' JSON by name."""
     coordinator = f"127.0.0.1:{free_port()}"
     label = "+".join(name for name, _ in runs)
     procs = []
@@ -2966,6 +2981,8 @@ def spawn_world(runs: list, out_dir: Path) -> dict[str, list[dict]]:
             if (time.monotonic() > deadline
                     or any(p.poll() not in (None, 0) for p in procs)):
                 break
+            if meanwhile is not None:
+                meanwhile()
             time.sleep(0.5)
     finally:
         for p in procs:
@@ -3200,7 +3217,13 @@ def world_summary(name: str, ranks: list[dict], blog_dir: Path) -> dict:
               "launches": {n: sum(rk["launches"][n] for rk in ranks)
                            for n in r0["launches"]},
               "launches_per_step_per_rank": r0["steps"][0]["launches"],
+              "launches_per_step_by_rank": [rk["steps"][0]["launches"]
+                                            for rk in ranks],
               "digest": r0["digest"]}
+    for key in ("first", "stats", "ring_flash_vs_dense", "ring_block",
+                "k8_blocks", "k8_bitwise_plain", "moe_parity_gate"):
+        if r0.get(key) is not None:
+            result[key] = r0[key]
     emit(result)
     if not (all(np.isfinite(losses)) and len(epochs) == 3
             and all(b < a for a, b in zip(epochs, epochs[1:]))
@@ -4283,17 +4306,33 @@ def phase_elastic_live(card: str, data: Path, stop_resume: dict) -> dict:
 
 # -- 17. lm_world ------------------------------------------------------------
 # lm_train at the base config over two ranks sharing the card (gloo, each
-# rank this script re-entered with --world-worker): 96 rows of 1024
-# tokens, 16 rows a step (8 a rank), one epoch = 6 steps.
-LM_WORLD_ARGV = ["--rows-per-file", "96", "--vocab", "32768", "--seq-len",
+# rank this script re-entered with --world-worker): 64 rows of 1024
+# tokens, 16 rows a step (8 a rank; under --mesh sp every rank all 16 and
+# its half of the sequence), one epoch = 4 steps.
+LM_WORLD_ARGV = ["--rows-per-file", "64", "--vocab", "32768", "--seq-len",
                  "1024", "--d-model", "1024", "--n-heads", "16",
                  "--n-layers", "8", "--d-ff", "4096", "--batch-size", "16",
                  "--bf16", "--fused-opt", "fp32", "--epochs", "1"]
 LM_WORLD_RUNS = (("dp", ["--mesh", "dp"]),
                  ("fsdp", ["--mesh", "fsdp", "--ckpt-sharded"]),
                  ("int8", ["--mesh", "dp", "--dcn-compress", "int8",
-                           "--comm-bucket-mb", "4"]))
-LM_WORLD_STEPS = 6
+                           "--comm-bucket-mb", "4"]),
+                 ("sp", ["--mesh", "sp"]),
+                 ("moe", ["--moe", "--n-experts", "4", "--moe-dispatch",
+                          "hier", "--moe-compress", "int8"]))
+LM_WORLD_STEPS = 4
+LM_WORLD_TIMED_FROM = 3
+# --mesh sp: the ring's flash body (K1-K3 on each block pair) against its
+# dense body on one step's q/k/v, forward and gradients, within
+# SP_RING_REL x max(1, max |dense|) (bf16 io: the two round attention to
+# bf16 in other places); step 1's loss against a one-rank dense forward
+# of the same weights and batch within SP_LOSS_ATOL (set from the card's
+# reading, 1.14e-5: the mean over 16 x 1023 targets averages the bf16
+# rounding away; sp_loss_controls reads how far three faults of the sp
+# loss would move it: the past block skipped 7.29e-3, the positions'
+# offset removed 9.22e-4, the boundary targets dropped 2.38e-5)
+SP_RING_REL = 3e-2
+SP_LOSS_ATOL = 2e-4
 FSDP_LOSS_REL = 1e-3     # bf16: (b)'s losses against (a)'s
 # the base LM's elements: the token table and the LayerNorms stay whole,
 # pos_embed, qkv, out, the MLP and lm_head split on their embed dim
@@ -4322,13 +4361,15 @@ def state_digest(state) -> str:
 
 
 def world_step_probe(counters: dict, steps: list, seen: dict,
-                     at_last=None, last: int = 0):
+                     at_last=None, last: int = 0, at_first=None):
     """Wrap the world steps (the SPMD step and the comm step) for a run:
     each step timed on the host clock between two synchronizes, its
     gradient reduction (``_reduce``) with CUDA events, ``counters``'
-    launches read around it, its loss; after step ``last``
-    ``seen["final"] = at_last(state)`` (on every rank: it may be
-    collective). Returns the undo function."""
+    launches read around it, its loss; before the first step
+    ``seen["first"] = at_first(state, batch)`` (outside the step's
+    timing and launch counts), after step ``last`` ``seen["final"] =
+    at_last(state)`` (on every rank: it may be collective), and the
+    step's ``stats()`` where it has them. Returns the undo function."""
     from edl_tpu_torch.train import comm
     from edl_tpu_torch.train import step as step_lib
 
@@ -4345,6 +4386,10 @@ def world_step_probe(counters: dict, steps: list, seen: dict,
 
     def call_of(orig):
         def call(self, state, batch, *rest):
+            if seen.get("quiet"):   # a check's own steps, after the run's
+                return orig(self, state, batch, *rest)
+            if at_first is not None and not steps:
+                seen["first"] = at_first(state, batch)
             torch.cuda.synchronize()
             c0 = {n: c.launches for n, c in counters.items()}
             seen["reduce"] = None
@@ -4360,8 +4405,14 @@ def world_step_probe(counters: dict, steps: list, seen: dict,
                                        for n, c in counters.items()},
                           "loss": float(metrics["loss"])})
             seen["state"] = state
+            if hasattr(self, "stats"):
+                seen["stats"] = self.stats()
             if at_last is not None and len(steps) == last:
-                seen["final"] = at_last(state)
+                seen["quiet"] = True
+                try:
+                    seen["final"] = at_last(state)
+                finally:
+                    seen["quiet"] = False
             return out
         return call
 
@@ -4374,14 +4425,17 @@ def world_step_probe(counters: dict, steps: list, seen: dict,
     return undo
 
 
-def lm_world_train(argv: list, restore_from: str = "") -> dict:
+def lm_world_train(argv: list, restore_from: str = "",
+                   kind: str = "") -> dict:
     """One rank of lm_train.main(argv) in a world: each step through
     world_step_probe (K1-K3, K5, K7 and K8 counted, set to 0 just before
     the run, read just after); after the last step the state's digest
-    (gathered), this rank's parameter and moment elements and its
+    (gathered) under ``kind`` "fsdp", else a device checksum of the
+    rank's state; this rank's parameter and moment elements and its
     optimizer buckets; the rank's peak device memory. With
     ``restore_from``, first a fresh fsdp state of this world restored
-    from that checkpoint dir (lm_world_restore), under "restored"."""
+    from that checkpoint dir (lm_world_restore), under "restored".
+    ``kind`` "sp" adds sp_probe's checks, "moe" moe_probe's."""
     restored = lm_world_restore(restore_from) if restore_from else None
     from edl_tpu_torch.examples import lm_train
     from edl_tpu_torch.ops import flash_attention as fa
@@ -4391,15 +4445,24 @@ def lm_world_train(argv: list, restore_from: str = "") -> dict:
     counters = {**lm_counters(fa, ok_mod), "pack_int8": pack_mod.pack_int8}
     steps: list[dict] = []
     seen: dict = {}
+    hooks = {"sp": sp_probe, "moe": moe_probe}.get(kind)
+    extra = hooks(counters) if hooks else {}
 
     def at_last(state):
-        return {"digest": state_digest(state),
-                "param_elems": sum(p.numel()
-                                   for p in state.model.parameters()),
-                "moment_elems": sum(b.numel() for b in state.opt_state.m),
-                "buckets": len(state.opt_state.p)}
+        # the fsdp run's digest is what its restores are held to; the
+        # other runs' only tell the ranks apart
+        out = {"digest": (state_digest(state) if kind == "fsdp"
+                          else state_checksum(state)),
+               "param_elems": sum(p.numel()
+                                  for p in state.model.parameters()),
+               "moment_elems": sum(b.numel() for b in state.opt_state.m),
+               "buckets": len(state.opt_state.p)}
+        if "at_last" in extra:
+            out.update(extra["at_last"](state))
+        return out
 
-    undo = world_step_probe(counters, steps, seen, at_last, LM_WORLD_STEPS)
+    undo = world_step_probe(counters, steps, seen, at_last, LM_WORLD_STEPS,
+                            extra.get("at_first"))
     try:
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
@@ -4410,9 +4473,291 @@ def lm_world_train(argv: list, restore_from: str = "") -> dict:
         launches = {n: c.launches for n, c in counters.items()}
     finally:
         undo()
+        if "undo" in extra:
+            extra["undo"]()
     return {"rc": rc, "wall_s": wall_s, "steps": steps, "launches": launches,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "restored": restored, **seen.get("final", {})}
+            "restored": restored, "first": seen.get("first"),
+            "stats": seen.get("stats"), **seen.get("final", {})}
+
+
+def state_checksum(state) -> str:
+    """A checksum of every parameter and moment's bits: int64 sums on the
+    device, plain and position-weighted, leaf by leaf, then their sha256.
+    Equal states give equal strings; cheaper than state_digest's gather
+    and sha256 of a whole replicated state."""
+    tensors = [p for _, p in state.params]
+    for m in (*state.opt_state.m, *state.opt_state.v):
+        tensors.extend(m if isinstance(m, tuple) else (m,))
+    sums = []
+    for t in tensors:
+        bits = t.detach().reshape(-1)
+        bits = (bits.view(torch.int32) if bits.element_size() == 4
+                else bits.view(torch.int8)).long()
+        pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+        sums.append(torch.stack([bits.sum(), (bits * pos).sum()]))
+    import hashlib
+
+    return hashlib.sha256(json.dumps(
+        torch.stack(sums).cpu().tolist()).encode()).hexdigest()
+
+
+def sp_probe(counters: dict) -> dict:
+    """The sp run's checks. Before step 1 (rank 0 only): the one-rank
+    dense loss of the step's whole batch with the run's weights (a model
+    without the ring, dense attention), read against step 1's loss by
+    lm_world_gates. The first ring call's q/k/v (block 0, step 1) are
+    kept; after the last step every rank runs the ring's flash body (the
+    kernels K1-K3) and its dense body on them, forward and the gradients
+    of sum(o * w) for a seeded w, each gathered to rank 0's error against
+    the dense body's largest magnitude."""
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.parallel import ring_attention as ra
+    from edl_tpu_torch.models import transformer as tfm
+
+    kept: dict = {}
+    orig = tfm.ring_attention
+
+    def capture(q, k, v, **kw):
+        if "qkv" not in kept:
+            kept["qkv"] = [t.detach().clone() for t in (q, k, v)]
+            kept["sp"] = kw["sp"]
+        return orig(q, k, v, **kw)
+
+    tfm.ring_attention = capture
+
+    def at_first(state, batch):
+        if distributed.rank() != 0:
+            return None
+        import dataclasses
+        n = state.model.cfg.sp.size
+        cfg = dataclasses.replace(state.model.cfg, sp=None,
+                                  attention="dense")
+        model = tfm.Transformer(cfg, device="cuda")
+        model.load_state_dict(state.model.state_dict())
+        model.train()
+        with torch.no_grad():
+            loss = float(tfm.lm_loss_fn(model, batch)[0])
+            controls = sp_loss_controls(model, batch["tokens"], n)
+        del model
+        torch.cuda.empty_cache()
+        return {"dense_loss": loss, "controls": controls}
+
+    def at_last(state):
+        q, k, v = kept["qkv"]
+        gen = torch.Generator(device="cuda").manual_seed(
+            7 + kept["sp"].index)
+        w = torch.randn(q.shape, generator=gen, device="cuda")
+        outs = {}
+        for body in ("flash", "dense"):
+            c0 = {n: c.launches for n, c in counters.items()}
+            ts = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = ra.ring_attention(*ts, sp=kept["sp"],
+                                  use_flash=body == "flash")
+            (o.float() * w).sum().backward()
+            outs[body] = [o.detach().float()] + [t.grad.float() for t in ts]
+            if body == "flash":   # a comparison's launches: not the run's
+                for n, c in counters.items():
+                    c.launches = c0[n]
+        errs = {}
+        for name, a, b in zip(("o", "dq", "dk", "dv"), outs["flash"],
+                              outs["dense"]):
+            t = torch.stack([(a - b).abs().max(), b.abs().max()]).cpu()
+            both = distributed.all_gather(t)
+            errs[name] = {"max_abs_err": float(both[:, 0].max()),
+                          "max_abs_ref": float(both[:, 1].max())}
+        return {"ring_flash_vs_dense": errs,
+                "ring_block": list(q.shape)}
+
+    return {"at_first": at_first, "at_last": at_last,
+            "undo": lambda: setattr(tfm, "ring_attention", orig)}
+
+
+def sp_loss_controls(model, tokens: torch.Tensor, n: int) -> dict:
+    """How far three faults of the sp loss would move step 1's loss on
+    this batch, each read off the dense ``model`` (no ring) as |the faulty
+    loss - the whole sequence's|, beside the bound the sp loss is held
+    to: the block-boundary targets dropped (the last position of each
+    block but the last predicting nothing), each block's positions from 0
+    (the rank's pos_embed offset removed), and each block attending only
+    itself (the past blocks of the ring skipped)."""
+    from edl_tpu_torch.models import transformer as tfm
+
+    s = tokens.shape[1]
+    blk = s // n
+    pos = model.pos_embed
+    saved = pos.detach().clone()
+
+    def nll(logits):      # (B, S-1) next-token losses, in row chunks
+        return torch.cat([-tfm._next_token_ll(lg[:, :-1], t[:, 1:])
+                          for lg, t in zip(logits.split(4), tokens.split(4))])
+
+    def forward(toks, at):   # logits of ``toks`` at positions ``at``
+        pos.data[:toks.shape[1]] = saved[at]
+        try:
+            return model(toks)
+        finally:
+            pos.data.copy_(saved)
+
+    at = torch.arange(s, device=tokens.device)
+    whole = nll(model(tokens))
+    keep = torch.ones(s - 1, dtype=torch.bool, device=tokens.device)
+    keep[blk - 1::blk] = False
+    from_zero = forward(tokens, at % blk)
+    alone = torch.cat([forward(tokens[:, b * blk:(b + 1) * blk],
+                               at[b * blk:(b + 1) * blk])
+                       for b in range(n)], 1)
+    ref = float(whole.mean())
+    return {"boundary_targets_dropped": abs(float(whole[:, keep].mean())
+                                            - ref),
+            "pos_offset_removed": abs(float(nll(from_zero).mean()) - ref),
+            "past_blocks_skipped": abs(float(nll(alone).mean()) - ref)}
+
+
+# moe_parity_gate on the JAX package's test problem (tests/test_moe.py
+# _tiny_moe: one MoE block, E = 2 x world, momentum-SGD 0.3, 2 steps),
+# over MOE_GATE_CASES: (the seed of the port's CPU-generator init, the
+# seed of the rows; the JAX test's rows are seed 5). The int8 arm's loss
+# after the first update is not a statistic of the wire alone: over 8
+# inits x 4 row seeds it reads 0.002-0.370 from flat's in the JAX package
+# itself, on the same inits (5 of the 32 over the JAX test's 0.2;
+# tests/moe_gate_sweep.py), so MOE_GATE_ENVELOPE is set above those
+# readings and the int8 leg is held by what holds across inits: step 1's
+# loss (the forward alone, before any update) within MOE_FWD_ATOL of
+# flat's (at most 1.9e-3 of those 32, in either package), and each arm's
+# losses on the card within
+# MOE_DEVICE_ATOL of the same arm's on the CPU, where the port reads as
+# the JAX package does (tests/test_torch_chip_smoke_build.py).
+MOE_GATE_STEPS = 2
+MOE_GATE_CASES = tuple((seed, rows) for seed in range(8) for rows in (5, 1))
+MOE_GATE_ENVELOPE = 0.5
+MOE_FWD_ATOL = 5e-3
+MOE_DEVICE_ATOL = 1e-3
+
+
+def tiny_moe_gate(device: str = "cuda", seed: int = 0,
+                  rows: int = 5) -> dict:
+    """moe_parity_gate over this world (an ep mesh of every rank, hier
+    int8 against flat) on the JAX test's tiny MoE problem, the port's
+    init from ``seed`` (drawn on the CPU, so a card's run starts where the
+    CPU's does), rows from ``rows``, on ``device``. Beside the gate's
+    keys, each arm's per-step losses (the world's mean, as the step's
+    metric)."""
+    import functools
+
+    from edl_tpu_torch.bridge import flax_named_parameters
+    from edl_tpu_torch.models import transformer as tfm
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.parallel import mesh as mesh_lib
+    from edl_tpu_torch.train import comm
+    from edl_tpu_torch.train import state as state_lib
+
+    world, rank = distributed.world_size(), distributed.rank()
+    toks = np.random.default_rng(rows).integers(
+        0, 16, size=(2 * world, 8)).astype(np.int32)
+    cfg = tfm.TransformerConfig(vocab_size=16, d_model=16, n_heads=2,
+                                n_layers=1, d_ff=32, max_len=8,
+                                dtype=torch.float32, moe=True,
+                                n_experts=2 * world, moe_top_k=2)
+
+    def state_fn():
+        model = tfm.Transformer(cfg, device="cpu", seed=seed).to(device)
+        model.train()
+        return state_lib.TrainState.create(
+            model=model, tx=state_lib.sgd(0.3, momentum=0.9),
+            params=flax_named_parameters(model))
+
+    arms: list[list[float]] = []   # flat, hier, the compressed arm
+
+    def loss_factory(wire):
+        losses: list[float] = []
+        arms.append(losses)
+        loss_fn = functools.partial(tfm.lm_loss_moe, wire=wire,
+                                    aux_weight=cfg.moe_aux_weight)
+
+        def recorded(model, batch):
+            loss, aux = loss_fn(model, batch)
+            losses.append(float(loss.detach()))
+            return loss, aux
+        return recorded
+
+    gate = comm.moe_parity_gate(
+        loss_factory, state_fn, {"tokens": torch.from_numpy(
+            toks[2 * rank:2 * rank + 2]).to(device)},
+        mesh=mesh_lib.make_mesh(mesh_lib.MeshSpec({"ep": -1})),
+        comm_config=comm.CommConfig(bucket_mb=0.25),
+        moe_config=comm.MoEDispatchConfig(mode="hier", compress="int8"),
+        steps=MOE_GATE_STEPS, envelope=MOE_GATE_ENVELOPE)
+    mean = distributed.all_gather(torch.tensor(
+        [arms[0], arms[2]], dtype=torch.float64)).mean(0)
+    return {**gate, "seed": seed, "rows": rows,
+            "flat_losses": mean[0].tolist(), "int8_losses": mean[1].tolist()}
+
+
+def moe_gate_readings(card: list[dict], cpu: list[dict]) -> dict:
+    """tiny_moe_gate's cases on the card beside the same cases on the
+    CPU: for each, hier bit for bit with flat, the gate's max_loss_delta
+    (its envelope), step 1's int8-flat delta, and the largest card-CPU
+    delta of either arm's losses; ``ok`` when every case holds all four
+    bounds."""
+    cases = []
+    for c, h in zip(card, cpu):
+        cases.append({
+            "seed": c["seed"], "rows": c["rows"],
+            "bitwise_hier": bool(c["bitwise_hier"]),
+            "max_loss_delta": c["max_loss_delta"],
+            "fwd_delta": abs(c["int8_losses"][0] - c["flat_losses"][0]),
+            "device_delta": max(abs(a - b) for arm in ("flat_losses",
+                                                       "int8_losses")
+                                for a, b in zip(c[arm], h[arm]))})
+    worst = {k: max(x[k] for x in cases)
+             for k in ("max_loss_delta", "fwd_delta", "device_delta")}
+    ok = (all(x["bitwise_hier"] for x in cases)
+          and all(c["ok"] for c in card)
+          and worst["fwd_delta"] <= MOE_FWD_ATOL
+          and worst["device_delta"] <= MOE_DEVICE_ATOL)
+    return {"cases": cases, "worst": worst, "envelope": MOE_GATE_ENVELOPE,
+            "fwd_atol": MOE_FWD_ATOL, "device_atol": MOE_DEVICE_ATOL,
+            "ok": ok}
+
+
+def moe_probe(counters: dict) -> dict:
+    """The moe run's checks: the first int8 leg's blocks (step 1, block
+    0's dispatch) are kept; after the last step K8 packs them again
+    (pack_int8_buckets) bit for bit _pack_plain's, and tiny_moe_gate runs
+    each of MOE_GATE_CASES over this world on the card and on the CPU
+    (moe_gate_readings), neither counted in the run's launches."""
+    from edl_tpu_torch.ops import pack as pack_mod
+    from edl_tpu_torch.train import comm
+
+    kept: dict = {}
+    orig = comm.pack_int8_buckets
+
+    def capture(xs):
+        if "blocks" not in kept:
+            kept["blocks"] = [x.detach().clone() for x in xs]
+        return orig(xs)
+
+    comm.pack_int8_buckets = capture
+
+    def at_last(state):
+        c0 = {n: c.launches for n, c in counters.items()}
+        blocks = kept["blocks"]
+        kernel = pack_mod.pack_int8_buckets(blocks)
+        plain = [pack_mod._pack_plain(b) for b in blocks]
+        bitwise = all(torch.equal(qk, qp) and torch.equal(
+            sk.view(torch.int32), sp.view(torch.int32))
+            for (qk, sk), (qp, sp) in zip(kernel, plain))
+        gate = moe_gate_readings(
+            [tiny_moe_gate("cuda", *case) for case in MOE_GATE_CASES],
+            [tiny_moe_gate("cpu", *case) for case in MOE_GATE_CASES])
+        for n, c in counters.items():
+            c.launches = c0[n]
+        return {"k8_blocks": [list(b.shape) for b in blocks],
+                "k8_bitwise_plain": bitwise, "moe_parity_gate": gate}
+
+    return {"at_last": at_last,
+            "undo": lambda: setattr(comm, "pack_int8_buckets", orig)}
 
 
 def lm_world_state(world: int, seed: int):
@@ -4452,14 +4797,27 @@ def lm_world_restore(ckpt_dir: str) -> dict:
     return out
 
 
+def lm_world_want(ok_mod, name: str, rank: int, n_buckets: int) -> dict:
+    """The launches of one step of ``rank`` in the phase-17 run ``name``:
+    lm_want's, one K8 call over every compressed bucket in the int8 run,
+    one a dispatch or combine leg of each block (16) in the moe run, and
+    under sp the ring's K1-K3 once a block pair it attends (rank r of the
+    ring attends r past blocks and its diagonal: 8 (r + 1))."""
+    want = {**lm_want(ok_mod, n_buckets),
+            "pack_int8": {"int8": 1, "moe": 16}.get(name, 0)}
+    if name == "sp":
+        for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+            want[k] = 8 * (rank + 1)
+    return want
+
+
 def lm_world_summary(name: str, ranks: list[dict], ok_mod) -> dict:
     """Phase 17's gates of one run, each fatal: rc 0 and LM_WORLD_STEPS
-    steps on each rank, every step's launches (lm_want, and one K8 call
-    in the int8 run), the ranks' final digests equal, losses finite and
-    falling. Returns the run's numbers."""
+    steps on each rank, every step's launches (lm_world_want), the ranks'
+    final digests equal, losses finite and falling. Returns the run's
+    numbers."""
     for rk in ranks:
-        want = {**lm_want(ok_mod, rk["buckets"]),
-                "pack_int8": int(name == "int8")}
+        want = lm_world_want(ok_mod, name, rk["rank"], rk["buckets"])
         if rk["rc"] != 0 or len(rk["steps"]) != LM_WORLD_STEPS:
             fail(f"lm_world {name} rank {rk['rank']}: rc {rk['rc']}, "
                  f"{len(rk['steps'])} steps")
@@ -4471,7 +4829,7 @@ def lm_world_summary(name: str, ranks: list[dict], ok_mod) -> dict:
         fail(f"lm_world {name}: the ranks' final states differ")
     r0 = ranks[0]
     losses = [st["loss"] for st in r0["steps"]]
-    timed = r0["steps"][TIMED_FROM_STEP - 1:]
+    timed = r0["steps"][LM_WORLD_TIMED_FROM - 1:]
     step_ms = float(np.median([st["ms"] for st in timed]))
     result = {"phase": f"lm_world_{name}", "world": WORLD,
               "backend": "gloo (both ranks on cuda:0, staged through host "
@@ -4482,7 +4840,7 @@ def lm_world_summary(name: str, ranks: list[dict], ok_mod) -> dict:
               "step_ms_max": max(st["ms"] for st in timed),
               "reduce_ms_median": float(np.median(
                   [st["reduce_ms"] for st in timed])),
-              "timed_steps": f"{TIMED_FROM_STEP}-{len(losses)}",
+              "timed_steps": f"{LM_WORLD_TIMED_FROM}-{len(losses)}",
               "tokens_per_s": 16 * 1024 / (step_ms / 1e3),
               "peak_gib": [rk["peak_gib"] for rk in ranks],
               "param_elems_a_rank": r0["param_elems"],
@@ -4493,7 +4851,13 @@ def lm_world_summary(name: str, ranks: list[dict], ok_mod) -> dict:
               "launches": {n: sum(rk["launches"][n] for rk in ranks)
                            for n in r0["launches"]},
               "launches_per_step_per_rank": r0["steps"][0]["launches"],
+              "launches_per_step_by_rank": [rk["steps"][0]["launches"]
+                                            for rk in ranks],
               "digest": r0["digest"]}
+    for key in ("first", "stats", "ring_flash_vs_dense", "ring_block",
+                "k8_blocks", "k8_bitwise_plain", "moe_parity_gate"):
+        if r0.get(key) is not None:
+            result[key] = r0[key]
     emit(result)
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         fail(f"lm_world {name}: losses {losses} not finite and falling")
@@ -4502,15 +4866,18 @@ def lm_world_summary(name: str, ranks: list[dict], ok_mod) -> dict:
 
 def phase_lm_world(ok_mod) -> dict:
     """lm_train.main at the base config over two ranks on one card (gloo):
-    6 steps each of --mesh dp, --mesh fsdp --ckpt-sharded and --dcn-
-    compress int8 --comm-bucket-mb 4, fused fp32 Adam; then the fsdp
-    run's per-rank chunks restored into a fresh world of two (the int8
-    run's ranks, before they train) and a world of one (here). Gates: lm_world_summary's for
-    each run; fsdp's losses within FSDP_LOSS_REL of dp's; fsdp's
+    4 steps each of --mesh dp, --mesh fsdp --ckpt-sharded, --dcn-compress
+    int8 --comm-bucket-mb 4, --mesh sp (ring attention over the two
+    ranks, its flash body) and --moe (4 experts, --moe-dispatch hier
+    --moe-compress int8), fused fp32 Adam; then the fsdp run's per-rank
+    chunks restored into a fresh world of two (the int8 run's ranks,
+    before they train) and a world of one (here, while the world runs
+    on). Gates: lm_world_summary's
+    for each run; fsdp's losses within FSDP_LOSS_REL of dp's; fsdp's
     parameters a rank the replicated leaves and half the sharded, its
     moments the same within the buckets' padding; both restores' digests
-    the saved state's; int8 within ENVELOPE x dp's improvement of dp.
-    Returns each run's launches."""
+    the saved state's; int8 within ENVELOPE x dp's improvement of dp;
+    lm_world_sp_moe_gates'. Returns each run's launches."""
     torch.cuda.empty_cache()
     world = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -4526,15 +4893,70 @@ def phase_lm_world(ok_mod) -> dict:
             # first restore the fsdp run's chunks into fresh fsdp states
             world.append((f"lm_{name}", {
                 "argv": argv,
-                "restore_from": str(ckpt) if name == "int8" else ""}))
-        ranks = spawn_world(world, tmp)
+                "restore_from": str(ckpt) if name == "int8" else "",
+                "kind": name}))
+        # the world of one restores here, beside the runs after fsdp's,
+        # once the fsdp run's ranks have written their results (its
+        # checkpoint sealed before them)
+        world1: dict = {}
+
+        def restore_world1():
+            if not world1 and all((tmp / f"lm_fsdp.rank{r}.json").exists()
+                                  for r in range(WORLD)):
+                world1.update(lm_world_restore(str(ckpt)))
+
+        ranks = spawn_world(world, tmp, meanwhile=restore_world1)
+        restore_world1()
         world2 = [rk["restored"] for rk in ranks["lm_int8"]]
         runs = {name: lm_world_summary(name, ranks[f"lm_{name}"], ok_mod)
                 for name, _ in LM_WORLD_RUNS}
-        world1 = lm_world_restore(str(ckpt))
     lm_world_gates(runs, world2, world1)
+    lm_world_sp_moe_gates(runs)
     return {f"lm_world_{n}": {k: v for k, v in r["launches"].items() if v}
             for n, r in runs.items()}
+
+
+def lm_world_sp_moe_gates(runs: dict) -> dict:
+    """The sp and moe runs' gates, each fatal: sp's step 1 loss within
+    SP_LOSS_ATOL of the one-rank dense forward of the same weights
+    and batch, and the ring's flash body within SP_RING_REL x max(1,
+    max |dense|) of its dense body, forward and dq/dk/dv; moe's first
+    int8 leg packed by K8 bit for bit _pack_plain, moe_parity_gate ok,
+    and cross-slice bytes on its wire. Emits and returns the numbers."""
+    sp, moe = runs["sp"], runs["moe"]
+    ring = sp["ring_flash_vs_dense"]
+    ring_ok = {k: e["max_abs_err"] <= SP_RING_REL * max(1.0, e["max_abs_ref"])
+               for k, e in ring.items()}
+    dense_loss = sp["first"]["dense_loss"]
+    out = {"phase": "lm_world_sp_moe_gates",
+           "sp_loss_step1": sp["losses"][0], "sp_dense_loss": dense_loss,
+           "sp_loss_delta": abs(sp["losses"][0] - dense_loss),
+           "sp_loss_atol": SP_LOSS_ATOL,
+           "sp_loss_controls": sp["first"].get("controls"),
+           "ring_rel": SP_RING_REL,
+           "ring_ok": ring_ok, "sp_step_ms_median": sp["step_ms_median"],
+           "moe_step_ms_median": moe["step_ms_median"],
+           "moe_dcn_bytes_per_step":
+               moe["stats"]["moe_dcn_bytes_per_step"],
+           "moe_k8_bitwise_plain": moe["k8_bitwise_plain"],
+           "moe_parity_gate": moe["moe_parity_gate"]}
+    emit(out)
+    if out["sp_loss_delta"] > SP_LOSS_ATOL:
+        fail(f"lm_world sp: step 1's loss {sp['losses'][0]} is "
+             f"{out['sp_loss_delta']} from the one-rank dense forward's "
+             f"{dense_loss} (bound {SP_LOSS_ATOL})")
+    if not all(ring_ok.values()):
+        fail(f"lm_world sp: the ring's flash body off its dense body: "
+             f"{ring} (bound {SP_RING_REL} x max(1, max |ref|))")
+    if not moe["k8_bitwise_plain"]:
+        fail("lm_world moe: K8 on the dispatch blocks is not _pack_plain's "
+             "bit for bit")
+    if not moe["moe_parity_gate"]["ok"]:
+        fail(f"lm_world moe: moe_parity_gate failed: "
+             f"{moe['moe_parity_gate']}")
+    if not out["moe_dcn_bytes_per_step"] > 0:
+        fail("lm_world moe: no cross-slice bytes on the int8 wire")
+    return out
 
 
 def lm_world_gates(runs: dict, world2: list[dict], world1: dict) -> dict:
@@ -5538,6 +5960,7 @@ CTR_ROWS = 16384
 CTR_AUC_MIN = 0.62             # the JAX package's ctr_train test's bar
 CTR_ELASTIC_EPOCHS = 3
 CTR_LEASE_S = 5.0
+CTR_SETTLE_S = 0.25            # a stopped victim's in-flight requests land
 FIT_LOSS_ATOL = 1e-6
 
 
@@ -5679,13 +6102,15 @@ def phase_ctr_elastic(pool: DistillPool, t_start: float) -> dict:
     (trainers ctr-A and ctr-B, --lease-timeout CTR_LEASE_S,
     CTR_ELASTIC_EPOCHS epochs over synthetic shards; spawn_ctr_elastic
     started them). The first trainer to lease a task is the victim: it is
-    stopped while it holds a lease (SIGSTOP, the table read, SIGCONT and
-    again if it holds none), so it cannot finish the job before the other
+    stopped while it holds a first lease (SIGSTOP, the table read twice
+    CTR_SETTLE_S apart, SIGCONT and again unless both reads show the same
+    leases of failures 0), so it cannot finish the job before the other
     is up; once the other (the survivor) has leased a task too, the victim
     is SIGKILLed. Gates from the task table: every task of every epoch
     done, none failed; each task the victim held re-dispensed to the
-    survivor after its lease's deadline and done there; the survivor
-    exits 0 with its AUC over chance."""
+    survivor after its lease's deadline and done there with exactly one
+    failure (the victim's expired lease); the survivor exits 0 with its
+    AUC over chance."""
     import signal
 
     from edl_tpu_torch.coord.client import StoreClient
@@ -5699,6 +6124,10 @@ def phase_ctr_elastic(pool: DistillPool, t_start: float) -> dict:
         owner)."""
         return {r["owner"] for r in ctr_table(client, job).values()
                 if r["owner"]}
+
+    def victim_leases() -> dict:
+        return {k: r for k, r in ctr_table(client, job).items()
+                if r["state"] == "pending" and r["owner"] == victim}
 
     def alive_or_fail(what: str) -> None:
         for name in ("ctr_A", "ctr_B"):
@@ -5720,11 +6149,18 @@ def phase_ctr_elastic(pool: DistillPool, t_start: float) -> dict:
         vproc = pool.procs[victim.replace("-", "_")]
         while True:          # the victim stopped while it holds a lease
             os.killpg(vproc.pid, signal.SIGSTOP)
-            table = ctr_table(client, job)
-            held = {k: r for k, r in table.items()
-                    if r["state"] == "pending" and r["owner"] == victim}
+            held = victim_leases()
             if held:
-                break
+                # a request the victim sent before the stop may still be
+                # on its way to the store (a done-CAS): the leases count
+                # once a second read, CTR_SETTLE_S later, shows them as
+                # they were. Only a first lease (failures 0) is taken:
+                # one the victim re-claimed from the survivor would come
+                # back to the survivor with a second failure
+                time.sleep(CTR_SETTLE_S)
+                if victim_leases() == held and all(
+                        r["failures"] == 0 for r in held.values()):
+                    break
             os.killpg(vproc.pid, signal.SIGCONT)
             alive_or_fail("before the victim held a lease")
             time.sleep(0.005)
@@ -5741,6 +6177,11 @@ def phase_ctr_elastic(pool: DistillPool, t_start: float) -> dict:
             for k in held:
                 if k not in reclaimed and table[k]["owner"] == survivor:
                     reclaimed[k] = time.time()
+                if table[k]["owner"] == victim and table[k]["state"] != \
+                        "pending":
+                    fail(f"elastic ctr: the victim's lease {k} ended "
+                         f"{table[k]['state']} by the victim after it was "
+                         "stopped (a request in flight at the stop)")
             if sproc.poll() is not None and len(reclaimed) < len(held):
                 fail("elastic ctr: the survivor exited before it took the "
                      "victim's lease")
@@ -5787,7 +6228,7 @@ def phase_ctr_elastic(pool: DistillPool, t_start: float) -> dict:
              f"epoch: {out['states_by_epoch']}")
     if not (all(s >= 0 for s in out["redispense_after_deadline_s"].values())
             and all(f["state"] == "done" and f["owner"] == survivor
-                    and f["failures"] >= 1 for f in out["final"].values())):
+                    and f["failures"] == 1 for f in out["final"].values())):
         fail(f"elastic ctr: the victim's leases {out['held']} were not "
              f"re-dispensed to {survivor} after their deadlines: "
              f"{out['final']}")

@@ -13,7 +13,9 @@ Layout mapping (flax kernel -> torch weight):
 - ``out`` (H, Dh, d) -> Linear (d, H*Dh)
 - ``mlp_in``/``mlp_out``/``lm_head`` (in, out) -> Linear (out, in)
 - LayerNorm ``scale``/``bias`` -> ``weight``/``bias``
-- ``tok_embed/embedding`` and ``pos_embed`` copy as they are.
+- ``tok_embed/embedding`` and ``pos_embed`` copy as they are, and so do
+  a MoE block's ``moe_mlp`` ``router`` (d, E), ``w_in`` (E, d, d_ff) and
+  ``w_out`` (E, d_ff, d).
 
 ResNet, VGG, MLP, the text classifiers and DeepFM
 (``flax_variables_to_torch`` / ``torch_to_flax_variables``): the flax
@@ -196,6 +198,10 @@ def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
                 kern.reshape(kern.shape[0], -1).T)
         out = np.asarray(attn["out"]["kernel"])
         sd[f"{name}.attn.out.weight"] = _t(out.reshape(-1, out.shape[-1]).T)
+        if "moe_mlp" in blk:              # the MoE tables, as they are
+            for leaf in ("router", "w_in", "w_out"):
+                sd[f"{name}.moe_mlp.{leaf}"] = _t(blk["moe_mlp"][leaf])
+            continue
         for mlp in ("mlp_in", "mlp_out"):
             sd[f"{name}.{mlp}.weight"] = _t(np.asarray(blk[mlp]["kernel"]).T)
     sd["ln_final.weight"] = _t(params["ln_final"]["scale"])
@@ -587,9 +593,14 @@ def _write_state(tree: dict, state):
 # ``Shard``s: this rank's slice in the flax layout, where it lies in the
 # whole leaf, and the whole leaf's shape (what the JAX package's
 # snapshot_shards writes for an addressable shard). The fused optimizer's
-# fp32 moments live in buckets over the slices, while the JAX tree holds
+# moments live in buckets over the slices, while the JAX tree holds
 # buckets over whole leaves: each sharded leaf's moment is gathered and
-# the whole-leaf buckets written once, by rank 0.
+# the whole-leaf buckets written once, by rank 0. Quantized moments (one
+# scale a bucket) go through fp32: the slices' planes dequantized,
+# gathered, and quantized once a whole-leaf bucket with the codec the
+# JAX package's would use on those values; a restore dequantizes the
+# whole-leaf buckets and requantizes each rank's slices at their own
+# buckets' scales (each moment within one quantization step).
 
 
 class Shard(collections.namedtuple("Shard", ("array", "offset", "shape"))):
@@ -625,6 +636,7 @@ def sharded_state_tree(state) -> TrainStateTree:
     sharded parameters (and torch.optim moments) as :class:`Shard`s,
     every other leaf whole. Collective over the world under the fused
     optimizer (each sharded leaf's moments are gathered)."""
+    from edl_tpu_torch.ops import opt_kernels as ok
     from edl_tpu_torch.parallel.sharding import gather_like
     from edl_tpu_torch.train import comm as comm_lib
 
@@ -641,24 +653,36 @@ def sharded_state_tree(state) -> TrainStateTree:
     for (name, p), spec in zip(state.params, specs):
         _insert(params, flax_path(name), leaf(name, p, spec))
     if _is_fused(tx):
-        if bool(st.m) and isinstance(st.m[0], tuple):
-            raise NotImplementedError(
-                "checkpoints of sharded states with quantized moments: the "
-                "JAX tree's one scale a whole-leaf bucket has no exact "
-                "counterpart over the slices' buckets (ROADMAP Queue 3)")
         shard_plan = tx.plan(state.params)
         full = _full_plan(tx, state)
 
         def whole(seq):
+            """fp32 moment buckets over the slices -> over whole leaves."""
             leaves = comm_lib.unpack_buckets(list(seq), shard_plan)
             leaves = [gather_like(t, s) if s is not None else t
                       for t, s in zip(leaves, specs)]
-            return tuple(bucket_layout(_n(b), pb, names, n_heads)
-                         for b, pb in zip(comm_lib.pack_buckets(leaves, full),
-                                          full.buckets))
+            return comm_lib.pack_buckets(leaves, full)
 
-        opt_tree = FusedOptTree(np.asarray(int(st.count), np.int32),
-                                whole(st.m), whole(st.v))
+        def flax_q(seq, codec):
+            """QPlanes over the slices -> fp32 (the plain codec) -> whole
+            leaves -> one QPlane a whole-leaf bucket: the layout, scales
+            and bytes a dp run holding those moments writes."""
+            out = []
+            for b, pb in zip(whole([ok.dequant_plane(pl, codec)
+                                    for pl in seq]), full.buckets):
+                q, scale, rq, rscale = ok.quant_plane(b, codec)
+                out.append(QPlaneTree(
+                    bucket_layout(_n(q), pb, names, n_heads), _n(scale),
+                    bucket_layout(_n(rq), pb, names, n_heads), _n(rscale)))
+            return tuple(out)
+
+        if bool(st.m) and isinstance(st.m[0], tuple):
+            m, v = flax_q(st.m, tx.quant), flax_q(st.v, ok.V_QUANT)
+        else:
+            m, v = (tuple(bucket_layout(_n(b), pb, names, n_heads)
+                          for b, pb in zip(whole(seq), full.buckets))
+                    for seq in (st.m, st.v))
+        opt_tree = FusedOptTree(np.asarray(int(st.count), np.int32), m, v)
     else:
         kind = _torch_kind(tx)
         slots = _SLOTS[kind]
@@ -716,7 +740,11 @@ def flax_to_state_sharded(read, state):
     (the state dict's path of str keys, e.g. ("params", "lm_head",
     "kernel") or ("opt_state", "m", "0")). A fused moment bucket is read
     slot by slot, each sharded leaf's slot then cut to this rank's slice.
-    Raises ValueError on a shape or dtype that does not match."""
+    Quantized moments are dequantized whole, cut to this rank's slices
+    and requantized at the slices' buckets' own scales: each moment ends
+    within one quantization step of the saved one. Raises ValueError on a
+    shape or dtype that does not match."""
+    from edl_tpu_torch.ops import opt_kernels as ok
     from edl_tpu_torch.train import comm as comm_lib
 
     model, tx, st = state.model, state.tx, state.opt_state
@@ -742,19 +770,33 @@ def flax_to_state_sharded(read, state):
     for name, b in _bn_buffers(model):
         _put(b, read(("batch_stats",) + flax_path(name), None), name)
     if _is_fused(tx):
-        if bool(st.m) and isinstance(st.m[0], tuple):
-            raise NotImplementedError(
-                "restoring quantized moments into a sharded state "
-                "(ROADMAP Queue 3)")
         full = _full_plan(tx, state)
         shard_plan = tx.plan(state.params)
+        quant = bool(st.m) and isinstance(st.m[0], tuple)
+        codecs = {"m": tx.quant, "v": ok.V_QUANT}
         for key, seq in (("m", st.m), ("v", st.v)):
-            views = comm_lib.unpack_buckets(list(seq), shard_plan)
-            for i, b in enumerate(full.buckets):
+            # quantized moments: the whole-leaf buckets dequantized (the
+            # plain codec), each slice cut from them into fp32 buckets
+            # over the slices, then requantized at those buckets' scales
+            bufs = ([torch.empty(b.padded, dtype=torch.float32)
+                     for b in shard_plan.buckets][:len(seq)] if quant
+                    else list(seq))
+            if quant:
+                for buf in bufs:
+                    buf.zero_()
+            views = comm_lib.unpack_buckets(bufs, shard_plan)
+            for i, b in enumerate(full.buckets if seq else ()):
+                whole_q = None
+                if quant:
+                    path = ("opt_state", key, str(i))
+                    whole_q = ok.dequant_plane(ok.QPlane(*(
+                        torch.as_tensor(np.asarray(read(path + (f,), None)))
+                        for f in _QFIELDS)), codecs[key]).numpy()
                 for s in b.slots:
                     name, spec = names[s.leaf], specs[s.leaf]
-                    flat = read(("opt_state", key, str(i)),
-                                (slice(s.offset, s.offset + s.size),))
+                    flat = (whole_q[s.offset:s.offset + s.size] if quant
+                            else read(("opt_state", key, str(i)),
+                                      (slice(s.offset, s.offset + s.size),)))
                     fshape = to_flax_layout(
                         name, np.empty(s.shape, np.int8), n_heads).shape
                     piece = np.asarray(flat).reshape(fshape)
@@ -768,6 +810,10 @@ def flax_to_state_sharded(read, state):
                     _put(dst, from_flax_layout(name, piece,
                                                tuple(dst.shape)),
                          f"opt_state.{key}[{i}].{name}")
+            if quant:
+                for plane, buf in zip(seq, bufs):
+                    ok._store(plane, ok._rq2(buf.to(plane.q.device),
+                                             codecs[key]))
         state.opt_state = st._replace(
             count=int(np.asarray(read(("opt_state", "count"), None))))
     else:

@@ -1,6 +1,6 @@
 """Peer-to-peer live state migration: the resize path without the disk
 (copy of ``edl_tpu.collective.migration`` but its expert-table paths,
-ROADMAP Queue 1 item 14c).
+the reshards of an ep resize: ROADMAP Queue 1 item 14(d)).
 
 - every trainer under the elastic launcher runs a **donor server**: the
   newest SEALED checkpoint snapshot (the checkpoint manager's retained

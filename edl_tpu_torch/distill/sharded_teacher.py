@@ -9,9 +9,10 @@ launches each device's share (the launches are asynchronous, so the
 cards run together) and fetches each share's output, dropping the pad
 rows. Data-parallel inference needs no collective, so this is no world
 of ranks and joins no process group. One device is the same path with
-one share. A tensor-parallel (``tp``) teacher, whose parameters no
-single card holds, is not ported: ``parse_local_mesh`` refuses it,
-naming ROADMAP Queue 1 item 14.
+one share. A tensor- or sequence-parallel (``tp``, ``sp``) teacher,
+whose parameters or sequence no single card holds, needs several cards
+in one process: ``parse_local_mesh`` refuses it, naming ROADMAP Queue 1
+item 14(d).
 
 ``serve_topk`` runs ``torch.topk`` on the device, over the last axis,
 and packs (idx bits, values) into ONE fp32 tensor, so each share pays a
@@ -49,7 +50,7 @@ def parse_local_mesh(spec: str, device: str | torch.device = "cuda"
     product of the data axes' sizes (dp, fsdp), ``cuda:0`` up (raises
     when the host has fewer cards), or that many CPU replicas with
     ``device="cpu"``. Any other axis above size 1 (tp, sp, ...) raises
-    NotImplementedError naming ROADMAP Queue 1 item 14."""
+    NotImplementedError naming ROADMAP Queue 1 item 14(d)."""
     axes = {}
     for part in spec.split(","):
         name, _, size = part.partition("=")
@@ -58,7 +59,7 @@ def parse_local_mesh(spec: str, device: str | torch.device = "cuda"
     if others:
         raise NotImplementedError(
             f"a local mesh over {others} (a sharded teacher) is not ported "
-            "yet (ROADMAP Queue 1 item 14); serve with dp only")
+            "yet (ROADMAP Queue 1 item 14(d)); serve with dp only")
     n = int(np.prod([axes.get(a, 1) for a in BATCH_AXES]))
     dev = resolve_device(device)
     if dev.type == "cpu":

@@ -15,9 +15,7 @@ streamed-vocab loss (``ops/fused_xent.py``; training and eval),
 checkpoints (async by default; ``--ckpt-sharded`` for the chunk format)
 that the JAX package reads, and a run on a dir that holds one resumes
 from it; ``--loader-workers`` forks the shared-memory loader;
-``--profile DIR`` writes a torch.profiler trace of steps 10-15. The
-flags this slice does not carry (``--moe``, ``--mesh sp``) exit before
-any work, naming the ROADMAP item that brings them.
+``--profile DIR`` writes a torch.profiler trace of steps 10-15.
 
 A world of ranks comes from the launcher's env (``EDL_TPU_RANK``,
 ``EDL_TPU_WORLD_SIZE``, ``EDL_TPU_COORDINATOR``; rank r on
@@ -32,6 +30,21 @@ writes each rank's chunks. ``--dcn-compress off|topk|int8`` and/or
 ``--comm-bucket-mb`` (or their env knobs) build ``train/comm``'s
 ``CommTrainStep`` over the transformer (K8 on the int8 wire). The JAX
 CLI's conflicts between these flags exit with its words.
+
+``--mesh sp`` is sequence parallelism over the world's ranks: the port's
+ranks play the part of the devices that the JAX package's single process
+spans (which is why the JAX CLI refuses sp in a world of processes:
+its processes would read divergent batches). Every rank reads the same
+global batch, runs its block of the sequence (``--seq-len`` must divide
+over the ranks) with ring attention (``parallel/ring_attention.py``; the
+flash body, K1-K3 on each block pair, on a card) and sums its gradients
+with the others' (``train/step.WorldTrainStep``). ``--moe`` swaps each
+block's MLP for the mixture of experts (``--n-experts``, default 2 x
+world, ``--moe-top-k``) and trains through ``train/comm.MoECommStep``
+over an ep mesh of every rank: each rank routes its own rows, and the
+expert slots go to their owners by ``--moe-dispatch flat|hier`` with
+``--moe-compress off|int8`` on the cross-slice leg (K8 on the card).
+``--moe --ckpt-sharded`` exits, naming ROADMAP Queue 1 item 14(d).
 
   python -m edl_tpu_torch.examples.lm_train --device cpu \\
       --make-synthetic 1 --data-dir "$(mktemp -d)" --d-model 64 \\
@@ -49,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import sys
 import time
@@ -62,15 +76,17 @@ from edl_tpu_torch.collective.job_env import TrainerEnv
 from edl_tpu_torch.data.pipeline import DataLoader, FileSource
 from edl_tpu_torch.models.transformer import (Transformer, TransformerConfig,
                                               auto_remat, lm_loss_fn,
-                                              lm_loss_fused)
+                                              lm_loss_fused, lm_loss_moe)
 from edl_tpu_torch.parallel import distributed
 from edl_tpu_torch.parallel.mesh import MeshSpec
+from edl_tpu_torch.parallel.ring_attention import SeqParallel
 from edl_tpu_torch.parallel.sharding import shard_module
 from edl_tpu_torch.train import lr as lr_lib
 from edl_tpu_torch.train import state as state_lib
 from edl_tpu_torch.train.amp import DynamicLossScale
 from edl_tpu_torch.train.benchlog import BenchmarkLog
-from edl_tpu_torch.train.comm import CommConfig
+from edl_tpu_torch.train.comm import (CommConfig, MoEDispatchConfig,
+                                      make_moe_comm_step)
 from edl_tpu_torch.train.fused_opt import make_fused_tx
 from edl_tpu_torch.train.loop import LoopConfig, TrainLoop
 from edl_tpu_torch.train.step import make_train_step
@@ -213,7 +229,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.fp16 and args.bf16:
         parser.error("--fp16 and --bf16 are mutually exclusive")
-    _refuse_unported(args)
+    _refuse_conflicts(args)
     if 0 < args.schedule_epochs < args.epochs:
         raise SystemExit(
             f"--schedule-epochs {args.schedule_epochs} < --epochs "
@@ -270,6 +286,24 @@ def main(argv=None) -> int:
                              "owns the backward's reduction)")
         comm_cfg = CommConfig(bucket_mb=comm_bucket_mb or 4.0,
                               compress=dcn_compress)
+    # the MoE dispatch: CLI > env (LoopConfig binding) > hier/off
+    moe_dispatch = (args.moe_dispatch if args.moe_dispatch is not None
+                    else loop_cfg.moe_dispatch)
+    moe_compress = (args.moe_compress if args.moe_compress is not None
+                    else loop_cfg.moe_compress)
+    if args.moe and dcn_compress != "off":
+        raise SystemExit("--dcn-compress compresses the dp gradient "
+                         "wire; under --moe the wire knob is "
+                         "--moe-compress (gradient compression over "
+                         "the ep axis is not parity-gated yet)")
+    if kind == "sp" and args.seq_len % world:
+        raise SystemExit(f"--mesh sp shards the sequence over {world} "
+                         f"devices; --seq-len {args.seq_len} is not "
+                         f"divisible by {world}")
+    if args.moe and args.batch_size % world:
+        raise SystemExit(f"--moe routes per chip: --batch-size "
+                         f"{args.batch_size} must divide over {world} "
+                         "devices")
     device = distributed.rank_device(device, rank)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -286,15 +320,28 @@ def main(argv=None) -> int:
                    if f.startswith("train-") and f.endswith(".npz"))
     if not files:
         raise SystemExit(f"no train-*.npz under {args.data_dir}")
-    if args.batch_size % world:
+    # the batch is split over the data replicas; the sp ranks of a
+    # replica all read its whole batch and each runs its sequence block
+    replicas = 1 if kind == "sp" else world
+    if args.batch_size % replicas:
         raise SystemExit("global batch not divisible by world")
-    local_bs = args.batch_size // world
-
+    local_bs = args.batch_size // replicas
+    # the mesh (collective: every rank builds its groups): hybrid when the
+    # job declares slices, flat otherwise; a world of one has none but
+    # under --moe, whose step owns an ep mesh of any size
+    mesh = (distributed.make_mesh_from_env(
+        MeshSpec({"ep" if args.moe else kind: -1}), env)
+        if world > 1 or args.moe else None)
+    moe_kw = {}
+    if args.moe:
+        moe_kw = dict(moe=True, n_experts=args.n_experts or 2 * world,
+                      moe_top_k=args.moe_top_k)
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff, max_len=args.seq_len,
         dtype=(torch.float16 if args.fp16
-               else torch.bfloat16 if args.bf16 else torch.float32))
+               else torch.bfloat16 if args.bf16 else torch.float32),
+        sp=SeqParallel.of(mesh) if kind == "sp" else None, **moe_kw)
     if args.remat != "off":
         cfg = (auto_remat(cfg, local_bs, device=device)
                if args.remat == "auto"
@@ -302,10 +349,6 @@ def main(argv=None) -> int:
         log.info("remat=%s (mode %s)", cfg.remat, args.remat)
     model = Transformer(cfg, device=device, seed=args.seed)
     model.train()
-    # the mesh (collective: every rank builds its groups): hybrid when the
-    # job declares slices, flat otherwise; only a world above one has one
-    mesh = (distributed.make_mesh_from_env(MeshSpec({kind: -1}), env)
-            if world > 1 else None)
     if kind == "fsdp" and mesh is not None:
         # this rank keeps its slice of each leaf the rules shard (the
         # JAX package's init_sharded; the init is the same on every rank)
@@ -314,8 +357,9 @@ def main(argv=None) -> int:
                  len(specs), len(list(model.parameters())), world)
 
     source = FileSource(files)
-    loader = DataLoader(source, local_bs, rank=rank, world=world,
-                        seed=args.seed, num_workers=loader_workers)
+    loader = DataLoader(source, local_bs, rank=rank if replicas > 1 else 0,
+                        world=replicas, seed=args.seed,
+                        num_workers=loader_workers)
     steps_per_epoch = loader.steps_per_epoch()
     total_steps = steps_per_epoch * (args.schedule_epochs or args.epochs)
     # --batch-size is GLOBAL: LR stays batch-tied across elastic resizes
@@ -330,7 +374,9 @@ def main(argv=None) -> int:
     # the buckets follow the flax flatten order, as the JAX package's do
     state = state_lib.TrainState.create(
         model=model, tx=tx, params=flax_named_parameters(model))
-    loss_fn = lm_loss_fused if args.fused_loss else lm_loss_fn
+    loss_fn = (functools.partial(lm_loss_moe, aux_weight=cfg.moe_aux_weight)
+               if args.moe else lm_loss_fused if args.fused_loss
+               else lm_loss_fn)
     if args.fp16:
         # TrainLoop's contract is step(state, batch); the loss-scale state
         # rides a closure cell. It is not checkpointed: after a restart
@@ -341,6 +387,16 @@ def main(argv=None) -> int:
         def step(state, batch):
             state, metrics, ls_box[0] = raw_step(state, batch, ls_box[0])
             return state, metrics
+    elif args.moe:
+        # each rank routes its own rows; the wire takes the expert slots
+        # to their owners (the dense einsum dispatch is eval's)
+        step = make_moe_comm_step(
+            lambda wire: functools.partial(loss_fn, wire=wire), mesh=mesh,
+            topology=distributed.slice_topology(env), config=comm_cfg,
+            moe_config=MoEDispatchConfig(mode=moe_dispatch,
+                                         compress=moe_compress))
+        log.info("moe path: E=%d top_k=%d dispatch=%s compress=%s",
+                 cfg.n_experts, cfg.moe_top_k, moe_dispatch, moe_compress)
     elif comm_cfg is not None:
         step = make_train_step(loss_fn, comm=comm_cfg,
                                topology=distributed.slice_topology(env))
@@ -396,7 +452,7 @@ def main(argv=None) -> int:
     data_fn.close = loader.close  # TrainLoop tears down the mp workers
     status = loop.run(data_fn)
     blog.extra(**loop.ckpt_stats())  # save-stall / restore accounting
-    if comm_cfg is not None:
+    if comm_cfg is not None or args.moe:
         blog.extra(**step.stats())  # bucket plan + wire accounting
     if rank == 0 and args.benchmark_log:
         blog.write(args.benchmark_log, rank)
@@ -408,10 +464,6 @@ def main(argv=None) -> int:
     return 0
 
 
-def _unported(what: str, item: int) -> str:
-    return f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
-
-
 # the JAX package's refusal, word for word
 _FP16_QUANT = (
     "--fused-opt int8/fp8 is not supported with --fp16: on a "
@@ -421,21 +473,31 @@ _FP16_QUANT = (
     "rollback-safe) or bf16/fp32 activations.")
 
 
-def _refuse_unported(args) -> None:
-    """Exit, before any work, on a flag this slice does not carry (after
-    the JAX CLI's own conflict of the legacy alias)."""
+def _refuse_conflicts(args) -> None:
+    """Exit, before any work, on the JAX CLI's flag conflicts that need
+    no world (in its words)."""
     if args.fp16 and args.fused_opt in ("int8", "fp8"):
         raise SystemExit(_FP16_QUANT)
     if args.fsdp and args.mesh != "dp":
         raise SystemExit("--fsdp is a legacy alias of --mesh fsdp; "
                          f"it conflicts with --mesh {args.mesh}")
-    refused = [
-        (args.moe, "--moe (mixture-of-experts blocks and dispatch)", 14),
-        (args.mesh == "sp", "--mesh sp (ring attention)", 14),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise SystemExit(_unported(what, item))
+    kind = "fsdp" if args.fsdp else args.mesh
+    if args.moe:
+        if kind != "dp":
+            raise SystemExit(f"--moe owns the ep mesh (expert tables "
+                             f"sharded over every chip); --mesh {kind} "
+                             "conflicts")
+        if args.fp16:
+            raise SystemExit("--moe is not supported with --fp16 (the "
+                             "MoE comm step owns the backward; no "
+                             "loss-scale hook)")
+        if args.fused_loss:
+            raise SystemExit("--fused-loss has no MoE variant (the MoE "
+                             "loss collects router aux terms)")
+        if args.ckpt_sharded:
+            raise SystemExit(
+                "--moe with --ckpt-sharded writes ep-sharded expert "
+                "chunks; not ported yet (ROADMAP Queue 1 item 14(d))")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,25 @@
-"""Decoder-only transformer LM, dense, for serving and training (port
-of ``edl_tpu.models.transformer``), its losses ``lm_loss_fn`` and
-``lm_loss_fused`` (the streamed-vocab loss, ``ops/fused_xent.py``), and
-the remat knob ``choose_remat``/``auto_remat``.
+"""Decoder-only transformer LM, for serving and training (port of
+``edl_tpu.models.transformer``), its losses ``lm_loss_fn``,
+``lm_loss_fused`` (the streamed-vocab loss, ``ops/fused_xent.py``) and
+``lm_loss_moe``, the mixture of experts (``moe_capacity``,
+``router_topk``, ``MoEMLP``), and the remat knob
+``choose_remat``/``auto_remat``.
+
+Sequence parallelism: with ``cfg.sp`` (a
+``parallel/ring_attention.SeqParallel`` of more than one rank) the model
+takes this rank's block of the sequence, its positions offset by the
+block's start, and attention is the ring (``ring_attention``: the flash
+body where ``cfg.use_flash`` picks the kernel, on a card under "auto",
+else the dense body; the JAX model runs the dense ring). The losses take
+the whole batch and return the whole sequence's loss (``_sp_loss``).
+
+Mixture of experts: ``moe=True`` swaps each block's MLP for ``MoEMLP``
+(its parameters ``block{i}.moe_mlp.router``, ``.w_in``, ``.w_out``, the
+flax layouts). The dispatch is the dense einsum over every expert, or a
+wire (``train/comm.MoEWire``) that sends each expert's slots to the rank
+that owns it. The expert math is plain torch, as in the JAX package,
+where no Pallas kernel computes it. flax's ``sow`` of the router's aux
+terms is each ``MoEMLP``'s ``last_aux``, read by ``lm_loss_moe``.
 
 Parameters are fp32 and computation runs in ``cfg.dtype`` (bf16 by
 default), as in the flax model: every projection casts its input and its
@@ -41,7 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
@@ -52,7 +70,9 @@ from torch.utils.checkpoint import checkpoint
 from edl_tpu_torch import resolve_device
 from edl_tpu_torch.ops.flash_attention import flash_attention
 from edl_tpu_torch.ops.fused_xent import streamed_lm_xent
-from edl_tpu_torch.parallel.ring_attention import dense_attention
+from edl_tpu_torch.parallel import distributed
+from edl_tpu_torch.parallel.ring_attention import (dense_attention,
+                                                   ring_attention)
 from edl_tpu_torch.parallel.sharding import full
 
 
@@ -69,18 +89,33 @@ class TransformerConfig:
     remat: bool = False
     # "auto" = the flash kernel when the input is on CUDA and the
     # sequence is 128-divisible, else dense; "flash"/"dense" force one.
+    # Under an sp ring the same rule picks the ring's body.
     attention: str = "auto"
-    mesh: Any = None
+    # the sequence-parallel ring (parallel/ring_attention.SeqParallel):
+    # set with more than one rank, the model takes this rank's block of
+    # the sequence and attention is the ring. None = the whole sequence.
+    sp: Any = field(default=None, compare=False, hash=False)
+    # mixture of experts: moe=True swaps each block's MLP for MoEMLP, a
+    # top-k capacity-factor router over n_experts gelu FFNs
     moe: bool = False
+    n_experts: int = 8
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     def __post_init__(self):
         if self.moe:
-            raise NotImplementedError(
-                "mixture-of-experts blocks are not ported yet")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "cfg.mesh is the JAX model's sharding-constraint seam; the "
-                "port shards the module (parallel/sharding.shard_module)")
+            if self.n_experts < 2:
+                raise ValueError(
+                    f"moe needs n_experts >= 2, got {self.n_experts}")
+            if not 1 <= self.moe_top_k <= self.n_experts:
+                raise ValueError(
+                    f"moe_top_k must be in [1, n_experts="
+                    f"{self.n_experts}], got {self.moe_top_k}")
+            if self.moe_capacity_factor <= 0:
+                raise ValueError(
+                    f"moe_capacity_factor must be > 0, got "
+                    f"{self.moe_capacity_factor}")
         if self.attention not in ("auto", "flash", "dense"):
             raise ValueError(f"unknown attention={self.attention!r} "
                              "(auto|flash|dense)")
@@ -91,6 +126,10 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def use_ring(self) -> bool:
+        return self.sp is not None and self.sp.size > 1
 
     def use_flash(self, seq_len: int, device: torch.device | str) -> bool:
         if self.attention != "auto":
@@ -136,12 +175,117 @@ class Attention(nn.Module):
         q = F.linear(x, full(self.query.weight).to(cfg.dtype)).view(heads)
         k = F.linear(x, full(self.key.weight).to(cfg.dtype)).view(heads)
         v = F.linear(x, full(self.value.weight).to(cfg.dtype)).view(heads)
-        if cfg.use_flash(s, x.device):
+        if cfg.use_ring:
+            o = ring_attention(q, k, v, sp=cfg.sp, causal=True,
+                               use_flash=cfg.use_flash(s, x.device))
+        elif cfg.use_flash(s, x.device):
             o = flash_attention(q, k, v, causal=True)
         else:
             o = dense_attention(q, k, v, causal=True)
         return F.linear(o.reshape(b, s, -1),
                         full(self.out.weight).to(cfg.dtype))
+
+
+def moe_capacity(n_tokens: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Per-expert token buffer size: ceil(cf * T * k / E), at least 1."""
+    return max(1, math.ceil(capacity_factor * n_tokens * top_k
+                            / n_experts))
+
+
+def router_topk(logits: torch.Tensor, top_k: int, capacity: int
+                ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Top-k capacity-factor routing (Switch/GShard style), the JAX
+    package's dense math.
+
+    logits: (T, E) router scores. Each token picks its top_k experts by
+    softmax probability (ties to the lower expert, as ``lax.top_k``);
+    within each expert, slots are granted choice-major (every token's
+    first choice before any second choice), and assignments past
+    ``capacity`` are dropped: they vanish from dispatch and combine, and
+    the token's output falls through the residual connection.
+
+    Returns ``(combine, dispatch, aux)``: combine (T, E, C) fp32 gate
+    weights (renormalized over the top-k), dispatch (T, E, C) bool, and
+    aux = {load_balance (the Shazeer
+    f·p loss, 1.0 at perfect balance), dropped_frac (the dropped share of
+    the T*k assignments)}.
+    """
+    t, e = logits.shape
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[:, :top_k], idx[:, :top_k]                   # (T, k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    oh = F.one_hot(idx, e).float()                                # (T,k,E)
+    # each assignment's slot in its expert's buffer, choice-major
+    flat = oh.transpose(0, 1).reshape(top_k * t, e)
+    pos_flat = torch.cumsum(flat, dim=0) - flat
+    pos = (pos_flat * flat).sum(-1).reshape(top_k, t).t().long()  # (T, k)
+    kept = pos < capacity
+    # the out-of-range slot `capacity` one-hots to the all-zero row, so a
+    # dropped assignment leaves dispatch and combine alike
+    pos_oh = F.one_hot(torch.where(kept, pos, torch.full_like(pos, capacity)),
+                       capacity + 1)[..., :capacity].float()      # (T,k,C)
+    dispatch = torch.einsum("tke,tkc->tec", oh, pos_oh) > 0
+    combine = torch.einsum("tk,tke,tkc->tec", gate, oh, pos_oh)
+    f = oh.sum(dim=1).mean(dim=0) / top_k                         # (E,)
+    p = probs.mean(dim=0)
+    aux = {"load_balance": e * (f * p).sum(),
+           "dropped_frac": 1.0 - kept.float().mean()}
+    return combine, dispatch, aux
+
+
+class MoEMLP(nn.Module):
+    """The expert-parallel MLP: the router (d_model, E), the expert
+    tables ``w_in`` (E, d_model, d_ff) and ``w_out`` (E, d_ff, d_model),
+    in the flax layouts (``bridge`` copies them as they are).
+
+    With ``wire`` None (the default) every expert runs here over the
+    dense (E, C, d) dispatch buffer. With a wire (train/comm.MoEWire)
+    the buffer goes to the experts' owner ranks and back; each rank runs
+    only its local experts. The router's aux terms of the last forward
+    stay in ``last_aux`` (flax's ``sow``), which ``lm_loss_moe`` reads.
+    """
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e = cfg.n_experts
+        self.router = nn.Parameter(torch.empty(cfg.d_model, e,
+                                               device=device))
+        self.w_in = nn.Parameter(torch.empty(e, cfg.d_model, cfg.d_ff,
+                                             device=device))
+        self.w_out = nn.Parameter(torch.empty(e, cfg.d_ff, cfg.d_model,
+                                              device=device))
+        self.last_aux: dict = {}
+
+    def forward(self, x: torch.Tensor, wire=None) -> torch.Tensor:
+        cfg = self.cfg
+        dt = cfg.dtype
+        b, s, d = x.shape
+        t = b * s
+        cap = moe_capacity(t, cfg.n_experts, cfg.moe_top_k,
+                           cfg.moe_capacity_factor)
+        xf = x.reshape(t, d)
+        logits = xf.float() @ full(self.router).float()
+        combine, dispatch, aux = router_topk(logits, cfg.moe_top_k, cap)
+        self.last_aux = aux
+        buf = torch.einsum("tec,td->ecd", dispatch.to(dt), xf)
+        w_in, w_out = full(self.w_in), full(self.w_out)
+        if wire is None:
+            h = torch.einsum("ecd,edf->ecf", buf, w_in.to(dt))
+            h = F.gelu(h, approximate="tanh")
+            out = torch.einsum("ecf,efd->ecd", h, w_out.to(dt))
+        else:
+            recv = wire.dispatch(buf)               # (E/W, W*cap, d)
+            h = torch.einsum("ecd,edf->ecf", recv,
+                             wire.local_slice(w_in).to(dt))
+            h = F.gelu(h, approximate="tanh")
+            out = torch.einsum("ecf,efd->ecd", h,
+                               wire.local_slice(w_out).to(dt))
+            out = wire.combine(out)                 # back to (E, cap, d)
+        y = torch.einsum("tec,ecd->td", combine.to(dt), out)
+        return y.reshape(b, s, d)
 
 
 class Block(nn.Module):
@@ -151,12 +295,17 @@ class Block(nn.Module):
         self.ln_attn = LayerNorm(cfg.d_model, cfg.dtype, device)
         self.attn = Attention(cfg, device)
         self.ln_mlp = LayerNorm(cfg.d_model, cfg.dtype, device)
-        self.mlp_in = _linear(cfg.d_model, cfg.d_ff, device)
-        self.mlp_out = _linear(cfg.d_ff, cfg.d_model, device)
+        if cfg.moe:
+            self.moe_mlp = MoEMLP(cfg, device)
+        else:
+            self.mlp_in = _linear(cfg.d_model, cfg.d_ff, device)
+            self.mlp_out = _linear(cfg.d_ff, cfg.d_model, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, wire=None) -> torch.Tensor:
         dt = self.cfg.dtype
         x = x + self.attn(self.ln_attn(x))
+        if self.cfg.moe:
+            return x + self.moe_mlp(self.ln_mlp(x), wire)
         h = F.linear(self.ln_mlp(x), full(self.mlp_in.weight).to(dt))
         h = F.gelu(h, approximate="tanh")
         return x + F.linear(h, full(self.mlp_out.weight).to(dt))
@@ -201,25 +350,38 @@ class Transformer(nn.Module):
                 nn.init.normal_(mod.weight, 0.0,
                                 1.0 / math.sqrt(mod.in_features),
                                 generator=gen)
+            elif isinstance(mod, MoEMLP):
+                # flax: normal(0.02) for the router, fan_in normal over
+                # each expert's (in, out) table
+                nn.init.normal_(mod.router, 0.0, 0.02, generator=gen)
+                for w in (mod.w_in, mod.w_out):
+                    nn.init.normal_(w, 0.0, 1.0 / math.sqrt(w.shape[1]),
+                                    generator=gen)
 
-    def forward(self, tokens: torch.Tensor,
-                return_hidden: bool = False) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False,
+                moe_wire=None) -> torch.Tensor:
         """Logits (B, S, vocab) fp32, or with ``return_hidden`` the
         final-LayerNorm hidden states (B, S, d_model) in ``cfg.dtype``,
         the input of the streamed-vocab loss, which reads the lm_head
-        weight itself."""
+        weight itself. Under an sp ring ``tokens`` is this rank's block of
+        the sequence, at positions ``sp.index * S``. ``moe_wire`` is the
+        expert dispatch's transport (train/comm.MoEWire; the JAX package
+        rebinds its config's), None the dense einsum dispatch over every
+        expert on this rank."""
         cfg = self.cfg
         if self.training and cfg.dropout > 0:
             raise NotImplementedError(
                 "dropout in training is not ported (flax nn.Dropout): no "
                 "JAX trainer passes it a 'dropout' rng stream either")
         s = tokens.shape[1]
+        lo = cfg.sp.index * s if cfg.use_ring else 0
         x = F.embedding(tokens.long(), self.tok_embed.weight).to(cfg.dtype)
-        x = x + full(self.pos_embed)[None, :s].to(cfg.dtype)
+        x = x + full(self.pos_embed)[None, lo:lo + s].to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks():
-            x = (checkpoint(block, x, use_reentrant=False) if remat
-                 else block(x))
+            args = (x, moe_wire) if cfg.moe else (x,)
+            x = (checkpoint(block, *args, use_reentrant=False) if remat
+                 else block(*args))
         x = self.ln_final(x)
         if return_hidden:
             return x
@@ -228,14 +390,48 @@ class Transformer(nn.Module):
 
 def lm_loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
     """Causal LM loss for {'tokens': (B, S)} batches: next-token cross
-    entropy from an fp32 log-softmax, with the perplexity in the aux."""
+    entropy from an fp32 log-softmax, with the perplexity in the aux.
+
+    Under an sp ring every rank holds the whole batch and runs its block
+    of the sequence (:func:`_sp_loss`); the loss is the JAX package's
+    mean over all B·(S-1) positions on every rank."""
     tokens = batch["tokens"]
-    logits = model(tokens)[:, :-1]
-    targets = tokens[:, 1:].long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
-    loss = -ll.mean()
+    if model.cfg.use_ring:
+        loss = _sp_loss(model, tokens, lambda blk, targets: -_next_token_ll(
+            model(blk)[:, :targets.shape[1]], targets).sum())
+    else:
+        loss = -_next_token_ll(model(tokens)[:, :-1], tokens[:, 1:]).mean()
     return loss, {"ppl": torch.exp(loss.detach())}
+
+
+def _next_token_ll(logits: torch.Tensor, targets: torch.Tensor
+                   ) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+
+
+def _sp_loss(model: Transformer, tokens: torch.Tensor, part_sum
+             ) -> torch.Tensor:
+    """The whole sequence's mean next-token loss from this rank's block.
+    The rank's positions predict the tokens one to their right, read from
+    the whole batch: the last position of block r predicts the first
+    token of block r+1, and the last block has one target fewer.
+    ``part_sum(block_tokens, targets)`` is the summed loss of those
+    targets; divided by the global B·(S-1), the ring's sum of the ranks'
+    shares is the loss. It is returned on every rank (one all-reduce over
+    the ring) with the gradient of the rank's own share: the world step
+    sums the ranks' gradients over sp."""
+    sp = model.cfg.sp
+    b, s = tokens.shape
+    if s % sp.size:
+        raise ValueError(f"sequence {s} does not split over {sp.size} sp "
+                         "ranks")
+    n = s // sp.size
+    lo = sp.index * n
+    part = part_sum(tokens[:, lo:lo + n],
+                    tokens[:, lo + 1:lo + n + 1]) / (b * (s - 1))
+    total = distributed.all_reduce(part.detach().clone(), sp.group)
+    return total + (part - part.detach())
 
 
 def lm_loss_fused(model: Transformer, batch: dict, *,
@@ -244,13 +440,43 @@ def lm_loss_fused(model: Transformer, batch: dict, *,
     states feed the streamed-vocab cross-entropy, which reads the lm_head
     weight (its transpose, a view: the JAX package's (d, V) kernel)."""
     tokens = batch["tokens"]
-    hidden = model(tokens, return_hidden=True)
-    b, s, d = hidden.shape
-    hidden = hidden[:, :-1].reshape(b * (s - 1), d)
-    targets = tokens[:, 1:].reshape(-1)
-    loss = streamed_lm_xent(hidden, full(model.lm_head.weight).t(), targets,
-                            chunk)
+
+    def mean_xent(blk, targets):
+        hidden = model(blk, return_hidden=True)[:, :targets.shape[1]]
+        return streamed_lm_xent(hidden.reshape(-1, hidden.shape[-1]),
+                                full(model.lm_head.weight).t(),
+                                targets.reshape(-1), chunk)
+
+    if model.cfg.use_ring:
+        loss = _sp_loss(model, tokens, lambda blk, targets: mean_xent(
+            blk, targets) * targets.numel())
+    else:
+        loss = mean_xent(tokens, tokens[:, 1:])
     return loss, {"ppl": torch.exp(loss.detach())}
+
+
+def lm_loss_moe(model: Transformer, batch: dict, *,
+                aux_weight: float = 0.01, wire=None
+                ) -> tuple[torch.Tensor, dict]:
+    """``lm_loss_fn`` for moe=True configs: the next-token cross entropy
+    plus the routers' load-balance auxiliary (``aux_weight`` times its
+    mean over the MoE blocks), with the capacity-drop fraction in the
+    metrics. ``wire`` is the dispatch's transport (the JAX package's
+    ``apply_fn`` of a model rebound to its config's ``moe_wire``)."""
+    tokens = batch["tokens"]
+    logits = model(tokens, moe_wire=wire)
+    ce = -_next_token_ll(logits[:, :-1], tokens[:, 1:]).mean()
+    auxes = [blk.moe_mlp.last_aux for blk in model.blocks()
+             if model.cfg.moe]
+    zero = torch.zeros((), dtype=torch.float32, device=ce.device)
+    balance = (torch.stack([a["load_balance"] for a in auxes]).mean()
+               if auxes else zero)
+    dropped = (torch.stack([a["dropped_frac"] for a in auxes]).mean()
+               if auxes else zero)
+    loss = ce + aux_weight * balance.to(ce.dtype)
+    return loss, {"ppl": torch.exp(ce.detach()),
+                  "moe_balance": balance.detach(),
+                  "moe_dropped": dropped.detach()}
 
 
 def choose_remat(cfg: TransformerConfig, batch_size: int,

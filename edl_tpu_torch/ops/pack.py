@@ -234,6 +234,16 @@ def all_gather_int8(x: torch.Tensor, group=None
     return all_gather_packed(*pack_int8(x), group)
 
 
+def all_to_all_packed(q: torch.Tensor, scale: torch.Tensor, group=None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 ALL-TO-ALL wire of packed blocks: block ``q[i]`` and its
+    scale ``scale[i]`` go to member i of ``group``. Returns the received
+    (q, scales), source-major (dequantize them with
+    :func:`dequantize_int8`)."""
+    return distributed.all_to_all(q, group), distributed.all_to_all(scale,
+                                                                    group)
+
+
 def all_to_all_int8(x: torch.Tensor, group=None) -> torch.Tensor:
     """The int8 ALL-TO-ALL wire: per-destination-block pack (one
     pack_int8_buckets call over the G blocks) -> all_to_all(q, scales) ->
@@ -247,9 +257,7 @@ def all_to_all_int8(x: torch.Tensor, group=None) -> torch.Tensor:
     """
     packed = pack_int8_buckets([x[i].contiguous()
                                 for i in range(x.shape[0])])
-    q = torch.stack([p[0] for p in packed])
-    scale = torch.stack([p[1] for p in packed])
-    q_r = distributed.all_to_all(q, group)
-    s_r = distributed.all_to_all(scale, group)
+    q_r, s_r = all_to_all_packed(torch.stack([p[0] for p in packed]),
+                                 torch.stack([p[1] for p in packed]), group)
     return dequantize_int8(q_r, s_r.reshape((x.shape[0],)
                                             + (1,) * (x.dim() - 1)))

@@ -266,6 +266,68 @@ def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
     return out.to(t.device)
 
 
+def _shift(t: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """Member i's ``t`` to member (i + shift) mod G; returns what member
+    (i - shift) mod G sent."""
+    g = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + shift) % g) \
+        if group is not None else (me + shift) % g
+    src_rank = dist.get_global_rank(group, (me - shift) % g) \
+        if group is not None else (me - shift) % g
+    src = t.contiguous()
+    if _staged(t, group):
+        src = src.cpu()
+    out = torch.empty_like(src)
+    req = dist.isend(src, dst, group=group)
+    dist.recv(out, src_rank, group=group)
+    req.wait()
+    return out.to(t.device)
+
+
+class _PPermute(torch.autograd.Function):
+    """``lax.ppermute`` round a ring; its backward sends the cotangent
+    the other way round, the transpose JAX derives."""
+
+    @staticmethod
+    def forward(ctx, t, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _shift(t, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -ctx.shift), None, None
+
+
+def ppermute(t: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """Member i's ``t`` to member (i + shift) mod G of ``group``
+    (differentiable); the identity for a group of one."""
+    if not is_initialized() or dist.get_world_size(group) == 1:
+        return t
+    return _PPermute.apply(t, group, shift)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` with its own transpose as its backward (block i
+    to member i and back is the same permutation)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(grad, ctx.group), None
+
+
+def all_to_all_grad(t: torch.Tensor, group=None) -> torch.Tensor:
+    """:func:`all_to_all`, differentiable (the MoE dispatch's wire)."""
+    if not is_initialized():
+        return t
+    return _AllToAll.apply(t, group)
+
+
 def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """Rank ``src``'s ``t`` to every member, in place; returns ``t``."""
     if not is_initialized():

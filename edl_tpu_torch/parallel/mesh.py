@@ -17,9 +17,14 @@ to the backend, and the port stages CUDA tensors through host memory on
 gloo.
 
 Axes (any may be size 1): dp (data parallel), fsdp (parameters sharded
-zero-style), tp, sp, ep. Only dp and fsdp run in the port; tp, sp and ep
-resolve here (the arithmetic is shared) and their steps come with
-ROADMAP Queue 1 item 14.
+zero-style), tp, sp, ep. dp and fsdp split the batch
+(``train/step.WorldTrainStep``); sp splits the sequence: its ranks hold
+the same batch and their sequence blocks, and attention is the ring over
+``group("sp")`` (``parallel/ring_attention.py``); ep carries the MoE
+token all-to-all (``train/comm.MoECommStep``: every rank its own rows,
+the expert tables replicated and each rank running its own experts'
+rows). tp resolves here (the arithmetic is shared) and shards nothing
+yet: a tp-sharded teacher comes with ROADMAP Queue 1 item 14(d).
 
 Multi-slice: ``make_hybrid_mesh`` places the DCN axis's major component
 across slices (dp, or ep when present), everything else inside a slice.

@@ -71,10 +71,14 @@ TRANSFORMER_LOGICAL: tuple[tuple[str, tuple[str, ...]], ...] = (
     (r"block\d+/attn/out/kernel", ("heads", "kv", "embed")),
     (r"block\d+/mlp_in/kernel", ("embed", "mlp")),
     (r"block\d+/mlp_out/kernel", ("mlp", "embed")),
+    (r"block\d+/moe_mlp/router", ("embed", "expert_router")),
+    (r"block\d+/moe_mlp/w_in", ("expert", "embed", "mlp")),
+    (r"block\d+/moe_mlp/w_out", ("expert", "mlp", "embed")),
     (r"lm_head/kernel", ("embed", "vocab")),
 )
 
 FSDP_AXIS = "fsdp"
+SP_AXIS = "sp"
 
 
 def logical_names(path: Sequence[str]) -> tuple[str, ...] | None:
@@ -301,7 +305,10 @@ def shard_module(model: torch.nn.Module, mesh,
     over ``axis`` (the whole module was built, identically, on every
     rank); returns the specs by parameter name. A mesh whose ``axis`` is
     of size 1 shards nothing. Only one sharded dim a leaf, over ``axis``
-    alone, is carried: the transformer's rules under an fsdp mesh."""
+    alone, is carried: the transformer's rules under an fsdp mesh. An
+    sp axis shards no parameter (the JAX package's "seq" rule places
+    ``pos_embed`` over sp; every sp rank here keeps it whole, and the
+    model reads its block's rows)."""
     from edl_tpu_torch import bridge
 
     size = mesh.axis_size(axis)
@@ -314,14 +321,16 @@ def shard_module(model: torch.nn.Module, mesh,
             names = logical_names(path)
             if names is None:
                 continue
-            spec = logical_to_spec(names, rules, mesh)
+            spec = tuple(_without(e, SP_AXIS)
+                         for e in logical_to_spec(names, rules, mesh))
             dims = [d for d, e in enumerate(spec) if e is not None]
             if not dims:
                 continue
             if len(dims) > 1 or spec[dims[0]] != axis:
                 raise NotImplementedError(
                     f"{name}: spec {spec} shards over more than {axis!r} "
-                    "(tp/sp/ep come with ROADMAP Queue 1 item 14)")
+                    "(tp and ep sharded parameters: ROADMAP Queue 1 item "
+                    "14(d))")
             fdim = dims[0]
             tdim = bridge.torch_dim(name, fdim, len(names))
             if p.shape[tdim] % size:
@@ -334,6 +343,15 @@ def shard_module(model: torch.nn.Module, mesh,
             p._fsdp = s
             specs[name] = s
     return specs
+
+
+def _without(entry, axis: str):
+    """A spec entry with ``axis`` taken out (None when nothing is left)."""
+    if entry is None:
+        return None
+    axes = tuple(a for a in ((entry,) if isinstance(entry, str) else entry)
+                 if a != axis)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
 
 
 def is_sharded(model: torch.nn.Module) -> bool:

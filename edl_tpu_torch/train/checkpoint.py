@@ -80,6 +80,7 @@ from edl_tpu_torch.utils.timeline import timeline
 log = get_logger("edl_tpu_torch.train.checkpoint")
 
 _CKPT_RE = re.compile(r"^ckpt-(\d+)$")
+_INDEX_FILE_RE = re.compile(r"^index\.(\d+)\.json$")
 
 
 class CheckpointWriteError(RuntimeError):
@@ -335,13 +336,19 @@ class CheckpointManager:
         version broadcast, rank 0 clears a stale temp dir of that
         version and each rank its older ones, a barrier, the writes (a
         rank that fails drops a poison marker and still reaches the next
-        barrier), a barrier, then rank 0 writes meta.json and renames."""
-        if self.remote is not None:
-            raise NotImplementedError(
-                "mirroring a sharded save of a world of ranks is not "
-                "ported (ROADMAP Queue 3)")
+        barrier), a barrier, every rank's look for poison markers, a
+        barrier, then rank 0 writes meta.json and renames.
+        With a remote mirror (``EDL_TPU_CKPT_REMOTE``) rank 0 folds the
+        mirror's LATEST into the version, and every rank uploads its own
+        chunks and index (:meth:`_mirror_sharded_upload`, whose barriers
+        every rank runs before any raise); rank 0 flips the mirror's
+        LATEST once it holds every rank's index
+        (:meth:`_mirror_sharded_finalize`)."""
         distributed.barrier()
         latest = self.latest_version()
+        remote_read_ok = True
+        if self.remote is not None and self.process_index == 0:
+            latest, remote_read_ok = self._fold_remote_latest(latest)
         version = distributed.broadcast_int(0 if latest is None
                                             else latest + 1)
         os.makedirs(self.directory, exist_ok=True)
@@ -354,8 +361,9 @@ class CheckpointManager:
                               ignore_errors=True)
         distributed.barrier()
         failure: BaseException | None = None
+        my_files: list[str] = []
         try:
-            ckpt_io.write_snapshot(tmp, snap)
+            my_files = ckpt_io.write_snapshot(tmp, snap)
         except BaseException as exc:  # noqa: BLE001 — re-raised below
             failure = exc
             try:
@@ -367,6 +375,18 @@ class CheckpointManager:
         distributed.barrier()
         poisoned = [n for n in (os.listdir(tmp) if os.path.isdir(tmp)
                                 else []) if n.startswith("save_failed.")]
+        mirror_ok = False
+        if self.remote is not None:
+            # every rank runs the mirror's barriers, healthy or not,
+            # before any raise below: on unshared dirs a healthy rank
+            # cannot see a failed rank's poison marker
+            mirror_ok = self._mirror_sharded_upload(
+                tmp, version, my_files,
+                ok=failure is None and not poisoned and remote_read_ok)
+        else:
+            # every rank has listed the temp dir before rank 0 renames or
+            # removes it (a rank still listing would find it gone)
+            distributed.barrier()
         if failure is not None or poisoned:
             if self.process_index == 0:
                 shutil.rmtree(tmp, ignore_errors=True)
@@ -392,8 +412,65 @@ class CheckpointManager:
                 a.nbytes for _, a in snap["chunks"])
         log.info("saved sharded checkpoint %s (epoch=%d step=%d)",
                  self._path(version), status.epoch, status.step)
+        if mirror_ok:
+            self._mirror_sharded_finalize(version)
         self._gc()
         return version
+
+    def _mirror_sharded_upload(self, tmp: str, version: int,
+                               my_files: list[str], *, ok: bool) -> bool:
+        """Every rank uploads its own chunks and index from its pending
+        dir (local dirs need not be shared); rank 0 cleans the remote
+        version dir first, and a failed clean skips the version's mirror
+        world-wide. ``ok=False`` ranks run the barriers without
+        uploading. Returns whether the world uploaded (rank 0's clean
+        succeeded): the finalize is gated on it."""
+        clean_ok = 1 if ok else 0   # rank 0's value wins the broadcast
+        if self.process_index == 0 and ok:
+            try:
+                fs.resolve(self.remote).delete(
+                    fs.join_uri(self.remote, f"ckpt-{version}"))
+            except Exception as exc:  # noqa: BLE001 — mirror-only
+                log.warning("remote clean of ckpt-%d failed, skipping "
+                            "this version's mirror: %s", version, exc)
+                clean_ok = 0
+        clean_ok = distributed.broadcast_int(clean_ok)
+        if ok and clean_ok:
+            try:
+                fs.mirror_checkpoint_files(tmp, version, self.remote,
+                                           my_files)
+            except Exception as exc:  # noqa: BLE001 — any transfer error
+                # this rank still reaches the barrier; its missing index
+                # keeps the finalize from flipping LATEST
+                log.warning("sharded mirror of ckpt-%d (rank %d) failed: "
+                            "%s", version, self.process_index, exc)
+        distributed.barrier()
+        return bool(clean_ok)
+
+    def _mirror_sharded_finalize(self, version: int) -> None:
+        """Rank 0: flip the mirror's LATEST to ``version`` once the remote
+        dir holds exactly index.{0..world-1}.json (a missing index is an
+        incomplete upload, an extra one a stale earlier attempt), then
+        upload meta.json and prune old versions."""
+        try:
+            have = set(fs.resolve(self.remote).listdir(
+                fs.join_uri(self.remote, f"ckpt-{version}")))
+            want = {f"index.{r}.json"
+                    for r in range(distributed.world_size())}
+            got = {n for n in have if _INDEX_FILE_RE.match(n)}
+            if got != want:
+                log.warning("mirror of ckpt-%d inconsistent (missing "
+                            "indexes %s, stale extras %s); LATEST not "
+                            "flipped", version, sorted(want - got),
+                            sorted(got - want))
+                return
+            fs.mirror_checkpoint_files(self._path(version), version,
+                                       self.remote, ["meta.json"])
+            fs.finalize_mirror(self.remote, version, keep=self.max_to_keep)
+            log.info("mirrored sharded ckpt-%d -> %s", version, self.remote)
+        except Exception as exc:  # noqa: BLE001 — a mirror failure must
+            log.warning("mirror of ckpt-%d to %s failed: %s", version,
+                        self.remote, exc)  # not kill a sealed local save
 
     def _fold_remote_latest(self, latest: int | None
                             ) -> tuple[int | None, bool]:

@@ -35,15 +35,24 @@ rank starts from rank 0's parameters and buffers (one broadcast per dtype
 at the first step). Transient comm state (the residuals) is not
 checkpointed, as in the JAX package.
 
-The MoE dispatch (``MoEDispatchConfig``, ``moe_all_to_all``, ``MoEWire``,
-``MoECommStep`` and its gates) comes with ROADMAP Queue 1 item 14.
+The MoE dispatch: ``MoEDispatchConfig``, ``moe_all_to_all`` (flat: one
+all-to-all over the ep ranks; hier: the in-slice leg and the cross-slice
+leg over ``mesh.ep_comm_groups``' columns, the cross leg optionally int8
+through ``ops/pack``'s wire, K8 on a card), ``moe_leg_bytes``,
+``MoEWire`` (what a wired ``MoEMLP`` dispatches through),
+``MoECommStep`` (the comm step over an ep-only mesh, with the
+``step.moe_dispatch`` span and the ``step_moe_dcn_bytes`` counter),
+``moe_parity_gate`` and ``moe_convergence_smoke``. The all-to-alls are
+differentiable: each leg's backward is its own transpose, and the int8
+leg's is the derivative JAX takes of its expression (the scales carry
+it; rounding has none).
 
 ``python -m edl_tpu_torch.train.comm smoke [--compress topk|int8]
-[--steps N] [--envelope E] [--slices S] [--device cpu]`` runs the
-convergence smoke over the world the EDL_TPU_* env describes (a world of
-one without it) and prints the JAX CLI's one ``{"comm_smoke": ...}``
-line; it exits 0 only when every gate holds. ``--moe`` exits naming
-ROADMAP Queue 1 item 14.
+[--steps N] [--envelope E] [--slices S] [--moe] [--device cpu]`` runs
+the convergence smoke over the world the EDL_TPU_* env describes (a
+world of one without it) and prints the JAX CLI's one
+``{"comm_smoke": ...}`` line, or with ``--moe`` its
+``{"moe_smoke": ...}`` line; it exits 0 only when every gate holds.
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ import torch
 from edl_tpu_torch import resolve_device
 from edl_tpu_torch.obs import metrics as obs_metrics
 from edl_tpu_torch.obs import trace
-from edl_tpu_torch.ops.pack import all_gather_packed, pack_int8_buckets
+from edl_tpu_torch.ops.pack import (all_gather_packed, all_to_all_packed,
+                                   dequantize_int8, pack_int8_buckets)
 from edl_tpu_torch.parallel import distributed
 from edl_tpu_torch.parallel import mesh as mesh_lib
 from edl_tpu_torch.utils.logging import get_logger
@@ -558,6 +568,331 @@ def make_comm_train_step(loss_fn: Callable, *,
                          topology=topology, with_step=with_step)
 
 
+# -- MoE: hierarchical all-to-all dispatch -----------------------------------
+#
+# An MoE layer's hot collective is the token all-to-all (dispatch to the
+# experts' owners, combine back). On a sliced topology it decomposes as
+# the gradient reduction does: a leg inside the slice, then a
+# cross-slice leg carrying the blocks bound for other slices, optionally
+# int8 on the wire (ops/pack's int8 all-to-all, K8 on a card). The
+# decomposition is a permutation: uncompressed it is bit for bit the
+# flat collective (moe_parity_gate).
+
+MOE_DISPATCH_MODES = ("flat", "hier")
+MOE_COMPRESS_MODES = ("off", "int8")
+
+
+@dataclass(frozen=True)
+class MoEDispatchConfig:
+    """Knobs of the manual MoE dispatch path.
+
+    mode: 'flat' (one all-to-all over the whole ep axis) or 'hier' (the
+      in-slice leg + the cross-slice leg; EDL_TPU_MOE_DISPATCH).
+    compress: the cross-slice leg's wire (EDL_TPU_MOE_COMPRESS): 'off'
+      (dense, bit for bit with flat) or 'int8' (one scale a destination
+      block). int8 needs mode='hier': only it has a separate cross leg.
+    """
+
+    mode: str = "hier"
+    compress: str = "off"
+
+    def __post_init__(self):
+        if self.mode not in MOE_DISPATCH_MODES:
+            raise ValueError(
+                f"mode must be one of {MOE_DISPATCH_MODES}, "
+                f"got {self.mode!r}")
+        if self.compress not in MOE_COMPRESS_MODES:
+            raise ValueError(
+                f"compress must be one of {MOE_COMPRESS_MODES}, "
+                f"got {self.compress!r}")
+        if self.compress != "off" and self.mode != "hier":
+            raise ValueError(
+                "compress needs mode='hier' — the flat single "
+                "collective has no separate DCN leg to compress")
+
+
+class _Int8AllToAll(torch.autograd.Function):
+    """The int8 cross leg: block i of ``x`` packed at its own scale (one
+    ``ops/pack.pack_int8_buckets`` call over the blocks, K8 on a card),
+    sent to member i, dequantized there, in ``x``'s dtype (packed from
+    fp32, as the kernel takes it).
+
+    The backward is the derivative JAX takes of its expression: rounding
+    has none, so only the scales carry a gradient. A received block's
+    scale cotangent, sum(g * q), goes back to its sender, where the scale
+    amax/127 passes it to the block's largest |x| (shared among ties, as
+    ``jnp.max`` shares it), with x's sign."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        xf = x.float()
+        packed = pack_int8_buckets([xf[i].contiguous()
+                                    for i in range(xf.shape[0])])
+        q_r, s_r = all_to_all_packed(torch.stack([p[0] for p in packed]),
+                                     torch.stack([p[1] for p in packed]),
+                                     group)
+        ctx.save_for_backward(xf, q_r)
+        ctx.group, ctx.dtype = group, x.dtype
+        return dequantize_int8(q_r, s_r.reshape(
+            (x.shape[0],) + (1,) * (x.dim() - 1))).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, q_r = ctx.saved_tensors
+        dims = tuple(range(1, xf.dim()))
+        ds = distributed.all_to_all((g.float() * q_r.float()).sum(dim=dims),
+                                    ctx.group)
+        a = xf.abs()
+        amax = a.amax(dim=dims, keepdim=True)
+        at = ((a == amax) & (amax > 0)).float()
+        count = at.sum(dim=dims, keepdim=True).clamp(min=1.0)
+        d_amax = (ds / 127.0).reshape(amax.shape)
+        return (torch.sign(xf) * at * (d_amax / count)).to(ctx.dtype), None
+
+
+def moe_all_to_all(x: torch.Tensor, *, n_slices: int, chips: int,
+                   mode: str = "hier", compress: str = "off", group=None,
+                   groups=(None, None)) -> torch.Tensor:
+    """Destination-major block transport over the ep ranks
+    (differentiable: each leg's backward is its own transpose).
+
+    ``x`` is (W, ...) on every rank: block ``x[w]`` is this rank's
+    payload bound for rank ``w`` (W = n_slices * chips, slice-major).
+    Returns the source-major received buffer of the same shape.
+
+    'flat': one all-to-all over ``group`` (the ep axis's). 'hier': an
+    all-to-all inside the slice (``groups[0]``) delivers every block to
+    the rank of this slice at its destination's in-slice position, then
+    one over the stride-C columns (``groups[1]``, mesh.ep_comm_groups)
+    carries the blocks bound for other slices. A permutation: bit for
+    bit 'flat' when uncompressed. compress='int8' quantizes only the
+    cross-slice leg (:class:`_Int8AllToAll`, one scale a destination
+    block); the in-slice blocks stay exact.
+    """
+    w = n_slices * chips
+    if x.shape[0] != w:
+        raise ValueError(
+            f"dest-major dim {x.shape[0]} != world {n_slices}x{chips}")
+    if mode == "flat" or n_slices <= 1:
+        return distributed.all_to_all_grad(x, group)
+    intra, cross = groups
+    b = x.reshape((n_slices, chips) + tuple(x.shape[1:]))
+    if chips > 1:
+        b = distributed.all_to_all_grad(b.transpose(0, 1).contiguous(),
+                                        intra).transpose(0, 1)
+    if compress == "int8" and b.is_floating_point():
+        b = _Int8AllToAll.apply(b.contiguous(), cross)
+    else:
+        b = distributed.all_to_all_grad(b, cross)
+    return b.reshape(x.shape)
+
+
+def moe_leg_bytes(block_elems: int, itemsize: int, n_slices: int,
+                  chips: int, compress: str) -> int:
+    """Cross-slice bytes ONE rank sends for one dispatch/combine leg
+    whose per-destination block has ``block_elems`` elements: the
+    off-slice blocks only, payload bytes (int8: one byte an element and
+    one fp32 scale a destination slice)."""
+    if n_slices <= 1:
+        return 0
+    off = (n_slices - 1) * chips * block_elems
+    if compress == "int8":
+        return off * 1 + (n_slices - 1) * 4  # int8 payload + fp32 scales
+    return off * itemsize
+
+
+@dataclass
+class MoEWire:
+    """The transport a wired MoE layer dispatches through
+    (``models/transformer.MoEMLP``'s ``wire``): the buffers' reshapes and
+    the grouped collectives, with an ``on_leg`` hook so the owning step
+    accounts the wire's bytes.
+
+    dispatch: (E, cap, d) dispatch buffer -> (E/W, W*cap, d), the tokens
+      received for this rank's local experts.
+    combine: the inverse, (E/W, W*cap, d) expert outputs back to
+      (E, cap, d) at the tokens' owners.
+    local_slice: (E, ...) replicated table -> this rank's (E/W, ...)
+      expert rows.
+    """
+
+    n_slices: int
+    chips: int
+    config: MoEDispatchConfig
+    index: int = 0                   # this rank's place on the ep axis
+    group: object = None             # the ep axis's process group
+    groups: tuple = (None, None)     # (in-slice, cross-slice) groups
+    on_leg: Callable | None = None
+
+    @property
+    def world(self) -> int:
+        return self.n_slices * self.chips
+
+    def _transport(self, x):
+        if self.on_leg is not None:
+            self.on_leg(tuple(int(v) for v in x.shape), x.element_size())
+        return moe_all_to_all(x, n_slices=self.n_slices, chips=self.chips,
+                              mode=self.config.mode,
+                              compress=self.config.compress,
+                              group=self.group, groups=self.groups)
+
+    def dispatch(self, buf):
+        e, cap, d = buf.shape
+        w = self.world
+        if e % w:
+            raise ValueError(f"n_experts={e} not divisible by ep "
+                             f"world {w}")
+        el = e // w
+        r = self._transport(buf.reshape(w, el, cap, d))
+        return r.transpose(0, 1).reshape(el, w * cap, d)
+
+    def combine(self, out):
+        el, wcap, d = out.shape
+        w = self.world
+        cap = wcap // w
+        r = self._transport(
+            out.reshape(el, w, cap, d).transpose(0, 1).contiguous())
+        return r.reshape(w * el, cap, d)
+
+    def local_slice(self, table):
+        el = table.shape[0] // self.world
+        return table[self.index * el:(self.index + 1) * el]
+
+
+def _validate_ep_mesh(mesh) -> str:
+    """The manual MoE path owns ep-only meshes; return the axis name."""
+    if "ep" not in mesh.axis_names:
+        raise ValueError(
+            f"MoE comm step needs an ep axis; mesh axes "
+            f"{mesh.axis_names}")
+    for name in mesh.axis_names:
+        if name != "ep" and mesh.shape[name] != 1:
+            raise ValueError(
+                "MoE comm step owns ep-only meshes (token dispatch is "
+                f"the cross-slice traffic); axis {name!r} has size "
+                f"{mesh.shape[name]} — keep the XLA-partitioned step "
+                "for mixed meshes")
+    return "ep"
+
+
+class MoECommStep(CommTrainStep):
+    """``(state, batch) -> (state, metrics)`` for an expert-parallel
+    transformer over an ep-only mesh: the bucketed gradient reduction of
+    :class:`CommTrainStep` over the ep ranks (each rank's local-mean
+    gradients x 1/W, then summed; an expert's rows get a gradient only
+    on the rank that owns the expert, so the reduction assembles each
+    expert once) and the token dispatch through ``self.wire``.
+
+    Built from a loss FACTORY: ``loss_factory(wire)`` returns the
+    ``loss_fn(model, batch)`` whose MoE layers transport through the wire
+    (the parameters are the same, wired or not). Each rank routes its
+    own rows at its own capacity, as each chip does in the JAX package's
+    manual region.
+    """
+
+    def __init__(self, loss_factory: Callable, *, mesh,
+                 config: CommConfig | None = None,
+                 moe_config: MoEDispatchConfig | None = None,
+                 topology=None, with_step: bool = False):
+        moe_config = moe_config or MoEDispatchConfig()
+        _validate_ep_mesh(mesh)
+        world = int(mesh.shape["ep"])
+        if world != distributed.world_size():
+            raise ValueError(f"the ep mesh of {world} ranks is not the "
+                             f"joined world of {distributed.world_size()}")
+        topology = topology or mesh_lib.SliceTopology(1, world)
+        # flat world + hier dispatch: every rank its own slice (S=W,
+        # C=1), so a flat world runs the whole cross-slice wire (int8 too)
+        if moe_config.mode == "hier" and not topology.is_multi_slice:
+            self._moe_slices, self._moe_chips = world, 1
+        else:
+            self._moe_slices = topology.n_slices
+            self._moe_chips = world // topology.n_slices
+        groups = (None, None)
+        if moe_config.mode == "hier" and self._moe_slices > 1:
+            groups = mesh_lib.comm_groups(self._moe_slices,
+                                          self._moe_chips)
+        self.moe_config = moe_config
+        self._legs: list[tuple[tuple, int]] = []
+        self.wire = MoEWire(n_slices=self._moe_slices,
+                            chips=self._moe_chips, config=moe_config,
+                            index=mesh.coords["ep"], group=mesh.group("ep"),
+                            groups=groups, on_leg=self._record_leg)
+        super().__init__(loss_factory(self.wire),
+                         config=config or CommConfig(), topology=topology,
+                         with_step=with_step)
+        self._moe_counter = obs_metrics.registry().counter(
+            "step_moe_dcn_bytes",
+            help="bytes this process contributed to cross-slice (DCN) MoE "
+                 "dispatch/combine legs")
+
+    def _record_leg(self, shape: tuple, itemsize: int):
+        # the legs of the first step are the plan (every step has the same)
+        if self.steps == 0:
+            self._legs.append((shape, itemsize))
+
+    # -- static accounting (bench/obs surface) ------------------------------
+
+    def moe_dcn_bytes_per_step(self) -> int:
+        """Per-rank cross-slice dispatch+combine payload bytes each step
+        (0 until the first call has run the wire)."""
+        compress = (self.moe_config.compress
+                    if self.moe_config.mode == "hier" else "off")
+        total = 0
+        for shape, itemsize in self._legs:
+            block = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+            total += moe_leg_bytes(block, itemsize, self._moe_slices,
+                                   self._moe_chips, compress)
+        return total
+
+    def moe_dispatch_overlap_pct(self) -> float:
+        """Share of cross-slice dispatch bytes whose leg could be in
+        flight under other layers' expert compute: every leg but the
+        last combine. A schedule property, not a measurement."""
+        n = len(self._legs)
+        if n <= 1 or self._moe_slices <= 1:
+            return 0.0
+        return round(100.0 * (n - 1) / n, 2)
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out.update({"moe_dispatch": self.moe_config.mode,
+                    "moe_compress": self.moe_config.compress,
+                    "moe_dispatch_legs": len(self._legs),
+                    "moe_dcn_bytes_per_step":
+                        self.moe_dcn_bytes_per_step(),
+                    "moe_dispatch_overlap_pct":
+                        self.moe_dispatch_overlap_pct()})
+        return out
+
+    def __call__(self, state, batch):
+        span = trace.start_span(
+            "step.moe_dispatch", attrs={
+                "mode": self.moe_config.mode,
+                "compress": self.moe_config.compress,
+                "moe_dcn_bytes": self.moe_dcn_bytes_per_step()})
+        try:
+            out = super().__call__(state, batch)
+        finally:
+            if span is not None:
+                span.end()
+        self._moe_counter.inc(self.moe_dcn_bytes_per_step())
+        return out
+
+
+def make_moe_comm_step(loss_factory: Callable, *, mesh,
+                       config: CommConfig | None = None,
+                       moe_config: MoEDispatchConfig | None = None,
+                       topology=None, with_step: bool = False
+                       ) -> MoECommStep:
+    """Build the manual MoE step. ``loss_factory(wire) -> loss_fn``;
+    returns a TrainLoop-compatible ``step(state, batch)`` carrying the
+    dispatch wire's accounting in ``.stats()``."""
+    return MoECommStep(loss_factory, mesh=mesh, config=config,
+                       moe_config=moe_config, topology=topology,
+                       with_step=with_step)
+
+
 # -- gates -------------------------------------------------------------------
 
 
@@ -777,6 +1112,177 @@ def convergence_smoke(compress: str = "topk", steps: int = 40,
     return report
 
 
+# -- MoE dispatch gates -------------------------------------------------------
+
+
+def moe_parity_gate(loss_factory: Callable, state_fn: Callable, batch, *,
+                    mesh, moe_config: MoEDispatchConfig | None = None,
+                    comm_config: CommConfig | None = None,
+                    topology=None, steps: int = 3,
+                    envelope: float = 0.1) -> dict:
+    """The gate on the dispatch wire.
+
+    1. hier uncompressed vs the flat single collective: identical
+       parameters AND per-step losses after ``steps`` steps, bit for bit
+       (``bitwise_hier``: the decomposition is a permutation).
+    2. if ``moe_config.compress != 'off'``: the compressed path's
+       per-step loss stays within ``envelope`` of flat's
+       (``loss_envelope_ok`` / ``max_loss_delta``). int8 here rides
+       activations, with no error feedback.
+
+    Both arms are MoECommStep instances, each training a fresh state from
+    ``state_fn()``; ``batch`` is this rank's rows.
+    """
+    moe_config = moe_config or MoEDispatchConfig()
+
+    def run(mcfg):
+        step = MoECommStep(loss_factory, mesh=mesh, config=comm_config,
+                           moe_config=mcfg, topology=topology)
+        s, losses = state_fn(), []
+        for _ in range(steps):
+            s, m = step(s, batch)
+            losses.append(float(m["loss"]))
+        return s, losses
+
+    s_flat, l_flat = run(MoEDispatchConfig(mode="flat"))
+    s_hier, l_hier = run(MoEDispatchConfig(mode="hier"))
+    gate = {"bitwise_hier": tree_bitwise_equal(
+                [p for _, p in s_flat.params], [p for _, p in s_hier.params])
+            and l_flat == l_hier,
+            "hier_loss_delta": max(abs(a - b)
+                                   for a, b in zip(l_flat, l_hier)),
+            "envelope": envelope, "steps": steps}
+    if moe_config.compress != "off":
+        _, l_comp = run(moe_config)
+        deltas = [abs(a - b) for a, b in zip(l_flat, l_comp)]
+        gate["max_loss_delta"] = max(deltas)
+        gate["loss_envelope_ok"] = max(deltas) <= envelope
+    gate["ok"] = bool(gate["bitwise_hier"]
+                      and gate.get("loss_envelope_ok", True))
+    return gate
+
+
+def _smoke_moe(world: int, device: str | torch.device = "cuda"):
+    """Tiny MoE Markov-LM (the JAX package's data, the port's seeded
+    init), on ``device``. Returns ``(loss_factory, dense_loss, state_fn,
+    global numpy batch)``: the factory wires the loss for the manual
+    step; the dense loss runs the einsum dispatch over every expert."""
+    import functools
+
+    from edl_tpu_torch.bridge import flax_named_parameters
+    from edl_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  lm_loss_moe)
+    from edl_tpu_torch.train import state as state_lib
+    from edl_tpu_torch.train.state import TrainState
+
+    dev = resolve_device(device)
+    vocab, seq = 32, 16
+    gen = np.random.default_rng(23)
+    successors = gen.integers(0, vocab, size=(vocab, 4))
+    toks = np.empty((4 * world, seq), np.int32)
+    toks[:, 0] = gen.integers(0, vocab, size=4 * world)
+    for t in range(1, seq):
+        pick = gen.integers(0, 4, size=4 * world)
+        toks[:, t] = successors[toks[:, t - 1], pick]
+    cfg = TransformerConfig(vocab_size=vocab, d_model=32, n_heads=2,
+                            n_layers=2, d_ff=64, max_len=seq,
+                            dtype=torch.float32, moe=True,
+                            n_experts=2 * world, moe_top_k=2)
+
+    def state_fn():
+        model = Transformer(cfg, device=dev, seed=0)
+        model.train()
+        return TrainState.create(model=model,
+                                 tx=state_lib.sgd(0.5, momentum=0.9),
+                                 params=flax_named_parameters(model))
+
+    def loss_factory(wire):
+        return functools.partial(lm_loss_moe, aux_weight=cfg.moe_aux_weight,
+                                 wire=wire)
+
+    dense_loss = functools.partial(lm_loss_moe,
+                                   aux_weight=cfg.moe_aux_weight)
+    return loss_factory, dense_loss, state_fn, {"tokens": toks}
+
+
+def moe_convergence_smoke(compress: str = "int8", steps: int = 40,
+                          envelope: float = 0.25, topology=None,
+                          device: str | torch.device = "cuda") -> dict:
+    """The MoE convergence smoke (``smoke --moe``): train the
+    hierarchical, compressed dispatch against the uncompressed flat one
+    from the same init. Both must learn, and the compressed run must keep
+    at least ``1 - envelope`` of the baseline's improvement (signed: only
+    a compressed run that ends worse by more than ``envelope x
+    improvement`` fails). The bit-for-bit parity gate runs first; a red
+    gate fails the smoke. ``jit_loss_final`` is the dense dispatch over
+    every expert on the whole global batch (the JAX package's jit path,
+    which routes the global batch at the global capacity), trained on
+    every rank alike; it is reported, not gated."""
+    from edl_tpu_torch.train.step import make_train_step
+
+    dev = resolve_device(device)
+    world = distributed.world_size()
+    spec = mesh_lib.MeshSpec({"ep": -1})
+    mesh = (mesh_lib.make_hybrid_mesh(spec, topology)
+            if topology is not None and topology.is_multi_slice
+            else mesh_lib.make_mesh(spec))
+    loss_factory, dense_loss, state_fn, batch = _smoke_moe(world, dev)
+    local = _local_rows(batch, dev)
+    comm_cfg = CommConfig(bucket_mb=0.25)
+
+    gate = moe_parity_gate(
+        loss_factory, state_fn, local, mesh=mesh, topology=topology,
+        comm_config=comm_cfg,
+        moe_config=MoEDispatchConfig(mode="hier", compress=compress))
+
+    def run(mcfg):
+        step = MoECommStep(loss_factory, mesh=mesh, config=comm_cfg,
+                           moe_config=mcfg, topology=topology)
+        s = state_fn()
+        first = last = None
+        for _ in range(steps):
+            s, m = step(s, local)
+            if first is None:
+                first = float(m["loss"])
+            last = float(m["loss"])
+        return first, last, step
+
+    first, dense_last, _ = run(MoEDispatchConfig(mode="flat"))
+    _, comp_last, comp_step = run(
+        MoEDispatchConfig(mode="hier", compress=compress))
+
+    jit_step = make_train_step(dense_loss)
+    whole = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    s_jit = state_fn()
+    jit_last = None
+    for _ in range(steps):
+        s_jit, m = jit_step(s_jit, whole)
+        jit_last = float(m["loss"])
+
+    delta = comp_last - dense_last  # signed: + = compression cost
+    improvement = max(first - dense_last, 1e-9)
+    report = {
+        "compress": compress, "steps": steps, "envelope": envelope,
+        "world": world,
+        "n_slices": topology.n_slices if topology else 1,
+        "parity_gate": gate,
+        "loss_initial": round(first, 4),
+        "loss_dense": round(dense_last, 4),
+        "loss_compressed": round(comp_last, 4),
+        "jit_loss_final": round(jit_last, 4),
+        "delta": round(delta, 5),
+        "delta_rel": round(delta / improvement, 5),
+        "learned": dense_last < first and comp_last < first,
+        "within_envelope": delta <= envelope * improvement,
+        "moe_dcn_bytes_per_step": comp_step.moe_dcn_bytes_per_step(),
+        "moe_dispatch_overlap_pct":
+            comp_step.moe_dispatch_overlap_pct()}
+    report["ok"] = bool(gate["ok"] and report["learned"]
+                        and report["within_envelope"])
+    return report
+
+
 def _main(argv=None) -> int:
     import argparse
     import json
@@ -791,7 +1297,10 @@ def _main(argv=None) -> int:
                        help="DCN wire format (default: topk; int8 "
                             "with --moe, which has no topk wire)")
     smoke.add_argument("--moe", action="store_true",
-                       help="the MoE dispatch smoke (not ported yet)")
+                       help="run the MoE dispatch smoke (hier+int8 "
+                            "all-to-all vs the flat/off manual "
+                            "baseline, bit-for-bit parity gate first) "
+                            "instead of the gradient-wire smokes")
     smoke.add_argument("--steps", type=int, default=40)
     smoke.add_argument("--envelope", type=float, default=0.25,
                        help="RELATIVE loss envelope: the compressed "
@@ -802,9 +1311,10 @@ def _main(argv=None) -> int:
     smoke.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.moe:
-        raise SystemExit("--moe (the MoE dispatch smoke) is not ported yet "
-                         "(ROADMAP Queue 1 item 14)")
+    compress = args.compress or ("int8" if args.moe else "topk")
+    if args.moe and compress == "topk":
+        raise SystemExit("--moe supports --compress int8 only "
+                         "(token blocks have no sparse wire)")
     device = resolve_device(args.device)
     env = distributed.init_from_env(device=device)
     device = distributed.rank_device(device, max(0, env.rank))
@@ -815,7 +1325,14 @@ def _main(argv=None) -> int:
             raise SystemExit(f"{world} devices not divisible by "
                              f"--slices {args.slices}")
         topo = mesh_lib.SliceTopology(args.slices, world // args.slices)
-    report = convergence_smoke(compress=args.compress or "topk",
+    if args.moe:
+        report = moe_convergence_smoke(compress=compress, steps=args.steps,
+                                       envelope=args.envelope,
+                                       topology=topo, device=device)
+        print(json.dumps({"moe_smoke": report}))
+        distributed.shutdown()
+        return 0 if report["ok"] else 1
+    report = convergence_smoke(compress=compress,
                                steps=args.steps, envelope=args.envelope,
                                topology=topo, device=device)
     print(json.dumps({"comm_smoke": report}))

@@ -91,6 +91,11 @@ class LoopConfig:
     loader_workers: int = field(0, env="EDL_TPU_LOADER_WORKERS")
     comm_bucket_mb: float = field(0.0, env="EDL_TPU_COMM_BUCKET_MB")
     dcn_compress: str = field("off", env="EDL_TPU_DCN_COMPRESS")
+    # the MoE token all-to-all (train/comm.MoEDispatchConfig): flat | hier,
+    # and the cross-slice leg's wire, off | int8 (--moe-dispatch and
+    # --moe-compress override)
+    moe_dispatch: str = field("hier", env="EDL_TPU_MOE_DISPATCH")
+    moe_compress: str = field("off", env="EDL_TPU_MOE_COMPRESS")
     fused_opt: str = field("off", env="EDL_TPU_FUSED_OPT")
     opt_quant: str = field("", env="EDL_TPU_OPT_QUANT")
 

@@ -20,8 +20,9 @@ metrics gain ``loss_scale`` and ``finite``. That step reads one value
 back, the finite flag, and runs the optimizer only on a finite step.
 
 With a ``mesh`` of more than one rank (``parallel/mesh.make_mesh`` over
-the joined world, data axes dp and fsdp) and no ``comm``, the step is
-the JAX package's one SPMD program done by hand (:class:`WorldTrainStep`):
+the joined world, data axes dp and fsdp, and sp) and no ``comm``, the
+step is the JAX package's one SPMD program done by hand
+(:class:`WorldTrainStep`):
 each rank runs the forward and backward on its slice of the global
 batch, BatchNorm takes the global batch's statistics
 (``models/resnet.set_batch_group``), the gradients are averaged over the
@@ -29,8 +30,12 @@ world (one staged all-reduce per dtype over one flat buffer of the whole
 leaves, in flax leaf order; a leaf sharded over fsdp got its mean from
 the reduce-scatter of ``parallel/sharding.full``'s backward), the
 optimizer runs as on one card (on the slices of sharded leaves), and
-the loss and float metrics are averaged. Every rank starts from rank 0's
-whole parameters and buffers (a sharded leaf's slices are cut from one
+the loss and float metrics are averaged. Over an sp axis the ranks of a
+replica hold the same rows and their sequence blocks (the model's
+``cfg.sp``): each loss is the whole sequence's, with the gradient of the
+rank's share (``models/transformer._sp_loss``), so the gradients are
+summed over sp and averaged over the replicas. Every rank starts from
+rank 0's whole parameters and buffers (a sharded leaf's slices are cut from one
 seeded init on every rank). Under ``loss_scale`` each rank's finite flag
 is all-reduced, so every rank skips the same step.
 """
@@ -44,7 +49,7 @@ import torch
 from edl_tpu_torch.models.resnet import set_batch_group
 from edl_tpu_torch.parallel import distributed
 from edl_tpu_torch.parallel.mesh import DATA_AXES
-from edl_tpu_torch.parallel.sharding import fsdp_spec
+from edl_tpu_torch.parallel.sharding import SP_AXIS, fsdp_spec
 from edl_tpu_torch.train import amp
 from edl_tpu_torch.train.comm import make_comm_train_step, sync_tensors
 
@@ -109,8 +114,8 @@ def make_train_step(loss_fn: LossFn, loss_scale: bool = False,
 
 
 class WorldTrainStep:
-    """The SPMD world step over a data-parallel ``mesh`` (axes dp and
-    fsdp); ``step(state, batch)`` or, with ``loss_scale``,
+    """The SPMD world step over a ``mesh`` of data axes (dp, fsdp) and sp;
+    ``step(state, batch)`` or, with ``loss_scale``,
     ``step(state, batch, ls)``. Built lazily: the first call turns on the
     global-batch BatchNorm and broadcasts rank 0's whole parameters and
     buffers."""
@@ -118,15 +123,22 @@ class WorldTrainStep:
     def __init__(self, loss_fn: LossFn, *, mesh, loss_scale: bool = False,
                  with_step: bool = False):
         others = [a for a in mesh.axis_names
-                  if a not in DATA_AXES and mesh.shape[a] > 1]
+                  if a not in DATA_AXES + (SP_AXIS,) and mesh.shape[a] > 1]
         if others:
             raise NotImplementedError(
-                f"the world step runs dp/fsdp meshes; axes {others} come "
-                "with ROADMAP Queue 1 item 14")
+                f"the world step runs dp/fsdp/sp meshes; axes {others} "
+                "shard parameters over tp or ep (ROADMAP Queue 1 item "
+                "14(d); --moe runs train/comm.MoECommStep)")
+        if mesh.axis_size(SP_AXIS) > 1 and mesh.axis_size("fsdp") > 1:
+            raise ValueError("sp and fsdp together: the JAX CLI refuses "
+                             "--fsdp with --mesh sp")
         self.loss_fn, self.mesh = loss_fn, mesh
         self.loss_scale, self.with_step = loss_scale, with_step
         self.world = mesh.size
         self.dp = mesh.axis_size("dp")
+        # the data replicas: the sp ranks of one replica hold the same
+        # rows, and their gradients sum
+        self.replicas = mesh.size // mesh.axis_size(SP_AXIS)
         self.built = False
         self.steps = 0
 
@@ -138,11 +150,12 @@ class WorldTrainStep:
         self.built = True
 
     def _reduce(self, params: list) -> None:
-        """Every gradient the world's mean, in place: the whole leaves by
-        one all-reduce per dtype of their 1/W-scaled gradients; a sharded
-        leaf's gradient is its fsdp group's mean already, and is averaged
-        over the dp axis when there is one."""
-        inv_w = 1.0 / self.world
+        """Every gradient the mean over the data replicas (summed over
+        sp), in place: the whole leaves by one all-reduce per dtype of
+        their gradients scaled by 1/replicas; a sharded leaf's gradient is
+        its fsdp group's mean already, and is averaged over the dp axis
+        when there is one."""
+        inv_w = 1.0 / self.replicas
         by_dtype: dict[torch.dtype, list] = {}
         for p in params:
             spec = fsdp_spec(p)

@@ -98,6 +98,10 @@ ENV_VARS: dict[str, str] = {
                               "(0 = one fused reduction)",
     "EDL_TPU_DCN_COMPRESS": "cross-slice gradient wire format: off | topk "
                             "| int8",
+    "EDL_TPU_MOE_DISPATCH": "MoE all-to-all decomposition: flat | hier "
+                            "(in-slice leg + cross-slice leg)",
+    "EDL_TPU_MOE_COMPRESS": "MoE dispatch cross-slice wire format: "
+                            "off | int8 (parity-gated)",
     "EDL_TPU_FUSED_OPT": "fused optimizer path: off | fp32 | int8 | fp8",
     "EDL_TPU_AUGMENT_DEVICE": "crop/flip/normalize on the device "
                               "(imagenet_train; default on for packed)",

@@ -851,6 +851,107 @@ def test_lm_world_gates_fail(case, capsys):
     assert "lm_world" in capsys.readouterr().err
 
 
+def test_lm_world_runs_sp_and_moe_with_their_launches():
+    from edl_tpu_torch.ops import opt_kernels as ok_mod
+    runs = dict(cs.LM_WORLD_RUNS)
+    assert runs["sp"] == ["--mesh", "sp"]
+    assert runs["moe"] == ["--moe", "--n-experts", "4", "--moe-dispatch",
+                           "hier", "--moe-compress", "int8"]
+    base = cs.lm_want(ok_mod, 60)
+    # rank r of a ring of 2 attends r past blocks and its diagonal
+    for r in (0, 1):
+        sp = cs.lm_world_want(ok_mod, "sp", r, 60)
+        assert sp["flash_fwd"] == sp["flash_bwd_dq"] == 8 * (r + 1)
+        assert sp["pack_int8"] == 0 and sp["adam_fp32"] == base["adam_fp32"]
+    moe = cs.lm_world_want(ok_mod, "moe", 1, 60)
+    assert moe == {**base, "pack_int8": 16}   # 2 legs x 8 blocks
+    assert cs.lm_world_want(ok_mod, "int8", 0, 60)["pack_int8"] == 1
+
+
+def _sp_moe_runs(**override) -> dict:
+    runs = {"sp": {"losses": [10.40, 10.1, 9.9, 9.7],
+                   "first": {"dense_loss": 10.4001},
+                   "step_ms_median": 1500.0,
+                   "ring_flash_vs_dense": {
+                       k: {"max_abs_err": 0.01, "max_abs_ref": 2.0}
+                       for k in ("o", "dq", "dk", "dv")}},
+            "moe": {"step_ms_median": 2500.0,
+                    "stats": {"moe_dcn_bytes_per_step": 1 << 20},
+                    "k8_bitwise_plain": True,
+                    "moe_parity_gate": {"ok": True, "bitwise_hier": True}}}
+    for name, kw in override.items():
+        runs[name] = dict(runs[name], **kw)
+    return runs
+
+
+def test_lm_world_sp_moe_gates_pass(capsys):
+    out = cs.lm_world_sp_moe_gates(_sp_moe_runs())
+    assert out["sp_loss_delta"] == pytest.approx(1e-4)
+    assert all(out["ring_ok"].values())
+
+
+@pytest.mark.parametrize("override", [
+    {"sp": {"first": {"dense_loss": 10.0}}},
+    {"sp": {"first": {"dense_loss": 10.4005}}},
+    {"sp": {"ring_flash_vs_dense": {
+        "o": {"max_abs_err": 0.07, "max_abs_ref": 2.0}}}},
+    {"moe": {"k8_bitwise_plain": False}},
+    {"moe": {"moe_parity_gate": {"ok": False}}},
+    {"moe": {"stats": {"moe_dcn_bytes_per_step": 0}}}])
+def test_lm_world_sp_moe_gates_fail(override, capsys):
+    with pytest.raises(SystemExit):
+        cs.lm_world_sp_moe_gates(_sp_moe_runs(**override))
+    assert "lm_world" in capsys.readouterr().err
+
+
+def test_sp_loss_controls_read_the_three_faults():
+    """sp_loss_controls on a small dense model over two blocks: each
+    fault moves the whole sequence's loss, the boundary control is the
+    mean without the targets of each block's last position, one block
+    has no fault to read, and the model's pos_embed is as it was."""
+    from edl_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  lm_loss_fn)
+
+    model = Transformer(TransformerConfig(
+        vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
+        max_len=8, dtype=torch.float32, attention="dense"), device="cpu",
+        seed=3)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 64, (4, 8)).astype(np.int32))
+    before = model.pos_embed.detach().clone()
+    with torch.no_grad():
+        out = cs.sp_loss_controls(model, toks, 2)
+        logp = torch.log_softmax(model(toks)[:, :-1].float(), -1)
+        whole = float(lm_loss_fn(model, {"tokens": toks})[0])
+    torch.testing.assert_close(model.pos_embed.detach(), before, rtol=0,
+                               atol=0)
+    nll = -torch.gather(logp, -1, toks[:, 1:].long()[..., None])[..., 0]
+    dropped = float(torch.cat([nll[:, :3], nll[:, 4:]], 1).mean())
+    assert out["boundary_targets_dropped"] == pytest.approx(
+        abs(dropped - whole), abs=1e-6)
+    assert all(v > 1e-4 for v in out.values()), out
+    with torch.no_grad():
+        assert cs.sp_loss_controls(model, toks, 1) == {k: 0.0 for k in out}
+
+
+def test_state_checksum_tells_states_apart():
+    from edl_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig)
+    from edl_tpu_torch.train.fused_opt import make_fused_tx
+    from edl_tpu_torch.train.state import TrainState
+
+    def state(seed):
+        model = Transformer(TransformerConfig(
+            vocab_size=16, d_model=16, n_heads=2, n_layers=1, d_ff=32,
+            max_len=8, dtype=torch.float32), device="cpu", seed=seed)
+        return TrainState.create(model=model, tx=make_fused_tx(
+            "adam", 1e-3, "fp32"), params=list(model.named_parameters()))
+
+    assert cs.state_checksum(state(0)) == cs.state_checksum(state(0))
+    assert cs.state_checksum(state(0)) != cs.state_checksum(state(1))
+
+
 def _spmd_rank(rank: int, name: str, losses=None, digest="d" * 64,
                ratio=0.0101) -> dict:
     want = {"sgdm_fp32": int(name == "spmd"), "pack_int8": 0}
@@ -1150,6 +1251,10 @@ def test_the_elastic_ctr_phase_on_the_cpu(tmp_path, monkeypatch, capsys):
     with cs.DistillPool(tmp_path, tmp_path / "ck", prefix="test-ctr",
                         timeout=300) as pool:
         spawn = pool.spawn
+        # one intra-op thread a CPU trainer: under a loaded run a thread
+        # pool the size of the host waits at every op for its slowest
+        # thread, and the trainers' steps, not the phase, set its time
+        pool.env["OMP_NUM_THREADS"] = "1"
 
         def on_the_cpu(name, module, *args):
             if module.endswith("ctr_train"):
@@ -1170,3 +1275,83 @@ def test_the_elastic_ctr_phase_on_the_cpu(tmp_path, monkeypatch, capsys):
     # CPU the survivor finishes its other tasks first)
     assert all(s > 0 for s in out["redispense_after_kill_s"].values())
     assert cs.pids_with_env(EDL_TPU_JOB_ID=pool.job) == []
+
+
+def rank_tiny_moe_gate(inputs: dict, directory: Path) -> dict:
+    """A rank of phase 17's MoE gate (chip_smoke.tiny_moe_gate over
+    MOE_GATE_CASES, read by moe_gate_readings) on the CPU, the CPU's
+    readings standing in for the card's too."""
+    cpu = [cs.tiny_moe_gate("cpu", *case) for case in cs.MOE_GATE_CASES]
+    out = cs.moe_gate_readings(cpu, cpu)
+    return {"ok": np.array(out["ok"]),
+            "cases": np.array([[c["bitwise_hier"], c["max_loss_delta"],
+                                c["fwd_delta"], c["device_delta"]]
+                               for c in out["cases"]]),
+            "flat": np.array([g["flat_losses"] for g in cpu]),
+            "int8": np.array([g["int8_losses"] for g in cpu])}
+
+
+@pytest.fixture(scope="module")
+def moe_gate_world(tmp_path_factory):
+    from test_torch_world import World
+
+    return World("test_torch_chip_smoke_build:rank_tiny_moe_gate", 2,
+                 tmp_path_factory.mktemp("moe_gate")).results()
+
+
+def test_phase_17_s_moe_gate_passes_in_a_world_of_two_on_the_cpu(
+        moe_gate_world):
+    """The gate phase 17 holds the moe run to, on the JAX test's tiny
+    problem over every case: hier bit for bit flat, step 1's int8 loss
+    within MOE_FWD_ATOL of flat's, each case's max_loss_delta inside the
+    envelope, on both ranks alike."""
+    assert len(cs.MOE_GATE_CASES) >= 8
+    r0, r1 = moe_gate_world
+    np.testing.assert_array_equal(r0["cases"], r1["cases"])
+    assert bool(r0["ok"])
+    bitwise, delta, fwd, device = r0["cases"].T
+    assert bitwise.all() and (device == 0).all()
+    assert (fwd <= cs.MOE_FWD_ATOL).all()
+    assert ((0 < delta) & (delta <= cs.MOE_GATE_ENVELOPE)).all()
+
+
+def test_phase_17_s_moe_gate_fails_off_its_bounds():
+    """moe_gate_readings fails a case off any of its bounds: hier not
+    bit for bit, the card's losses off the CPU's, step 1's int8 loss off
+    flat's, the envelope."""
+    def case(**kw):
+        return {"seed": 0, "rows": 5, "bitwise_hier": True, "ok": True,
+                "max_loss_delta": 0.1, "flat_losses": [3.0, 2.5],
+                "int8_losses": [3.001, 2.6], **kw}
+
+    assert cs.moe_gate_readings([case()], [case()])["ok"]
+    for card, cpu in (
+            ([case(bitwise_hier=False)], [case()]),
+            ([case(ok=False)], [case()]),
+            ([case(flat_losses=[3.0, 2.51])], [case()]),
+            ([case(int8_losses=[3.0 + 2 * cs.MOE_FWD_ATOL, 2.6])],
+             [case(int8_losses=[3.0 + 2 * cs.MOE_FWD_ATOL, 2.6])])):
+        assert not cs.moe_gate_readings(card, cpu)["ok"]
+
+
+# a few of MOE_GATE_CASES in the JAX package (of the gate's cases its
+# max_loss_delta is largest at (5, 1) and smallest at (4, 1)); a JAX MoE
+# step is slow on the CPU
+MOE_JAX_CASES = ((0, 5), (4, 1), (5, 1), (6, 5))
+
+
+def test_phase_17_s_moe_gate_reads_as_the_jax_package_s(moe_gate_world):
+    """The gate's per-step losses of the flat and int8 arms on the CPU,
+    against the JAX package's MoECommStep on the same inits (the port's,
+    bridged) and rows, on a two-device ep mesh (tests/moe_gate_sweep.py
+    reads every case so): flat within 1e-5 (fp32 sums in another order),
+    int8 within 1e-4 (XLA on the CPU forms a block's amax/127 one ulp off
+    the IEEE quotient in a few blocks, and an element on a rounding edge
+    then takes the next int8 step: 2.3e-5 at (4, 1))."""
+    import moe_gate_sweep
+
+    want = moe_gate_sweep.jax_gate_losses(MOE_JAX_CASES, cs.MOE_GATE_STEPS)
+    at = [cs.MOE_GATE_CASES.index(case) for case in MOE_JAX_CASES]
+    r0 = moe_gate_world[0]
+    np.testing.assert_allclose(r0["flat"][at], want["flat"], atol=1e-5)
+    np.testing.assert_allclose(r0["int8"][at], want["int8"], atol=1e-4)

@@ -220,3 +220,20 @@ def test_deepfm_and_ctr_train_keep_dense_gradients():
     for module in ("models/deepfm.py", "examples/ctr_train.py"):
         text = (PKG / module).read_text()
         assert "sparse=True" not in text and "SparseAdam(" not in text
+
+
+def test_ring_attention_and_moe_import_without_jax():
+    """The long-context and expert-parallel modules (the ring, the MoE
+    transformer, the dispatch wire and the world step) are in the checked
+    files and import in an interpreter where jax and edl_tpu cannot."""
+    mods = ["edl_tpu_torch.parallel.ring_attention",
+            "edl_tpu_torch.models.transformer", "edl_tpu_torch.train.comm",
+            "edl_tpu_torch.train.step", "edl_tpu_torch.examples.lm_train"]
+    for m in mods:
+        assert ROOT / (m.replace(".", "/") + ".py") in FILES
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'optax', 'edl_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            + "".join(f"import {m}\n" for m in mods))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)

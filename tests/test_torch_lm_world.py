@@ -19,9 +19,9 @@ restores into a world of one. multipod_demo fits w = 3, b = -1.5 within
 stream is the whole global batch, while each rank of a world reads its
 own stride of the epoch's order, so the two runs train on other batches.
 
-The CLI conflicts that this slice ports keep the JAX CLI's words, and
-``--moe``/``--mesh sp`` still exit naming ROADMAP item 14 (in
-tests/test_torch_train_slice.py). The comm smoke's JSON line has the
+The CLI conflicts that this slice ports keep the JAX CLI's words (in
+tests/test_torch_train_slice.py; ``--mesh sp`` and ``--moe`` in a world:
+tests/test_torch_lm_sp_moe.py). The comm smoke's JSON line has the
 JAX CLI's keys: those of ``convergence_smoke``'s report in the JAX
 package's source.
 """
@@ -272,6 +272,52 @@ def test_comm_smoke_cli_prints_the_jax_cli_keys():
 
 
 def test_comm_smoke_cli_refuses_moe_naming_its_item():
+    """``smoke --moe`` refuses the top-k wire, in the JAX CLI's words
+    (token blocks have no sparse wire); it names no ROADMAP item now."""
     from edl_tpu_torch.train import comm
-    with pytest.raises(SystemExit, match="item 14"):
-        comm._main(["smoke", "--moe", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--compress int8 only"):
+        comm._main(["smoke", "--moe", "--compress", "topk", "--device",
+                    "cpu"])
+
+
+def _jax_moe_report_keys() -> tuple[set, set]:
+    """The keys of ``moe_convergence_smoke``'s report and of its parity
+    gate, from the JAX package's source."""
+    tree = ast.parse((ROOT / "edl_tpu" / "train" / "comm.py").read_text())
+    keys = {}
+    for name in ("moe_convergence_smoke", "moe_parity_gate"):
+        fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                  and n.name == name)
+        out = set()
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Dict) and any(
+                    isinstance(k, ast.Constant) and k.value in (
+                        "compress", "bitwise_hier") for k in node.keys):
+                out.update(k.value for k in node.keys)
+            elif (isinstance(node, ast.Subscript)
+                  and isinstance(node.value, ast.Name)
+                  and node.value.id in ("report", "gate")
+                  and isinstance(node.slice, ast.Constant)
+                  and isinstance(node.ctx, ast.Store)):
+                out.add(node.slice.value)
+        keys[name] = out
+    return keys["moe_convergence_smoke"], keys["moe_parity_gate"]
+
+
+def test_comm_smoke_cli_moe_prints_the_jax_cli_keys():
+    """``smoke --moe`` in a world of one: the JAX CLI's
+    ``{"moe_smoke": ...}`` line, its keys and its gate's; the flat world
+    sends no cross-slice bytes."""
+    from edl_tpu_torch.train import comm
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = comm._main(["smoke", "--moe", "--device", "cpu", "--slices",
+                         "1", "--steps", "8"])
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])["moe_smoke"]
+    top, gate = _jax_moe_report_keys()
+    assert set(report) == top
+    assert set(report["parity_gate"]) == gate
+    assert report["parity_gate"]["bitwise_hier"]
+    assert report["world"] == 1 and report["moe_dcn_bytes_per_step"] == 0
+    assert rc == (0 if report["ok"] else 1)

@@ -161,3 +161,45 @@ def test_constrain_is_the_identity():
     assert tshd.constrain(x, ("batch", "embed"), None) is x
     with pytest.raises(ValueError, match="does not split"):
         tshd.leaf_shard(tmesh.Mesh(np.arange(4), ("fsdp",)), ("fsdp",), (6,))
+
+
+def test_shard_module_keeps_sp_out_of_the_parameters():
+    """Under fsdp x sp the JAX "seq" rule places pos_embed over sp too;
+    the port's sp ranks keep every parameter whole along sp, so a rank
+    holds what the fsdp-only mesh gives it: pos_embed split on its embed
+    dim over fsdp alone."""
+    grid = np.arange(4).reshape(2, 2)
+    specs = {}
+    for rank in range(4):
+        model = Transformer(TransformerConfig(**SMALL, dtype=torch.float32),
+                            device="cpu")
+        specs[rank] = tshd.shard_module(
+            model, tmesh.Mesh(grid, ("fsdp", "sp"), rank=rank))
+        assert tuple(model.pos_embed.shape) == (SMALL["max_len"],
+                                                SMALL["d_model"] // 2)
+    assert specs[0]["pos_embed"].dim == 1
+    assert [specs[r]["pos_embed"].index for r in range(4)] == [0, 0, 1, 1]
+    assert len(specs[0]) == 6 * SMALL["n_layers"] + 2
+
+
+@pytest.mark.parametrize("axes", [{"fsdp": 2, "tp": 2}, {"fsdp": 2, "ep": 2}])
+def test_tp_and_ep_sharded_parameters_name_item_14d(axes):
+    model = Transformer(TransformerConfig(**SMALL, dtype=torch.float32,
+                                          moe="ep" in axes, n_experts=4),
+                        device="cpu")
+    grid = np.arange(4).reshape(2, 2)
+    with pytest.raises(NotImplementedError, match=r"item 14\(d\)"):
+        tshd.shard_module(model, tmesh.Mesh(grid, tuple(axes)))
+
+
+def test_the_world_step_takes_sp_and_refuses_tp():
+    from edl_tpu_torch.models.transformer import lm_loss_fn
+    from edl_tpu_torch.train.step import WorldTrainStep
+
+    grid = np.arange(4).reshape(2, 2)
+    step = WorldTrainStep(lm_loss_fn, mesh=tmesh.Mesh(grid, ("dp", "sp")))
+    assert (step.world, step.replicas) == (4, 2)
+    with pytest.raises(NotImplementedError, match=r"item 14\(d\)"):
+        WorldTrainStep(lm_loss_fn, mesh=tmesh.Mesh(grid, ("dp", "tp")))
+    with pytest.raises(ValueError, match="--fsdp with --mesh sp"):
+        WorldTrainStep(lm_loss_fn, mesh=tmesh.Mesh(grid, ("fsdp", "sp")))

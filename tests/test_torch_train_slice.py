@@ -332,20 +332,39 @@ def test_lm_train_remat_auto_follows_choose_remat(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--moe"], "item 14"), (["--mesh", "sp"], "item 14"),
+    (["--moe", "--mesh", "fsdp"], "--moe owns the ep mesh"),
+    (["--moe", "--mesh", "sp"], "--mesh sp conflicts"),
+    (["--moe", "--fp16"], "--moe is not supported with --fp16"),
+    (["--moe", "--fused-loss"], "--fused-loss has no MoE variant"),
+    (["--moe", "--dcn-compress", "int8"], "under --moe the wire knob"),
+    (["--moe", "--ckpt-sharded"], r"item 14\(d\)"),
     (["--fsdp", "--mesh", "sp"], "legacy alias of --mesh fsdp"),
     (["--mesh", "fsdp", "--dcn-compress", "int8"],
      "own the dp gradient reduction"),
     (["--fsdp", "--comm-bucket-mb", "4"], "own the dp gradient reduction"),
     (["--fp16", "--dcn-compress", "topk"], "not supported with --fp16")])
 def test_unported_flags_exit_before_any_work(tmp_path, flags, match):
-    """--moe and --mesh sp exit naming item 14; the conflicts of the
-    ported world flags exit with the JAX CLI's words; all before any
-    work."""
+    """The JAX CLI's conflicts of --moe, --mesh sp and the world flags
+    exit with its words, and --moe --ckpt-sharded (ep-sharded expert
+    chunks) names item 14(d); all before any work."""
     data_dir = tmp_path / "never-written"
     with pytest.raises(SystemExit, match=match):
         lm_train.main(["--data-dir", str(data_dir), *TINY_ARGV, *flags])
     assert not data_dir.exists()
+
+
+@pytest.mark.parametrize("flags", [["--moe", "--moe-top-k", "1"],
+                                   ["--mesh", "sp"]])
+def test_moe_and_sp_train_in_a_world_of_one(tmp_path, capsys, monkeypatch,
+                                            flags):
+    """--moe (E = 2 experts, the default 2 x world) and --mesh sp (a ring
+    of one rank: the plain model) train and evaluate on one rank."""
+    loss, seen = _run_lm_train(tmp_path, capsys, monkeypatch, flags)
+    assert np.isfinite(loss)
+    assert seen["cfg"].moe == ("--moe" in flags)
+    if "--moe" in flags:
+        assert (seen["cfg"].n_experts, seen["cfg"].moe_top_k) == (2, 1)
+    assert not seen["cfg"].use_ring
 
 
 def test_unported_env_knobs_exit(tmp_path, monkeypatch, capsys):

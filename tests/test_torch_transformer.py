@@ -102,10 +102,27 @@ def test_auto_attention_rule():
         128, "cuda")
 
 
-@pytest.mark.parametrize("kw", [{"moe": True}, {"mesh": object()}])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("kw,exc", [
+    ({"mesh": object()}, TypeError),          # the port's seam is cfg.sp
+    ({"moe": True, "n_experts": 1}, ValueError),
+    ({"moe": True, "n_experts": 4, "moe_top_k": 5}, ValueError)])
+def test_unported_options_raise(kw, exc):
+    """The JAX model's mesh field (its sharding-constraint seam) is not a
+    field of the port's config; an MoE config is validated as the JAX
+    package's is."""
+    with pytest.raises(exc):
         TransformerConfig(**SMALL, **kw)
+
+
+def test_moe_config_builds_the_expert_blocks():
+    model = Transformer(TransformerConfig(**SMALL, moe=True, n_experts=4),
+                        device="cpu")
+    names = {n for n, _ in model.named_parameters()}
+    assert "block0.moe_mlp.w_in" in names and "block0.mlp_in.weight" \
+        not in names
+    assert tuple(model.block0.moe_mlp.w_in.shape) == (
+        4, SMALL["d_model"], SMALL["d_ff"])
+    assert tuple(model.block0.moe_mlp.router.shape) == (SMALL["d_model"], 4)
 
 
 def test_get_model_and_seeded_init():
