@@ -313,6 +313,41 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              --ckpt_dir, then 5 on the same dir (it asks only for epochs
              3 and 4), then 5 unbroken: the resumed loss within 1e-6 of
              the unbroken run's (bitwise reported).
+21. scaler — the elastic control plane's training loop: python -m
+             edl_tpu_torch.examples.elastic_demo --scaler --nodes-range
+             1:2 (SCALER_ARGV) as a user runs it, its pods' trainers on
+             the card, EDL_TPU_TRACE set: the in-process store, JobServer
+             and JobClient-spawned launchers, and a leader-elected
+             ScalerController (ThroughputPolicy) resizing the job through
+             /resize. Gates: the demo's own audit (the job completes, the
+             served resize_log equals the journal's applied resizes,
+             fresh utilization observed); a journaled and applied 1 -> 2
+             resize with the trainers on cuda; the controller's measured
+             downtime taken from the trainers' migration acks, not its
+             configured 1.5 s; the trace CLI's resize_phase_summary
+             (python -m edl_tpu_torch.obs trace <dir> --json) lists that
+             resize rooted at scaler.decide with its decision, actuation
+             and restore seconds (printed on a line of its own).
+22. serve_scaler — the serving loop: a TeacherPoolActuator of 1 to 2
+             ResNet50_vd teachers (the zoo-teacher CLI through
+             spawn_process_teacher, random weights, 1000 classes, 224 px
+             float16 feeds; the first started while phase 21 runs), the
+             in-process store server, a ScalerController with a
+             ServingPolicy, and loadgen.run_open_loop at 0.3x, 1.5x and
+             0.05x one teacher's sustained rows/s (measured first), the
+             SLO 4x the cruise p95 measured before the controller starts.
+             Gates: at least one grow and one shrink journaled and
+             applied, every actuated resize journaled, a graceful drain
+             and no hard kill, the SLO met again at the end, no request
+             without an outcome, no teacher on the CPU, every teacher's
+             process gone. Prints per stage rows/s, p50 and p95, the
+             seconds from the first breach to the grown teacher's first
+             answer, and each drain's seconds.
+
+Phases 15 and 16 run with EDL_TPU_TRACE set and print, on a line of its
+own after each, the trace CLI's phases of each resize trace beside each
+respawned trainer's start split by its records (process, restore, first
+step); phase 16's adoption must show in the trace CLI.
 
 The kernels phase also holds K1 and K2/K3's fp16 bodies against their
 plain versions (the bf16 bounds; bit for bit between two launches on the
@@ -2474,11 +2509,15 @@ def phase_train_int8(fa, ok_mod, fp32: dict) -> dict:
 # (PR 10), so it is not bf16's (RESNET_BF16_ATOL below checks the first
 # epoch every run). In a third epoch every step stays below step 1: the
 # check is that, and the epoch means falling.
+# The npz loader keeps every shard loaded (--cache-shards): at imagenet_
+# train's default of 4 of the 5, every batch of a shuffled epoch reloaded
+# all five, 0.76-0.94 s a batch against 0.04-0.11 with all five kept (on
+# an H100 80GB HBM3 host at 700 W).
+RESNET_SHARDS = 5
 RESNET_ARGV = ["--model", "ResNet50_vd", "--bf16", "--image-size", "224",
                "--num-classes", "1000", "--batch-size", "128", "--no-augment",
                "--warmup-epochs", "1", "--epochs", "3",
-               "--rows-per-file", "256"]
-RESNET_SHARDS = 5
+               "--rows-per-file", "256", "--cache-shards", str(RESNET_SHARDS)]
 RESNET_STEPS_PER_EPOCH = 10
 PROFILED_STEPS = 3
 # per-step losses of the bf16 run against the same run with fp32
@@ -3682,9 +3721,12 @@ def elastic_argv(data_dir: str, ckpt_dir: str) -> list:
     """imagenet_train's argv in every generation: RESNET_ARGV (128 images
     a step, so 64 a rank in a world of two) for ELASTIC_EPOCHS epochs, K4
     (--fused-opt fp32), the int8 wire (K8 in a world of two) and the
-    shared checkpoint dir."""
+    shared checkpoint dir. It keeps imagenet_train's default shard cache:
+    the reloads pace an epoch (8-10 s), which gives a resize's new
+    generation its time to start before the job's last epoch ends."""
     argv = list(RESNET_ARGV)
     argv[argv.index("--epochs") + 1] = str(ELASTIC_EPOCHS)
+    del argv[argv.index("--cache-shards"):argv.index("--cache-shards") + 2]
     return ["--data-dir", data_dir, *argv, "--fused-opt", "fp32",
             "--dcn-compress", "int8", "--ckpt-dir", ckpt_dir]
 
@@ -3730,7 +3772,7 @@ def elastic_worker(out_dir: str, argv_json: str) -> int:
     def open_record(version, rank, world, t0, adopted):
         cur["rec"] = {"version": version, "rank": rank, "world": world,
                       "pod": env.pod_id, "pid": os.getpid(),
-                      "adopted": adopted, "t_start": t0,
+                      "adopted": adopted, "t_start": t0, "t_restore": None,
                       "t_first_step": None, "first_sha256": None,
                       "steps": [], "evaluated": [], "epochs": [], "rc": None}
 
@@ -3746,6 +3788,7 @@ def elastic_worker(out_dir: str, argv_json: str) -> int:
     epoch_fn = benchlog.BenchmarkLog.epoch
     wait_fn = checkpoint.CheckpointManager.wait
     adopt_fn = loop_mod.TrainLoop._adopt
+    restore_fn = loop_mod.TrainLoop.try_restore
 
     def timed_step(self, state, batch):
         torch.cuda.synchronize()
@@ -3778,6 +3821,13 @@ def elastic_worker(out_dir: str, argv_json: str) -> int:
         write()
         return out
 
+    def try_restore(self):
+        cur["rec"]["t_restore"] = [time.time()]
+        out = restore_fn(self)
+        cur["rec"]["t_restore"].append(time.time())
+        write()
+        return out
+
     def adopt(self, reform):
         t0 = time.time()
         out = adopt_fn(self, reform)
@@ -3792,6 +3842,7 @@ def elastic_worker(out_dir: str, argv_json: str) -> int:
     benchlog.BenchmarkLog.epoch = evaluated
     checkpoint.CheckpointManager.wait = sealed
     loop_mod.TrainLoop._adopt = adopt
+    loop_mod.TrainLoop.try_restore = try_restore
     for c in counters.values():
         c.launches = 0
     open_record(env.cluster_version, env.rank, env.world_size, t_start,
@@ -3804,8 +3855,83 @@ def elastic_worker(out_dir: str, argv_json: str) -> int:
         benchlog.BenchmarkLog.epoch = epoch_fn
         checkpoint.CheckpointManager.wait = wait_fn
         loop_mod.TrainLoop._adopt = adopt_fn
+        loop_mod.TrainLoop.try_restore = restore_fn
     write()
     return 0
+
+
+def trace_cli_resizes(trace_dir: Path) -> list[dict]:
+    """The trace CLI's resize_phase_summary of a span directory (python -m
+    edl_tpu_torch.obs trace <dir> --json, run as a user runs it), each
+    resize with the root spans of its trace. [] when the directory holds
+    no spans."""
+    from edl_tpu_torch.obs import trace
+
+    if not trace_dir.is_dir() or not trace.load_spans(str(trace_dir)):
+        return []
+    out = subprocess.run([sys.executable, "-m", "edl_tpu_torch.obs",
+                          "trace", str(trace_dir), "--json"],
+                         capture_output=True, text=True, cwd=str(HERE),
+                         timeout=120)
+    if out.returncode != 0:
+        fail(f"the trace CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    traces = trace.group_traces(trace.load_spans(str(trace_dir)))
+    return [dict(r, roots=sorted({s["name"] for s, d in trace.span_tree(
+        traces[r["trace_id"]]) if d == 0}))
+        for r in json.loads(out.stdout)["resizes"]]
+
+
+def resize_split_line(phase: str, traced: list[dict],
+                      starts: list[dict]) -> dict:
+    """Print a phase's resize split on a line of its own: the trace CLI's
+    phases of each resize trace, and each respawned trainer's start
+    (generation_start_split). Returns it."""
+    split = {"phase": phase,
+             "trace_cli": [{k: r[k] for k in ("trace_id", "roots", "spans",
+                                              "phases", "downtime_s")}
+                           for r in traced],
+             "generation_start": starts}
+    emit({"resize_split": split})
+    return split
+
+
+def generation_start_split(gens: list[dict], causes: dict) -> list[dict]:
+    """Where a respawned trainer's start went, for each generation that
+    follows a resize (``causes``: version -> the time of the resize's
+    cause, a kill, a SIGTERM or a new launcher's start): the cause to the
+    trainer process's start (the launcher's notice, the barrier and the
+    interpreter with torch), to the restore's start (the world's join,
+    the model and the loader), the restore, and to the end of the first
+    step. Ranks that adopted the resize in place have no restore and are
+    split by their reform phases instead."""
+    out = []
+    for g in gens:
+        tc = causes.get(g["version"])
+        if tc is None:
+            continue
+        for rec in g["ranks"].values():
+            if rec.get("adopted") or not rec.get("t_restore") \
+                    or len(rec["t_restore"]) != 2 \
+                    or rec.get("t_first_step") is None:
+                continue
+            r0, r1 = rec["t_restore"]
+            out.append({"version": g["version"], "rank": rec["rank"],
+                        "pod": rec["pod"],
+                        "to_process_s": rec["t_start"] - tc,
+                        "to_restore_s": r0 - rec["t_start"],
+                        "restore_s": r1 - r0,
+                        "to_first_step_s": rec["t_first_step"] - r1,
+                        "total_s": rec["t_first_step"] - tc})
+    return out
+
+
+def smoke_env(**extra: str) -> dict:
+    """The environment of a process this script starts: this one's but
+    its EDL_TPU_* knobs, the checkout first on PYTHONPATH, and ``extra``."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_TPU_")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    return dict(env, **extra)
 
 
 def elastic_job_id(prefix: str = "chip-elastic") -> str:
@@ -3866,7 +3992,9 @@ class ElasticJob:
         self.job = elastic_job_id()
         self.out, self.ckpt = root / "out", root / "ckpt"
         self.out.mkdir(parents=True)
-        self.env = env
+        # every process of the job writes its spans here (resize_split)
+        self.trace = root / "trace"
+        self.env = dict(env, EDL_TPU_TRACE=str(self.trace))
         self.deadline = time.monotonic() + timeout_s
         self.procs: dict[str, subprocess.Popen] = {}
         self.logs = []
@@ -3875,10 +4003,7 @@ class ElasticJob:
         self.acks: dict[tuple, dict] = {}
         self.adverts: dict[tuple, dict] = {}
         self.port = free_port()
-        self.base = {k: v for k, v in os.environ.items()
-                     if not k.startswith("EDL_TPU_")}
-        self.base["PYTHONPATH"] = os.pathsep.join(
-            [str(HERE), self.base.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+        self.base = smoke_env()
         self.worker = [sys.executable, str(Path(__file__).resolve()),
                        "--elastic-worker", str(self.out),
                        json.dumps(elastic_argv(str(data), str(self.ckpt)))]
@@ -4126,10 +4251,13 @@ def phase_elastic(card: str, data: Path) -> tuple[dict, dict]:
         lingering = pids_with_env(EDL_TPU_JOB_ID=job.job)
         ends = {p: job.ends(p) for p in (survivor, "podC")}
         recs, docs = job.records(), job.docs
+        traced = trace_cli_resizes(job.trace)
     if lingering:
         fail(f"elastic: processes {lingering} of the job outlived it")
     gens = elastic_gates(recs, docs)
     g2 = next(g for g in gens if g["version"] == v2)
+    split = resize_split_line("elastic", traced, generation_start_split(
+        gens, {v2: t_kill, gens[-1]["version"]: t_grow}))
     result = {"phase": "elastic", "card": card, "job": job.job,
               "env": ELASTIC_ENV, "epochs": ELASTIC_EPOCHS,
               "cluster_documents": docs,
@@ -4143,6 +4271,7 @@ def phase_elastic(card: str, data: Path) -> tuple[dict, dict]:
               "downtime_s": {"shrink": first_step(g2) - t_kill,
                              "grow": first_step(gens[-1]) - t_grow},
               "cold_start_s": first_step(gens[0]) - max(t0.values()),
+              "resize_split": split,
               "seconds": time.monotonic() - t_phase}
     emit(result)
     launches = {n: sum(g["launches"][n] for g in result["generations"])
@@ -4275,10 +4404,17 @@ def phase_elastic_live(card: str, data: Path, stop_resume: dict) -> dict:
         recs, docs = job.records(), job.docs
         acks = sorted(job.acks.values(), key=lambda a: a["ts"])
         adverts = list(job.adverts.values())
+        traced = trace_cli_resizes(job.trace)
     facts = elastic_live_gates(recs, docs, acks, adverts, survivor)
     gens = facts["generations"]
     g2 = next(g for g in gens if g["version"] == v2)
     adopted = facts["adopted"]
+    if not any("resize.adopt" in r["roots"] and "restore" in r["phases"]
+               for r in traced):
+        fail(f"elastic_live: the trace CLI finds no adoption among the "
+             f"resizes {traced}")
+    split = resize_split_line("elastic_live", traced, generation_start_split(
+        gens, {v2: t_term, gens[-1]["version"]: t_grow}))
     result = {"phase": "elastic_live", "card": card, "job": job.job,
               "env": ELASTIC_LIVE_ENV, "epochs": ELASTIC_EPOCHS,
               "cluster_documents": docs, "leaver": leader,
@@ -4297,7 +4433,8 @@ def phase_elastic_live(card: str, data: Path, stop_resume: dict) -> dict:
                   "restore_s")} for a in facts["peers"]],
               "donor_nbytes": sorted({a["nbytes"] for a in adverts}),
               "params_sha256": facts["params_sha256"],
-              "acks": acks, "seconds": time.monotonic() - t_phase}
+              "acks": acks, "resize_split": split,
+              "seconds": time.monotonic() - t_phase}
     emit(result)
     launches = {n: sum(g["launches"][n] for g in result["generations"])
                 for n in ("sgdm_fp32", "pack_int8")}
@@ -5091,7 +5228,8 @@ def resnet_batch(data: Path) -> dict:
     from edl_tpu_torch.data.pipeline import DataLoader, FileSource
 
     files = sorted(str(p) for p in data.glob("train-*.npz"))
-    loader = DataLoader(FileSource(files), 128, seed=0, num_workers=0)
+    loader = DataLoader(FileSource(files, cache_files=len(files)), 128,
+                        seed=0, num_workers=0)
     batch = next(iter(loader.epoch(0)))
     return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
@@ -5412,11 +5550,7 @@ class DistillPool:
         self.procs: dict[str, subprocess.Popen] = {}
         self.ports: dict[str, int] = {}
         self.logs = []
-        self.env = {k: v for k, v in os.environ.items()
-                    if not k.startswith("EDL_TPU_")}
-        self.env["PYTHONPATH"] = os.pathsep.join(
-            [str(HERE), self.env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
-        self.env["EDL_TPU_JOB_ID"] = self.job
+        self.env = smoke_env(EDL_TPU_JOB_ID=self.job)
 
     def spawn(self, name: str, module: str, *args: str) -> None:
         self.logs.append(open(self.root / f"{name}.log", "wb"))
@@ -5653,7 +5787,8 @@ def loader_labels(data: Path, epochs: int,
     from edl_tpu_torch.data.pipeline import DataLoader, FileSource
 
     files = sorted(str(p) for p in data.glob("train-*.npz"))
-    loader = DataLoader(FileSource(files), batch, seed=0, num_workers=0)
+    loader = DataLoader(FileSource(files, cache_files=len(files)), batch,
+                        seed=0, num_workers=0)
     return [b["label"].copy() for e in range(epochs)
             for b in loader.epoch(e)]
 
@@ -6342,7 +6477,359 @@ def phase_zoo_ctr(ok_mod, data: Path) -> dict:
                             if v}}
 
 
+# -- 21. scaler: the training loop of the control plane ----------------------
+# elastic_demo --scaler with its pods' trainers on the card: 6 epochs of 20
+# steps paced at 0.15 s (18 s of training a pod) leave the joiner of the
+# 1 -> 2 grow time to start on the card; the controller ticks every 0.5 s
+# and holds 8 s between resizes.
+SCALER_ARGV = ["--scaler", "--nodes-range", "1:2", "--epochs", "6",
+               "--steps-per-epoch", "20", "--step-time", "0.15",
+               "--scaler-interval", "0.5", "--scaler-cooldown", "8",
+               "--scaler-downtime", "1.5", "--scaler-timeout", "150"]
+SCALER_TIMEOUT_S = 200
+
+
+def run_marker() -> dict:
+    """An environment variable only this run's processes carry (they all
+    inherit it), for pids_with_env."""
+    return {"CHIP_SMOKE_RUN": elastic_job_id("chip-run")}
+
+
+def summary_line(text: str, key: str) -> dict:
+    lines = [ln for ln in text.splitlines() if ln.startswith(key + "=")]
+    if not lines:
+        fail(f"no {key}= line in:\n{text[-3000:]}")
+    return json.loads(lines[-1].split("=", 1)[1])
+
+
+def phase_scaler(card: str) -> dict:
+    """elastic_demo --scaler (SCALER_ARGV) as a user runs it, its pods'
+    trainers on the card, EDL_TPU_TRACE pointed at this phase's directory.
+    Gates: the demo's own audit (exit 0: the job completed, the
+    JobServer's served resize_log equals the journal's applied resizes,
+    fresh utilization was observed); a resize journaled and applied with
+    the world 1 -> 2, the trainers on cuda; the controller's measured
+    downtime taken from the migration acks (the worst acked gap, not the
+    configured 1.5 s); the trace CLI's resize_phase_summary lists that
+    resize, rooted at scaler.decide, with the decision, actuation and
+    restore phases; no process of the run outlives it. Prints each
+    phase's seconds on a line of its own."""
+    t_phase = time.monotonic()
+    marker = run_marker()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = Path(tmp) / "trace"
+        try:
+            out = subprocess.run(
+                [sys.executable, "-m", "edl_tpu_torch.examples.elastic_demo",
+                 *SCALER_ARGV], capture_output=True, text=True, cwd=str(HERE),
+                env=smoke_env(**marker, EDL_TPU_TRACE=str(trace_dir)),
+                timeout=SCALER_TIMEOUT_S)
+        finally:
+            kill_groups(pids_with_env(**marker))
+        if out.returncode != 0:
+            print(out.stderr[-6000:], file=sys.stderr, flush=True)
+            fail(f"scaler: elastic_demo --scaler exited {out.returncode}")
+        summary = summary_line(out.stdout, "scaler_summary")
+        traced = trace_cli_resizes(trace_dir)
+    grows = [r for r in summary["resizes"] if (r["from"], r["applied"])
+             == (1, 2)]
+    if not grows or [s["to"] for s in summary["served_resizes"]][:1] != [2]:
+        fail(f"scaler: no journaled and applied 1 -> 2 resize: {summary}")
+    if summary["trainer_devices"] == [] or any(
+            not d.startswith("cuda") for d in summary["trainer_devices"]):
+        fail(f"scaler: trainers ran on {summary['trainer_devices']}")
+    acked = summary["acked_downtime_s"]
+    observed = summary["observed_downtime_s"]
+    if summary["downtime_source"] != "ack" or not acked or not observed \
+            or observed[0] != round(max(acked), 3) \
+            or summary["downtime_charged_s"][-1] \
+            == summary["configured_downtime_s"]:
+        fail(f"scaler: the downtime did not come from the migration acks: "
+             f"source {summary['downtime_source']}, acked {acked}, "
+             f"observed {observed}, charged "
+             f"{summary['downtime_charged_s'][-3:]}")
+    decided = [r for r in traced if "scaler.decide" in r["roots"]]
+    if not decided or not {"decision", "actuation", "restore"} <= set(
+            decided[0]["phases"]):
+        fail(f"scaler: the trace CLI does not split the resize: {traced}")
+    if pids_with_env(**marker):
+        fail(f"scaler: processes {pids_with_env(**marker)} outlived it")
+    split = {"phase": "scaler", "trace_cli": [
+        {k: r[k] for k in ("trace_id", "roots", "spans", "phases",
+                           "downtime_s")} for r in traced]}
+    emit({"resize_split": split})
+    result = {"phase": "scaler", "card": card, "argv": SCALER_ARGV,
+              "resizes": summary["resizes"],
+              "served_resizes": summary["served_resizes"],
+              "decisions": summary["decisions"],
+              "trainer_devices": summary["trainer_devices"],
+              "acked_downtime_s": acked, "observed_downtime_s": observed,
+              "configured_downtime_s": summary["configured_downtime_s"],
+              "resize_phase_s": decided[0]["phases"],
+              "seconds": time.monotonic() - t_phase}
+    emit(result)
+    return result
+
+
+# -- 22. serve_scaler: the serving loop of the control plane -----------------
+# A pool of ResNet50_vd teachers (the zoo-teacher CLI, random weights from
+# its seed, 1000 classes, 224 px, float16 feeds as phase 19's) between 1
+# and 2, under a ServingPolicy whose SLO is 4x the cruise p95 this phase
+# measures; requests of SERVE_ROWS images at SERVE_STAGES x one teacher's
+# sustained rows/s. Policy knobs: a grow after 2 breached ticks, a drain
+# after 3 idle ones, 3 s between resizes, ticks every 0.5 s (0.2 s floor).
+SERVE_SERVICE = "chip_serve_resnet"
+SERVE_ROWS = 8
+SERVE_CAPACITY_S = 4.0
+SERVE_STAGES = (("cruise", 0.3, 7.0), ("step", 1.5, 20.0),
+                ("idle", 0.05, 10.0))
+SERVE_MEASURE_S = 4.0          # of cruise, before the controller starts
+SERVE_SLO_X = 4.0
+SERVE_TEACHER_START_S = 120.0
+
+
+class ServePool:
+    """Phase 22's rig: the port's store server in process, a
+    TeacherPoolActuator whose spawn is spawn_process_teacher (the
+    zoo-teacher CLI in its own session, this run's marker in its
+    environment, registered once it answers), and every handle it made,
+    so the phase can check each process is gone. Leaving the block closes
+    the pool and kills anything of the run still alive."""
+
+    # the zoo-teacher CLI's model flags (a test swaps in a CPU model)
+    TEACHER = ["--model", "ResNet50_vd", "--num-classes", "1000",
+               "--input-shape", "224,224,3", "--input-dtype", "float16"]
+
+    def __init__(self, root: Path, marker: dict):
+        from edl_tpu_torch.coord.server import StoreServer
+        from edl_tpu_torch.scaler.serving import TeacherPoolActuator
+
+        self.root, self.marker = root, marker
+        self.srv = StoreServer(port=0, host="127.0.0.1",
+                               sweep_interval=0.2).start()
+        self.handles: list = []
+        self.spawned_at: dict[str, float] = {}
+        self.actuator = TeacherPoolActuator(
+            self.spawn, min_teachers=1, max_teachers=2,
+            drain_deadline_s=20.0, service=SERVE_SERVICE)
+
+    def spawn(self, index: int):
+        from edl_tpu_torch.scaler.serving import spawn_process_teacher
+
+        port = free_port()
+        endpoint = f"127.0.0.1:{port}"
+        self.spawned_at[endpoint] = time.time()
+        handle = spawn_process_teacher(
+            self.srv.store, SERVE_SERVICE,
+            [sys.executable, "-m", "edl_tpu_torch.distill.teacher_server",
+             *self.TEACHER, "--host", "127.0.0.1", "--port", str(port)],
+            endpoint, str(self.root / "log"), index,
+            env=smoke_env(**self.marker), ttl=2.0, stats_interval=0.25,
+            probe_timeout=SERVE_TEACHER_START_S)
+        self.handles.append(handle)
+        return handle
+
+    def endpoints_fn(self):
+        """The registry's live endpoints, re-read at most every 0.3 s (a
+        drained teacher drops out of the load's choice)."""
+        from edl_tpu_torch.coord.registry import ServiceRegistry
+        from edl_tpu_torch.distill.registrar import DISTILL_ROOT
+
+        registry = ServiceRegistry(self.srv.store, root=DISTILL_ROOT)
+        cache = {"t": 0.0, "eps": []}
+
+        def current():
+            now = time.monotonic()
+            if now - cache["t"] > 0.3 or not cache["eps"]:
+                cache["eps"] = [m.server for m in
+                                registry.get_service(SERVE_SERVICE)]
+                cache["t"] = now
+            return cache["eps"]
+        return current
+
+    def __enter__(self) -> "ServePool":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> None:
+        try:
+            self.actuator.wait_drains(timeout=25.0)
+            self.actuator.close()
+        finally:
+            if exc_type is not None:
+                for f in sorted((self.root / "log").glob("workerlog.*")):
+                    print(f"--- serve_scaler {f.name} ---\n"
+                          f"{f.read_text(errors='replace')[-3000:]}",
+                          file=sys.stderr, flush=True)
+            kill_groups([h.proc.pid for h in self.handles if h.proc.alive()]
+                        + pids_with_env(**self.marker))
+            for h in self.handles:
+                try:
+                    h.proc.proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    pass
+            self.srv.stop()
+
+
+def serve_feed(rows: int, size: int = 224) -> dict:
+    rng = np.random.default_rng(22)
+    return {"image": rng.normal(size=(rows, size, size, 3)).astype(
+        np.float16)}
+
+
+def teacher_capacity(endpoint: str, feed: dict, seconds: float) -> float:
+    """One teacher's sustained rows/s: 8 requests kept in flight (after
+    4 warm-up requests) for ``seconds``."""
+    from edl_tpu_torch.distill.teacher_server import TeacherClient
+
+    rows = next(iter(feed.values())).shape[0]
+    client = TeacherClient(endpoint, timeout=120.0, max_inflight=8)
+    try:
+        for _ in range(4):
+            client.predict(feed)
+        t0, n, last = time.perf_counter(), 0, None
+        while time.perf_counter() - t0 < seconds:
+            last = client.predict_async(feed)
+            n += 1
+        last.result()
+        return n * rows / (time.perf_counter() - t0)
+    finally:
+        client.close()
+
+
+def serve_stage(pool: ServePool, feed: dict, rows_s: float, seconds: float,
+                seed: int) -> tuple[dict, dict, float]:
+    """One open-loop stage (loadgen.run_open_loop) at ``rows_s``: its
+    summary, each endpoint's first answer (wall clock) and its start."""
+    from edl_tpu_torch.distill.loadgen import LoadStats, run_open_loop
+
+    rows = next(iter(feed.values())).shape[0]
+    t_wall = time.time()
+    stats = LoadStats()
+    run_open_loop(pool.endpoints_fn(), duration_s=seconds,
+                  rps=rows_s / rows, rows=rows, mix={"normal": 1.0},
+                  seed=seed, drain_s=8.0, stats=stats, feed=feed)
+    s = stats.summary()
+    if s["offered"] != s["ok"] + s["shed"] + s["error"]:
+        fail(f"serve_scaler: requests left without an outcome: {s}")
+    first = {ep: t_wall + t for ep, t in stats.first_ok.items()}
+    return s, first, t_wall
+
+
+def phase_serve_scaler(card: str, pool: ServePool, started) -> dict:
+    """The serving loop on the card (ServePool; its first teacher was
+    started with ``started``, a thread, while phase 21 ran): one
+    teacher's sustained rows/s, then the open-loop load (SERVE_STAGES:
+    cruise, a step, idle) while a ScalerController with a ServingPolicy
+    resizes the pool, with the SLO set from the cruise p95 measured before
+    the controller starts. Gates (elastic_demo --serve-scaler's audit,
+    serve_scaler_audit): at least one grow and one shrink journaled and
+    applied, every actuated resize journaled, at least one graceful drain
+    and no hard kill, the SLO met again at the end; beyond it, no
+    request without an outcome in any stage, every teacher spawned on
+    the card and each teacher's process gone when the phase ends. Prints
+    per stage rows/s, p50 and p95, the seconds from the first breach to
+    the new teacher's first answered request, and each drain's seconds."""
+    from edl_tpu_torch.examples.elastic_demo import serve_scaler_audit
+    from edl_tpu_torch.scaler.controller import (ScalerConfig,
+                                                 ScalerController)
+    from edl_tpu_torch.scaler.policy import ThroughputPolicy
+    from edl_tpu_torch.scaler.serving import ServingConfig, ServingPolicy
+
+    t_phase = time.monotonic()
+    started.join(timeout=SERVE_TEACHER_START_S)
+    if started.is_alive() or pool.actuator.pool_size() != 1:
+        fail(f"serve_scaler: the first teacher did not start "
+             f"({pool.actuator.pool_size()} up)")
+    feed = serve_feed(SERVE_ROWS)
+    ep0 = pool.actuator.endpoints()[0]
+    capacity = teacher_capacity(ep0, feed, SERVE_CAPACITY_S)
+    emit({"phase": "serve_scaler", "teacher_rows_per_s": capacity,
+          "card": card})
+    stages: dict[str, dict] = {}
+    first_ok: dict[str, float] = {}
+    (name, mult, seconds), rest = SERVE_STAGES[0], SERVE_STAGES[1:]
+    measured, first, _ = serve_stage(pool, feed, mult * capacity,
+                                     SERVE_MEASURE_S, seed=0)
+    slo = SERVE_SLO_X * measured["p95_ms"]
+    emit({"phase": "serve_scaler", "cruise_p95_ms": measured["p95_ms"],
+          "slo_p95_ms": slo})
+    cfg = ServingConfig(slo_p95_ms=slo, queue_high=4.0, util_low=0.3,
+                        breach_ticks=2, idle_ticks=3, cooldown_s=3.0,
+                        min_teachers=1, max_teachers=2,
+                        drain_deadline_s=20.0)
+    journal = pool.root / "serving.jsonl"
+    controller = ScalerController(
+        pool.srv.store, [], ThroughputPolicy(),
+        config=ScalerConfig(interval=0.5, min_tick_s=0.2, staleness_s=5.0),
+        services=[SERVE_SERVICE], serving_policy=ServingPolicy(cfg),
+        serving_actuate=pool.actuator.actuate, serving_config=cfg,
+        journal_path=str(journal), owner="chip-smoke",
+        scope="chip_serve")
+    t_stage = {}
+    try:
+        controller.start()
+        for i, (name, mult, seconds) in enumerate(
+                [(name, mult, seconds - SERVE_MEASURE_S), *rest]):
+            s, first, t_stage[name] = serve_stage(
+                pool, feed, mult * capacity, seconds, seed=i + 1)
+            stages[name] = s
+            for ep, t in first.items():
+                first_ok.setdefault(ep, t)
+        roll = controller._service_collector.service_rollup(SERVE_SERVICE)
+        final_ok = (roll["latency_ms_p95"] is None
+                    or roll["latency_ms_p95"] <= slo)
+    finally:
+        controller.stop()
+    pool.actuator.wait_drains(timeout=25.0)
+    entries = [json.loads(ln) for ln in journal.read_text().splitlines()]
+    ok, audit = serve_scaler_audit(entries, pool.actuator.resize_log,
+                                   pool.actuator.drain_log, final_ok)
+    if not ok:
+        fail(f"serve_scaler: the audit failed: {audit}")
+    pool.actuator.close()
+    gone = [h.endpoint for h in pool.handles if h.proc.alive()]
+    if gone:
+        fail(f"serve_scaler: teacher processes still alive: {gone}")
+    # each teacher's log names the devices its predict runs on
+    ran = [re.findall(r"teacher predict on (\S+)", Path(
+        h.proc.log_path).read_text(errors="replace")) for h in pool.handles]
+    if not all(r and r[0].startswith("cuda") for r in ran):
+        fail(f"serve_scaler: teachers' devices {ran}, want cuda each")
+    serving = [e for e in entries if e.get("kind") == "serving"]
+    breach = [e for e in serving if e["ts"] >= t_stage["step"] and (
+        (e["latency_ms_p95"] or 0.0) > slo
+        or e["queue_depth"] > cfg.queue_high * max(1, e["n_teachers"])
+        or e["shed_per_sec"] > cfg.shed_high)]
+    grown = [ep for ep in pool.spawned_at if ep != ep0]
+    grow_s = (first_ok[grown[0]] - breach[0]["ts"]
+              if breach and grown and grown[0] in first_ok else None)
+    if grow_s is None:
+        fail(f"serve_scaler: no breach-to-first-answer of a grown teacher "
+             f"(breaches {len(breach)}, grown {grown}, answered "
+             f"{sorted(first_ok)})")
+    result = {"phase": "serve_scaler", "card": card,
+              "teacher_rows_per_s": capacity, "slo_p95_ms": slo,
+              "cruise_p95_ms_measured": measured["p95_ms"],
+              "stages": {n: {"rows_per_s": s["rps_sustained"] * SERVE_ROWS,
+                             "offered_rows_per_s":
+                                 s["rps_offered"] * SERVE_ROWS,
+                             **{k: s[k] for k in ("p50_ms", "p95_ms",
+                                                  "offered", "ok", "shed",
+                                                  "error")}}
+                         for n, s in stages.items()},
+              "grows": audit["grows"], "shrinks": audit["shrinks"],
+              "resizes": audit["resizes"],
+              "breach_to_new_teacher_s": grow_s,
+              "drain_s": [d["wait_s"] for d in pool.actuator.drain_log],
+              "drain_log": pool.actuator.drain_log,
+              "final_slo_met": final_ok,
+              "seconds": time.monotonic() - t_phase}
+    emit(result)
+    return result
+
+
 class PhaseClock:
+
     """Each phase's seconds: ``lap(name)`` closes the phase that began at
     the previous lap (or at the start)."""
 
@@ -6466,6 +6953,16 @@ def main() -> int:
         clock.lap("19_distill")
         launches.update(phase_zoo_ctr(ok_mod, data))
         clock.lap("20_zoo_ctr")
+    with tempfile.TemporaryDirectory() as tmp, ServePool(
+            Path(tmp), run_marker()) as pool:
+        # the pool's first teacher starts on the card while phase 21 runs
+        started = threading.Thread(target=pool.actuator.resize, args=(1,),
+                                   daemon=True, name="serve-first-teacher")
+        started.start()
+        phase_scaler(card)
+        clock.lap("21_scaler")
+        phase_serve_scaler(card, pool, started)
+        clock.lap("22_serve_scaler")
     for name in FLASH_KERNELS:
         fp16[name]["launches"] = launches["train_fp16"][name]
     emit({"seconds": clock.total(), "phases": clock.seconds, "card": card})

@@ -530,7 +530,10 @@ def _write_state(tree: dict, state):
                                  tuple(p.shape)), name)
     for name, b in _bn_buffers(model):
         _put(b, _lookup(tree["batch_stats"], flax_path(name)), name)
-    opt = tree["opt_state"]
+    # plain SGD keeps no moments: its opt_state has no leaves, and a tree
+    # rebuilt from chunks (a peer restore) carries no key without leaves
+    plain = not _is_fused(tx) and _torch_kind(tx) == "sgd_plain"
+    opt = tree.get("opt_state", {}) if plain else tree["opt_state"]
     if _is_fused(tx):
         if "count" not in opt or "m" not in opt:
             raise ValueError("checkpoint holds no fused optimizer state")

@@ -31,6 +31,7 @@ class JobEnv:
     slices: int = field(0, env="EDL_TPU_SLICES")
     up_limit_nodes: int = field(1024, env="EDL_TPU_UP_LIMIT_NODES")
     checkpoint_path: str = field("", env="EDL_TPU_CHECKPOINT_PATH")
+    job_server: str = field("", env="EDL_TPU_JOBSERVER")
     log_dir: str = field("./log", env="EDL_TPU_LOG_DIR")
     lease_ttl: float = field(10.0, env="EDL_TPU_LEASE_TTL")
     barrier_stable_secs: float = field(2.0, env="EDL_TPU_BARRIER_STABLE")
@@ -52,7 +53,6 @@ class JobEnv:
     # How long the launcher waits for its trainer to ack an in-place
     # adoption before falling back to stop-resume with a donor linger.
     adopt_timeout_secs: float = field(10.0, env="EDL_TPU_ADOPT_TIMEOUT")
-    # The JAX package's job_server is left out: nothing reads it.
 
     def __post_init__(self):
         if not self.pod_id:

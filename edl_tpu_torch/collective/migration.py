@@ -936,9 +936,9 @@ def wait_adopted(store: Store, job_id: str, pod_id: str, generation: int,
 def publish_resize_epoch(store: Store, job_id: str, *, epoch: int,
                          desired: int, prev: int | None = None) -> dict:
     """A resize decision's record: a monotonic migration epoch stamped
-    with the donor roster alive at the decision instant (the JAX
-    package's JobServer /resize hook; the port's job server is ROADMAP
-    Queue 1 item 17). The doc carries the publishing span's context so
+    with the donor roster alive at the decision instant (what the
+    JobServer's ``/resize`` publishes, `collective/job_server.py`). The
+    doc carries the publishing span's context so
     trainers that adopt or restore off this resize join its trace."""
     with trace.span("resize.publish_epoch",
                     attrs={"job": job_id, "epoch": int(epoch),

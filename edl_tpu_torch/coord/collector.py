@@ -1,5 +1,5 @@
-"""Trainer utilization publishing (trimmed copy of
-``edl_tpu.coord.collector``: its key layout and `UtilizationPublisher`).
+"""Trainer utilization publishing and the scheduler side that reads it
+(port of ``edl_tpu.coord.collector``).
 
 `UtilizationPublisher` is a TrainLoop hook (the ``(loop, epoch, step,
 metrics)`` signature) that writes this pod's ``{pod_id, rank, epoch,
@@ -9,17 +9,27 @@ lease makes staleness self-cleaning (a dead trainer's record disappears
 after its TTL). ``world_size`` is the ELASTIC world (the launcher's pod
 count, EDL_TPU_WORLD_SIZE), the unit a scaler allocates in. TrainLoop
 installs one when it runs under the elastic launcher (EDL_TPU_RANK set)
-unless EDL_TPU_PUBLISH_UTIL=0. The JAX package's `Collector`, the
-scheduler side that reads these records, is ROADMAP Queue 1 item 17; the
-records are the same, so it reads the port's.
+unless EDL_TPU_PUBLISH_UTIL=0.
+
+`Collector` is one scrape point for a scheduler: a job's membership with
+each pod's utilization record, service registries with a pool-level
+rollup (`Collector.service_rollup`: rates and queues sum, a pool's
+latency tail is its worst member's), and store health. The scaler's
+controller reads jobs and teacher pools through it; ``python -m
+edl_tpu_torch.coord.collector --store h:p --job J`` prints snapshots as
+JSON lines. The records are the JAX package's, so either package's
+collector reads either package's publishers.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import queue
+import sys
 import threading
 import time
+from typing import Any
 
 from edl_tpu_torch.coord.store import Store
 from edl_tpu_torch.obs import trace
@@ -234,3 +244,185 @@ class UtilizationPublisher:
                     self.store.close()
                 except Exception:  # noqa: BLE001 — teardown
                     pass
+
+
+def _parse_info(info: str) -> Any:
+    if not info:
+        return {}
+    try:
+        return json.loads(info)
+    except json.JSONDecodeError:
+        return info  # registrars may publish plain strings
+
+
+class Collector:
+    """One scrape point for a scheduler: job membership + utilization,
+    service registries, store health (module docstring has the map)."""
+
+    def __init__(self, store: Store, job_id: str | None = None,
+                 services: tuple[str, ...] = (),
+                 registry_root: str = "edl"):
+        self.store = store
+        self.job_id = job_id
+        self.services = tuple(services)
+        self.registry_root = registry_root
+
+    def _job_snapshot(self, job_id: str) -> dict:
+        from edl_tpu_torch.collective import register as reg
+        from edl_tpu_torch.collective.cluster import Cluster
+        pods, _ = reg.live_pods(self.store, job_id)
+        cluster_rec = self.store.get(reg.cluster_key(job_id))
+        generation, world = None, None
+        if cluster_rec is not None:
+            cluster = Cluster.from_json(cluster_rec.value)
+            generation, world = cluster.version, cluster.world_size
+        util_recs, _ = self.store.get_prefix(util_prefix(job_id))
+        util = {}
+        for rec in util_recs:
+            util[rec.key.rsplit("/", 1)[-1]] = _parse_info(rec.value)
+        complete = self.store.get(reg.complete_key(job_id)) is not None
+        return {"job_id": job_id,
+                "generation": generation,
+                "world_size": world,
+                "complete": complete,
+                "pods": [{"pod_id": p.pod_id,
+                          "claimed_rank": p.claimed_rank,
+                          "addr": p.addr, "n_devices": p.n_devices,
+                          "utilization": util.get(p.pod_id)}
+                         for p in pods]}
+
+    def _service_snapshot(self, service: str) -> list[dict]:
+        from edl_tpu_torch.coord.registry import ServiceRegistry
+        registry = ServiceRegistry(self.store, root=self.registry_root)
+        return [{"server": m.server, "info": _parse_info(m.info)}
+                for m in registry.get_service(service)]
+
+    def service_rollup(self, service: str) -> dict:
+        """Pool-level digest of one service registry — what the serving
+        scaler consumes. Rates and queue depths SUM across teachers
+        (pool capacity / pool backlog); ``util`` is the mean busy
+        fraction (the low-water shrink signal); latency quantiles take
+        the WORST reporting teacher — the pool's p95 is its slowest
+        member's tail, and a conservative read can only over-provision,
+        never silently violate the SLO. ``reporting`` counts teachers
+        whose registrar published a parseable info doc: ``n_teachers``
+        without ``reporting`` means a pool that is up but blind.
+
+        Admission-control signals (the registrars publish them) roll up:
+        ``shed_per_sec`` SUMS (pool-wide rejection pressure — the
+        policy's shed-blinded-breach input: an admission-controlled
+        pool keeps its p95 in-SLO *by rejecting*, so latency alone
+        under-reports overload), ``queue_depth_by_class`` sums per
+        class, and ``latency_ms_p95_by_class`` takes the worst teacher
+        per class (graceful degradation is judged per class, not
+        globally). ``draining`` counts teachers mid-drain."""
+        rows, depth, inflight = 0.0, 0, 0
+        shed, draining = 0.0, 0
+        utils: list[float] = []
+        p50s: list[float] = []
+        p95s: list[float] = []
+        depth_by_class: dict[str, int] = {}
+        p95_by_class: dict[str, float] = {}
+        members = self._service_snapshot(service)
+        reporting = 0
+        for m in members:
+            info = m["info"]
+            if not isinstance(info, dict) or not info:
+                continue  # no/unparseable/empty info: a blind member
+            reporting += 1
+            rows += float(info.get("rows_per_sec") or 0.0)
+            depth += int(info.get("queue_depth") or 0)
+            inflight += int(info.get("inflight_groups") or 0)
+            shed += float(info.get("shed_per_sec") or 0.0)
+            draining += 1 if info.get("draining") else 0
+            if info.get("util") is not None:
+                utils.append(float(info["util"]))
+            if info.get("latency_ms_p50") is not None:
+                p50s.append(float(info["latency_ms_p50"]))
+            if info.get("latency_ms_p95") is not None:
+                p95s.append(float(info["latency_ms_p95"]))
+            split = info.get("queue_depth_by_class")
+            if isinstance(split, dict):
+                for cls, n in split.items():
+                    try:
+                        depth_by_class[str(cls)] = (
+                            depth_by_class.get(str(cls), 0) + int(n))
+                    except (TypeError, ValueError):
+                        pass
+            lat_split = info.get("latency_ms_p95_by_class")
+            if isinstance(lat_split, dict):
+                for cls, p95 in lat_split.items():
+                    try:
+                        p95_by_class[str(cls)] = max(
+                            p95_by_class.get(str(cls), 0.0), float(p95))
+                    except (TypeError, ValueError):
+                        pass
+        return {"service": service,
+                "n_teachers": len(members),
+                "reporting": reporting,
+                "rows_per_sec": round(rows, 2),
+                "util": (round(sum(utils) / len(utils), 4)
+                         if utils else None),
+                "queue_depth": depth,
+                "inflight_groups": inflight,
+                "latency_ms_p50": max(p50s) if p50s else None,
+                "latency_ms_p95": max(p95s) if p95s else None,
+                "shed_per_sec": round(shed, 2),
+                "queue_depth_by_class": depth_by_class,
+                "latency_ms_p95_by_class": p95_by_class,
+                "draining": draining}
+
+    def snapshot(self) -> dict:
+        records, revision = self.store.get_prefix("")
+        doc: dict = {"ts": time.time(),
+                     "store": {"revision": revision,
+                               "keys": len(records),
+                               "leased_keys": sum(
+                                   1 for r in records if r.lease)}}
+        if self.job_id:
+            doc["job"] = self._job_snapshot(self.job_id)
+        if self.services:
+            doc["services"] = {s: self._service_snapshot(s)
+                               for s in self.services}
+            doc["service_rollups"] = {s: self.service_rollup(s)
+                                      for s in self.services}
+        return doc
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="edl_tpu_torch.coord.collector",
+        description="Scrape job/service/store metrics as JSON lines")
+    parser.add_argument("--store", required=True,
+                        help="store endpoint (host:port or redis://...)")
+    parser.add_argument("--job", default="",
+                        help="job id to snapshot (/{job}/ keys)")
+    parser.add_argument("--services", default="",
+                        help="comma-joined service registry names")
+    parser.add_argument("--registry-root", default="edl")
+    parser.add_argument("--interval", type=float, default=5.0)
+    parser.add_argument("--once", action="store_true",
+                        help="emit one snapshot and exit")
+    args = parser.parse_args(argv)
+
+    from edl_tpu_torch.coord.redis_store import connect_store
+    store = connect_store(args.store)
+    services = tuple(s for s in args.services.split(",") if s)
+    collector = Collector(store, job_id=args.job or None,
+                          services=services,
+                          registry_root=args.registry_root)
+    try:
+        while True:
+            print(json.dumps(collector.snapshot(), sort_keys=True),
+                  flush=True)
+            if args.once:
+                return 0
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        store.close()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

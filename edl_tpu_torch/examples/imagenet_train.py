@@ -196,6 +196,11 @@ def _parser() -> argparse.ArgumentParser:
                         default=max(1, (os.cpu_count() or 1) - 1),
                         help="JPEG decode/augment THREAD pool width "
                              "(ignored when --loader-workers > 0)")
+    parser.add_argument("--cache-shards", type=int, default=4,
+                        help="npz shards the loader keeps loaded (LRU; "
+                             "default 4, FileSource's): below the shard "
+                             "count a shuffled epoch reloads a shard "
+                             "most batches")
     parser.add_argument("--loader-workers", type=int, default=None,
                         help="input-plane worker PROCESSES with "
                              "shared-memory batch hand-off (default: "
@@ -466,7 +471,7 @@ def main(argv=None) -> int:
             if not files:
                 raise SystemExit(
                     f"no train-*.npz shards under {args.data_dir}")
-            source = FileSource(files)
+            source = FileSource(files, cache_files=args.cache_shards)
             n_files = len(files)
         # device augmentation replaces the host batch transforms: the
         # loader ships raw bytes and the per-step seed

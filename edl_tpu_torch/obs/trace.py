@@ -1,7 +1,5 @@
-"""Causal spans across the wire seams (trimmed copy of
-``edl_tpu.obs.trace``: the in-band context both ways, the scoped span,
-the span the teacher server opens per admission decision, and the
-finished spans utils/timeline emits).
+"""Causal spans across the wire seams, and their readers (port of
+``edl_tpu.obs.trace``).
 
 A sender attaches the span context current on its thread to a request
 (the store wire's frames, a tensor frame's ``meta``) under the reserved
@@ -13,8 +11,16 @@ direction. :func:`span` makes a span current for its body.
 Enablement: ``EDL_TPU_TRACE`` — unset/0 = off (a span is one attribute
 read and an ``if``), ``1`` = on with the sink directory ``./edl_trace``,
 any other value = on with that value as the sink directory. Finished
-spans append to ``spans-<pid>.jsonl`` there and to a bounded in-process
-ring (:func:`finished`).
+spans append to ``spans-<pid>.jsonl`` there (wall-clock timestamps, so
+files from different processes merge) and to a bounded in-process ring
+(:func:`finished`).
+
+The readers merge a sink directory's files (:func:`load_spans`) into
+per-trace trees (:func:`group_traces`, :func:`span_tree`), split each
+resize trace into its phases (:func:`resize_phase_summary` over
+:data:`RESIZE_PHASES`) and export Chrome-trace JSON (:func:`to_chrome`);
+``python -m edl_tpu_torch.obs trace <dir>`` is their CLI. They read the
+JAX package's span files as well, and give its readers' answers.
 """
 
 from __future__ import annotations
@@ -74,6 +80,10 @@ def enabled() -> bool:
     return _setting()[0]
 
 
+def sink_dir() -> str | None:
+    return _setting()[1]
+
+
 def _new_id() -> str:
     return os.urandom(8).hex()
 
@@ -86,7 +96,7 @@ def current() -> tuple[str, str] | None:
 def _emit(record: dict) -> None:
     global _file, _file_pid
     _ring.append(record)
-    directory = _setting()[1]
+    directory = sink_dir()
     if directory is None:
         return
     line = json.dumps(record, separators=(",", ":"), default=str)
@@ -180,15 +190,41 @@ def instant(name: str, parent: tuple[str, str] | None = None,
         s.end()
 
 
-def event(name: str, dur_s: float) -> None:
-    """Emit a finished root span measured elsewhere (utils/timeline's
-    path: the operation happened, only its duration is known)."""
+def event(name: str, dur_s: float,
+          parent: tuple[str, str] | None = None,
+          attrs: dict | None = None) -> None:
+    """Emit a finished span measured elsewhere (utils/timeline's path:
+    the operation happened, only its duration is known). Parents onto
+    the explicit, else the current context like any other span."""
     if not enabled():
         return
+    ctx = parent if parent is not None else current()
+    if ctx is not None:
+        trace_id, parent_id = ctx
+    else:
+        trace_id, parent_id = _new_id(), None
     now = time.time()
-    _emit({"tid": _new_id(), "sid": _new_id(), "parent": None,
-           "name": name, "pid": os.getpid(), "t0": round(now - dur_s, 6),
-           "dur": round(dur_s, 6), "attrs": {}})
+    _emit({"tid": trace_id, "sid": _new_id(), "parent": parent_id,
+           "name": name, "pid": os.getpid(),
+           "t0": round(now - dur_s, 6), "dur": round(dur_s, 6),
+           "attrs": dict(attrs or {})})
+
+
+@contextlib.contextmanager
+def adopt(ctx):
+    """Make a remote context current for the body (no span of its own):
+    spans opened inside parent onto the remote span. ``ctx`` may be
+    None or malformed (straight off a wire frame): then a no-op."""
+    ctx = parse_context(ctx)
+    if ctx is None or not enabled():
+        yield
+        return
+    prev = current()
+    _tls.ctx = ctx
+    try:
+        yield
+    finally:
+        _tls.ctx = prev
 
 
 def parse_context(raw) -> tuple[str, str] | None:
@@ -234,3 +270,131 @@ def finished(prefix: str | None = None) -> list[dict]:
     if prefix is not None:
         spans = [s for s in spans if s["name"].startswith(prefix)]
     return spans
+
+
+def clear_ring() -> None:
+    _ring.clear()
+
+
+# -- merged-trace analysis (the CLI `python -m edl_tpu_torch.obs trace`
+#    and chip_smoke's resize split read through these) --
+
+def load_spans(directory: str) -> list[dict]:
+    """Every span from every ``spans-*.jsonl`` in ``directory``
+    (garbled lines skipped: a killed pod can tear its last write)."""
+    out: list[dict] = []
+    try:
+        names = sorted(os.listdir(directory))
+    except OSError:
+        return out
+    for fname in names:
+        if not (fname.startswith("spans-") and fname.endswith(".jsonl")):
+            continue
+        try:
+            with open(os.path.join(directory, fname)) as fh:
+                for line in fh:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        rec = json.loads(line)
+                    except ValueError:
+                        continue
+                    if isinstance(rec, dict) and "tid" in rec:
+                        out.append(rec)
+        except OSError:
+            continue
+    return out
+
+
+def group_traces(spans: list[dict]) -> dict[str, list[dict]]:
+    """trace_id -> spans sorted by start time."""
+    traces: dict[str, list[dict]] = {}
+    for s in spans:
+        traces.setdefault(s["tid"], []).append(s)
+    for tid in traces:
+        traces[tid].sort(key=lambda s: s.get("t0", 0.0))
+    return traces
+
+
+def span_tree(spans: list[dict]) -> list[tuple[dict, int]]:
+    """Depth-first (span, depth) ordering of one trace's spans.
+    Orphans (parent span lost with a killed process) surface at depth 0
+    rather than disappearing."""
+    by_id = {s["sid"]: s for s in spans}
+    children: dict[str | None, list[dict]] = {}
+    for s in spans:
+        parent = s.get("parent")
+        if parent is not None and parent not in by_id:
+            parent = None
+        children.setdefault(parent, []).append(s)
+    for v in children.values():
+        v.sort(key=lambda s: s.get("t0", 0.0))
+    out: list[tuple[dict, int]] = []
+
+    def walk(parent_id, depth):
+        for s in children.get(parent_id, []):
+            out.append((s, depth))
+            walk(s["sid"], depth + 1)
+
+    walk(None, 0)
+    return out
+
+
+# The resize phase vocabulary: span-name prefixes -> the phase they
+# account to (the JAX package's, so both readers split a trace alike).
+RESIZE_PHASES = (
+    ("decision", ("scaler.decide", "resize.request")),
+    ("actuation", ("resize.actuate",)),
+    ("restore", ("resize.adopt", "resize.restore_peers")),
+    ("first_fresh_util", ("resize.first_fresh_util",)),
+)
+
+
+def resize_phase_summary(spans: list[dict]) -> list[dict]:
+    """Per-resize-trace phase breakdown: every trace containing a
+    resize-family span becomes ``{trace_id, spans, t0, phases: {phase:
+    seconds}, downtime_s}`` where downtime_s is the restore-phase span
+    time (the measured survivor gap / peer-restore wall time)."""
+    out = []
+    for tid, tspans in sorted(group_traces(spans).items()):
+        names = {s["name"] for s in tspans}
+        if not any(n.startswith(("resize.", "scaler.decide"))
+                   for n in names):
+            continue
+        phases: dict[str, float] = {}
+        for phase, prefixes in RESIZE_PHASES:
+            total = sum(s.get("dur", 0.0) for s in tspans
+                        if s["name"].startswith(prefixes))
+            if total or any(s["name"].startswith(prefixes)
+                            for s in tspans):
+                phases[phase] = round(total, 6)
+        restore = [s for s in tspans
+                   if s["name"].startswith(("resize.adopt",
+                                            "resize.restore_peers"))]
+        out.append({
+            "trace_id": tid,
+            "spans": len(tspans),
+            "t0": min(s.get("t0", 0.0) for s in tspans),
+            "phases": phases,
+            "downtime_s": round(max((s.get("dur", 0.0) for s in restore),
+                                    default=0.0), 6)})
+    return out
+
+
+def to_chrome(spans: list[dict]) -> dict:
+    """Chrome-trace ("Trace Event Format") JSON — loadable in
+    chrome://tracing and Perfetto. Complete ("X") events; each trace id
+    gets a synthetic thread lane so concurrent resizes do not stack."""
+    events = []
+    lanes: dict[str, int] = {}
+    for s in sorted(spans, key=lambda s: s.get("t0", 0.0)):
+        lane = lanes.setdefault(s["tid"], len(lanes) + 1)
+        events.append({
+            "name": s["name"], "ph": "X", "cat": "edl",
+            "ts": round(s.get("t0", 0.0) * 1e6, 1),
+            "dur": max(round(s.get("dur", 0.0) * 1e6, 1), 1.0),
+            "pid": s.get("pid", 0), "tid": lane,
+            "args": dict(s.get("attrs") or {},
+                         trace_id=s["tid"], span_id=s["sid"])})
+    return {"traceEvents": events, "displayTimeUnit": "ms"}

@@ -49,6 +49,7 @@ ENV_VARS: dict[str, str] = {
                                "(comma-joined for failover)",
     "EDL_TPU_SLICES": "multi-slice topology: number of slices",
     "EDL_TPU_SLICE_ID": "this trainer's slice index (rank-contiguous)",
+    "EDL_TPU_JOBSERVER": "JobServer endpoint for resize control",
     # store client (coord/client.StoreClient) and watches (coord/store)
     "EDL_TPU_RELAY_ENDPOINTS": "watch relay tier endpoints (refused: "
                                "ROADMAP Queue 1 item 17)",
@@ -87,6 +88,41 @@ ENV_VARS: dict[str, str] = {
     "EDL_TPU_STORE_SHARDS": "shard-group count when splitting a flat "
                             "replica list (refused above 1: ROADMAP Queue "
                             "1 item 17)",
+    # autoscaler (scaler/controller.ScalerConfig)
+    "EDL_TPU_SCALER_INTERVAL": "fallback decision interval seconds",
+    "EDL_TPU_SCALER_MIN_TICK": "floor between event-triggered passes",
+    "EDL_TPU_SCALER_COOLDOWN": "per-job resize cooldown seconds",
+    "EDL_TPU_SCALER_GAIN": "marginal-gain threshold to grow",
+    "EDL_TPU_SCALER_STALENESS": "utilization record staleness bound",
+    "EDL_TPU_SCALER_MIN_NODES": "per-job world floor",
+    "EDL_TPU_SCALER_MAX_NODES": "per-job world ceiling",
+    "EDL_TPU_SCALER_LEADER_TTL": "scaler leader-election lease TTL",
+    "EDL_TPU_ELASTIC_DOWNTIME_S": "seed value for the per-resize downtime "
+                                  "charge",
+    "EDL_TPU_DOWNTIME_ARTIFACT": "bench JSON to seed the downtime charge "
+                                 "from",
+    # serving elasticity (scaler/serving.ServingConfig)
+    "EDL_TPU_SERVE_SLO_P95_MS": "serving latency SLO target (p95, ms)",
+    "EDL_TPU_SERVE_QUEUE_HIGH": "queued requests per teacher counting as "
+                                "a breach",
+    "EDL_TPU_SERVE_SHED_HIGH": "pool-wide shed rate (rejects/sec) "
+                               "counting as a breach even at healthy "
+                               "p95",
+    "EDL_TPU_SERVE_UTIL_LOW": "shrink only under this mean utilization",
+    "EDL_TPU_SERVE_SHRINK_HEADROOM": "shrink only with p95 under this "
+                                     "fraction of the SLO",
+    "EDL_TPU_SERVE_BREACH_TICKS": "consecutive breach ticks before a grow",
+    "EDL_TPU_SERVE_IDLE_TICKS": "consecutive idle ticks before a shrink",
+    "EDL_TPU_SERVE_COOLDOWN": "serving resize cooldown seconds",
+    "EDL_TPU_SERVE_GROW_FACTOR": "multiplicative grow cap",
+    "EDL_TPU_SERVE_MIN_TEACHERS": "pool floor",
+    "EDL_TPU_SERVE_MAX_TEACHERS": "pool ceiling",
+    "EDL_TPU_SERVE_DRAIN_DEADLINE": "graceful-drain budget before "
+                                    "hard-kill",
+    # spot capacity (examples/elastic_demo --spot)
+    "EDL_TPU_SPOT_NOTICE_S": "spot preemption notice window seconds a "
+                             "noticed worker has to quiesce-seal-donate "
+                             "before the hard kill (0 = ignore notices)",
     # train loop (train/loop.LoopConfig)
     "EDL_TPU_NUM_EPOCHS": "epochs to train",
     "EDL_TPU_LOG_EVERY": "log metrics every N steps",

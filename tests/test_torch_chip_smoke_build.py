@@ -1197,16 +1197,16 @@ def test_phase_20_is_documented_and_run():
 
 
 def test_every_phase_has_its_seconds():
-    """main laps the clock after each of the 20 phases, in order, and the
+    """main laps the clock after each of the 22 phases, in order, and the
     seconds line carries them."""
     import inspect
     import re
 
     src = inspect.getsource(cs.main)
     laps = re.findall(r'clock\.lap\("(\d+)_(\w+)"\)', src)
-    assert [int(n) for n, _ in laps] == list(range(1, 21))
+    assert [int(n) for n, _ in laps] == list(range(1, 23))
     assert '"phases": clock.seconds' in src
-    assert src.index('clock.lap("20_zoo_ctr")') < src.index(
+    assert src.index('clock.lap("22_serve_scaler")') < src.index(
         '"phases": clock.seconds')
 
 
@@ -1355,3 +1355,126 @@ def test_phase_17_s_moe_gate_reads_as_the_jax_package_s(moe_gate_world):
     r0 = moe_gate_world[0]
     np.testing.assert_allclose(r0["flat"][at], want["flat"], atol=1e-5)
     np.testing.assert_allclose(r0["int8"][at], want["int8"], atol=1e-4)
+
+
+# -- phases 21-22: the elastic control plane ---------------------------------
+
+def test_the_control_plane_phases_are_documented_and_run():
+    import ast
+    import inspect
+
+    assert "21. scaler" in cs.__doc__ and "22. serve_scaler" in cs.__doc__
+    src = inspect.getsource(cs.main)
+    calls = [n.func.id for n in ast.walk(ast.parse(src))
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert {"phase_scaler", "phase_serve_scaler", "ServePool"} <= set(calls)
+    # the first teacher starts before phase 21 and is awaited in phase 22
+    assert (src.index("phase_zoo_ctr(") < src.index("ServePool(")
+            < src.index("started.start()") < src.index("phase_scaler(")
+            < src.index("phase_serve_scaler(") < src.index(
+                '"kernels": kernels'))
+    argv = cs.SCALER_ARGV
+    assert argv[:3] == ["--scaler", "--nodes-range", "1:2"]
+    assert "--device" not in argv          # the demo's default: the card
+    # the two phases' scripted seconds: the pods' training, the load's
+    # stages and the capacity probe, inside the 100 s they may take
+    training = (int(argv[argv.index("--epochs") + 1])
+                * int(argv[argv.index("--steps-per-epoch") + 1])
+                * float(argv[argv.index("--step-time") + 1]))
+    load = cs.SERVE_CAPACITY_S + sum(s for _, _, s in cs.SERVE_STAGES)
+    assert training + load <= 60.0
+    assert [n for n, _, _ in cs.SERVE_STAGES] == ["cruise", "step", "idle"]
+    assert [m for _, m, _ in cs.SERVE_STAGES] == [0.3, 1.5, 0.05]
+    assert cs.SERVE_MEASURE_S < cs.SERVE_STAGES[0][2]
+    assert cs.ServePool.TEACHER[:2] == ["--model", "ResNet50_vd"]
+    body = inspect.getsource(cs.phase_serve_scaler)
+    for part in ("serve_scaler_audit(", "teacher_capacity(", "first_ok",
+                 "drain_log", "h.proc.alive()", "SERVE_SLO_X",
+                 '"teacher predict on (\\S+)"'):
+        assert part in body, part
+
+
+def test_the_resize_split_reads_the_trace_cli(tmp_path, monkeypatch,
+                                              capsys):
+    """trace_cli_resizes runs the trace CLI on a span directory and gives
+    its resize_phase_summary with each trace's root spans;
+    generation_start_split splits a respawned rank's start and skips a
+    rank that adopted in place."""
+    from edl_tpu_torch.obs import trace
+
+    assert cs.trace_cli_resizes(tmp_path / "none") == []
+    monkeypatch.setenv("EDL_TPU_TRACE", str(tmp_path))
+    trace.reconfigure()
+    try:
+        with trace.span("scaler.decide"):
+            with trace.span("resize.request"):
+                with trace.span("resize.actuate"):
+                    pass
+        trace.event("resize.adopt", 0.25)
+        trace.event("ckpt.write", 0.1)
+    finally:
+        monkeypatch.delenv("EDL_TPU_TRACE")
+        trace.reconfigure()
+    got = cs.trace_cli_resizes(tmp_path)
+    assert sorted(r["roots"][0] for r in got) == ["resize.adopt",
+                                                  "scaler.decide"]
+    decide = next(r for r in got if r["roots"] == ["scaler.decide"])
+    assert set(decide["phases"]) == {"decision", "actuation"}
+    gens = [{"version": 2, "ranks": {
+        0: {"rank": 0, "pod": "a", "adopted": False, "t_start": 12.0,
+            "t_restore": [15.0, 15.5], "t_first_step": 17.0},
+        1: {"rank": 1, "pod": "b", "adopted": True, "t_start": 1.0,
+            "t_restore": None, "t_first_step": 10.5}}},
+        {"version": 1, "ranks": {}}]
+    (split,) = cs.generation_start_split(gens, {2: 10.0})
+    assert split == {"version": 2, "rank": 0, "pod": "a",
+                     "to_process_s": 2.0, "to_restore_s": 3.0,
+                     "restore_s": 0.5, "to_first_step_s": 1.5,
+                     "total_s": 7.0}
+    line = cs.resize_split_line("elastic", got, [split])
+    assert json.loads(capsys.readouterr().out) == {"resize_split": line}
+    assert cs.summary_line("x\nscaler_summary={\"ok\": 1}\n",
+                           "scaler_summary") == {"ok": 1}
+
+
+def test_the_serve_pool_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 22's rig with a CPU teacher: the actuator spawns the
+    zoo-teacher CLI through spawn_process_teacher and registers it; the
+    capacity probe and an open-loop stage leave no request without an
+    outcome; leaving the block stops the teacher and kills and reaps
+    every process of the run."""
+    monkeypatch.setattr(cs.ServePool, "TEACHER", [
+        "--model", "ResNetTiny", "--num-classes", "10", "--input-shape",
+        "32,32,3", "--input-dtype", "float16", "--device", "cpu"])
+    marker = cs.run_marker()
+    with cs.ServePool(tmp_path, marker) as pool:
+        pool.actuator.resize(1)
+        (ep,) = pool.actuator.endpoints()
+        assert pool.endpoints_fn()() == [ep]
+        feed = cs.serve_feed(2, size=32)
+        assert cs.teacher_capacity(ep, feed, 0.5) > 0
+        s, first, t0 = cs.serve_stage(pool, feed, 20.0, 1.0, seed=0)
+        assert s["offered"] == s["ok"] > 0 and first[ep] >= t0
+        (handle,) = pool.handles
+        assert handle.proc.alive()
+        # the line phase 22's device gate reads: this teacher's is the CPU
+        import re
+        assert re.findall(r"teacher predict on (\S+)", Path(
+            handle.proc.log_path).read_text()) == ["cpu"]
+    assert not handle.proc.alive()
+    assert cs.pids_with_env(**marker) == []
+
+
+def test_the_resnet_phases_keep_every_shard_and_the_elastic_ones_do_not():
+    """RESNET_ARGV keeps all RESNET_SHARDS npz shards in the loader's
+    cache (imagenet_train --cache-shards); the elastic phases keep the
+    default 4, whose reloads pace their epochs."""
+    from edl_tpu_torch.examples import imagenet_train
+
+    argv = cs.RESNET_ARGV
+    assert argv[argv.index("--cache-shards") + 1] == str(cs.RESNET_SHARDS)
+    args = imagenet_train._parser().parse_args(["--data-dir", "D", *argv])
+    assert args.cache_shards == cs.RESNET_SHARDS
+    elastic = imagenet_train._parser().parse_args(cs.elastic_argv("D", "C"))
+    assert "--cache-shards" not in cs.elastic_argv("D", "C")
+    assert elastic.cache_shards == 4

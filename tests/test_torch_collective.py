@@ -239,28 +239,22 @@ def test_trainer_environ_is_the_jax_package_s(monkeypatch, slices):
     assert ours["EDL_TPU_SOMETHING_ELSE"] == "kept"
 
 
-# the JAX package's JobEnv field the port leaves out: nothing reads it
-NOT_PORTED = {"job_server"}
-
-
 def test_job_env_fields_env_names_and_defaults_are_the_jax_package_s(
         monkeypatch):
-    """Every field of the JAX package's JobEnv but NOT_PORTED, in order,
-    under its env name and default; no knob of NOT_PORTED is declared."""
+    """Every field of the JAX package's JobEnv, in order, under its env
+    name and default (``job_server``, EDL_TPU_JOBSERVER, too since the
+    job server is ported), each knob declared."""
     for f in dataclasses.fields(jax_job_env.JobEnv):
         monkeypatch.delenv(f.metadata["env"], raising=False)
     ours = dataclasses.fields(JobEnv)
-    theirs = [f for f in dataclasses.fields(jax_job_env.JobEnv)
-              if f.name not in NOT_PORTED]
+    theirs = dataclasses.fields(jax_job_env.JobEnv)
     assert [(f.name, f.metadata.get("env")) for f in ours] == \
         [(f.name, f.metadata.get("env")) for f in theirs]
     a = dataclasses.asdict(JobEnv(pod_id="p"))
     b = dataclasses.asdict(jax_job_env.JobEnv(pod_id="p"))
-    assert a == {k: v for k, v in b.items() if k not in NOT_PORTED}
-    assert a["resize_p2p"] is True
-    left_out = {f.metadata["env"] for f in dataclasses.fields(
-        jax_job_env.JobEnv) if f.name in NOT_PORTED}
-    assert len(left_out) == 1 and not left_out & set(config.ENV_VARS)
+    assert a == b
+    assert a["resize_p2p"] is True and a["job_server"] == ""
+    assert {f.metadata["env"] for f in ours} <= set(config.ENV_VARS)
     for rank, world, n in ((0, 4, 2), (3, 4, 2), (0, 2, 4), (1, 1, 0)):
         assert slice_of_rank(rank, world, n) == \
             jax_job_env.slice_of_rank(rank, world, n)

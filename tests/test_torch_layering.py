@@ -237,3 +237,72 @@ def test_ring_attention_and_moe_import_without_jax():
             + "".join(f"import {m}\n" for m in mods))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+SCHEDULER_SIDE = sorted(
+    list((PKG / "scaler").glob("*.py"))
+    + [PKG / "coord" / "lock.py", PKG / "coord" / "collector.py",
+       PKG / "collective" / "job_server.py", PKG / "obs" / "__main__.py"])
+
+
+def test_the_scheduler_side_is_checked():
+    assert set(SCHEDULER_SIDE) <= set(FILES)
+    assert {p.name for p in (PKG / "scaler").glob("*.py")} == {
+        "__init__.py", "__main__.py", "controller.py", "policy.py",
+        "serving.py", "simulator.py"}
+
+
+@pytest.mark.parametrize("path", SCHEDULER_SIDE, ids=[
+    str(p.relative_to(ROOT)) for p in SCHEDULER_SIDE])
+def test_the_scheduler_side_imports_no_torch(path):
+    """The scaler, leader election, the collector, the job server and the
+    trace CLI import neither torch nor numpy at any scope, as their JAX
+    counterparts import no jax: they run on a scheduler node with no
+    accelerator stack. Only the teachers and trainers they start touch a
+    card."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [f"{path.name}:{line} imports {mod}"
+           for mod, line in _imported(tree)
+           if mod.split(".")[0] in ("torch", "numpy", "triton")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("module", ["distill/loadgen.py",
+                                    "examples/elastic_demo.py"])
+def test_the_load_generator_and_the_demo_orchestrator_import_no_torch(
+        module):
+    """The open-loop load generator needs numpy for its feed and no
+    torch at any scope; elastic_demo imports torch only inside its
+    trainer, so its closed-loop orchestrators start without it."""
+    path = PKG / module
+    assert path in FILES
+    tree = ast.parse(path.read_text(), filename=str(path))
+    if module == "distill/loadgen.py":
+        mods = [(m, line) for m, line in _imported(tree)]
+    else:
+        mods = [(n.names[0].name if isinstance(n, ast.Import)
+                 else n.module or "", n.lineno) for n in tree.body
+                if isinstance(n, (ast.Import, ast.ImportFrom))]
+    bad = [f"{path.name}:{line} imports {mod}" for mod, line in mods
+           if mod.split(".")[0] in ("torch", "triton")]
+    assert not bad, bad
+
+
+def test_the_scheduler_side_starts_without_torch():
+    code = ("import sys; import edl_tpu_torch.scaler, "
+            "edl_tpu_torch.scaler.__main__, edl_tpu_torch.scaler.serving, "
+            "edl_tpu_torch.scaler.simulator, edl_tpu_torch.coord.lock, "
+            "edl_tpu_torch.collective.job_server, "
+            "edl_tpu_torch.obs.__main__; "
+            "print(sorted(m for m in ('torch', 'numpy') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    code = ("import sys; import edl_tpu_torch.distill.loadgen, "
+            "edl_tpu_torch.examples.elastic_demo; "
+            "print('torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
