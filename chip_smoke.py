@@ -114,7 +114,12 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              epoch means; the int8 run within 0.25 x the dense run's
              improvement; the int8 wire <= 0.26 x the fp32 leg's bytes;
              loss_parity_gate on ResNet50_vd (3 steps, bitwise dense, int8
-             loss delta <= 5e-3);
+             loss delta <= 5e-3); rank 0 serves its metrics registry
+             (EDL_TPU_METRICS_PORT), scraped at /metrics while it trains:
+             a positive edl_step_dcn_bytes reading taken during the int8
+             run (rank 0's run told apart by the JSON it writes as each
+             run ends), every such reading a whole multiple of rank 0's
+             cross-slice bytes a step (train_resnet_world_scrape= line);
 10. resume — the input planes and checkpoints: imagenet_train.main at
              RESNET_ARGV's model, size, classes and batch over packed
              records (--make-synthetic packs the same 5 shards),
@@ -288,7 +293,21 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              batch 12; every batch in order with logits
              within (a)'s bound of this script's forward of its rows, D
              served rows; the balancer's assignment and the dead
-             teacher's removal times; (e) mnist_distill and nlp_distill
+             teacher's removal times; (f) the redis:// discovery flavor:
+             coord.resp.MiniRedis in this process, the discovery server
+             and registrars of D and of E (a fifth teacher started with
+             the others) as processes with --store redis://..., --ttl 2,
+             a service of their own; a ResNet50_vd student in process
+             (RESNET_ARGV's width and batch, make_distill_step and
+             make_fused_tx fp32 as imagenet_train --teachers wires
+             them) fed by a DistillReader in discovery mode for 12 steps,
+             E and its registrar SIGKILLed after step 6: one K4 a step,
+             the loss finite and falling, every batch in order with
+             logits within (a)'s bound, E served rows before its kill,
+             its key leaves the registry by its TTL (no event carries
+             it) and the discovery server drops it at a poll; prints
+             expiry_s, drop_s, the step ms and the reader wait
+             (distill_redis= line); (e) mnist_distill and nlp_distill
              --all-in-one at their defaults, in process: exit 0, finite
              final lines. Every process carries the phase's job id
              (elastic_job_id) and is reaped on every path.
@@ -335,7 +354,16 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              configured 1.5 s; the trace CLI's resize_phase_summary
              (python -m edl_tpu_torch.obs trace <dir> --json) lists that
              resize rooted at scaler.decide with its decision, actuation
-             and restore seconds (printed on a line of its own).
+             and restore seconds (printed on a line of its own). Beside
+             it, a fleet priced by this card: an artifact of phase 15's
+             stop-resume downtime (its kill), phase 16's in-place reform
+             downtime (its grow) and its adoption gap, then python -m
+             edl_tpu_torch.scaler.fleet selftest and tournament --ladder
+             <artifact> --jobs 60 --pools 8 --ticks 120, a child started
+             at the phase's start and read at its end: exit 0, 24 rows,
+             12 on the artifact's ladder, every number finite; each
+             policy's SLO attainment and downtime paid on the card's
+             ladder (fleet= line).
 22. serve_scaler — the serving loop: a TeacherPoolActuator of 1 to 2
              ResNet50_vd teachers (the zoo-teacher CLI through
              spawn_process_teacher, random weights, 1000 classes, 224 px
@@ -3033,8 +3061,8 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def spawn_world(runs: list, out_dir: Path,
-                meanwhile=None) -> dict[str, list[dict]]:
+def spawn_world(runs: list, out_dir: Path, meanwhile=None,
+                rank_env: dict | None = None) -> dict[str, list[dict]]:
     """The ``runs`` ([(name, argv), ...]) in turn in one world of WORLD
     ranks: processes of this script, all on cuda:0, that join a fresh
     process group for each run at a TCP store on 127.0.0.1 (one process
@@ -3042,7 +3070,8 @@ def spawn_world(runs: list, out_dir: Path,
     rank still running after WORLD_TIMEOUT_S a run, fails the runs;
     every rank is stopped before this returns. ``meanwhile()``, when
     given, is called at each poll while the ranks run (this process's
-    own work beside theirs). Returns each run's ranks' JSON by name."""
+    own work beside theirs). ``rank_env`` ({rank: {name: value}}) adds to
+    a rank's environment. Returns each run's ranks' JSON by name."""
     coordinator = f"127.0.0.1:{free_port()}"
     label = "+".join(name for name, _ in runs)
     procs = []
@@ -3050,7 +3079,8 @@ def spawn_world(runs: list, out_dir: Path,
         for rank in range(WORLD):
             env = dict(os.environ, EDL_TPU_RANK=str(rank),
                        EDL_TPU_WORLD_SIZE=str(WORLD),
-                       EDL_TPU_COORDINATOR=coordinator)
+                       EDL_TPU_COORDINATOR=coordinator,
+                       **(rank_env or {}).get(rank, {}))
             with open(out_dir / f"{label}.rank{rank}.log", "w") as log:
                 procs.append(subprocess.Popen(
                     [sys.executable, str(Path(__file__).resolve()),
@@ -3314,6 +3344,82 @@ def world_summary(name: str, ranks: list[dict], blog_dir: Path) -> dict:
     return result
 
 
+SCRAPE_SERIES = "edl_step_dcn_bytes"
+
+
+def scrape_value(text: str, series: str = SCRAPE_SERIES) -> float | None:
+    """The value of an unlabelled series in Prometheus text, or None."""
+    for line in text.splitlines():
+        name, _, value = line.partition(" ")
+        if name == series:
+            return float(value)
+    return None
+
+
+def current_run(out_dir: Path, names: list[str], rank: int = 0) -> str | None:
+    """The run of spawn_world's ``names`` (in their order) that ``rank`` is
+    in: the first whose JSON that rank has not written yet (it writes
+    one as each run ends); None after the last."""
+    for name in names:
+        if not (out_dir / f"{name}.rank{rank}.json").exists():
+            return name
+    return None
+
+
+class Scraper:
+    """GET /metrics of the scrape endpoint on 127.0.0.1:``port`` at each
+    ``poll`` (spawn_world's meanwhile): every reading of SCRAPE_SERIES
+    with its time and the run (``run_of()``, read before and after the
+    GET; a reading across two runs is dropped), and the seconds the polls
+    took. Before the endpoint is up, or between its process's runs, a
+    poll reads nothing."""
+
+    def __init__(self, port: int, run_of=lambda: None):
+        self.url = f"http://127.0.0.1:{port}/metrics"
+        self.run_of = run_of
+        self.readings: list[tuple[float, str | None, float]] = []
+        self.polls = 0
+        self.seconds = 0.0
+
+    def poll(self) -> None:
+        import urllib.request
+
+        t0 = time.monotonic()
+        self.polls += 1
+        run = self.run_of()
+        try:
+            with urllib.request.urlopen(self.url, timeout=2.0) as r:
+                value = scrape_value(r.read().decode())
+        except OSError:
+            value = None
+        same_run = self.run_of() == run
+        if value is not None and same_run:
+            self.readings.append((time.monotonic(), run, value))
+        self.seconds += time.monotonic() - t0
+
+
+def scrape_gate(readings: list[tuple[str | None, float]], per_step: int,
+                steps: int, run: str = "int8") -> dict:
+    """Phase 9's scrape over (run, value) readings: a positive reading
+    taken while rank 0 ran ``run`` (imagenet_train's int8 run: the
+    counter starts there, in a fresh process), and every positive
+    reading of that run a whole multiple of rank 0's cross-slice bytes a
+    step, at most its ``steps`` steps' worth. Readings of other runs
+    (the dense run's and the gate's bytes add to the same counter) show
+    nothing of it. Fails otherwise."""
+    ours = [v for r, v in readings if r == run and v > 0]
+    whole = [v for v in ours if per_step > 0 and v % per_step == 0
+             and v <= steps * per_step]
+    out = {"readings": len(readings), "in_int8_run": len(ours),
+           "whole_multiples": len(whole), "per_step_bytes": per_step,
+           "steps_seen": sorted({int(v // per_step) for v in whole})}
+    if not per_step > 0 or not ours or len(whole) != len(ours):
+        fail(f"train_resnet_world scrape: {SCRAPE_SERIES} readings "
+             f"{readings[:8]}... against {per_step} bytes a step over "
+             f"{steps} steps of the {run} run: {out}")
+    return out
+
+
 def phase_train_resnet_world(data: Path) -> dict:
     """imagenet_train at RESNET_ARGV over a world of two ranks on one
     card (gloo), --fused-opt fp32, from the same init on the same shards
@@ -3321,15 +3427,20 @@ def phase_train_resnet_world(data: Path) -> dict:
     phases read after):
     --dcn-compress int8 (K8 on every compressed bucket) and
     --comm-bucket-mb 4 (bucketed dense); then loss_parity_gate on
-    ResNet50_vd. Gates: world_summary's for each run; the int8 run's last
+    ResNet50_vd. Rank 0 serves its metrics registry
+    (EDL_TPU_METRICS_PORT), scraped at each poll while the ranks run.
+    Gates: world_summary's for each run; scrape_gate; the int8 run's last
     loss within ENVELOPE x the dense run's improvement; the gate bitwise
     dense with an int8 loss delta <= GATE_ENVELOPE; the int8 wire's bytes
     <= DCN_CUT_MAX x the same plan's fp32 leg. Returns each run's
     launches."""
     torch.cuda.empty_cache()
     world = []
+    port = free_port()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        names = [name for name, _ in WORLD_RUNS] + ["gate"]
+        scraper = Scraper(port, lambda: current_run(tmp, names))
         for name, flags in WORLD_RUNS:
             argv = ["--data-dir", str(data), *RESNET_ARGV,
                     "--fused-opt", "fp32", *flags, "--benchmark-log",
@@ -3337,11 +3448,20 @@ def phase_train_resnet_world(data: Path) -> dict:
             if not world:
                 argv += ["--make-synthetic", str(RESNET_SHARDS)]
             world.append((name, argv))
-        ranks = spawn_world([*world, ("gate", [])], tmp)
+        ranks = spawn_world([*world, ("gate", [])], tmp,
+                            meanwhile=scraper.poll,
+                            rank_env={0: {"EDL_TPU_METRICS_PORT": str(port)}})
         runs = {name: world_summary(name, ranks[name], tmp / name)
                 for name, _ in WORLD_RUNS}
         gate = ranks["gate"][0]
     int8, dense = runs["int8"], runs["dense"]
+    scrape = scrape_gate([(r, v) for _, r, v in scraper.readings],
+                         int8["stats"]["dcn_bytes_per_step"], int8["steps"])
+    scrape.update(polls=scraper.polls, seconds=scraper.seconds, port=port)
+    emit({"phase": "train_resnet_world_scrape", **scrape})
+    print("train_resnet_world_scrape=" + json.dumps(
+        {k: scrape[k] for k in ("readings", "whole_multiples",
+                                "per_step_bytes", "seconds")}), flush=True)
     improvement = dense["loss_first"] - dense["loss_last"]
     delta = abs(int8["loss_last"] - dense["loss_last"])
     cut = int8["stats"]["dcn_bytes_per_step"] / int8["fp32_leg_bytes"]
@@ -4555,7 +4675,8 @@ def elastic_live_gates(records: list[dict], docs: list[tuple[int, int]],
             "params_sha256": digests[0]}
 
 
-def phase_elastic_live(card: str, data: Path, stop_resume: dict) -> dict:
+def phase_elastic_live(card: str, data: Path,
+                       stop_resume: dict) -> tuple[dict, dict]:
     """The phase-15 job with live state migration (ELASTIC_LIVE_ENV):
     launchers podA and podB form a world of two; once rank 0 has sealed a
     checkpoint, SIGTERM goes to the launcher of the pod holding rank 0
@@ -4572,7 +4693,7 @@ def phase_elastic_live(card: str, data: Path, stop_resume: dict) -> dict:
     the world of one's first step; podC's start to the grown world's
     first step) beside phase 15's, the survivor's adoption gap (its ack's
     downtime_s), each reform phase's seconds, and each peer restore's
-    bytes and seconds. Returns the launches by path."""
+    bytes and seconds. Returns the launches by path and the result."""
     import signal
 
     torch.cuda.empty_cache()
@@ -4641,7 +4762,7 @@ def phase_elastic_live(card: str, data: Path, stop_resume: dict) -> dict:
     emit(result)
     launches = {n: sum(g["launches"][n] for g in result["generations"])
                 for n in ("sgdm_fp32", "pack_int8")}
-    return {"elastic_live": launches}
+    return {"elastic_live": launches}, result
 
 
 # -- 17. lm_world ------------------------------------------------------------
@@ -6079,6 +6200,76 @@ def discovery_stats(endpoint: str) -> dict:
         return wire.recv_msg(sock)["stats"]
 
 
+class DiscoveryView:
+    """What a distill registry (a ServiceRegistry over any Store: the
+    port's store client or a RedisStore) and the discovery server at
+    ``disc_ep`` hold for ``service``, read from this process. Steps (d)
+    and (f) poll it with wait_until."""
+
+    def __init__(self, store, disc_ep: str, service: str):
+        from edl_tpu_torch.coord.registry import ServiceRegistry
+        from edl_tpu_torch.distill.discovery_server import DISTILL_ROOT
+
+        self.disc_ep, self.service = disc_ep, service
+        self.registry = ServiceRegistry(store, root=DISTILL_ROOT)
+
+    def registered(self) -> list[str]:
+        return [m.server for m in self.registry.get_service(self.service)]
+
+    def tracked(self) -> dict | None:
+        """The discovery server's stats of the service ("servers",
+        "loads"); None while it does not answer or tracks no client of
+        the service (it tracks one once a client asks for it)."""
+        try:
+            return discovery_stats(self.disc_ep).get(self.service)
+        except OSError:
+            return None
+
+    def answers(self) -> bool:
+        try:
+            discovery_stats(self.disc_ep)
+        except OSError:
+            return False
+        return True
+
+    def balanced(self) -> list[str] | None:
+        """The teachers the discovery server balances for the service;
+        None as in ``tracked``."""
+        svc = self.tracked()
+        return None if svc is None else list(svc["servers"])
+
+    def assigned(self, endpoint: str) -> bool:
+        return (self.tracked() or {}).get("loads", {}).get(endpoint, 0) > 0
+
+    def dropped(self, endpoint: str) -> bool:
+        """The discovery server answers, tracks the service, and no longer
+        balances ``endpoint``."""
+        servers = self.balanced()
+        return servers is not None and endpoint not in servers
+
+    def ready(self, endpoints: set) -> bool:
+        """The discovery server answers and ``endpoints`` are all in the
+        registry: a reader started now is assigned them."""
+        return self.answers() and endpoints <= set(self.registered())
+
+    def close(self) -> None:
+        self.registry.store.close()
+
+
+def wait_until(cond, deadline: float, what: str) -> float:
+    """Poll ``cond`` every 20 ms until it holds (the time.monotonic() it
+    did) or raise RuntimeError at ``deadline`` (time.monotonic()). A
+    RuntimeError, not fail(): on a DistillReader's source thread it ends
+    the reader's epoch with the error, where SystemExit would end only
+    the thread."""
+    while True:
+        if cond():
+            return time.monotonic()
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no {what} in time")
+        time.sleep(0.02)
+
+
 def phase_distill_discovery(pool: DistillPool, model, eps: dict) -> dict:
     """(d) the elastic pool: the port's store server, the discovery
     server and A's registrar; a DistillReader in discovery mode over
@@ -6089,8 +6280,6 @@ def phase_distill_discovery(pool: DistillPool, model, eps: dict) -> dict:
     registrar are SIGKILLed. Every batch must come in order with logits
     within (a)'s bound of the in-process forward on its own rows."""
     from edl_tpu_torch.coord.client import StoreClient
-    from edl_tpu_torch.coord.registry import ServiceRegistry
-    from edl_tpu_torch.distill.discovery_server import DISTILL_ROOT
     from edl_tpu_torch.distill.reader import DistillReader
     from edl_tpu_torch.distill.teacher_server import TeacherClient
 
@@ -6106,51 +6295,35 @@ def phase_distill_discovery(pool: DistillPool, model, eps: dict) -> dict:
     pool.spawn("registrar_A", "edl_tpu_torch.distill.registrar", *reg,
                "--server", eps["A"])
     disc_ep = f"127.0.0.1:{disc}"
-    registry = ServiceRegistry(StoreClient(
+    view = DiscoveryView(StoreClient(
         f"127.0.0.1:{store}", timeout=5.0, connect_retries=200,
-        retry_interval=0.1), root=DISTILL_ROOT)
+        retry_interval=0.1), disc_ep, DISTILL_SERVICE)
     rng = np.random.default_rng(20)
     images = rng.normal(size=(DISCOVERY_BATCHES, DISCOVERY_ROWS, 224, 224,
                               3)).astype(np.float16)
     t: dict = {}
 
-    def balanced() -> dict:
-        try:
-            return discovery_stats(disc_ep).get(DISTILL_SERVICE, {})
-        except OSError:
-            return {}
-
-    def registered() -> list[str]:
-        return [m.server for m in registry.get_service(DISTILL_SERVICE)]
-
     def wait(cond, what: str) -> float:
-        # raised on the reader's thread, it ends the epoch with an error
-        while time.monotonic() < pool.deadline:
-            if cond():
-                return time.monotonic()
-            time.sleep(0.02)
-        raise RuntimeError(f"distill discovery: no {what} within "
-                           f"{DISTILL_TIMEOUT_S} s")
+        return wait_until(cond, pool.deadline, f"distill discovery: {what}")
 
     def source():
         for i in range(DISCOVERY_BATCHES):
             if i == 4:
                 pool.spawn("registrar_D", "edl_tpu_torch.distill.registrar",
                            *reg, "--server", eps["D"])
-                t["registered"] = wait(lambda: eps["D"] in registered(),
-                                       "registration of the newcomer")
-                t["assigned"] = wait(
-                    lambda: balanced().get("loads", {}).get(eps["D"], 0)
-                    > 0, "assignment of the newcomer")
+                t["registered"] = wait(
+                    lambda: eps["D"] in view.registered(),
+                    "registration of the newcomer")
+                t["assigned"] = wait(lambda: view.assigned(eps["D"]),
+                                     "assignment of the newcomer")
                 # the reader's discovery client heartbeats every 2 s
                 time.sleep(2.5)
             if i == 12:
                 t["killed"] = pool.kill("A", "registrar_A")
-                t["expired"] = wait(lambda: eps["A"] not in registered(),
+                t["expired"] = wait(lambda: eps["A"] not in view.registered(),
                                     "lease expiry of the dead teacher")
-                t["dropped"] = wait(
-                    lambda: eps["A"] not in balanced().get("servers", ()),
-                    "removal of the dead teacher")
+                t["dropped"] = wait(lambda: view.dropped(eps["A"]),
+                                    "removal of the dead teacher")
             yield {"image": images[i],
                    "row": np.arange(i * DISCOVERY_ROWS,
                                     (i + 1) * DISCOVERY_ROWS)}
@@ -6165,7 +6338,7 @@ def phase_distill_discovery(pool: DistillPool, model, eps: dict) -> dict:
             got.append((batch["row"].copy(), batch["logits"].copy()))
     finally:
         reader.close()
-        registry.store.close()
+        view.close()
     wall_s = time.monotonic() - t0
     errs, bound = [], 0.0
     for i, (rows, logits) in enumerate(got):
@@ -6222,6 +6395,254 @@ def phase_distill_examples() -> dict:
     return out
 
 
+# (f): the redis:// discovery flavor. MiniRedis runs in this process; the
+# discovery server and a registrar for each of D and E are processes
+# whose --store is redis://; E's key leaves the registry only by its TTL
+# (redis expires keys silently: no event carries it) and the discovery
+# server drops E at its next poll after that.
+REDIS_SERVICE = "distill_resnet_redis"
+REDIS_TTL_S = 2.0
+REDIS_TICK_S = 0.2
+REDIS_STEPS = 12
+REDIS_KILL_AFTER = 6          # E and its registrar die after this step
+# the TTL, one discovery tick, and room for a loaded host's scheduling
+REDIS_DROP_DEADLINE_S = REDIS_TTL_S + REDIS_TICK_S + 8.0
+
+
+def redis_wiring(pool: DistillPool, redis_ep: str, eps: dict,
+                 names: tuple) -> str:
+    """The discovery server and one registrar for each named teacher, each
+    a process of ``pool`` with ``--store redis://...``, a service of its
+    own and a TTL of REDIS_TTL_S; the discovery server's endpoint."""
+    store = f"redis://{redis_ep}"
+    disc = pool.ports["discovery_redis"] = free_port()
+    pool.spawn("discovery_redis", "edl_tpu_torch.distill.discovery_server",
+               "--store", store, "--host", "127.0.0.1", "--port", str(disc),
+               "--tick-interval", str(REDIS_TICK_S))
+    for name in names:
+        pool.spawn(f"registrar_{name}_redis",
+                   "edl_tpu_torch.distill.registrar", "--store", store,
+                   "--service", REDIS_SERVICE, "--ttl", str(REDIS_TTL_S),
+                   "--stats-interval", "1", "--server", eps[name])
+    return f"127.0.0.1:{disc}"
+
+
+def redis_student(ok_mod, data: Path, disc_ep: str, on_step) -> dict:
+    """A ResNet50_vd student at RESNET_ARGV's width and batch, in this
+    process, as imagenet_train --teachers wires one (make_distill_step,
+    make_fused_tx "sgdm" fp32, its schedule): REDIS_STEPS steps over phase
+    9's shards in the loader's order, fed by a DistillReader in discovery
+    mode on REDIS_SERVICE (the discovery server assigns it both D and E:
+    one client, two teachers). Each step timed between two synchronizes, the
+    training thread's wait on the reader, the K4/K6 launches counted (set
+    to 0 just before the run); ``on_step(i, batch)`` after each step,
+    outside its timing."""
+    from edl_tpu_torch import models as zoo
+    from edl_tpu_torch.data.pipeline import DataLoader, FileSource
+    from edl_tpu_torch.distill.reader import DistillReader
+    from edl_tpu_torch.examples import imagenet_train
+    from edl_tpu_torch.train.classification import (create_state,
+                                                    make_distill_step)
+    from edl_tpu_torch.train.fused_opt import make_fused_tx
+
+    args = imagenet_train._parser().parse_args(
+        ["--data-dir", str(data), *RESNET_ARGV, "--fused-opt", "fp32"])
+    model = zoo.get_model(args.model)(num_classes=args.num_classes,
+                                      dtype=torch.bfloat16, device="cuda",
+                                      seed=args.seed)
+    schedule = imagenet_train.build_schedule(args, RESNET_STEPS_PER_EPOCH)
+    state = create_state(model, make_fused_tx(
+        "sgdm", schedule, "fp32", momentum=args.momentum,
+        weight_decay=args.weight_decay))
+    step = make_distill_step(args.num_classes,
+                             temperature=args.distill_temperature,
+                             hard_weight=args.distill_hard_weight,
+                             smoothing=args.label_smoothing,
+                             predict_key=args.distill_predict_key)
+    files = sorted(str(p) for p in data.glob("train-*.npz"))
+    loader = DataLoader(FileSource(files, cache_files=len(files)),
+                        args.batch_size, seed=args.seed, num_workers=0)
+
+    def source():
+        epoch = 0
+        while True:
+            yield from loader.epoch(epoch)
+            epoch += 1
+
+    def first_steps():
+        for i, batch in enumerate(source()):
+            if i == REDIS_STEPS:
+                return
+            yield batch
+
+    counters = {"sgdm_fp32": ok_mod.sgdm_fp32, "sgdm_q": ok_mod.sgdm_q}
+    reader = DistillReader(first_steps, feeds=("image",),
+                           predicts=(args.distill_predict_key,),
+                           discovery=disc_ep, service=REDIS_SERVICE)
+    steps: list[dict] = []
+    labels: list[np.ndarray] = []
+    try:
+        for c in counters.values():
+            c.launches = 0
+        it = reader()
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            wait_ms = (time.perf_counter() - t0) * 1e3
+            placed = {k: torch.as_tensor(v, device="cuda")
+                      for k, v in batch.items()}
+            torch.cuda.synchronize()
+            c0 = {n: c.launches for n, c in counters.items()}
+            t0 = time.perf_counter()
+            state, metrics = step(state, placed)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "reader_wait_ms": wait_ms,
+                          "loss": float(metrics["loss"]),
+                          "launches": {n: c.launches - c0[n]
+                                       for n, c in counters.items()}})
+            labels.append(np.asarray(batch["label"]).copy())
+            on_step(len(steps), batch)
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        reader.close()
+        loader.close()
+    return {"steps": steps, "labels": labels, "launches": launches,
+            "epoch": reader.last_epoch}
+
+
+def phase_distill_redis(pool: DistillPool, ok_mod, data: Path, model,
+                        eps: dict) -> dict:
+    """(f) distill through redis://: MiniRedis in this process, the
+    discovery server and registrars of D and E over it (redis_wiring);
+    once the discovery server is up and both are registered, one request
+    warms E, then redis_student; after step REDIS_KILL_AFTER, E and its
+    registrar are SIGKILLed and a thread beside the training waits for
+    E's key to leave the registry and then for the discovery server to
+    drop E. Gates: one K4 a step, the losses finite
+    and the last below the first, every batch in the loader's order, the
+    served logits within (a)'s bound of this script's forward on the same
+    rows, E served the student rows before its kill, E's key left the
+    registry and the discovery server dropped E."""
+    from edl_tpu_torch.coord.redis_store import RedisStore
+    from edl_tpu_torch.coord.resp import MiniRedis
+    from edl_tpu_torch.distill.teacher_server import TeacherClient
+
+    t0 = time.monotonic()
+    mini = MiniRedis().start()
+    view = None
+    try:
+        disc_ep = redis_wiring(pool, mini.endpoint, eps, ("D", "E"))
+        view = DiscoveryView(RedisStore(mini.endpoint, timeout=5.0),
+                             disc_ep, REDIS_SERVICE)
+        # the discovery server tracks a service once a client asks for
+        # it, reading the registry then: it is up, and both registered,
+        # before the reader starts
+        listed_at = wait_until(lambda: view.ready({eps["D"], eps["E"]}),
+                               time.monotonic() + 60.0,
+                               "distill redis: discovery server, or "
+                               "registration of D and E")
+        # E has served nothing yet: its first batch shapes would pay their
+        # warm-up inside the student's first steps, so one request of
+        # fixed rows warms it, and only the rows after it count
+        warm = np.random.default_rng(21).normal(
+            size=(DISCOVERY_ROWS, 224, 224, 3)).astype(np.float16)
+        client = TeacherClient(eps["E"])
+        try:
+            client.predict({"image": warm})
+            e_base = client.stats()["served_rows"]
+        finally:
+            client.close()
+        seen: dict = {"errs": [], "bound": 0.0}
+        watcher: list = []
+
+        def on_step(i: int, batch: dict) -> None:
+            ref = reference_logits(model, batch["image"].astype(np.float16))
+            seen["bound"] = max(seen["bound"], logit_bound(ref))
+            seen["errs"].append(float(np.abs(batch["logits"] - ref).max()))
+            if i != REDIS_KILL_AFTER:
+                return
+            client = TeacherClient(eps["E"])
+            try:
+                seen["e_rows"] = client.stats()["served_rows"] - e_base
+            finally:
+                client.close()
+            t_kill = pool.kill("E", "registrar_E_redis")
+            deadline = t_kill + REDIS_DROP_DEADLINE_S
+
+            def watch() -> None:
+                # a wait that misses its deadline raises and leaves its
+                # key unset: the gate below fails on it
+                seen["expiry_s"] = wait_until(
+                    lambda: eps["E"] not in view.registered(), deadline,
+                    "distill redis: expiry of E's key") - t_kill
+                seen["drop_s"] = wait_until(
+                    lambda: view.dropped(eps["E"]), deadline,
+                    "distill redis: removal of E") - t_kill
+
+            th = threading.Thread(target=watch, daemon=True,
+                                  name="redis-drop-watch")
+            th.start()
+            watcher.append(th)
+
+        t_train = time.monotonic()
+        run = redis_student(ok_mod, data, disc_ep, on_step)
+        train_s = time.monotonic() - t_train
+        for th in watcher:
+            th.join(REDIS_DROP_DEADLINE_S + 5.0)
+    finally:
+        if view is not None:
+            view.close()
+        mini.stop()
+    steps = run["steps"]
+    losses = [st["loss"] for st in steps]
+    order = loader_labels(data, 2)[:REDIS_STEPS]
+    in_order = len(run["labels"]) == REDIS_STEPS and all(
+        np.array_equal(a, b) for a, b in zip(run["labels"], order))
+    timed = steps[TIMED_FROM_STEP - 1:]
+    out = {"phase": "distill_redis", "service": REDIS_SERVICE,
+           "ttl_s": REDIS_TTL_S, "tick_s": REDIS_TICK_S,
+           "steps": len(steps), "in_order": in_order,
+           "listed_s": listed_at - t0, "train_s": train_s,
+           "step_ms_median": float(np.median([st["ms"] for st in timed])),
+           "reader_wait_ms_median": float(np.median(
+               [st["reader_wait_ms"] for st in timed])),
+           "loss_first": losses[0] if losses else None,
+           "loss_last": losses[-1] if losses else None, "losses": losses,
+           "max_abs_err": max(seen["errs"], default=None),
+           "bound": seen["bound"], "e_rows_before_kill": seen.get("e_rows"),
+           "expiry_s": seen.get("expiry_s"), "drop_s": seen.get("drop_s"),
+           "reader_epoch": run["epoch"], "launches": run["launches"],
+           "seconds": time.monotonic() - t0}
+    emit(out)
+    print("distill_redis=" + json.dumps(
+        {k: out[k] for k in ("expiry_s", "drop_s", "step_ms_median",
+                             "reader_wait_ms_median", "seconds")}),
+          flush=True)
+    check_launches(steps, resnet_want(run["launches"], "sgdm_fp32"),
+                   "distill redis")
+    if len(losses) != REDIS_STEPS or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        fail(f"distill redis: {len(losses)} steps of {REDIS_STEPS}, "
+             f"losses {losses}")
+    if not in_order:
+        fail("distill redis: the reader's batches are not the loader's, "
+             "in order")
+    if not out["max_abs_err"] <= out["bound"]:
+        fail(f"distill redis: logits {out['max_abs_err']} from the "
+             f"in-process forward on their rows, above {out['bound']}")
+    if not (out["e_rows_before_kill"] or 0) > 0:
+        fail("distill redis: E served no row before its kill")
+    if out["expiry_s"] is None or out["drop_s"] is None:
+        fail(f"distill redis: E's key left the registry after "
+             f"{out['expiry_s']} s, the discovery server dropped it after "
+             f"{out['drop_s']} s (deadline {REDIS_DROP_DEADLINE_S} s)")
+    return out
+
+
 def phase_distill(ok_mod, data: Path, ckpt: Path) -> dict:
     """Phase 19: (a) the teacher CLI (three ResNet50_vd teachers: A
     dense over --local-mesh dp=1, B --serve-topk 16, C the control
@@ -6229,20 +6650,24 @@ def phase_distill(ok_mod, data: Path, ckpt: Path) -> dict:
     fp32, 1 epoch: one K4 a step), (c) the sparse student (--distill-topk
     16 --teachers A,B --fused-opt int8, 1 epoch, B SIGKILLed after
     DISTILL_KILL_AFTER batches: one K6 entry call a step, every batch in
-    order), (d) the discovery pool through a join and a kill, (e) the
-    small examples. Returns the launches by path."""
+    order), (d) the discovery pool through a join and a kill, (f) a
+    student through redis:// (phase_distill_redis: D and E, E killed
+    after step 6), (e) the small examples. Returns the launches by
+    path."""
     from edl_tpu_torch.distill.teacher_server import TeacherClient
 
     t_phase = time.monotonic()
     with tempfile.TemporaryDirectory() as tmp, DistillPool(
             Path(tmp), ckpt) as pool:
         tmp = Path(tmp)
-        # D joins (d)'s pool later; its process starts with the others
+        # D joins (d)'s pool later and E (f)'s; their processes start
+        # with the others
         eps = {"A": pool.teacher("A", "--local-mesh", "dp=1"),
                "B": pool.teacher("B", "--serve-topk", str(DISTILL_TOPK)),
-               "C": pool.teacher("C", params=False), "D": pool.teacher("D")}
+               "C": pool.teacher("C", params=False), "D": pool.teacher("D"),
+               "E": pool.teacher("E")}
         model = load_teacher(ckpt)
-        ready_s = pool.wait_ready("A", "B", "C", "D")
+        ready_s = pool.wait_ready("A", "B", "C", "D", "E")
         teacher = phase_distill_teacher(pool, model, eps)
         pool.kill("C")
         dense = distill_student(ok_mod, data, tmp, "dense", "sgdm_fp32",
@@ -6263,6 +6688,7 @@ def phase_distill(ok_mod, data: Path, ckpt: Path) -> dict:
         if "t" not in killed:
             fail("distill sparse: teacher B was never killed")
         discovery = phase_distill_discovery(pool, model, eps)
+        redis = phase_distill_redis(pool, ok_mod, data, model, eps)
         del model
         torch.cuda.empty_cache()
         examples = phase_distill_examples()
@@ -6279,12 +6705,17 @@ def phase_distill(ok_mod, data: Path, ckpt: Path) -> dict:
           "wire_answer_bytes": {"dense": dense["answer_bytes_per_batch"],
                                 "sparse": sparse["answer_bytes_per_batch"]},
           "assign_s": discovery["assign_s"], "drop_s": discovery["drop_s"],
+          "redis": {k: redis[k] for k in (
+              "expiry_s", "drop_s", "step_ms_median",
+              "reader_wait_ms_median", "seconds")},
           "teacher_max_abs_err": teacher["A_max_abs_err"],
           "examples": {k: v for k, v in examples.items() if k != "phase"}})
     return {"distill_dense": {k: v for k, v in dense["launches"].items()
                               if v},
             "distill_sparse": {k: v for k, v in sparse["launches"].items()
-                               if v}}
+                               if v},
+            "distill_redis": {k: v for k, v in redis["launches"].items()
+                              if v}}
 
 
 # -- phase 20: zoo_ctr (VGG16 served, its student, ctr_train, fit_a_line) ---
@@ -6774,6 +7205,94 @@ def phase_scaler(card: str) -> dict:
     return result
 
 
+FLEET_TOURNAMENT = ["--jobs", "60", "--pools", "8", "--ticks", "120"]
+FLEET_TIMEOUT_S = 120
+FLEET_ROWS = 24                # 4 traces x 2 ladders x 3 policies
+
+
+def fleet_artifact(stop_resume: dict, live: dict) -> dict:
+    """The downtime ladder this card measured: phase 15's stop-resume
+    (its kill, the forced eviction a ladder's stop-resume prices), phase
+    16's in-place reform (its grow) and its adoption gap, under the keys
+    DowntimeLadder.from_artifact reads."""
+    return {"elastic_downtime_s": stop_resume["downtime_s"]["shrink"],
+            "elastic_downtime_multihost_s": live["downtime_s"]["grow"],
+            "elastic_downtime_p2p_s": live["adoption_gap_s"]}
+
+
+class FleetRun:
+    """The fleet simulator's CLI as a child of this script: selftest, then
+    the tournament on ``artifact``'s ladder; started at the phase's start,
+    read by ``result()`` at its end."""
+
+    def __init__(self, root: Path, artifact: dict):
+        self.root = root
+        self.ladder = root / "ladder.json"
+        self.ladder.write_text(json.dumps(artifact))
+        mod = [sys.executable, "-m", "edl_tpu_torch.scaler.fleet"]
+        cmd = (f"{' '.join(mod)} selftest > selftest.out 2>&1 && "
+               f"{' '.join(mod)} tournament --ladder {self.ladder} "
+               f"{' '.join(FLEET_TOURNAMENT)} > tournament.json "
+               "2> tournament.err")
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(["/bin/sh", "-c", cmd], cwd=str(root),
+                                     env=smoke_env(), start_new_session=True)
+
+    def result(self) -> dict:
+        t_wait = time.monotonic()
+        try:
+            rc = self.proc.wait(timeout=max(
+                1.0, FLEET_TIMEOUT_S - (t_wait - self.t0)))
+        except subprocess.TimeoutExpired:
+            kill_groups([self.proc.pid])
+            self.proc.wait()
+            fail(f"fleet: the simulator ran past {FLEET_TIMEOUT_S} s")
+        wait_s = time.monotonic() - t_wait
+        selftest = (self.root / "selftest.out").read_text(errors="replace")
+        if rc != 0:
+            err = (self.root / "tournament.err")
+            fail(f"fleet: exited {rc}:\n{selftest[-2000:]}\n"
+                 f"{err.read_text()[-2000:] if err.exists() else ''}")
+        doc = json.loads((self.root / "tournament.json").read_text())
+        return fleet_gates(doc, f"artifact:{self.ladder}",
+                           selftest, time.monotonic() - self.t0, wait_s)
+
+
+def finite_numbers(obj) -> bool:
+    """Every int and float in a JSON document finite."""
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(finite_numbers(v) for v in obj)
+    if isinstance(obj, float):
+        return bool(np.isfinite(obj))
+    return True
+
+
+def fleet_gates(doc: dict, ladder: str, selftest: str, seconds: float,
+                wait_s: float) -> dict:
+    """The tournament's gates: FLEET_ROWS rows, half on ``ladder``, every
+    number finite, the selftest passed; each policy's SLO attainment and
+    downtime paid on that ladder."""
+    rows = doc.get("rows", [])
+    mine = [r for r in rows if r.get("ladder") == ladder]
+    if "fleet selftest: all checks passed" not in selftest:
+        fail(f"fleet: the selftest did not pass:\n{selftest[-2000:]}")
+    if len(rows) != FLEET_ROWS or len(mine) != FLEET_ROWS // 2 \
+            or not finite_numbers(doc):
+        fail(f"fleet: {len(rows)} rows, {len(mine)} on {ladder}, finite "
+             f"{finite_numbers(doc)}")
+    by_policy: dict[str, dict] = {}
+    for r in mine:
+        p = by_policy.setdefault(r["policy"], {"slo_attainment": [],
+                                               "downtime_paid_s": []})
+        p["slo_attainment"].append(r["slo_attainment"])
+        p["downtime_paid_s"].append(r["downtime_paid_s"])
+    return {"rows": len(rows), "card_ladder_rows": len(mine),
+            "fingerprint": doc["fingerprint"], "policies": by_policy,
+            "seconds": seconds, "wait_s": wait_s}
+
+
 # -- 22. serve_scaler: the serving loop of the control plane -----------------
 # A pool of ResNet50_vd teachers (the zoo-teacher CLI, random weights from
 # its seed, 1000 classes, 224 px, float16 feeds as phase 19's) between 1
@@ -7248,7 +7767,8 @@ def main() -> int:
         elastic, stop_resume = phase_elastic(card, data)
         launches.update(elastic)
         clock.lap("15_elastic")
-        launches.update(phase_elastic_live(card, data, stop_resume))
+        live_launches, live = phase_elastic_live(card, data, stop_resume)
+        launches.update(live_launches)
         clock.lap("16_elastic_live")
         launches.update(phase_lm_world(ok_mod))
         clock.lap("17_lm_world")
@@ -7264,7 +7784,14 @@ def main() -> int:
         started = threading.Thread(target=pool.actuator.resize, args=(1,),
                                    daemon=True, name="serve-first-teacher")
         started.start()
+        # the fleet simulator runs beside phase 21 on the card's ladder
+        fleet = FleetRun(Path(tmp), fleet_artifact(stop_resume, live))
         phase_scaler(card)
+        fleet_out = fleet.result()
+        emit({"phase": "fleet", "card": card,
+              "ladder": fleet_artifact(stop_resume, live), **fleet_out})
+        print("fleet=" + json.dumps({k: fleet_out[k] for k in (
+            "policies", "seconds", "wait_s")}), flush=True)
         clock.lap("21_scaler")
         phase_serve_scaler(card, pool, started)
         clock.lap("22_serve_scaler")

@@ -12,16 +12,29 @@ watchers see a graceful departure at once.
 
 from __future__ import annotations
 
+import socket
 import threading
 import time
 
 from edl_tpu_torch.collective.cluster import Pod
-from edl_tpu_torch.coord.client import HostLeaseCoalescer, LeaseKeeper
+from edl_tpu_torch.coord.client import HostLeaseCoalescer, LeaseKeeper, \
+    host_coalescer
 from edl_tpu_torch.coord.store import Store, try_watch
+from edl_tpu_torch.utils import config
 from edl_tpu_torch.utils.exceptions import EdlRegisterError
 from edl_tpu_torch.utils.logging import get_logger
 
 log = get_logger("edl_tpu_torch.collective.register")
+
+
+def default_coalescer(store: Store, ttl: float) -> HostLeaseCoalescer | None:
+    """The host-shared lease coalescer when EDL_TPU_LEASE_COALESCE=1
+    (default off: per-pod leases). One lease per host carries every pod
+    registration with a single batched keepalive write: per-host
+    heartbeats instead of per-pod ones."""
+    if not config.env_flag("EDL_TPU_LEASE_COALESCE", False):
+        return None
+    return host_coalescer(store, socket.gethostname(), ttl)
 
 
 def ranks_prefix(job_id: str) -> str:
@@ -66,7 +79,8 @@ class PodRegister:
         # lease (one keepalive writer per host, not per pod) and release
         # detaches just this pod's key — siblings on the shared lease are
         # untouched.
-        self._coalescer = coalescer
+        self._coalescer = coalescer if coalescer is not None \
+            else default_coalescer(store, ttl)
         self._claimed_key: str | None = None
 
     def claim(self, timeout: float = 60.0) -> int:

@@ -343,6 +343,10 @@ class ReplicaNode:
         self._commit_cond = threading.Condition()
         self._commit_rev = 0               # guarded-by: _commit_cond
         self._match: dict[str, int] = {}   # guarded-by: _commit_cond
+        # this reign's baseline: the local revision at promotion. A
+        # clean peer first met in the reign above it holds a suffix
+        # this leader never wrote (see _sender_loop).
+        self._reign_base = 0               # guarded-by: _commit_cond
 
         self._side_lock = threading.Lock()
         # lease-grant/revoke side entries: (seq, pos, wire entry) — the
@@ -553,23 +557,41 @@ class ReplicaNode:
                     return
                 continue
             if self.quorum.try_acquire():
+                # ask again under the lease: the last reign could still
+                # ack writes until its own lease lapsed on a majority
+                if self._peer_ahead():
+                    self.quorum.release()
+                    if campaign_backoff.sleep(self._stop):
+                        return
+                    continue
                 self._become_leader()
                 campaign_backoff.reset()
             elif campaign_backoff.sleep(self._stop):
                 return
 
     def _peer_ahead(self) -> bool:
+        """Whether this campaign must defer. An acked write lives on a
+        majority, so a candidate that hears from a majority (itself
+        included) meets at least one holder of every acked write: it
+        defers when too few peers answer to show that, or when one that
+        answers may hold acked writes it lacks — a clean peer with a
+        higher revision, or a dirty one whose commit point is above it
+        (the revisions past a dirty peer's commit point may be a
+        deposed reign's suffix and do not count)."""
         mine = self.store.current_revision
+        answered = 1
         for peer in self.peers:
             try:
                 resp = self._peer_call(peer, {"op": "status"},
                                        timeout=max(0.2, self.election_ttl / 4))
             except (EdlStoreError, OSError, wire.WireError):
                 continue
-            if int(resp.get("revision", 0)) > mine \
-                    and not resp.get("dirty"):
+            answered += 1
+            seen = int(resp.get("commit", 0)) if resp.get("dirty") \
+                else int(resp.get("revision", 0))
+            if seen > mine:
                 return True
-        return False
+        return answered < self.majority
 
     def _become_leader(self) -> None:
         # Establish the fencing term: strictly above every term any
@@ -610,6 +632,7 @@ class ReplicaNode:
         self.store.release_fanout(self.store.current_revision)
         with self._commit_cond:
             self._match = {}
+            self._reign_base = self.store.current_revision
             self._recompute_commit_locked()
         self.notify_senders()
         log.info("replica %s is LEADER of %s (term %d, revision %d)",
@@ -741,6 +764,7 @@ class ReplicaNode:
         sock: socket.socket | None = None
         peer_rev: int | None = None  # None: probe before next append
         side_seq = 0
+        synced_term = 0  # the term in which this peer was last probed
         last_send = 0.0
         backoff = Backoff(base=max(0.02, self.heartbeat / 2.0),
                           max_delay=min(1.0, self.election_ttl),
@@ -780,11 +804,13 @@ class ReplicaNode:
                     if self._check_stale(resp):
                         _drop()
                         continue
-                    if resp.get("dirty"):
+                    peer_rev = int(resp["revision"])
+                    if resp.get("dirty") or self._diverged(
+                            peer_rev, first=synced_term != term):
                         peer_rev, side_seq = self._send_snapshot(sock, term)
                     else:
-                        peer_rev = int(resp["revision"])
                         side_seq = 0
+                    synced_term = term
                     self._update_match(peer, peer_rev)
                 got = self._entries_since(peer_rev, side_seq)
                 if got is None:
@@ -816,6 +842,18 @@ class ReplicaNode:
                 _drop()
                 if backoff.sleep(self._stop):
                     return
+
+    def _diverged(self, peer_rev: int, first: bool) -> bool:
+        """A clean peer's revision that this leader's log cannot account
+        for: above the local revision, or, at the first probe of this
+        reign, above the reign's baseline (a suffix from an earlier
+        reign, which was never acked). Counting it as matched would
+        commit this reign's writes at revisions the peer skips as
+        replays; a snapshot brings it back to this log."""
+        with self._commit_cond:
+            base = self._reign_base
+        return peer_rev > self.store.current_revision \
+            or (first and peer_rev > base)
 
     def _send_snapshot(self, sock: socket.socket, term: int
                        ) -> tuple[int, int]:

@@ -20,7 +20,8 @@ Semantics:
 - **Watches**: ``watch(prefix, start_revision)`` subscribes to the same
   PUT/DELETE stream as a push feed: per-watcher bounded queue, lease-expiry
   DELETEs included, compaction/overflow signalled as a ``compacted`` batch so
-  the consumer resyncs via ``get_prefix``. Where a store gives no watch
+  the consumer resyncs via ``get_prefix``. ``EDL_TPU_COORD_WATCH=0``
+  disables watches everywhere, and where a store gives no watch either
   (``try_watch`` returns None) every consumer falls back to its polling
   loop.
 - **CAS**: ``put_if_absent`` is the rank-claim primitive.
@@ -87,10 +88,19 @@ def watch_resync_interval(default: float = 30.0) -> float:
     return max(0.1, config.env_float("EDL_TPU_WATCH_RESYNC_S", default))
 
 
+def watch_enabled() -> bool:
+    """The EDL_TPU_COORD_WATCH=0 escape hatch: restores pure polling in
+    every converted consumer (read per call so tests can flip it)."""
+    return config.env_flag("EDL_TPU_COORD_WATCH", True)
+
+
 def try_watch(store: "Store", prefix: str = "", start_revision: int | None
               = None) -> "Watch | None":
-    """A watch on `store`, or None when this store flavor has none or the
+    """A watch on `store`, or None when watches are disabled
+    (EDL_TPU_COORD_WATCH=0), unsupported by this store flavor, or the
     subscribe itself fails — callers treat None as 'keep polling'."""
+    if not watch_enabled():
+        return None
     try:
         return store.watch(prefix, start_revision=start_revision)
     except Exception:  # noqa: BLE001 — unsupported flavor / transient
@@ -817,7 +827,10 @@ class InMemStore(Store):
                 self._leases[lease_id] = _Lease(lease_id, ttl, now + ttl)
                 self._next_lease = max(self._next_lease, lease_id + 1)
             # lease->keys index rebuilds on promotion (set_passive)
-            self._revision = max(self._revision, int(doc.get("revision", 0)))
+            # the leader's revision, even below ours: a revision past it
+            # here is a discarded suffix, and keeping it would make the
+            # leader's next writes at those numbers no-op replays
+            self._revision = int(doc.get("revision", 0))
             self._events = []
             self._first_event_rev = self._revision + 1
             self._pending_fanout.clear()
@@ -841,7 +854,9 @@ class InMemStore(Store):
             for lease_id, ttl in doc.get("leases", ()):
                 self._leases[lease_id] = _Lease(lease_id, ttl, now + ttl)
                 self._next_lease = max(self._next_lease, lease_id + 1)
-            self._revision = max(self._revision, int(doc.get("revision", 0)))
+            # the leader's revision, even below ours (as in the delta
+            # install above)
+            self._revision = int(doc.get("revision", 0))
             self._events = []
             self._first_event_rev = self._revision + 1
             # a gated store's buffered-but-unreleased tail is exactly

@@ -359,7 +359,7 @@ def spot_audit(acks: list[dict], phases_ok: bool, complete: bool,
 # -- the live-job modes -------------------------------------------------------
 
 
-class _LiveJob:
+class _DemoJob:
     """Store + store-attached JobServer + JobClient-spawned launcher pods
     of this trainer: the rig of the p2p, reform and spot modes."""
 
@@ -628,6 +628,7 @@ def run_serve_scaler_demo(args) -> int:
             try:
                 client = clients.get(ep)
                 if client is None:
+                    # lifecycle: long-lived(pooled per-endpoint client; closed on dict eviction above and drained at loop end)
                     client = TeacherClient(ep, timeout=30.0,
                                            max_inflight=64)
                     clients[ep] = client
@@ -779,7 +780,7 @@ def run_serve_load_demo(args) -> int:
 
 def run_p2p_demo(args) -> int:
     """Peer-to-peer state migration end to end on one host: the live job
-    (`_LiveJob`), a scripted shrink (the survivor adopts in place) and
+    (`_DemoJob`), a scripted shrink (the survivor adopts in place) and
     grow (the new pod restores from peers over the wire) through
     /resize, then the job runs to completion. Prints ``p2p_summary=``
     (with the resize traces' phase split when ``EDL_TPU_TRACE`` is on)
@@ -789,7 +790,7 @@ def run_p2p_demo(args) -> int:
     epochs = max(args.epochs, 30)
     steps = max(args.steps_per_epoch, 20)
     step_time = args.step_time or 0.06
-    job = _LiveJob(args, "p2p_demo", "edl-p2p-demo-", epochs=epochs,
+    job = _DemoJob(args, "p2p_demo", "edl-p2p-demo-", epochs=epochs,
                    steps=steps, step_time=step_time)
     phases_ok, complete = True, False
     t_shrink = None
@@ -851,7 +852,7 @@ def run_reform_demo(args) -> int:
     epochs = max(args.epochs, 30)
     steps = max(args.steps_per_epoch, 20)
     step_time = args.step_time or 0.05
-    job = _LiveJob(args, "reform_demo", "edl-reform-demo-", epochs=epochs,
+    job = _DemoJob(args, "reform_demo", "edl-reform-demo-", epochs=epochs,
                    steps=steps, step_time=step_time,
                    extra=("--local-mesh-by-world",))
 
@@ -915,7 +916,7 @@ def run_spot_demo(args) -> int:
     epochs = max(args.epochs, 30)
     steps = max(args.steps_per_epoch, 20)
     step_time = args.step_time or 0.06
-    job = _LiveJob(args, "spot_demo", "edl-spot-demo-", epochs=epochs,
+    job = _DemoJob(args, "spot_demo", "edl-spot-demo-", epochs=epochs,
                    steps=steps, step_time=step_time)
     phases_ok, complete = True, False
     t_notice = deadline = t_rode = None

@@ -69,6 +69,7 @@ def run_trace(args) -> int:
 def selftest(verbose: bool = True) -> int:
     import os
     import tempfile
+    import urllib.request
 
     # the plane must not pull torch or numpy in: from the CLI nothing is
     # preloaded, so this is absolute; an in-process caller (pytest) may
@@ -76,6 +77,7 @@ def selftest(verbose: bool = True) -> int:
     pre = {m: m in sys.modules for m in ("torch", "numpy")}
 
     from edl_tpu_torch.obs import metrics, recorder, trace
+    from edl_tpu_torch.utils import config
 
     def check(name: str, ok: bool) -> bool:
         if verbose:
@@ -91,7 +93,9 @@ def selftest(verbose: bool = True) -> int:
     c.inc(2)
     ok &= check("counter accumulates", c.value == 3.0
                 and reg.counter("selftest_ops") is c)
-    h = metrics.Histogram(metrics.LOG_BUCKETS_MS)
+    g = reg.gauge("selftest_depth")
+    g.set(7)
+    h = reg.histogram("selftest_latency_ms", metrics.LOG_BUCKETS_MS)
     for v in (0.5, 3.0, 3.0, 40.0, 99999.0):
         h.observe(v)
     snap1 = h.snapshot()
@@ -101,18 +105,43 @@ def selftest(verbose: bool = True) -> int:
     ok &= check("conservative quantile answers the upper edge",
                 metrics.Histogram.quantile(snap1, 0.5) == 5.0
                 and metrics.Histogram.quantile({}, 0.5) is None)
-    handle = reg.register_stats("selftest_src", lambda: {"queue_depth": 3})
+    handle = reg.register_stats("selftest_src", lambda: {"queue_depth": 3,
+                                                         "hist": {"8": 2}})
     reg.register_stats("selftest_bad", lambda: 1 / 0)
     snap = reg.snapshot()
     ok &= check("stats sources snapshot, a throwing one skipped",
-                snap["sources"] == {"selftest_src/0": {"queue_depth": 3}})
+                snap["sources"] == {"selftest_src/0": {"queue_depth": 3,
+                                                       "hist": {"8": 2}}})
+    text = reg.render()
+    ok &= check("prometheus text: counter/gauge lines",
+                "edl_selftest_ops 3" in text
+                and "edl_selftest_depth 7" in text)
+    ok &= check("prometheus text: cumulative buckets + +Inf",
+                'edl_selftest_latency_ms_bucket{le="+Inf"} 6' in text
+                and "edl_selftest_latency_ms_count 6" in text)
+    ok &= check("stats dict rendered as gauges",
+                'edl_selftest_src_queue_depth{iid="0"} 3' in text
+                and 'bucket="8"' in text)
+    srv = metrics.MetricsServer(reg, port=0)
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/metrics", timeout=5).read()
+        ok &= check("scrape endpoint serves the same text",
+                    b"edl_selftest_ops 3" in body)
+        scraped = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/snapshot", timeout=5).read())
+        ok &= check("snapshot endpoint carries sources",
+                    scraped["sources"]["selftest_src/0"]["queue_depth"]
+                    == 3)
+    finally:
+        srv.close()
     reg.unregister(handle)
     ok &= check("unregister drops the source",
                 "selftest_src/0" not in reg.snapshot()["sources"])
 
     # -- trace leg ---------------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="edl-obs-selftest-") as tmp:
-        prev = os.environ.get("EDL_TPU_TRACE")
+        prev = config.env_str("EDL_TPU_TRACE")
         os.environ["EDL_TPU_TRACE"] = tmp
         trace.reconfigure()
         try:

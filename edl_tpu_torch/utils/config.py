@@ -4,7 +4,9 @@
 Dataclass fields declare an ``env`` name in metadata; ``from_env`` builds
 the config as defaults < env < explicit kwargs, with values parsed by the
 field's declared type. ``ENV_VARS`` lists only the knobs the port reads;
-their names and meanings are the JAX package's.
+their names and meanings are the JAX package's, and
+``doc/usage_torch.md`` has a row for each (``python -m
+edl_tpu_torch.analysis lint`` holds the three together).
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ from typing import Any, TypeVar
 T = TypeVar("T")
 
 ENV_VARS: dict[str, str] = {
+    # logging and the wire (utils/logging, coord/wire)
     "EDL_TPU_LOG_LEVEL": "python log level for edl_tpu loggers",
     "EDL_TPU_WIRE_STALL_S": "mid-frame wire stall deadline seconds "
                             "(<=0 disables)",
     # analysis plane (analysis/lockgraph)
     "EDL_TPU_LOCKGRAPH": "lock-order race detector during pytest (1 = on)",
     "EDL_TPU_LOCKGRAPH_OUT": "lockgraph JSON report path",
+    # tracing (obs/trace), teacher serving and the distill reader
     "EDL_TPU_TRACE": "causal span tracing: 1 = on (sink ./edl_trace), "
                      "a path = on with that sink dir, 0/unset = off",
     "EDL_TPU_SERVE_BATCHING": "teacher batch admission mode: continuous "
@@ -65,8 +69,12 @@ ENV_VARS: dict[str, str] = {
                                "the relay instead of the store",
     "EDL_TPU_RELAY_BUFFER": "relay per-prefix replay-history length "
                             "(events kept for late/resuming downstreams)",
+    "EDL_TPU_COORD_WATCH": "store watch streams (0 = poll everywhere)",
     "EDL_TPU_WATCH_RESYNC_S": "resync safety-net period for event-driven "
                               "watch consumers",
+    "EDL_TPU_LEASE_COALESCE": "host-scoped lease coalescing: one lease + "
+                              "one batched keepalive per host instead of "
+                              "one per pod (1 = on)",
     "EDL_TPU_FLIGHT_RECORDER_N": "flight-recorder ring capacity per "
                                  "process (0 = off)",
     # launcher (collective/job_env.JobEnv)
@@ -130,6 +138,19 @@ ENV_VARS: dict[str, str] = {
     "EDL_TPU_SERVE_MAX_TEACHERS": "pool ceiling",
     "EDL_TPU_SERVE_DRAIN_DEADLINE": "graceful-drain budget before "
                                     "hard-kill",
+    # fleet simulator (scaler/fleet)
+    "EDL_TPU_FLEET_JOBS": "fleet tournament: concurrent trainer jobs "
+                          "per generated trace",
+    "EDL_TPU_FLEET_POOLS": "fleet tournament: concurrent serving pools "
+                           "per generated trace",
+    "EDL_TPU_FLEET_TICKS": "fleet tournament: virtual ticks per run",
+    "EDL_TPU_FLEET_SPOT_FRACTION": "fleet tournament: fraction of the "
+                                   "spot-heavy trace's node budget that "
+                                   "is revocable spot capacity (0.5)",
+    # metrics scrape endpoint (obs/metrics.registry)
+    "EDL_TPU_METRICS_PORT": "serve the process's metrics registry "
+                            "(Prometheus text at /metrics, JSON at "
+                            "/snapshot) on this port (0/unset = off)",
     # spot capacity (examples/elastic_demo --spot)
     "EDL_TPU_SPOT_NOTICE_S": "spot preemption notice window seconds a "
                              "noticed worker has to quiesce-seal-donate "

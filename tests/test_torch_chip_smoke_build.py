@@ -1175,6 +1175,41 @@ def test_discovery_stats_reads_the_server():
     assert stats[cs.DISTILL_SERVICE]["clients"] == 1
 
 
+def test_the_discovery_view_over_the_port_s_store():
+    """Step (d)'s view: the port's store and a discovery server; the
+    teacher registered, tracked only once a client asks, assigned, and
+    dropped once its registration is gone."""
+    from edl_tpu_torch.coord.store import InMemStore
+    from edl_tpu_torch.distill.discovery_client import DiscoveryClient
+    from edl_tpu_torch.distill.discovery_server import DiscoveryServer
+    from edl_tpu_torch.distill.registrar import TeacherRegistrar
+
+    store, ep = InMemStore(), "127.0.0.1:9"
+    reg = TeacherRegistrar(store, cs.DISTILL_SERVICE, ep, ttl=5.0,
+                           probe_timeout=0.1)
+    reg.wait_alive = lambda: None   # a registry entry, no teacher
+    reg.start()
+    with DiscoveryServer(store, port=0, host="127.0.0.1",
+                         tick_interval=0.1) as srv:
+        view = cs.DiscoveryView(store, srv.endpoint, cs.DISTILL_SERVICE)
+        deadline = time.monotonic() + 10.0
+        cs.wait_until(lambda: view.ready({ep}), deadline, "registration")
+        assert view.tracked() is None and not view.dropped(ep)
+        client = DiscoveryClient(srv.endpoint, cs.DISTILL_SERVICE,
+                                 heartbeat_interval=0.1).start()
+        try:
+            assert client.wait_for_servers(5.0) == [ep]
+            cs.wait_until(lambda: view.assigned(ep), deadline, "assignment")
+            assert view.balanced() == [ep]
+            reg.stop()
+            cs.wait_until(lambda: ep not in view.registered(), deadline,
+                          "removal from the registry")
+            cs.wait_until(lambda: view.dropped(ep), deadline, "drop")
+        finally:
+            client.stop()
+    assert cs.DiscoveryView(store, "127.0.0.1:1", "x").tracked() is None
+
+
 # -- phase 20: zoo_ctr, and the per-phase seconds -----------------------------
 
 def test_phase_20_is_documented_and_run():
@@ -1633,3 +1668,242 @@ def test_the_bytecode_cache_reaches_the_children(tmp_path, monkeypatch):
     for mod in cs.WARM_IMPORTS.split("import ", 1)[1].split(", "):
         assert mod == "chip_smoke" or (
             Path(cs.HERE, *mod.split(".")).with_suffix(".py").exists()), mod
+
+
+# -- the redis flavor (phase 19 (f)), the scrape (phase 9), the fleet (21) ---
+
+def test_the_new_steps_are_documented_and_run():
+    """Step (f) runs inside phase 19 after (d), on D and a fifth teacher E
+    started with the others, and its K4 launches count on the
+    distill_redis path; phase 9's rank 0 serves its registry and is
+    scraped; the fleet simulator starts before phase 21's demo and is
+    read after it, on an artifact of phases 15 and 16."""
+    import ast
+    import inspect
+
+    assert "(f) the redis:// discovery flavor" in cs.__doc__
+    assert "EDL_TPU_METRICS_PORT" in cs.__doc__
+    assert "edl_tpu_torch.scaler.fleet selftest" in cs.__doc__
+    body = inspect.getsource(cs.phase_distill)
+    assert '"E": pool.teacher("E")' in body
+    assert 'pool.wait_ready("A", "B", "C", "D", "E")' in body
+    assert (body.index("phase_distill_discovery(")
+            < body.index("phase_distill_redis(") < body.index("del model"))
+    assert '"distill_redis"' in body
+    redis = inspect.getsource(cs.phase_distill_redis)
+    for part in ("MiniRedis().start()", "redis_wiring(", "redis_student(",
+                 "DiscoveryView(RedisStore(", "wait_until(",
+                 'pool.kill("E", "registrar_E_redis")',
+                 "check_launches(", "mini.stop()"):
+        assert part in redis, part
+    student = inspect.getsource(cs.redis_student)
+    for part in ("make_distill_step(", "make_fused_tx(", '"fp32"',
+                 "discovery=disc_ep", "service=REDIS_SERVICE"):
+        assert part in student, part
+    world = inspect.getsource(cs.phase_train_resnet_world)
+    assert '"EDL_TPU_METRICS_PORT"' in world and "scrape_gate(" in world
+    src = inspect.getsource(cs.main)
+    calls = [n.func.id for n in ast.walk(ast.parse(src))
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert "FleetRun" in calls and "fleet_artifact" in calls
+    assert (src.index("phase_elastic_live(") < src.index("FleetRun(")
+            < src.index("phase_scaler(") < src.index("fleet.result()")
+            < src.index('clock.lap("21_scaler")'))
+    assert cs.REDIS_STEPS == 12 and cs.REDIS_KILL_AFTER == 6
+    assert cs.REDIS_DROP_DEADLINE_S > cs.REDIS_TTL_S + cs.REDIS_TICK_S
+
+
+def test_the_fleet_artifact_from_phases_15_and_16(tmp_path):
+    """The ladder's keys and values from canned phase 15/16 results, read
+    back by the fleet simulator's from_artifact."""
+    from edl_tpu_torch.scaler.fleet import DowntimeLadder
+
+    stop_resume = {"downtime_s": {"shrink": 13.86, "grow": 10.68}}
+    live = {"downtime_s": {"shrink": 4.2, "grow": 9.75},
+            "adoption_gap_s": 0.734}
+    art = cs.fleet_artifact(stop_resume, live)
+    assert art == {"elastic_downtime_s": 13.86,
+                   "elastic_downtime_multihost_s": 9.75,
+                   "elastic_downtime_p2p_s": 0.734}
+    path = tmp_path / "ladder.json"
+    path.write_text(json.dumps(art))
+    ladder = DowntimeLadder.from_artifact(str(path))
+    assert (ladder.adopt_s, ladder.reform_s, ladder.stop_resume_s) \
+        == (0.734, 9.75, 13.86)
+    assert ladder.name == f"artifact:{path}"
+
+
+def _canned_tournament(tmp_path):
+    from edl_tpu_torch.scaler.fleet import (LEGACY, DowntimeLadder,
+                                            tournament, trace_menu)
+
+    path = tmp_path / "ladder.json"
+    path.write_text(json.dumps({"elastic_downtime_s": 13.0,
+                                "elastic_downtime_multihost_s": 9.0,
+                                "elastic_downtime_p2p_s": 0.7}))
+    ladder = DowntimeLadder.from_artifact(str(path))
+    doc = tournament(traces=trace_menu(n_jobs=6, n_pools=2, ticks=20),
+                     ladders=[ladder, LEGACY])
+    return json.loads(json.dumps(doc)), ladder.name
+
+
+def test_the_fleet_gates_on_a_canned_tournament(tmp_path):
+    doc, name = _canned_tournament(tmp_path)
+    ok = "fleet selftest: all checks passed\n"
+    out = cs.fleet_gates(doc, name, ok, 1.5, 0.25)
+    assert out["rows"] == cs.FLEET_ROWS == 24
+    assert out["card_ladder_rows"] == 12
+    assert set(out["policies"]) == {"fair-share", "preemptive-fair-share",
+                                    "greedy-rebalance"}
+    assert all(len(p["slo_attainment"]) == 4
+               for p in out["policies"].values())
+    bad = json.loads(json.dumps(doc))
+    bad["rows"][3]["slo_attainment"] = float("nan")
+    for args in ((bad, name, ok), (doc, "artifact:elsewhere", ok),
+                 ({"rows": doc["rows"][:20], "fingerprint": "x"}, name, ok),
+                 (doc, name, "fleet selftest: 1 FAILED: ['x']")):
+        with pytest.raises(SystemExit):
+            cs.fleet_gates(*args, 1.0, 0.0)
+
+
+def test_the_fleet_run_as_a_child(tmp_path, monkeypatch):
+    """FleetRun starts the CLI's selftest and tournament in one child and
+    reads them at the end (a small tournament here)."""
+    monkeypatch.setattr(cs, "FLEET_TOURNAMENT",
+                        ["--jobs", "6", "--pools", "2", "--ticks", "20"])
+    run = cs.FleetRun(tmp_path, {"elastic_downtime_s": 13.0,
+                                 "elastic_downtime_multihost_s": 9.0,
+                                 "elastic_downtime_p2p_s": 0.7})
+    out = run.result()
+    assert out["rows"] == 24 and out["card_ladder_rows"] == 12
+    assert out["seconds"] >= out["wait_s"] >= 0
+    assert json.loads((tmp_path / "ladder.json").read_text())[
+        "elastic_downtime_s"] == 13.0
+
+
+def test_the_scrape_gate_parses_prometheus_text():
+    from edl_tpu_torch.obs import metrics
+
+    reg = metrics.Registry()
+    reg.counter("step_dcn_bytes", "bytes").inc(3 * 1000)
+    reg.counter("step_dcn_bytes_other").inc(7)
+    reg.register_stats("store", lambda: {"step_dcn_bytes": 5})
+    text = reg.render()
+    assert cs.scrape_value(text) == 3000.0
+    assert cs.scrape_value("# TYPE x counter\nx 1\n") is None
+    out = cs.scrape_gate([("int8", 0.0), ("int8", 1000.0), ("int8", 3000.0),
+                          ("int8", 30000.0), ("dense", 30000.0 + 777),
+                          ("gate", 30000.0 + 1777)], 1000, 30)
+    assert out["in_int8_run"] == 3 and out["whole_multiples"] == 3
+    assert out["steps_seen"] == [1, 3, 30]
+    for readings, per_step in (
+            ([("int8", 0.0), ("int8", 0.0)], 1000),
+            ([("int8", 1500.0)], 1000),
+            ([("int8", 1000.0), ("int8", 2500.0)], 1000),
+            ([("int8", 1000.0)], 0),
+            ([("int8", 31000.0)], 1000),     # beyond the run's 30 steps
+            # the gate's sub-run alone (3 int8 steps in the same process)
+            ([("gate", 1000.0), ("gate", 2000.0), ("gate", 3000.0)], 1000),
+            ([("int8", 0.0), ("dense", 2000.0), (None, 3000.0)], 1000)):
+        with pytest.raises(SystemExit):
+            cs.scrape_gate(readings, per_step, 30)
+
+
+def test_current_run_follows_the_ranks_json(tmp_path):
+    names = ["int8", "dense", "gate"]
+    assert cs.current_run(tmp_path, names) == "int8"
+    (tmp_path / "int8.rank1.json").write_text("{}")
+    assert cs.current_run(tmp_path, names) == "int8"
+    (tmp_path / "int8.rank0.json").write_text("{}")
+    assert cs.current_run(tmp_path, names) == "dense"
+    for name in names[1:]:
+        (tmp_path / f"{name}.rank0.json").write_text("{}")
+    assert cs.current_run(tmp_path, names) is None
+
+
+def test_the_scraper_reads_a_live_endpoint():
+    from edl_tpu_torch.obs import metrics
+
+    reg = metrics.Registry()
+    scraper = cs.Scraper(cs.free_port())
+    scraper.poll()   # nothing listens yet
+    assert scraper.readings == [] and scraper.polls == 1
+    srv = metrics.MetricsServer(reg, port=0)
+    runs = iter(["int8", "int8", "int8", "int8", "int8", "dense",
+                 "dense", "dense"])
+    try:
+        scraper = cs.Scraper(srv.port, lambda: next(runs))
+        scraper.poll()    # the series is not there yet
+        reg.counter("step_dcn_bytes").inc(4096)
+        scraper.poll()
+        scraper.poll()    # the run changed across the GET: dropped
+        scraper.poll()
+    finally:
+        srv.close()
+    assert [(r, v) for _, r, v in scraper.readings] == [
+        ("int8", 4096.0), ("dense", 4096.0)]
+    assert scraper.polls == 4 and scraper.seconds > 0
+
+
+def test_the_redis_wiring_over_an_in_process_mini_redis(tmp_path):
+    """Step (f)'s processes on the CPU: the discovery server and the
+    registrars of two stub teachers over redis:// to a MiniRedis in this
+    process; the server up and both registered (DiscoveryView.ready) and,
+    once a client asks, both assigned; then E's registrar SIGKILLed (and
+    E stopped): its key leaves the registry by its TTL and the discovery
+    server drops it, within the step's deadline."""
+    from edl_tpu_torch.coord.redis_store import RedisStore
+    from edl_tpu_torch.coord.resp import MiniRedis
+    from edl_tpu_torch.distill.discovery_client import DiscoveryClient
+    from edl_tpu_torch.distill.teacher_server import TeacherServer
+
+    def predict(feeds):
+        out = {"logits": np.zeros((len(feeds["image"]), 4), np.float32)}
+        return lambda: out
+
+    mini = MiniRedis().start()
+    servers = {n: TeacherServer(predict, host="127.0.0.1").start()
+               for n in ("D", "E")}
+    eps = {n: f"127.0.0.1:{s.port}" for n, s in servers.items()}
+    view = client = None
+    try:
+        with cs.DistillPool(tmp_path, tmp_path / "ck",
+                            prefix="test-redis") as pool:
+            disc_ep = cs.redis_wiring(pool, mini.endpoint, eps, ("D", "E"))
+            assert {"discovery_redis", "registrar_D_redis",
+                    "registrar_E_redis"} <= set(pool.procs)
+            view = cs.DiscoveryView(RedisStore(mini.endpoint, timeout=5.0),
+                                    disc_ep, cs.REDIS_SERVICE)
+            cs.wait_until(lambda: view.ready({eps["D"], eps["E"]}),
+                          time.monotonic() + 90.0, "registration")
+            assert view.balanced() is None   # no client asked yet
+            client = DiscoveryClient(disc_ep, cs.REDIS_SERVICE).start()
+            assert sorted(client.wait_for_servers(timeout=30.0)) \
+                == sorted(eps.values())
+            assert sorted(view.balanced()) == sorted(eps.values())
+            t_kill = pool.kill("registrar_E_redis")
+            servers["E"].stop()
+            deadline = t_kill + cs.REDIS_DROP_DEADLINE_S
+            expiry_s = cs.wait_until(
+                lambda: eps["E"] not in view.registered(), deadline,
+                "expiry") - t_kill
+            cs.wait_until(lambda: view.dropped(eps["E"]), deadline, "drop")
+            assert cs.REDIS_TTL_S * 0.5 < expiry_s < cs.REDIS_DROP_DEADLINE_S
+            assert not view.assigned(eps["E"]) and view.assigned(eps["D"])
+            assert view.registered() == [eps["D"]]
+            assert view.balanced() == [eps["D"]]
+    finally:
+        if client is not None:
+            client.stop()
+        if view is not None:
+            view.close()
+        servers["D"].stop()
+        mini.stop()
+
+
+def test_wait_until_fails_at_its_deadline():
+    assert cs.wait_until(lambda: True, time.monotonic() + 1, "x") > 0
+    # a RuntimeError: on a DistillReader's source thread it ends the
+    # reader's epoch with the error (step (d))
+    with pytest.raises(RuntimeError, match="no never in time"):
+        cs.wait_until(lambda: False, time.monotonic() + 0.05, "never")

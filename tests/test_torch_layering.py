@@ -249,7 +249,7 @@ def test_the_scheduler_side_is_checked():
     assert set(SCHEDULER_SIDE) <= set(FILES)
     assert {p.name for p in (PKG / "scaler").glob("*.py")} == {
         "__init__.py", "__main__.py", "controller.py", "policy.py",
-        "serving.py", "simulator.py"}
+        "serving.py", "simulator.py", "fleet.py", "fleet_policy.py"}
 
 
 @pytest.mark.parametrize("path", SCHEDULER_SIDE, ids=[
@@ -292,6 +292,7 @@ def test_the_scheduler_side_starts_without_torch():
     code = ("import sys; import edl_tpu_torch.scaler, "
             "edl_tpu_torch.scaler.__main__, edl_tpu_torch.scaler.serving, "
             "edl_tpu_torch.scaler.simulator, edl_tpu_torch.coord.lock, "
+            "edl_tpu_torch.scaler.fleet, edl_tpu_torch.scaler.fleet_policy, "
             "edl_tpu_torch.collective.job_server, "
             "edl_tpu_torch.obs.__main__; "
             "print(sorted(m for m in ('torch', 'numpy') if m in sys.modules))")
@@ -309,7 +310,7 @@ def test_the_scheduler_side_starts_without_torch():
 
 
 CHAOS_PLANE = sorted(
-    list((PKG / "chaos").glob("*.py")) + list((PKG / "analysis").glob("*.py"))
+    list((PKG / "chaos").glob("*.py")) + list((PKG / "analysis").rglob("*.py"))
     + [PKG / "coord" / "replication.py", PKG / "coord" / "relay.py"])
 
 
@@ -318,8 +319,12 @@ def test_the_chaos_plane_is_checked():
     assert {p.name for p in (PKG / "chaos").glob("*.py")} == {
         "__init__.py", "__main__.py", "audit.py", "faults.py",
         "schedule.py", "soak.py", "worker.py"}
-    assert {p.name for p in (PKG / "analysis").glob("*.py")} == {
-        "__init__.py", "lockgraph.py"}
+    assert {str(p.relative_to(PKG / "analysis"))
+            for p in (PKG / "analysis").rglob("*.py")} == {
+        "__init__.py", "__main__.py", "core.py", "lockgraph.py",
+        "checks/__init__.py", "checks/layering.py",
+        "checks/env_registry.py", "checks/guarded_by.py",
+        "checks/lifecycle.py", "checks/determinism.py"}
     assert {PKG / "coord" / "replication.py",
             PKG / "coord" / "relay.py"} <= set(LAUNCHER_SIDE)
 
@@ -349,3 +354,43 @@ def test_the_chaos_plane_starts_without_torch():
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+REDIS_AND_METRICS = [PKG / "coord" / "resp.py",
+                     PKG / "coord" / "redis_store.py",
+                     PKG / "obs" / "metrics.py"]
+
+
+def test_the_redis_flavor_and_the_scrape_plane_are_checked():
+    """The redis flavor sits in coord/ and the scrape endpoint in obs/,
+    so both are in the launcher side's torch-free AST check."""
+    assert set(REDIS_AND_METRICS) <= set(LAUNCHER_SIDE)
+
+
+def test_the_new_planes_start_without_torch():
+    """The redis flavor (with MiniRedis), the scrape endpoint, the fleet
+    simulator and edl-lint import neither torch nor numpy, as their JAX
+    counterparts import no jax."""
+    code = ("import sys; import edl_tpu_torch.coord, "
+            "edl_tpu_torch.coord.resp, edl_tpu_torch.coord.redis_store, "
+            "edl_tpu_torch.obs.metrics, edl_tpu_torch.scaler.fleet, "
+            "edl_tpu_torch.scaler.fleet_policy, "
+            "edl_tpu_torch.analysis.__main__, "
+            "edl_tpu_torch.analysis.checks; "
+            "print(sorted(m for m in ('torch', 'numpy', 'jax') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every module of the JAX package has one in the port, but the
+    shard_map shim (parallel/compat.py), which torch does not need; the
+    layer map is there too."""
+    ref = ROOT / "edl_tpu"
+    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                     if not (PKG / p.relative_to(ref)).exists())
+    assert missing == ["parallel/compat.py"]
+    assert (PKG / "analysis" / "layers.toml").exists()
