@@ -70,7 +70,16 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              concurrent TeacherClients with device top-16, in 2 rounds
              of 400 requests. Launch counters are set to 0 just before
              and read just after; the answers are held against the same
-             weights with plain dense attention;
+             weights with plain dense attention. Then the same weights as
+             a tp teacher (sharded_predict_fn over [cuda:0, cuda:0] as
+             dp=1, tp=2: each shard its 8 heads and half the MLP, vocab
+             and token table, in its own thread): 8 rows' dense logits
+             within 3e-2 x max(1, max |ref|) of the one-shard forward,
+             the served top-16 indices the one-shard forward's wherever
+             their logits are farther apart than that bound, 8 K1 a
+             shard a forward, 2 one-row dense requests behind a
+             TeacherServer within the same bound, then 4 clients of 6
+             top-16 requests (rows/s beside the card's name and limit);
 5. forward — where one 8-row predict's time goes: the flash launches and
              lm_head timed with CUDA events inside real forwards;
 6. train   — the port's lm_train.main at the base config, 16 rows a
@@ -250,8 +259,20 @@ Phases, each printed as JSON lines; any failure exits non-zero:
              buckets' padding; (b)'s chunks restore into a fresh world of
              two and a world of one to the saved state's hash; losses
              finite and falling; (c) within 0.25 x (a)'s improvement of
-             (a). Prints the step ms, the reduction ms and each rank's
-             peak.
+             (a). (f) the base LM over {tp: 2} through the library
+             (make_mesh, shard_module, WorldTrainStep, as the JAX dry
+             run's stage 1; lm_train has no tp flag, as the JAX CLI has
+             none), both ranks the same 16 rows a step: each step 8 K1,
+             8 K2, 8 K3 and one K5 a rank (its 8 heads, its slices'
+             buckets), the ranks' own losses equal at every step, the
+             tp-replicated leaves bit for bit across them, 84,969,472
+             parameter elements a rank, step 1's loss within 2e-4 of a
+             one-rank forward of the same weights and batch while two
+             planted faults (one rank's mlp_out partial sums dropped, the
+             vocab-parallel max taken locally) move it by more, its
+             per-rank chunks restored into a world of one to the saved
+             state's hash. Prints the step ms, the reduction ms and each
+             rank's peak.
 18. resnet_spmd_world — imagenet_train at RESNET_ARGV over two ranks on
              the card without a comm flag (the SPMD world step, global-
              batch BatchNorm), --fused-opt fp32, from the same init on
@@ -1418,6 +1439,149 @@ def phase_serve(fa) -> tuple:
              f"{top1_agree} (min {TOP1_AGREE_MIN}), values {val_err} "
              f"(bound {VAL_ATOL})")
     return result, model, dense, predict
+
+
+# -- phase 4, the tp teacher ----------------------------------------------------
+# sharded_predict_fn over devices [cuda:0, cuda:0] as {dp: 1, tp: 2}: two
+# tp shards of the base LM on the card, each its 8 heads, half the MLP,
+# the vocab and the token table's columns, in its own thread. Dense
+# logits of TP_CHECK_ROWS rows and the served top-16 against the one-shard
+# forward (K1's 16-bit bound, ATOL[bf16] x max(1, max |ref|)); then a
+# few clients behind TeacherServer.
+TP_TEACHER_MESH = {"dp": 1, "tp": 2}
+TP_CHECK_ROWS = 8
+TP_CLIENTS, TP_REQS, TP_DENSE_REQS = 4, 6, 2
+
+
+def tp_topk_check(ref: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                  bound: float) -> dict:
+    """topk_check on the device, over every row of ``ref`` (..., V): the
+    served values within ``bound`` of the reference's k largest, and each
+    served index the reference's wherever that rank is unambiguous (its
+    logit farther than ``bound`` from its neighbours in the sorted
+    row)."""
+    k = idx.shape[-1]
+    srt, order = torch.topk(ref.float(), k + 1, dim=-1)
+    gap = srt[..., :-1] - srt[..., 1:]                      # (..., k)
+    before = torch.cat([torch.full_like(gap[..., :1], float("inf")),
+                        gap[..., :-1]], dim=-1)
+    clear = (before > bound) & (gap > bound)
+    wrong = clear & (idx.long() != order[..., :k])
+    return {"val_max_abs_err": float((val.float() - srt[..., :k])
+                                     .abs().max()),
+            "indices_checked": int(clear.sum()),
+            "indices_wrong": int(wrong.sum())}
+
+
+def phase_serve_tp(fa, model, card: str) -> dict:
+    """The base LM as a tp teacher over two shards of the card (see
+    TP_TEACHER_MESH): its dense logits and its top-16 against the
+    one-shard forward of ``model`` (each forward 8 K1 a shard), its
+    dense answers to TP_DENSE_REQS one-row requests behind a
+    TeacherServer, then TP_CLIENTS clients of TP_REQS requests of 1-4
+    rows behind a top-16 TeacherServer, its K1 launches 8 a shard a
+    forward (launch counters set to 0 just before the served round, read
+    just after). Fatal on any miss; returns the numbers."""
+    from edl_tpu_torch.distill.sharded_teacher import sharded_predict_fn
+    from edl_tpu_torch.distill.teacher_server import (TeacherClient,
+                                                      TeacherServer)
+
+    cfg = model.cfg
+    seq, shards = cfg.max_len, TP_TEACHER_MESH["tp"]
+    devices = [torch.device("cuda", 0)] * shards
+    t0 = time.monotonic()
+    kw = dict(devices=devices, mesh=TP_TEACHER_MESH, input_key="tokens",
+              output_key="logits")
+    dense_predict, _ = sharded_predict_fn(lambda m, x: m(x), model, **kw)
+    predict, meta = sharded_predict_fn(lambda m, x: m(x), model, **kw,
+                                       serve_topk=TOPK,
+                                       classes=cfg.vocab_size)
+    setup_s = time.monotonic() - t0
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (TP_CHECK_ROWS, seq)).astype(np.int32)
+    with torch.inference_mode():
+        ref = model(torch.as_tensor(toks, device="cuda")).float()
+    bound = ATOL[cfg.dtype] * max(1.0, float(ref.abs().max()))
+    n0 = fa.flash_attention_lse.launches
+    dense = torch.as_tensor(dense_predict({"tokens": toks})()["logits"],
+                            device="cuda")
+    dense_launches = fa.flash_attention_lse.launches - n0
+    dense_err = float((dense - ref).abs().max())
+    del dense
+    n0 = fa.flash_attention_lse.launches
+    top = predict({"tokens": toks})()
+    topk_launches = fa.flash_attention_lse.launches - n0
+    check = tp_topk_check(ref, torch.as_tensor(top["logits.idx"],
+                                               device="cuda"),
+                          torch.as_tensor(top["logits.val"], device="cuda"),
+                          bound)
+    # dense answers over the wire: one client, TP_DENSE_REQS one-row
+    # requests (128 MiB of fp32 logits each)
+    dense_served_err, n0 = 0.0, fa.flash_attention_lse.launches
+    with TeacherServer(dense_predict, host="127.0.0.1", max_batch=8) as srv:
+        c = TeacherClient(f"127.0.0.1:{srv.port}", timeout=120.0)
+        try:
+            for i in range(TP_DENSE_REQS):
+                got = torch.as_tensor(c.predict({"tokens": toks[i:i + 1]})[
+                    "logits"], device="cuda")
+                dense_served_err = max(dense_served_err, float(
+                    (got - ref[i:i + 1]).abs().max()))
+        finally:
+            c.close()
+    dense_served_launches = fa.flash_attention_lse.launches - n0
+    del ref, got
+    torch.cuda.empty_cache()
+    plans = [[rng.integers(0, cfg.vocab_size, (int(rng.integers(1, 5)), seq)
+                           ).astype(np.int32) for _ in range(TP_REQS)]
+             for _ in range(TP_CLIENTS)]
+    with TeacherServer(predict, host="127.0.0.1", max_batch=8,
+                       compressed_meta=meta) as srv:
+        before = srv.batcher.stats()
+        fa.flash_attention_lse.launches = 0
+        answers, latencies, wall_s = serve_round(srv.port, plans)
+        launches = fa.flash_attention_lse.launches
+        after = srv.batcher.stats()
+    check_answers(answers, seq, cfg.vocab_size)
+    groups = (sum(after["batch_rows_hist"].values())
+              - sum(before["batch_rows_hist"].values()))
+    rows = after["served_rows"] - before["served_rows"]
+    lat = np.asarray(latencies) * 1e3
+    want = cfg.n_layers * shards
+    result = {"phase": "serve_tp", "card": card, "mesh": TP_TEACHER_MESH,
+              "devices": [str(d) for d in devices], "setup_s": setup_s,
+              "check_rows": TP_CHECK_ROWS, "bound": bound,
+              "dense_max_abs_err": dense_err,
+              "dense_launches": dense_launches,
+              "dense_served_requests": TP_DENSE_REQS,
+              "dense_served_max_abs_err": dense_served_err,
+              "dense_served_launches": dense_served_launches,
+              "topk_launches": topk_launches, "topk_check": check,
+              "clients": TP_CLIENTS, "requests": len(answers), "rows": rows,
+              "batches": groups, "wall_s": wall_s,
+              "rows_per_s": rows / wall_s,
+              "latency_ms_p50": float(np.percentile(lat, 50)),
+              "latency_ms_p95": float(np.percentile(lat, 95)),
+              "flash_launches": launches,
+              "flash_launches_per_forward_per_shard":
+                  launches / max(groups, 1) / shards}
+    emit(result)
+    print(f"serve_tp rows_per_s={rows / wall_s:.2f} card={card}",
+          flush=True)
+    if max(dense_err, dense_served_err) > bound:
+        fail(f"serve_tp: dense logits {dense_err} (served: "
+             f"{dense_served_err}) from the one-shard forward's (bound "
+             f"{bound})")
+    if check["indices_wrong"] or check["val_max_abs_err"] > bound:
+        fail(f"serve_tp: the served top-{TOPK} off the one-shard forward's: "
+             f"{check} (bound {bound})")
+    if (dense_launches != want or topk_launches != want
+            or dense_served_launches != want * TP_DENSE_REQS
+            or launches != want * groups):
+        fail(f"serve_tp: K1 launched {dense_launches} / {topk_launches} in a "
+             f"checked forward and {launches} over {groups} served "
+             f"forwards; want {cfg.n_layers} a shard a forward")
+    return result
 
 
 def phase_forward(fa, model, dense, predict) -> None:
@@ -3252,6 +3416,8 @@ def world_worker(out_dir: str, runs_json: str) -> int:
         torch.cuda.set_device(distributed.rank_device("cuda", env.rank))
         if run == "gate":
             result = world_gate()
+        elif run == "lm_tp":
+            result = lm_tp_train(**argv)
         elif run.startswith("lm_"):
             result = lm_world_train(**argv)
         elif run.startswith("spmd"):
@@ -4950,6 +5116,11 @@ def state_checksum(state) -> str:
     tensors = [p for _, p in state.params]
     for m in (*state.opt_state.m, *state.opt_state.v):
         tensors.extend(m if isinstance(m, tuple) else (m,))
+    return tensors_checksum(tensors)
+
+
+def tensors_checksum(tensors: list) -> str:
+    """state_checksum's sums over ``tensors``, in order."""
     sums = []
     for t in tensors:
         bits = t.detach().reshape(-1)
@@ -5221,6 +5392,218 @@ def moe_probe(counters: dict) -> dict:
             "undo": lambda: setattr(comm, "pack_int8_buckets", orig)}
 
 
+# -- phase 17 (f): tp ----------------------------------------------------------
+# The base LM over {tp: 2} through the library, as the JAX dry run's
+# stage 1 builds its step (lm_train has no tp flag, as the JAX CLI has
+# none): make_mesh, shard_module, make_train_step (WorldTrainStep), fused
+# fp32 Adam (K5). Both ranks take the same 16 rows a step: rows 16 i to
+# 16 i + 15 of the dp run's first synthetic shard. Step 1's loss against
+# a one-rank forward of the same weights and batch within TP_LOSS_ATOL;
+# tp_loss_controls reads how far two planted faults of the tp forward
+# move it (the gate must catch both).
+TP_MESH = {"tp": 2}
+TP_LOSS_ATOL = 2e-4
+# a rank's elements under tp = 2: the LayerNorms and pos_embed whole,
+# every other leaf half
+BASE_LM_TP_ELEMS = 84_969_472
+
+
+def lm_tp_state(mesh, seed: int = 0):
+    """The base LM on the card with fused fp32 Adam, cut to this rank's
+    tp slices of ``mesh`` (the same seeded init on every rank)."""
+    from edl_tpu_torch.bridge import flax_named_parameters
+    from edl_tpu_torch.models.transformer import Transformer
+    from edl_tpu_torch.parallel import sharding
+    from edl_tpu_torch.train.fused_opt import make_fused_tx
+    from edl_tpu_torch.train.state import TrainState
+
+    model = Transformer(base_config(), device="cuda", seed=seed)
+    model.train()
+    sharding.shard_module(model, mesh)
+    return TrainState.create(
+        model=model, tx=make_fused_tx("adam", 3e-4, "fp32",
+                                      weight_decay=0.01),
+        params=flax_named_parameters(model))
+
+
+def local_max_ll(logits, targets, tp):
+    """``vocab_parallel_ll`` with each rank's row max its own (a planted
+    fault: the ranks' sums of exps are shifted by different maxima)."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    shifted = logits - logits.detach().amax(dim=-1, keepdim=True)
+    sum_exp = tp.all_reduce(torch.exp(shifted).sum(dim=-1))
+    local = targets.long() - tp.index * n
+    inside = (local >= 0) & (local < n)
+    picked = torch.gather(shifted, -1, local.clamp(0, n - 1)[..., None])
+    picked = torch.where(inside, picked[..., 0], 0.0)
+    return tp.all_reduce(picked) - torch.log(sum_exp)
+
+
+def tp_loss_controls(model, batch: dict) -> dict:
+    """How far two planted faults move the tp forward's loss of ``batch``
+    (collective over the tp group): rank 1's ``mlp_out`` partial sums
+    dropped (its slices zeroed, then put back), and the vocab-parallel
+    row max taken on each rank alone. Returns each move and the loss."""
+    from edl_tpu_torch.models import transformer as tfm
+
+    def loss() -> float:
+        return float(tfm.lm_loss_fn(model, batch)[0])
+
+    with torch.no_grad():
+        base = loss()
+        tp = tfm._tp(model.lm_head.weight)
+        saved = []
+        if tp.index == 1:
+            for blk in model.blocks():
+                saved.append(blk.mlp_out.weight.detach().clone())
+                blk.mlp_out.weight.zero_()
+        dropped = loss()
+        for blk, w in zip(model.blocks(), saved):
+            blk.mlp_out.weight.copy_(w)
+        real = tfm.vocab_parallel_ll
+        tfm.vocab_parallel_ll = local_max_ll
+        try:
+            local = loss()
+        finally:
+            tfm.vocab_parallel_ll = real
+    return {"loss": base, "mlp_out_partial_dropped": abs(dropped - base),
+            "vocab_max_local": abs(local - base)}
+
+
+def lm_tp_train(data_dir: str, ckpt_dir: str) -> dict:
+    """One rank of phase 17's run (f): the base LM over TP_MESH, 4 world
+    steps through world_step_probe (K1-K3, K5, K7 and K8 counted, set to
+    0 just before the steps, read just after); before step 1 (outside
+    its timing and counts) tp_loss_controls and, on rank 0, the loss of
+    the whole seeded model on the step's batch; each step's own loss of
+    this rank (before the world's average); after step 4 the gathered
+    state's digest, a checksum of the tp-replicated leaves, the rank's
+    elements, then the per-rank chunks saved to ``ckpt_dir``."""
+    from edl_tpu_torch.models.transformer import Transformer, lm_loss_fn
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.ops import opt_kernels as ok_mod
+    from edl_tpu_torch.ops import pack as pack_mod
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.parallel import mesh as mesh_lib
+    from edl_tpu_torch.parallel import sharding
+    from edl_tpu_torch.train.checkpoint import CheckpointManager
+    from edl_tpu_torch.train.state import TrainStatus
+    from edl_tpu_torch.train.step import make_train_step
+
+    counters = {**lm_counters(fa, ok_mod), "pack_int8": pack_mod.pack_int8}
+    t0 = time.monotonic()
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(TP_MESH))
+    state = lm_tp_state(mesh)
+    own: list = []
+
+    def loss_fn(model, batch):
+        loss, aux = lm_loss_fn(model, batch)
+        own.append(loss.detach())
+        return loss, aux
+
+    step = make_train_step(loss_fn, mesh=mesh)
+    toks = np.load(Path(data_dir) / "train-0000.npz")["tokens"]
+    batches = [toks[16 * i:16 * (i + 1)] for i in range(LM_WORLD_STEPS)]
+    steps: list[dict] = []
+    seen: dict = {}
+
+    def at_first(state, batch):
+        out = {"controls": tp_loss_controls(state.model, batch)}
+        if distributed.rank() == 0:
+            # the weights the ranks cut their slices from
+            whole = Transformer(base_config(), device="cuda", seed=0)
+            with torch.no_grad():
+                out["dense_loss"] = float(lm_loss_fn(whole, batch)[0])
+            del whole
+            torch.cuda.empty_cache()
+        return out
+
+    def at_last(state):
+        out = {"digest": state_digest(state),
+               "replicated": tensors_checksum(
+                   [p for _, p in state.params if not sharding.cuts(p)]),
+               "param_elems": sum(p.numel()
+                                  for p in state.model.parameters()),
+               "moment_elems": sum(b.numel() for b in state.opt_state.m),
+               "buckets": len(state.opt_state.p)}
+        mgr = CheckpointManager(ckpt_dir, sharded=True)
+        mgr.save(state, TrainStatus(epoch=0, step=LM_WORLD_STEPS,
+                                    world_size=distributed.world_size()))
+        mgr.close()
+        return out
+
+    undo = world_step_probe(counters, steps, seen, at_last, LM_WORLD_STEPS,
+                            at_first)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        for b in batches:
+            state, _ = step(state, {"tokens": torch.as_tensor(
+                b, device="cuda")})
+    finally:
+        undo()
+    # the steps' own launches: the checks before step 1 are not the path's
+    launches = {n: sum(st["launches"][n] for st in steps) for n in counters}
+    return {"rc": 0, "wall_s": time.monotonic() - t0, "steps": steps,
+            "launches": launches, "own_losses": [float(x) for x in own],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "first": seen.get("first"), **seen.get("final", {})}
+
+
+def lm_world_tp_gates(tp: dict, ranks: list[dict], dp: dict,
+                      world1: dict) -> dict:
+    """Run (f)'s gates beside lm_world_summary's, each fatal: the ranks'
+    own losses equal at every step, the tp-replicated leaves bit for bit
+    across the ranks, a rank's elements BASE_LM_TP_ELEMS, step 1's loss
+    within TP_LOSS_ATOL of the one-rank forward while both planted
+    faults move it by more, and the world of one restored from the
+    chunks the saved state. Emits and returns the numbers."""
+    r0 = ranks[0]
+    first = r0["first"] or {}
+    controls = first.get("controls", {})
+    dense = first.get("dense_loss", float("nan"))
+    delta = abs(tp["losses"][0] - dense)
+    out = {"phase": "lm_world_tp_gates", "mesh": TP_MESH,
+           "own_losses_by_rank": [rk["own_losses"] for rk in ranks],
+           "replicated_checksums": [rk["replicated"] for rk in ranks],
+           "param_elems_a_rank": tp["param_elems_a_rank"],
+           "dp_param_elems": dp["param_elems_a_rank"],
+           "tp_share": tp["param_elems_a_rank"] / dp["param_elems_a_rank"],
+           "step_ms_median": tp["step_ms_median"],
+           "reduce_ms_median": tp["reduce_ms_median"],
+           "peak_gib": tp["peak_gib"],
+           "loss_step1": tp["losses"][0], "one_rank_loss": dense,
+           "loss_delta": delta, "loss_atol": TP_LOSS_ATOL,
+           "controls": {k: v for k, v in controls.items() if k != "loss"},
+           "restore_world1": {k: world1.get(k) for k in ("digest", "step",
+                                                         "restore_s")},
+           "saved_digest": tp["digest"]}
+    emit(out)
+    own = [rk["own_losses"] for rk in ranks]
+    if any(len(o) != LM_WORLD_STEPS for o in own) or any(
+            o != own[0] for o in own):
+        fail(f"lm_world tp: the ranks' own losses differ: {own}")
+    if len({rk["replicated"] for rk in ranks}) != 1:
+        fail("lm_world tp: the tp-replicated leaves differ across the ranks")
+    if any(rk["param_elems"] != BASE_LM_TP_ELEMS for rk in ranks):
+        fail(f"lm_world tp holds {[rk['param_elems'] for rk in ranks]} "
+             f"parameter elements a rank, want {BASE_LM_TP_ELEMS}")
+    if not delta <= TP_LOSS_ATOL:
+        fail(f"lm_world tp: step 1's loss {tp['losses'][0]} is {delta} from "
+             f"the one-rank forward's {dense} (bound {TP_LOSS_ATOL})")
+    for name in ("mlp_out_partial_dropped", "vocab_max_local"):
+        if not controls.get(name, 0.0) > TP_LOSS_ATOL:
+            fail(f"lm_world tp: the planted fault {name} moves the loss by "
+                 f"{controls.get(name)}, within the bound {TP_LOSS_ATOL}")
+    if world1.get("digest") != tp["digest"]:
+        fail(f"lm_world tp: the world of one restored from the chunks "
+             f"holds {str(world1.get('digest'))[:16]}, not the saved "
+             f"{tp['digest'][:16]}")
+    return out
+
+
 def lm_world_state(world: int, seed: int):
     """A fresh base-config LM state on the card with fused fp32 Adam:
     sharded over fsdp in a world above one."""
@@ -5333,12 +5716,14 @@ def phase_lm_world(ok_mod) -> dict:
     --moe-compress int8), fused fp32 Adam; then the fsdp run's per-rank
     chunks restored into a fresh world of two (the int8 run's ranks,
     before they train) and a world of one (here, while the world runs
-    on). Gates: lm_world_summary's
-    for each run; fsdp's losses within FSDP_LOSS_REL of dp's; fsdp's
-    parameters a rank the replicated leaves and half the sharded, its
-    moments the same within the buckets' padding; both restores' digests
-    the saved state's; int8 within ENVELOPE x dp's improvement of dp;
-    lm_world_sp_moe_gates'. Returns each run's launches."""
+    on); then (f), the base LM over {tp: 2} through the library
+    (lm_tp_train), its chunks restored into a world of one here. Gates:
+    lm_world_summary's for each run; fsdp's losses within FSDP_LOSS_REL
+    of dp's; fsdp's parameters a rank the replicated leaves and half the
+    sharded, its moments the same within the buckets' padding; both
+    restores' digests the saved state's; int8 within ENVELOPE x dp's
+    improvement of dp; lm_world_sp_moe_gates' and lm_world_tp_gates'.
+    Returns each run's launches."""
     torch.cuda.empty_cache()
     world = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -5356,23 +5741,31 @@ def phase_lm_world(ok_mod) -> dict:
                 "argv": argv,
                 "restore_from": str(ckpt) if name == "int8" else "",
                 "kind": name}))
-        # the world of one restores here, beside the runs after fsdp's,
-        # once the fsdp run's ranks have written their results (its
-        # checkpoint sealed before them)
+        # (f): the base LM over {tp: 2} through the library, on the dp
+        # run's first shard; its chunks restore into a world of one here
+        world.append(("lm_tp", {"data_dir": str(tmp / "data"),
+                                "ckpt_dir": str(tmp / "ckpt_tp")}))
+        # the worlds of one restore here, beside the runs after fsdp's
+        # and after tp's, once their ranks have written their results
+        # (each checkpoint sealed before them)
         world1: dict = {}
+        world1_tp: dict = {}
 
         def restore_world1():
-            if not world1 and all((tmp / f"lm_fsdp.rank{r}.json").exists()
-                                  for r in range(WORLD)):
-                world1.update(lm_world_restore(str(ckpt)))
+            for name, out, path in (("fsdp", world1, ckpt),
+                                    ("tp", world1_tp, tmp / "ckpt_tp")):
+                if not out and all((tmp / f"lm_{name}.rank{r}.json").exists()
+                                   for r in range(WORLD)):
+                    out.update(lm_world_restore(str(path)))
 
         ranks = spawn_world(world, tmp, meanwhile=restore_world1)
         restore_world1()
         world2 = [rk["restored"] for rk in ranks["lm_int8"]]
         runs = {name: lm_world_summary(name, ranks[f"lm_{name}"], ok_mod)
-                for name, _ in LM_WORLD_RUNS}
+                for name in [n for n, _ in LM_WORLD_RUNS] + ["tp"]}
     lm_world_gates(runs, world2, world1)
     lm_world_sp_moe_gates(runs)
+    lm_world_tp_gates(runs["tp"], ranks["lm_tp"], runs["dp"], world1_tp)
     return {f"lm_world_{n}": {k: v for k, v in r["launches"].items() if v}
             for n, r in runs.items()}
 
@@ -7731,6 +8124,8 @@ def main() -> int:
     clock.lap("3_timing")
     serve, model, dense, predict = phase_serve(fa)
     launches = {"serve": {"flash_fwd": serve["flash_launches"]}}
+    serve_tp = phase_serve_tp(fa, model, card)
+    launches["serve_tp"] = {"flash_fwd": serve_tp["flash_launches"]}
     clock.lap("4_serve")
     phase_forward(fa, model, dense, predict)
     del model, dense, predict

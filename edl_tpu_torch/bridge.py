@@ -215,13 +215,15 @@ def flax_to_torch_sharded(params: dict, mesh, coords: dict | None = None
     """The shards rank ``coords`` (default: this process's) of ``mesh``
     holds of flax transformer ``params`` (numpy), as a state dict of its
     torch-layout slices: what ``parallel/sharding.shard_module`` leaves
-    in the module. The layout moves are shape-generic, so a flax shard
-    converts like a whole leaf (``flax_to_torch`` of the shard tree); a
-    JAX FSDP state's addressable shards, put into a tree, convert the
-    same way."""
+    in the module, over fsdp, tp or both (a tp rank's heads, MLP
+    columns, vocab rows and token-table columns). The layout moves are
+    shape-generic, so a flax shard converts like a whole leaf
+    (``flax_to_torch`` of the shard tree); a JAX sharded state's
+    addressable shards, put into a tree, convert the same way."""
     from edl_tpu_torch.parallel import sharding
 
-    return flax_to_torch(sharding.shard_tree(params, mesh, coords))
+    return flax_to_torch(sharding.shard_tree(params, mesh, coords,
+                                             sharding.PARAM_RULES))
 
 
 def torch_to_flax_sharded(state_dicts, mesh, n_heads: int) -> dict:
@@ -229,8 +231,10 @@ def torch_to_flax_sharded(state_dicts, mesh, n_heads: int) -> dict:
     dicts (in rank order) -> the whole flax param tree."""
     from edl_tpu_torch.parallel import sharding
 
+    heads = n_heads // mesh.axis_size("tp")      # a tp rank's heads
     return sharding.gather_tree(
-        [torch_to_flax(sd, n_heads) for sd in state_dicts], mesh)
+        [torch_to_flax(sd, heads) for sd in state_dicts], mesh,
+        sharding.PARAM_RULES)
 
 
 def torch_to_flax(state_dict: dict[str, torch.Tensor], n_heads: int
@@ -589,13 +593,16 @@ def _write_state(tree: dict, state):
     return state
 
 
-# -- FSDP states (parallel/sharding.shard_module) ----------------------------
+# -- sharded states (parallel/sharding.shard_module: fsdp, tp) --------------
 #
-# A rank of a sharded world holds a slice of each leaf the rules shard.
-# Its checkpoint tree is the JAX TrainState's, with such leaves as
+# A rank of a sharded world holds a slice of each leaf the rules shard:
+# over fsdp, tp or both (a tp slice, then the fsdp slice of it, on other
+# dims). Its checkpoint tree is the JAX TrainState's, with such leaves as
 # ``Shard``s: this rank's slice in the flax layout, where it lies in the
-# whole leaf, and the whole leaf's shape (what the JAX package's
-# snapshot_shards writes for an addressable shard). The fused optimizer's
+# whole leaf, the whole leaf's shape (what the JAX package's
+# snapshot_shards writes for an addressable shard), and whether this rank
+# writes it (the JAX package's replica_id == 0: a slice replicated over
+# dp, or a tp slice over fsdp, is written once). The fused optimizer's
 # moments live in buckets over the slices, while the JAX tree holds
 # buckets over whole leaves: each sharded leaf's moment is gathered and
 # the whole-leaf buckets written once, by rank 0. Quantized moments (one
@@ -606,55 +613,72 @@ def _write_state(tree: dict, state):
 # buckets' scales (each moment within one quantization step).
 
 
-class Shard(collections.namedtuple("Shard", ("array", "offset", "shape"))):
+class Shard(collections.namedtuple("Shard", ("array", "offset", "shape",
+                                             "owner"),
+                                   defaults=(True,))):
     """One rank's slice of a leaf: ``array`` (flax layout) at ``offset``
-    inside a whole leaf of ``shape``."""
+    inside a whole leaf of ``shape``; ``owner``: this rank writes it to a
+    sharded checkpoint."""
 
 
-def _spec(p):
-    from edl_tpu_torch.parallel.sharding import fsdp_spec
-    return fsdp_spec(p)
+def _cuts(p):
+    from edl_tpu_torch.parallel.sharding import cuts
+    return cuts(p)
 
 
-def _shard_leaf(name: str, t: torch.Tensor, spec, n_heads) -> Shard:
-    a = to_flax_layout(name, _n(t), n_heads)
+def _local_heads(p, n_heads):
+    """The heads of ``p``'s slice: a tp slice of an attention projection
+    holds n_heads / tp of them."""
+    from edl_tpu_torch.parallel.sharding import tp_spec
+    spec = tp_spec(p)
+    return n_heads if spec is None or n_heads is None else (
+        n_heads // spec.world)
+
+
+def _shard_leaf(name: str, t: torch.Tensor, p, n_heads) -> Shard:
+    from edl_tpu_torch.parallel.sharding import owns_chunk
+
+    a = to_flax_layout(name, _n(t), _local_heads(p, n_heads))
     offset = [0] * a.ndim
-    offset[spec.flax_dim] = spec.index * a.shape[spec.flax_dim]
     shape = list(a.shape)
-    shape[spec.flax_dim] *= spec.world
-    return Shard(np.array(a, copy=True), tuple(offset), tuple(shape))
+    for spec in _cuts(p):
+        offset[spec.flax_dim] = spec.index * a.shape[spec.flax_dim]
+        shape[spec.flax_dim] *= spec.world
+    return Shard(np.array(a, copy=True), tuple(offset), tuple(shape),
+                 owns_chunk(p))
 
 
 def _full_plan(tx, state):
-    """The fused optimizer's bucket plan over the WHOLE leaves of an FSDP
-    state (the JAX package's plan), from their shapes alone."""
-    metas = [torch.empty(_spec(p).full_shape if _spec(p) else p.shape,
-                         dtype=p.dtype, device="meta")
+    """The fused optimizer's bucket plan over the WHOLE leaves of a
+    sharded state (the JAX package's plan), from their shapes alone."""
+    from edl_tpu_torch.parallel.sharding import whole_shape
+
+    metas = [torch.empty(whole_shape(p), dtype=p.dtype, device="meta")
              for _, p in state.params]
     return tx.plan(list(zip([n for n, _ in state.params], metas)))
 
 
 def sharded_state_tree(state) -> TrainStateTree:
-    """The JAX TrainState's tree of an FSDP ``state`` for this rank: the
-    sharded parameters (and torch.optim moments) as :class:`Shard`s,
+    """The JAX TrainState's tree of a sharded ``state`` for this rank:
+    the sharded parameters (and torch.optim moments) as :class:`Shard`s,
     every other leaf whole. Collective over the world under the fused
-    optimizer (each sharded leaf's moments are gathered)."""
+    optimizer (each sharded leaf's moments are gathered, over fsdp and
+    then tp)."""
     from edl_tpu_torch.ops import opt_kernels as ok
-    from edl_tpu_torch.parallel.sharding import gather_like
+    from edl_tpu_torch.parallel.sharding import gather_whole
     from edl_tpu_torch.train import comm as comm_lib
 
     model, tx, st = state.model, state.tx, state.opt_state
     n_heads = _n_heads(model)
     names = [n for n, _ in state.params]
-    specs = [_spec(p) for _, p in state.params]
 
-    def leaf(name, t, spec):
-        return (_shard_leaf(name, t, spec, n_heads) if spec is not None
+    def leaf(name, t, p):
+        return (_shard_leaf(name, t, p, n_heads) if _cuts(p)
                 else to_flax_layout(name, _n(t), n_heads))
 
     params: dict = {}
-    for (name, p), spec in zip(state.params, specs):
-        _insert(params, flax_path(name), leaf(name, p, spec))
+    for name, p in state.params:
+        _insert(params, flax_path(name), leaf(name, p, p))
     if _is_fused(tx):
         shard_plan = tx.plan(state.params)
         full = _full_plan(tx, state)
@@ -662,8 +686,8 @@ def sharded_state_tree(state) -> TrainStateTree:
         def whole(seq):
             """fp32 moment buckets over the slices -> over whole leaves."""
             leaves = comm_lib.unpack_buckets(list(seq), shard_plan)
-            leaves = [gather_like(t, s) if s is not None else t
-                      for t, s in zip(leaves, specs)]
+            leaves = [gather_whole(t, p)
+                      for t, (_, p) in zip(leaves, state.params)]
             return comm_lib.pack_buckets(leaves, full)
 
         def flax_q(seq, codec):
@@ -692,9 +716,9 @@ def sharded_state_tree(state) -> TrainStateTree:
         trees = []
         for slot in slots:
             tree: dict = {}
-            for (name, p), spec in zip(state.params, specs):
+            for name, p in state.params:
                 t = st.state.get(p, {}).get(slot, torch.zeros_like(p))
-                _insert(tree, flax_path(name), leaf(name, t, spec))
+                _insert(tree, flax_path(name), leaf(name, t, p))
             trees.append(_key_sorted(tree))
         c = np.asarray(int(state.step), np.int32)
         if kind == "sgd_plain":
@@ -715,15 +739,21 @@ def sharded_state_tree(state) -> TrainStateTree:
 
 def gather_shards(tree):
     """A :func:`sharded_state_tree` with every :class:`Shard` gathered
-    whole (collective over the world, in the tree's leaf order)."""
+    whole (collective over the world, in the tree's leaf order): every
+    rank's slice placed at its offset."""
     from edl_tpu_torch.parallel import distributed
 
     def walk(x):
         if isinstance(x, Shard):
-            dim = next(d for d, (o, s, n) in enumerate(
-                zip(x.offset, x.shape, x.array.shape)) if n != s)
-            parts = distributed.all_gather(torch.from_numpy(x.array))
-            return np.concatenate([p.numpy() for p in parts], axis=dim)
+            parts = distributed.all_gather(torch.from_numpy(
+                np.ascontiguousarray(x.array)))
+            offsets = distributed.all_gather(torch.tensor(x.offset,
+                                                          dtype=torch.int64))
+            out = np.empty(x.shape, x.array.dtype)
+            for part, offset in zip(parts, offsets.tolist()):
+                out[tuple(slice(o, o + n) for o, n in
+                          zip(offset, x.array.shape))] = part.numpy()
+            return out
         if isinstance(x, tuple) and hasattr(x, "_fields"):
             return type(x)(*(walk(v) for v in x))
         if isinstance(x, dict):
@@ -737,12 +767,13 @@ def gather_shards(tree):
 
 @torch.no_grad()
 def flax_to_state_sharded(read, state):
-    """Write a checkpoint into an FSDP ``state`` reading only what this
+    """Write a checkpoint into a sharded ``state`` reading only what this
     rank holds: ``read(path, index)`` returns the region ``index`` (a
     tuple of slices, or None for the whole leaf) of the leaf at ``path``
     (the state dict's path of str keys, e.g. ("params", "lm_head",
     "kernel") or ("opt_state", "m", "0")). A fused moment bucket is read
-    slot by slot, each sharded leaf's slot then cut to this rank's slice.
+    slot by slot, each sharded leaf's slot then cut to this rank's slice
+    (on each dim it is split on: fsdp, tp).
     Quantized moments are dequantized whole, cut to this rank's slices
     and requantized at the slices' buckets' own scales: each moment ends
     within one quantization step of the saved one. Raises ValueError on a
@@ -753,23 +784,24 @@ def flax_to_state_sharded(read, state):
     model, tx, st = state.model, state.tx, state.opt_state
     n_heads = _n_heads(model)
     names = [n for n, _ in state.params]
-    specs = [_spec(p) for _, p in state.params]
+    params = [p for _, p in state.params]
 
-    def region(prefix, name, p, spec):
+    def region(prefix, name, p):
         path = prefix + flax_path(name)
         fshape = to_flax_layout(name, np.empty(tuple(p.shape), np.int8),
-                                n_heads).shape
-        if spec is None:
+                                _local_heads(p, n_heads)).shape
+        if not _cuts(p):
             src = read(path, None)
         else:
             index = [slice(0, n) for n in fshape]
-            lo = spec.index * fshape[spec.flax_dim]
-            index[spec.flax_dim] = slice(lo, lo + fshape[spec.flax_dim])
+            for spec in _cuts(p):
+                lo = spec.index * fshape[spec.flax_dim]
+                index[spec.flax_dim] = slice(lo, lo + fshape[spec.flax_dim])
             src = read(path, tuple(index))
         return from_flax_layout(name, src, tuple(p.shape))
 
-    for (name, p), spec in zip(state.params, specs):
-        _put(p, region(("params",), name, p, spec), name)
+    for name, p in state.params:
+        _put(p, region(("params",), name, p), name)
     for name, b in _bn_buffers(model):
         _put(b, read(("batch_stats",) + flax_path(name), None), name)
     if _is_fused(tx):
@@ -796,19 +828,19 @@ def flax_to_state_sharded(read, state):
                         torch.as_tensor(np.asarray(read(path + (f,), None)))
                         for f in _QFIELDS)), codecs[key]).numpy()
                 for s in b.slots:
-                    name, spec = names[s.leaf], specs[s.leaf]
+                    name = names[s.leaf]
                     flat = (whole_q[s.offset:s.offset + s.size] if quant
                             else read(("opt_state", key, str(i)),
                                       (slice(s.offset, s.offset + s.size),)))
                     fshape = to_flax_layout(
                         name, np.empty(s.shape, np.int8), n_heads).shape
                     piece = np.asarray(flat).reshape(fshape)
-                    if spec is not None:
+                    index = [slice(None)] * len(fshape)
+                    for spec in _cuts(params[s.leaf]):
                         n = fshape[spec.flax_dim] // spec.world
-                        index = [slice(None)] * len(fshape)
                         index[spec.flax_dim] = slice(spec.index * n,
                                                      (spec.index + 1) * n)
-                        piece = piece[tuple(index)]
+                    piece = piece[tuple(index)]
                     dst = views[s.leaf]
                     _put(dst, from_flax_layout(name, piece,
                                                tuple(dst.shape)),
@@ -830,11 +862,11 @@ def flax_to_state_sharded(read, state):
             slots = (("exp_avg", ("opt_state", "0", "mu")),
                      ("exp_avg_sq", ("opt_state", "0", "nu")))
             count = int(np.asarray(read(("opt_state", "0", "count"), None)))
-        for (name, p), spec in zip(state.params, specs):
+        for name, p in state.params:
             entry = st.state[p]
             for slot, prefix in slots:
                 buf = torch.empty_like(p)
-                _put(buf, region(prefix, name, p, spec), f"{slot}.{name}")
+                _put(buf, region(prefix, name, p), f"{slot}.{name}")
                 entry[slot] = buf
             if kind == "adamw":
                 entry["step"] = torch.tensor(float(count),

@@ -1042,12 +1042,19 @@ def _build_model_predict(model_name: str, num_classes: int, params_path: str,
     smaller device->host copy a row. ``input_normalize`` ('imagenet' |
     'unit') normalizes raw pixels on the device, as the teacher was
     trained: students on the JPEG plane ship uint8."""
-    from edl_tpu_torch.distill.sharded_teacher import (parse_local_mesh,
+    from edl_tpu_torch.distill.sharded_teacher import (local_mesh_axes,
+                                                       parse_local_mesh,
                                                        sharded_predict_fn)
     from edl_tpu_torch.ops.augment import normalize_image
 
-    devices = (parse_local_mesh(local_mesh, device) if local_mesh
-               else None)
+    devices = None
+    if local_mesh:
+        # the JAX CLI's flavor: a zoo model carries no tp annotations, so
+        # its parameters are replicated and the rows split over the data
+        # groups only; each group's first device serves its rows, and a
+        # tp axis answers what its data axes alone answer
+        tp = local_mesh_axes(local_mesh).get("tp", 1)
+        devices = parse_local_mesh(local_mesh, device)[::tp]
     model = _zoo_model(model_name, num_classes, input_shape, device)
     if serve_topk > num_classes:
         log.warning("--serve-topk %d > %d classes; clamping", serve_topk,

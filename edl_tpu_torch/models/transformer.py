@@ -38,6 +38,21 @@ each parameter the rules shard; every forward reads its weights through
 gathers the slices (its backward reduce-scatters the gradient) when it
 is not. Under ``remat`` the gather is recomputed with the block.
 
+Under tp (``shard_module`` over a tp axis) a rank holds its block of the
+heads (q/k/v rows, ``out`` columns), of the MLP's hidden units
+(``mlp_in`` rows, ``mlp_out`` columns), of the vocab (``lm_head`` rows)
+and of the token table's embedding dim, and the layers are Megatron's:
+attention runs on the rank's H/tp heads (the flash kernels take them in
+the same (B, S, H_local, D) layout), q/k/v and ``mlp_in`` are
+column-parallel (their input passes ``distributed.copy_to_tp``: the
+identity forward, the partial input gradients all-reduced backward),
+``out`` and ``mlp_out`` are row-parallel (``reduce_from_tp`` sums the
+partial outputs), the token lookup is gathered along d
+(``gather_from_tp``) and the lm_head is column-parallel over the vocab.
+A layer finds its tp group on its parameters (``sharding.tp_spec``), so
+the same module serves a world's process group and the one-process
+teacher's shards (``distill/sharded_teacher.py``).
+
 State-dict names mirror the flax parameter tree (``block0.attn.query``,
 ``ln_final``, ``lm_head`` ...); ``edl_tpu_torch.bridge`` converts between
 the two.
@@ -73,7 +88,7 @@ from edl_tpu_torch.ops.fused_xent import streamed_lm_xent
 from edl_tpu_torch.parallel import distributed
 from edl_tpu_torch.parallel.ring_attention import (dense_attention,
                                                    ring_attention)
-from edl_tpu_torch.parallel.sharding import full
+from edl_tpu_torch.parallel.sharding import full, tp_spec
 
 
 @dataclass(frozen=True)
@@ -158,6 +173,12 @@ def _linear(in_features: int, out_features: int, device) -> nn.Linear:
     return nn.Linear(in_features, out_features, bias=False, device=device)
 
 
+def _tp(weight: torch.Tensor):
+    """The tp collectives of a parameter split over tp, else None."""
+    spec = tp_spec(weight)
+    return None if spec is None else spec.group
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -171,7 +192,11 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
-        heads = (b, s, cfg.n_heads, cfg.head_dim)
+        tp = _tp(self.query.weight)
+        if tp is not None:
+            x = distributed.copy_to_tp(x, tp)
+        # this rank's heads: all of them, or its block of H/tp under tp
+        heads = (b, s, -1, cfg.head_dim)
         q = F.linear(x, full(self.query.weight).to(cfg.dtype)).view(heads)
         k = F.linear(x, full(self.key.weight).to(cfg.dtype)).view(heads)
         v = F.linear(x, full(self.value.weight).to(cfg.dtype)).view(heads)
@@ -182,8 +207,9 @@ class Attention(nn.Module):
             o = flash_attention(q, k, v, causal=True)
         else:
             o = dense_attention(q, k, v, causal=True)
-        return F.linear(o.reshape(b, s, -1),
-                        full(self.out.weight).to(cfg.dtype))
+        out = F.linear(o.reshape(b, s, -1),
+                       full(self.out.weight).to(cfg.dtype))
+        return out if tp is None else distributed.reduce_from_tp(out, tp)
 
 
 def moe_capacity(n_tokens: int, n_experts: int, top_k: int,
@@ -306,9 +332,14 @@ class Block(nn.Module):
         x = x + self.attn(self.ln_attn(x))
         if self.cfg.moe:
             return x + self.moe_mlp(self.ln_mlp(x), wire)
-        h = F.linear(self.ln_mlp(x), full(self.mlp_in.weight).to(dt))
+        h = self.ln_mlp(x)
+        tp = _tp(self.mlp_in.weight)
+        if tp is not None:      # column-parallel in, row-parallel out
+            h = distributed.copy_to_tp(h, tp)
+        h = F.linear(h, full(self.mlp_in.weight).to(dt))
         h = F.gelu(h, approximate="tanh")
-        return x + F.linear(h, full(self.mlp_out.weight).to(dt))
+        h = F.linear(h, full(self.mlp_out.weight).to(dt))
+        return x + (h if tp is None else distributed.reduce_from_tp(h, tp))
 
 
 class Transformer(nn.Module):
@@ -335,6 +366,9 @@ class Transformer(nn.Module):
             self.add_module(f"block{i}", Block(cfg, dev))
         self.ln_final = LayerNorm(cfg.d_model, cfg.dtype, dev)
         self.lm_head = _linear(cfg.d_model, cfg.vocab_size, dev)
+        # under tp, what forward returns by default: this rank's vocab
+        # slice of the logits (True) or the logits gathered (False)
+        self.vocab_local = False
         self.eval()
         self._init(torch.Generator(device=dev).manual_seed(seed))
 
@@ -359,7 +393,8 @@ class Transformer(nn.Module):
                                     generator=gen)
 
     def forward(self, tokens: torch.Tensor, return_hidden: bool = False,
-                moe_wire=None) -> torch.Tensor:
+                moe_wire=None, vocab_local: bool | None = None
+                ) -> torch.Tensor:
         """Logits (B, S, vocab) fp32, or with ``return_hidden`` the
         final-LayerNorm hidden states (B, S, d_model) in ``cfg.dtype``,
         the input of the streamed-vocab loss, which reads the lm_head
@@ -367,7 +402,15 @@ class Transformer(nn.Module):
         the sequence, at positions ``sp.index * S``. ``moe_wire`` is the
         expert dispatch's transport (train/comm.MoEWire; the JAX package
         rebinds its config's), None the dense einsum dispatch over every
-        expert on this rank."""
+        expert on this rank.
+
+        Under tp (``parallel/sharding.shard_module``) the token table
+        holds this rank's slice of the embedding dim: each row's slice is
+        looked up, then gathered from tp along d. The lm_head holds the
+        rank's block of the vocab (column-parallel): with ``vocab_local``
+        (default: the module's ``vocab_local``) the logits are this
+        rank's vocab slice (B, S, vocab/tp), what the vocab-parallel loss
+        and the sharded teacher's top-k read; else they are gathered."""
         cfg = self.cfg
         if self.training and cfg.dropout > 0:
             raise NotImplementedError(
@@ -376,6 +419,9 @@ class Transformer(nn.Module):
         s = tokens.shape[1]
         lo = cfg.sp.index * s if cfg.use_ring else 0
         x = F.embedding(tokens.long(), self.tok_embed.weight).to(cfg.dtype)
+        tp = _tp(self.tok_embed.weight)
+        if tp is not None:
+            x = distributed.gather_from_tp(x, tp)
         x = x + full(self.pos_embed)[None, lo:lo + s].to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks():
@@ -385,7 +431,15 @@ class Transformer(nn.Module):
         x = self.ln_final(x)
         if return_hidden:
             return x
-        return F.linear(x.float(), full(self.lm_head.weight))
+        head = _tp(self.lm_head.weight)
+        h = x.float()
+        if head is not None:
+            h = distributed.copy_to_tp(h, head)
+        logits = F.linear(h, full(self.lm_head.weight))
+        local = self.vocab_local if vocab_local is None else vocab_local
+        if head is None or local:
+            return logits
+        return distributed.gather_from_tp(logits, head)
 
 
 def lm_loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -394,14 +448,47 @@ def lm_loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
 
     Under an sp ring every rank holds the whole batch and runs its block
     of the sequence (:func:`_sp_loss`); the loss is the JAX package's
-    mean over all B·(S-1) positions on every rank."""
+    mean over all B·(S-1) positions on every rank. Under tp the
+    log-softmax is vocab-parallel (:func:`vocab_parallel_ll`) and every
+    tp rank returns the same loss."""
     tokens = batch["tokens"]
     if model.cfg.use_ring:
-        loss = _sp_loss(model, tokens, lambda blk, targets: -_next_token_ll(
-            model(blk)[:, :targets.shape[1]], targets).sum())
+        loss = _sp_loss(model, tokens, lambda blk, targets: -_model_ll(
+            model, blk, targets).sum())
     else:
-        loss = -_next_token_ll(model(tokens)[:, :-1], tokens[:, 1:]).mean()
+        loss = -_model_ll(model, tokens, tokens[:, 1:]).mean()
     return loss, {"ppl": torch.exp(loss.detach())}
+
+
+def _model_ll(model: Transformer, tokens: torch.Tensor,
+              targets: torch.Tensor) -> torch.Tensor:
+    """log p of each target under the logits of ``tokens``' first
+    ``targets.shape[1]`` positions; vocab-parallel under tp."""
+    logits = model(tokens, vocab_local=True)[:, :targets.shape[1]]
+    head = _tp(model.lm_head.weight)
+    if head is None:
+        return _next_token_ll(logits, targets)
+    return vocab_parallel_ll(logits, targets, head)
+
+
+def vocab_parallel_ll(logits: torch.Tensor, targets: torch.Tensor,
+                      tp) -> torch.Tensor:
+    """``log_softmax(logits)[target]`` where each tp rank holds its block
+    of the vocab, (..., V/tp) at ``tp.index * V/tp``: the row max is
+    all-reduced (a max, detached: the loss does not depend on it), the
+    sum of exps is all-reduced, and the target's logit comes from the rank
+    that holds it (the others mask it) and is all-reduced. The gradient
+    is the whole log-softmax's exactly, each rank its slice's."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    m = tp.all_gather(logits.detach().amax(dim=-1)).amax(dim=0)
+    shifted = logits - m[..., None]
+    sum_exp = distributed.reduce_from_tp(torch.exp(shifted).sum(dim=-1), tp)
+    local = targets.long() - tp.index * n
+    inside = (local >= 0) & (local < n)
+    picked = torch.gather(shifted, -1, local.clamp(0, n - 1)[..., None])
+    picked = torch.where(inside, picked[..., 0], 0.0)
+    return distributed.reduce_from_tp(picked, tp) - torch.log(sum_exp)
 
 
 def _next_token_ll(logits: torch.Tensor, targets: torch.Tensor
@@ -438,14 +525,20 @@ def lm_loss_fused(model: Transformer, batch: dict, *,
                   chunk: int = 8192) -> tuple[torch.Tensor, dict]:
     """``lm_loss_fn`` without the (B, S, V) logits: the final hidden
     states feed the streamed-vocab cross-entropy, which reads the lm_head
-    weight (its transpose, a view: the JAX package's (d, V) kernel)."""
+    weight (its transpose, a view: the JAX package's (d, V) kernel).
+    Under tp the vocab-sharded head is gathered from tp first, as XLA
+    gathers it in the JAX package; the hidden states' gradient is then
+    whole on every tp rank, and each rank keeps its slice of the head's."""
     tokens = batch["tokens"]
 
     def mean_xent(blk, targets):
         hidden = model(blk, return_hidden=True)[:, :targets.shape[1]]
+        head = full(model.lm_head.weight)
+        tp = _tp(model.lm_head.weight)
+        if tp is not None:
+            head = distributed.gather_from_tp(head, tp, dim=0)
         return streamed_lm_xent(hidden.reshape(-1, hidden.shape[-1]),
-                                full(model.lm_head.weight).t(),
-                                targets.reshape(-1), chunk)
+                                head.t(), targets.reshape(-1), chunk)
 
     if model.cfg.use_ring:
         loss = _sp_loss(model, tokens, lambda blk, targets: mean_xent(

@@ -22,6 +22,11 @@ The collectives (:func:`all_reduce`, :func:`all_gather`,
 :func:`reduce_scatter`, :func:`all_to_all`, :func:`broadcast`) take a
 process group where the JAX package takes an axis name and index groups.
 Without a process group the world is one rank and each is the identity.
+Tensor parallelism's seams (:func:`copy_to_tp`, :func:`reduce_from_tp`,
+:func:`gather_from_tp`, what XLA's partitioner inserts around a tp-sharded
+layer in the JAX package) take a tp group's collectives: a process
+group's (:class:`GroupComm`) or one process's shards' on a list of
+devices (:class:`LocalComm`).
 On the gloo backend a CUDA tensor goes through host memory: the choice
 is made by the backend's name, for every op, never by catching an error
 of a CUDA collective.
@@ -326,6 +331,162 @@ def all_to_all_grad(t: torch.Tensor, group=None) -> torch.Tensor:
     if not is_initialized():
         return t
     return _AllToAll.apply(t, group)
+
+
+# -- tensor parallelism -------------------------------------------------------
+#
+# A tp group's collectives, behind one small interface (``size``,
+# ``index``, ``all_reduce(t)`` -> the sum, a new tensor, and
+# ``all_gather(t)`` -> (G, *t.shape)), with two implementations: the ranks
+# of a process group (:class:`GroupComm`, the world step's tp axis) and
+# the shards of one process on a list of devices (:class:`LocalComm`, the
+# one-process teacher). The autograd functions below are the tp layers'
+# seams.
+
+
+def _sum_in_order(parts, like: torch.Tensor) -> torch.Tensor:
+    """The ranks' partial sums added in rank order, a 16-bit tensor's in
+    fp32 and rounded once: the same bits on every rank."""
+    dtype = (torch.float32 if like.dtype in (torch.float16, torch.bfloat16)
+             else like.dtype)
+    acc = parts[0].to(like.device, dtype, copy=True)
+    for p in parts[1:]:
+        acc = acc + p.to(like.device, dtype)
+    return acc.to(like.dtype)
+
+
+class GroupComm:
+    """tp collectives over a process group (None: the default group),
+    through the staged collectives above. A 16-bit tensor's sum is an
+    all-gather of the partials (in their own dtype, half the bytes of
+    fp32) added in rank order (:func:`_sum_in_order`); any other
+    tensor's is the backend's all-reduce."""
+
+    def __init__(self, group, size: int, index: int):
+        self.group, self.size, self.index = group, size, index
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if t.dtype in (torch.float16, torch.bfloat16):
+            return _sum_in_order(self.all_gather(t).unbind(0), t)
+        return all_reduce(t.clone(), self.group)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        return all_gather(t, self.group)
+
+
+class LocalExchange:
+    """The meeting point of ``size`` threads of one process, one a tp
+    shard: at each collective every shard deposits its tensor and all
+    read every slot once all have deposited (one barrier a collective:
+    the slots alternate between two sets, and no shard can be two
+    collectives ahead of another). A shard that fails breaks the
+    barrier, so its peers raise instead of waiting for it; ``reset``
+    readies the exchange for the next forward."""
+
+    def __init__(self, size: int, timeout: float = TIMEOUT.total_seconds()):
+        import threading
+
+        self.size = size
+        self.barrier = threading.Barrier(size, timeout=timeout)
+        self.reset()
+
+    def abort(self) -> None:
+        self.barrier.abort()
+
+    def reset(self) -> None:
+        self.barrier.reset()
+        self.slots: list = [[None] * self.size, [None] * self.size]
+        self.calls = [0] * self.size
+
+
+class LocalComm:
+    """tp collectives among the shards of one process (each its own
+    thread, on its own device; devices may repeat). Every shard adds the
+    partial sums in shard order on its own device
+    (:func:`_sum_in_order`), so every shard holds the same bits."""
+
+    def __init__(self, exchange: LocalExchange, index: int):
+        self.exchange, self.index = exchange, index
+        self.size = exchange.size
+
+    def _parts(self, t: torch.Tensor) -> list[torch.Tensor]:
+        ex = self.exchange
+        slots = ex.slots[ex.calls[self.index] % 2]
+        ex.calls[self.index] += 1
+        slots[self.index] = t
+        ex.barrier.wait()
+        return list(slots)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return _sum_in_order(self._parts(t), t)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.stack([p.to(t.device) for p in self._parts(t)])
+
+
+def tp_comm(mesh, axis: str = "tp"):
+    """The tp collectives of this rank's ``axis`` group of ``mesh``: the
+    mesh's :class:`LocalComm` as it is, else a :class:`GroupComm` over its
+    process group."""
+    group = mesh.group(axis)
+    if isinstance(group, LocalComm):
+        return group
+    return GroupComm(group, mesh.axis_size(axis), mesh.coords[axis])
+
+
+class _CopyToTp(torch.autograd.Function):
+    """The input of a column-parallel layer: the identity forward, and the
+    ranks' partial input gradients all-reduced backward."""
+
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.all_reduce(grad.contiguous()), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    """The output of a row-parallel layer: the ranks' partial sums
+    all-reduced forward, the gradient passed through backward."""
+
+    @staticmethod
+    def forward(ctx, t, comm):
+        return comm.all_reduce(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromTp(torch.autograd.Function):
+    """The ranks' slices concatenated along ``dim`` forward; each rank's
+    own slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, t, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return torch.cat(comm.all_gather(t.contiguous()).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        comm = ctx.comm
+        return (grad.chunk(comm.size, dim=ctx.dim)[comm.index].contiguous(),
+                None, None)
+
+
+def copy_to_tp(t: torch.Tensor, comm) -> torch.Tensor:
+    return _CopyToTp.apply(t, comm)
+
+
+def reduce_from_tp(t: torch.Tensor, comm) -> torch.Tensor:
+    return _ReduceFromTp.apply(t, comm)
+
+
+def gather_from_tp(t: torch.Tensor, comm, dim: int = -1) -> torch.Tensor:
+    return _GatherFromTp.apply(t, comm, dim)
 
 
 def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:

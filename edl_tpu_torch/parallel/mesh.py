@@ -23,8 +23,12 @@ the same batch and their sequence blocks, and attention is the ring over
 ``group("sp")`` (``parallel/ring_attention.py``); ep carries the MoE
 token all-to-all (``train/comm.MoECommStep``: every rank its own rows,
 the expert tables replicated and each rank running its own experts'
-rows). tp resolves here (the arithmetic is shared) and shards nothing
-yet: a tp-sharded teacher comes with ROADMAP Queue 1 item 14(d).
+rows); tp shards the transformer's heads, MLP and vocab
+(``parallel/sharding.shard_module``): its ranks hold the same rows and
+their slices of those leaves, and the model's tp layers run their
+collectives over ``group("tp")`` (``parallel/distributed.copy_to_tp``
+and its kin). The world step reduces gradients over the ranks that share
+a tp coordinate, ``cross_group("tp")``.
 
 Multi-slice: ``make_hybrid_mesh`` places the DCN axis's major component
 across slices (dp, or ep when present), everything else inside a slice.
@@ -49,6 +53,9 @@ EP_AXIS = "ep"
 
 # The axes a batch is split over (the JAX package's data_sharding).
 DATA_AXES = ("dp", "fsdp")
+
+# The tensor-parallel axis: its ranks hold the same rows.
+TP_AXIS = "tp"
 
 
 def dcn_axis_of(axes) -> str:
@@ -170,6 +177,13 @@ class Mesh:
     def group(self, axis: str):
         return self._groups.get(axis)
 
+    def cross_group(self, axis: str):
+        """The group of the ranks that share this rank's ``axis``
+        coordinate, every other axis varying (None: the default group,
+        or no group where that is this rank alone: see ``size //
+        axis_size(axis)``). Built for the tp axis only."""
+        return self._groups.get(("cross", axis))
+
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
 
@@ -217,6 +231,15 @@ def _build(devices: np.ndarray, names: tuple[str, ...]) -> Mesh:
                 pg = None if len(ranks) == world else dist.new_group(ranks)
                 if rank in ranks:
                     groups[name] = pg
+        if TP_AXIS in names:
+            i = names.index(TP_AXIS)
+            tp = devices.shape[i]
+            if tp > 1 and world > tp:
+                for ranks in np.moveaxis(devices, i, 0).reshape(tp, -1):
+                    ranks = list(map(int, ranks))
+                    pg = dist.new_group(ranks)
+                    if rank in ranks:
+                        groups[("cross", TP_AXIS)] = pg
     return Mesh(devices, names, rank, groups)
 
 

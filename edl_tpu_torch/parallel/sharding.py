@@ -16,13 +16,16 @@ runs the collectives by hand:
 - :func:`shard_tree` / :func:`gather_tree` cut a flax tree (numpy) into
   a rank's shards and put the ranks' shards back together;
 - :func:`shard_module` replaces each parameter of a port module that the
-  rules shard over ``fsdp`` by this rank's slice (in the torch layout,
-  ``bridge.torch_dim`` maps the rule's flax dim) and tags it;
+  rules shard over ``fsdp`` or ``tp`` by this rank's slice (in the torch
+  layout, ``bridge.torch_dim`` maps the rule's flax dim) and tags it
+  (:func:`fsdp_spec`, :func:`tp_spec`);
   :func:`full` is what a forward reads instead of such a parameter: an
-  autograd function whose forward all-gathers the leaf along its dim
-  and whose backward reduce-scatters the gradient back to the slice, as
-  a mean over the fsdp group. The optimizer then runs on the slices
-  (``train/step.py``).
+  autograd function whose forward all-gathers the leaf along its fsdp
+  dim and whose backward reduce-scatters the gradient back to the slice,
+  as a mean over the fsdp group. A tp slice is never gathered: the
+  model computes with the rank's heads, MLP columns and vocab rows, and
+  its tp layers run the collectives (``models/transformer.py``). The
+  optimizer then runs on the slices (``train/step.py``).
 
 ``constrain`` is a no-op: ``with_sharding_constraint`` tells XLA where
 an activation should live; the port has no partitioner, and its
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from edl_tpu_torch.parallel import distributed
+from edl_tpu_torch.parallel.mesh import TP_AXIS
 
 # Default rule table for the transformer family (the JAX package's).
 #   batch: batch dim of activations; seq: sequence dim; vocab: the
@@ -60,6 +64,11 @@ DEFAULT_RULES: tuple[tuple[str, Any], ...] = (
     ("expert", "ep"),
     ("expert_router", None),
 )
+
+# The rules by which the port places parameters: the JAX package's, with
+# "seq" unsharded (an sp rank keeps every parameter whole along sp; see
+# shard_module).
+PARAM_RULES = tuple((n, None if n == "seq" else a) for n, a in DEFAULT_RULES)
 
 # The transformer's logical names, by flax path (the JAX model's
 # with_logical_partitioning calls); a path not matched is replicated
@@ -247,7 +256,7 @@ def constrain(x: torch.Tensor, logical: Sequence[str | None], mesh=None,
     return x
 
 
-# -- the FSDP parameter plane --------------------------------------------------
+# -- the FSDP and tp parameter planes -------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -255,7 +264,8 @@ class FsdpSpec:
     """A parameter held as this rank's slice: ``dim`` of the torch layout
     split ``world`` ways over ``group`` (this rank holds slice ``index``),
     ``flax_dim`` the same dim in the flax layout, ``full_shape`` the
-    whole leaf's torch shape."""
+    shape :func:`full` gathers: the whole leaf's torch shape, or under tp
+    the rank's tp slice's."""
 
     dim: int
     flax_dim: int
@@ -265,8 +275,39 @@ class FsdpSpec:
     full_shape: tuple[int, ...]
 
 
+@dataclass(frozen=True)
+class TpSpec(FsdpSpec):
+    """A parameter split over tp: :class:`FsdpSpec`'s fields, with
+    ``group`` the tp group's collectives (``distributed.tp_comm``) and
+    ``full_shape`` the whole leaf's torch shape. The forward computes
+    with the slice; the model's tp layers run the collectives."""
+
+
 def fsdp_spec(p: torch.Tensor) -> FsdpSpec | None:
     return getattr(p, "_fsdp", None)
+
+
+def tp_spec(p: torch.Tensor) -> TpSpec | None:
+    return getattr(p, "_tp", None)
+
+
+def cuts(p: torch.Tensor) -> list:
+    """The parameter's cuts, in the order they were taken: its tp slice,
+    then the fsdp slice of that."""
+    return [s for s in (tp_spec(p), fsdp_spec(p)) if s is not None]
+
+
+def whole_shape(p: torch.Tensor) -> tuple[int, ...]:
+    """The torch shape of the whole leaf of which ``p`` is a slice."""
+    spec = tp_spec(p) or fsdp_spec(p)
+    return tuple(p.shape) if spec is None else spec.full_shape
+
+
+def owns_chunk(p: torch.Tensor) -> bool:
+    """Whether this rank writes ``p``'s slice to a sharded checkpoint: the
+    JAX package's ``replica_id == 0``, the rank at coordinate 0 of every
+    mesh axis that does not split the leaf."""
+    return getattr(p, "_owner", True)
 
 
 class _GatherParam(torch.autograd.Function):
@@ -290,61 +331,86 @@ class _GatherParam(torch.autograd.Function):
 
 
 def full(p: torch.Tensor) -> torch.Tensor:
-    """The whole parameter: ``p`` itself, or for a sharded parameter its
-    slices gathered from the group (differentiable)."""
+    """The parameter a forward reads: ``p`` itself, or for an
+    fsdp-sharded parameter its slices gathered from the group
+    (differentiable), up to the rank's tp slice."""
     spec = fsdp_spec(p)
     if spec is None:
         return p
     return _GatherParam.apply(p, spec)
 
 
+SHARD_AXES = (TP_AXIS, FSDP_AXIS)
+
+
 def shard_module(model: torch.nn.Module, mesh,
-                 rules: Sequence[tuple[str, Any]] = DEFAULT_RULES,
-                 axis: str = FSDP_AXIS) -> dict[str, FsdpSpec]:
+                 rules: Sequence[tuple[str, Any]] = DEFAULT_RULES
+                 ) -> dict[str, Any]:
     """Keep only this rank's slice of every parameter the rules shard
-    over ``axis`` (the whole module was built, identically, on every
-    rank); returns the specs by parameter name. A mesh whose ``axis`` is
-    of size 1 shards nothing. Only one sharded dim a leaf, over ``axis``
-    alone, is carried: the transformer's rules under an fsdp mesh. An
-    sp axis shards no parameter (the JAX package's "seq" rule places
-    ``pos_embed`` over sp; every sp rank here keeps it whole, and the
-    model reads its block's rows)."""
+    over fsdp or tp (the whole module was built, identically, on every
+    rank): the tp slice first, then the fsdp slice of it (a leaf such as
+    ``mlp_in``, ``P("fsdp", "tp")``, splits on two dims). Returns each
+    sharded parameter's spec by name (its FsdpSpec where it has one,
+    else its TpSpec). Axes of size 1 shard nothing.
+
+    In the torch layout (``bridge.torch_dim``): q/k/v are (H·Dh, d) with
+    the heads the major dim, so a rank's heads are one block of rows, and
+    ``out`` (d, H·Dh) splits along its columns; ``mlp_in`` and
+    ``lm_head`` split their rows over tp, ``mlp_out`` its columns, the
+    token table its embedding columns. An sp axis shards no parameter
+    (the JAX package's "seq" rule places ``pos_embed`` over sp; every sp
+    rank here keeps it whole, and the model reads its block's rows).
+    Expert tables split over ep or tp raise (ROADMAP Queue 1 item 14(d),
+    its ep half)."""
     from edl_tpu_torch import bridge
 
-    size = mesh.axis_size(axis)
-    specs: dict[str, FsdpSpec] = {}
-    if size <= 1:
+    sizes = {a: mesh.axis_size(a) for a in SHARD_AXES}
+    specs: dict[str, Any] = {}
+    if all(n <= 1 for n in sizes.values()):
         return specs
+    plan, owners = [], []
+    for name, p in model.named_parameters():
+        path = bridge.flax_path(name)
+        names = logical_names(path)
+        if names is None:
+            continue
+        spec = tuple(_without(e, SP_AXIS)
+                     for e in logical_to_spec(names, rules, mesh))
+        dims = {d: e for d, e in enumerate(spec) if e is not None}
+        if not dims:
+            continue
+        if "moe_mlp" in path or any(e not in SHARD_AXES
+                                    for e in dims.values()):
+            raise NotImplementedError(
+                f"{name}: spec {spec} shards an expert table or over more "
+                "than fsdp and tp (expert tables over ep or tp: ROADMAP "
+                "Queue 1 item 14(d))")
+        for axis in SHARD_AXES:
+            for fdim, e in dims.items():
+                if e != axis:
+                    continue
+                tdim = bridge.torch_dim(name, fdim, len(names))
+                if p.shape[tdim] % sizes[axis]:
+                    raise ValueError(f"{name}: dim {tdim} of "
+                                     f"{tuple(p.shape)} does not split over "
+                                     f"{sizes[axis]} ranks")
+                plan.append((name, p, axis, fdim, tdim))
+        owners.append((p, all(mesh.coords[a] == 0 for a in mesh.axis_names
+                              if a not in dims.values())))
+    comm = distributed.tp_comm(mesh) if sizes[TP_AXIS] > 1 else None
+    for p, owner in owners:
+        p._owner = owner
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            path = bridge.flax_path(name)
-            names = logical_names(path)
-            if names is None:
-                continue
-            spec = tuple(_without(e, SP_AXIS)
-                         for e in logical_to_spec(names, rules, mesh))
-            dims = [d for d, e in enumerate(spec) if e is not None]
-            if not dims:
-                continue
-            if len(dims) > 1 or spec[dims[0]] != axis:
-                raise NotImplementedError(
-                    f"{name}: spec {spec} shards over more than {axis!r} "
-                    "(tp and ep sharded parameters: ROADMAP Queue 1 item "
-                    "14(d))")
-            fdim = dims[0]
-            tdim = bridge.torch_dim(name, fdim, len(names))
-            if p.shape[tdim] % size:
-                raise ValueError(f"{name}: dim {tdim} of {tuple(p.shape)} "
-                                 f"does not split over {size} ranks")
-            s = FsdpSpec(dim=tdim, flax_dim=fdim, world=size,
-                         index=mesh.coords[axis], group=mesh.group(axis),
-                         full_shape=tuple(p.shape))
-            p.data = p.data.chunk(size, dim=tdim)[s.index].contiguous()
-            p._fsdp = s
+        for name, p, axis, fdim, tdim in plan:
+            world, index = sizes[axis], mesh.coords[axis]
+            cls, group = ((TpSpec, comm) if axis == TP_AXIS
+                          else (FsdpSpec, mesh.group(axis)))
+            s = cls(dim=tdim, flax_dim=fdim, world=world, index=index,
+                    group=group, full_shape=tuple(p.shape))
+            p.data = p.data.chunk(world, dim=tdim)[index].contiguous()
+            setattr(p, "_tp" if axis == TP_AXIS else "_fsdp", s)
             specs[name] = s
     return specs
-
-
 def _without(entry, axis: str):
     """A spec entry with ``axis`` taken out (None when nothing is left)."""
     if entry is None:
@@ -355,14 +421,27 @@ def _without(entry, axis: str):
 
 
 def is_sharded(model: torch.nn.Module) -> bool:
-    return any(fsdp_spec(p) is not None for p in model.parameters())
+    return any(cuts(p) for p in model.parameters())
 
 
-def gather_like(t: torch.Tensor, spec: FsdpSpec) -> torch.Tensor:
+def gather_like(t: torch.Tensor, spec) -> torch.Tensor:
     """``t``, a slice in ``spec``'s layout (a parameter or a moment),
-    gathered whole along ``spec.dim``."""
+    gathered along ``spec.dim`` over the spec's group (an FsdpSpec's
+    process group, a TpSpec's tp collectives)."""
+    if isinstance(spec, TpSpec):
+        parts = spec.group.all_gather(t.contiguous())
+        return torch.cat(parts.unbind(0), dim=spec.dim)
     if not distributed.is_initialized():
         raise RuntimeError("a sharded leaf is gathered over its world, "
                            "which this process has left")
     parts = distributed.all_gather(t.contiguous(), spec.group)
     return torch.cat(parts.unbind(0), dim=spec.dim)
+
+
+def gather_whole(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``t``, in parameter ``p``'s sharded layout (``p`` itself, its
+    gradient or a moment), gathered whole: over fsdp, then over tp
+    (collective over both groups)."""
+    for spec in reversed(cuts(p)):
+        t = gather_like(t, spec)
+    return t

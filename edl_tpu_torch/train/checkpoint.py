@@ -9,10 +9,12 @@ The contract is the JAX package's, and so is every byte on disk:
   ``index.{rank}.json`` into the version's temp dir between the JAX
   package's barriers (begin, clean, chunks), and rank 0 seals it
   (``_save_sharded_world``; synchronous, as the JAX package's
-  multi-process sharded saves are). An FSDP state
-  (``parallel/sharding.shard_module``) in the replicated format is
-  gathered to rank 0, which writes it; restoring into one reads only
-  this rank's regions (``bridge.flax_to_state_sharded``);
+  multi-process sharded saves are). A sharded state
+  (``parallel/sharding.shard_module``: fsdp, tp or both) in the
+  replicated format is gathered to rank 0, which writes it; in the
+  sharded format each slice is written once, by its replica 0; restoring
+  into one reads only this rank's regions
+  (``bridge.flax_to_state_sharded``);
 - a save is written into a temp dir and sealed by ``os.rename`` to
   ``ckpt-{version}``; versions increase; ``latest`` is the largest
   sealed one, so a half-written temp dir is never visible;
@@ -135,7 +137,7 @@ class CheckpointManager:
 
     def _world_save(self, state) -> bool:
         """Whether a save of ``state`` is collective: a sharded save in a
-        world, or an FSDP state (its moments and, in the replicated
+        world, or a sharded state (its moments and, in the replicated
         format, its slices are gathered)."""
         return ((self.sharded and distributed.world_size() > 1)
                 or is_sharded(state.model))
@@ -308,7 +310,7 @@ class CheckpointManager:
         return version
 
     def _save_world(self, state, status: TrainStatus) -> int | None:
-        """The collective save: an FSDP state's tree (its slices as
+        """The collective save: a sharded state's tree (its slices as
         Shards; collective), then either every rank's chunks
         (``sharded``) or the gathered whole tree written by rank 0."""
         if is_sharded(state.model):
@@ -325,7 +327,7 @@ class CheckpointManager:
             sc.snapshot_shard_tree(tree, self.process_index), status)
         if version is not None and not is_sharded(state.model):
             # rank 0's whole tree serves migration donors, as an async
-            # save's does (an FSDP rank's slices are not served)
+            # save's does (a sharded rank's slices are not served)
             self._retain(tree, None, version, status)
         return version
 
@@ -687,7 +689,7 @@ class CheckpointManager:
         return tree, TrainStatus.from_dict(meta["status"])
 
     def _load_sharded(self, state, version: int) -> TrainStatus:
-        """Write version ``version`` into an FSDP ``state``, reading only
+        """Write version ``version`` into a sharded ``state``, reading only
         this rank's regions from the chunks (whole leaves from the
         replicated format's tree)."""
         path = self._path(version)

@@ -16,11 +16,14 @@ The result is the state dict ``serialization.msgpack_restore`` gives for
 the replicated format, rebuilt from the keys, so one ``flax_to_state``
 writes either into the live state.
 
-A rank of an FSDP world (``parallel/sharding.shard_module``) writes its
-own chunks (``snapshot_shard_tree`` of ``bridge.sharded_state_tree``):
-each sharded leaf's slice at its offset in the whole leaf, in the JAX
-package's FSDP layout, and its ``index.{rank}.json``; rank 0 writes the
-whole leaves. Restoring into such a state reads only the regions the
+A rank of a sharded world (``parallel/sharding.shard_module``: fsdp, tp
+or both) writes its own chunks (``snapshot_shard_tree`` of
+``bridge.sharded_state_tree``): each sharded leaf's slice at its offset
+in the whole leaf, in the JAX package's layout (a chunk's name from its
+leaf's index and offset), when it is the slice's writer (the JAX
+package's replica_id == 0: a tp slice is written by the ranks at fsdp,
+dp and sp coordinate 0), and its ``index.{rank}.json``; rank 0 writes
+the whole leaves. Restoring into such a state reads only the regions the
 rank holds (``bridge.flax_to_state_sharded`` over ``read_region``), from
 disk or, through ``restore_from_index``, from donors.
 
@@ -118,9 +121,10 @@ def snapshot_nbytes(snap: dict) -> int:
 
 def snapshot_shard_tree(tree, process_index: int) -> dict:
     """The leaf table and this rank's chunks of a tree whose sharded
-    leaves are ``bridge.Shard``s: each Shard is this rank's chunk at its
-    offset; a whole leaf is rank 0's single chunk (the others list it
-    with no chunks, as the JAX package's non-owners do)."""
+    leaves are ``bridge.Shard``s: a Shard its owner writes (the JAX
+    package's replica_id == 0) is this rank's chunk at its offset; a
+    whole leaf is rank 0's single chunk (the others list a leaf they do
+    not write with no chunks, as the JAX package's non-owners do)."""
     from edl_tpu_torch.bridge import Shard
 
     chunks, table = [], []
@@ -128,7 +132,7 @@ def snapshot_shard_tree(tree, process_index: int) -> dict:
         if isinstance(leaf, Shard):
             arr, offset, shape = (np.asarray(leaf.array), tuple(leaf.offset),
                                   tuple(leaf.shape))
-            mine = True
+            mine = leaf.owner
         else:
             arr = np.asarray(leaf)
             offset, shape = (0,) * arr.ndim, tuple(arr.shape)

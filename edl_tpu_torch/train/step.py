@@ -20,7 +20,7 @@ metrics gain ``loss_scale`` and ``finite``. That step reads one value
 back, the finite flag, and runs the optimizer only on a finite step.
 
 With a ``mesh`` of more than one rank (``parallel/mesh.make_mesh`` over
-the joined world, data axes dp and fsdp, and sp) and no ``comm``, the
+the joined world, data axes dp and fsdp, tp and sp) and no ``comm``, the
 step is the JAX package's one SPMD program done by hand
 (:class:`WorldTrainStep`):
 each rank runs the forward and backward on its slice of the global
@@ -48,8 +48,8 @@ import torch
 
 from edl_tpu_torch.models.resnet import set_batch_group
 from edl_tpu_torch.parallel import distributed
-from edl_tpu_torch.parallel.mesh import DATA_AXES
-from edl_tpu_torch.parallel.sharding import SP_AXIS, fsdp_spec
+from edl_tpu_torch.parallel.mesh import DATA_AXES, TP_AXIS
+from edl_tpu_torch.parallel.sharding import SP_AXIS, cuts, fsdp_spec
 from edl_tpu_torch.train import amp
 from edl_tpu_torch.train.comm import make_comm_train_step, sync_tensors
 
@@ -114,21 +114,30 @@ def make_train_step(loss_fn: LossFn, loss_scale: bool = False,
 
 
 class WorldTrainStep:
-    """The SPMD world step over a ``mesh`` of data axes (dp, fsdp) and sp;
-    ``step(state, batch)`` or, with ``loss_scale``,
+    """The SPMD world step over a ``mesh`` of data axes (dp, fsdp), tp and
+    sp; ``step(state, batch)`` or, with ``loss_scale``,
     ``step(state, batch, ls)``. Built lazily: the first call turns on the
     global-batch BatchNorm and broadcasts rank 0's whole parameters and
-    buffers."""
+    buffers.
+
+    Under tp the ranks of a replica hold the same rows and their slices
+    of the tp-sharded leaves (``parallel/sharding.shard_module``, cut
+    from one seeded init on every rank, so never broadcast). A gradient
+    reduces only over the ranks that share its tp index
+    (``mesh.cross_group("tp")``): a tp-replicated leaf (the LayerNorms,
+    ``pos_embed``) already holds its whole gradient on every tp rank and
+    is not summed over tp."""
 
     def __init__(self, loss_fn: LossFn, *, mesh, loss_scale: bool = False,
                  with_step: bool = False):
         others = [a for a in mesh.axis_names
-                  if a not in DATA_AXES + (SP_AXIS,) and mesh.shape[a] > 1]
+                  if a not in DATA_AXES + (SP_AXIS, TP_AXIS)
+                  and mesh.shape[a] > 1]
         if others:
             raise NotImplementedError(
-                f"the world step runs dp/fsdp/sp meshes; axes {others} "
-                "shard parameters over tp or ep (ROADMAP Queue 1 item "
-                "14(d); --moe runs train/comm.MoECommStep)")
+                f"the world step runs dp/fsdp/tp/sp meshes; axes {others} "
+                "shard expert tables over ep (ROADMAP Queue 1 item 14(d); "
+                "--moe runs train/comm.MoECommStep)")
         if mesh.axis_size(SP_AXIS) > 1 and mesh.axis_size("fsdp") > 1:
             raise ValueError("sp and fsdp together: the JAX CLI refuses "
                              "--fsdp with --mesh sp")
@@ -136,25 +145,31 @@ class WorldTrainStep:
         self.loss_scale, self.with_step = loss_scale, with_step
         self.world = mesh.size
         self.dp = mesh.axis_size("dp")
-        # the data replicas: the sp ranks of one replica hold the same
-        # rows, and their gradients sum
-        self.replicas = mesh.size // mesh.axis_size(SP_AXIS)
+        self.tp = mesh.axis_size(TP_AXIS)
+        # the data replicas: the sp and tp ranks of one replica hold the
+        # same rows; sp's gradients sum, tp's are each rank's own slices'
+        self.replicas = mesh.size // (mesh.axis_size(SP_AXIS) * self.tp)
+        # the ranks that share this rank's tp index (the whole world
+        # without tp), over which every gradient reduces
+        self.cross = mesh.size // self.tp
+        self.cross_group = mesh.cross_group(TP_AXIS) if self.tp > 1 else None
         self.built = False
         self.steps = 0
 
     def _build(self, state) -> None:
         # every data axis together is the world: the default group
         set_batch_group(state.model, None, self.world)
-        whole = [p for _, p in state.params if fsdp_spec(p) is None]
+        whole = [p for _, p in state.params if not cuts(p)]
         sync_tensors(whole + list(state.model.buffers()))
         self.built = True
 
     def _reduce(self, params: list) -> None:
         """Every gradient the mean over the data replicas (summed over
-        sp), in place: the whole leaves by one all-reduce per dtype of
-        their gradients scaled by 1/replicas; a sharded leaf's gradient is
-        its fsdp group's mean already, and is averaged over the dp axis
-        when there is one."""
+        sp), in place: the leaves not split over fsdp by one all-reduce
+        per dtype over the ranks sharing the tp index, their gradients
+        scaled by 1/replicas; an fsdp-sharded leaf's gradient is its fsdp
+        group's mean already, and is averaged over the dp axis when there
+        is one."""
         inv_w = 1.0 / self.replicas
         by_dtype: dict[torch.dtype, list] = {}
         for p in params:
@@ -169,7 +184,8 @@ class WorldTrainStep:
         for dtype in sorted(by_dtype, key=str):
             ps = by_dtype[dtype]
             flat = torch.cat([p.grad.reshape(-1) for p in ps]).mul_(inv_w)
-            distributed.all_reduce(flat)
+            if self.cross > 1:
+                distributed.all_reduce(flat, self.cross_group)
             offset = 0
             for p in ps:
                 p.grad = flat[offset:offset + p.numel()].view_as(p)

@@ -935,6 +935,158 @@ def test_sp_loss_controls_read_the_three_faults():
         assert cs.sp_loss_controls(model, toks, 1) == {k: 0.0 for k in out}
 
 
+# -- phase 17 (f): tp, and the tp teacher of phase 4 --------------------------
+
+def _tp_ranks(override: dict | None = None) -> list[dict]:
+    ranks = []
+    for r in range(2):
+        rk = _lm_rank(r, "tp", buckets=44, param_elems=cs.BASE_LM_TP_ELEMS)
+        rk.update(own_losses=[float(x) for x in np.linspace(
+                      10.4, 9.0, cs.LM_WORLD_STEPS)],
+                  replicated="r" * 64,
+                  first={"dense_loss": 10.40001, "controls": {
+                      "loss": 10.4, "mlp_out_partial_dropped": 0.05,
+                      "vocab_max_local": 0.01}} if r == 0 else {
+                      "controls": {"loss": 10.4,
+                                   "mlp_out_partial_dropped": 0.05,
+                                   "vocab_max_local": 0.01}})
+        for key, value in (override or {}).get(r, {}).items():
+            rk[key] = value
+        ranks.append(rk)
+    return ranks
+
+
+def _tp_gates(ranks=None, world1=None):
+    from edl_tpu_torch.ops import opt_kernels as ok_mod
+    ranks = ranks or _tp_ranks()
+    tp = cs.lm_world_summary("tp", ranks, ok_mod)
+    dp = {"param_elems_a_rank": cs.BASE_LM_ELEMS}
+    return cs.lm_world_tp_gates(tp, ranks, dp, world1 or {
+        "digest": "d" * 64, "step": cs.LM_WORLD_STEPS, "restore_s": 3.0})
+
+
+def test_a_tp_rank_s_elements_are_half_the_sharded_leaves():
+    cfg = cs.base_config()
+    d, v, ff = cfg.d_model, cfg.vocab_size, cfg.d_ff
+    replicated = cfg.max_len * d + (4 * cfg.n_layers + 2) * d
+    assert cs.BASE_LM_ELEMS == (2 * v * d + cfg.max_len * d + cfg.n_layers
+                                * (4 * d * d + 2 * d * ff + 4 * d) + 2 * d)
+    assert cs.BASE_LM_TP_ELEMS == replicated + (
+        cs.BASE_LM_ELEMS - replicated) // 2
+
+
+def test_lm_world_tp_gates_pass(capsys):
+    out = _tp_gates()
+    assert out["loss_delta"] == pytest.approx(1e-5, abs=1e-9)
+    assert out["tp_share"] == pytest.approx(0.5032, abs=1e-4)
+    assert '"phase": "lm_world_tp_gates"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("case", [
+    "own_losses", "replicated", "elems", "loss", "mlp_control",
+    "max_control", "restore", "launch"])
+def test_lm_world_tp_gates_fail(case, capsys):
+    rank1 = {"own_losses": {"own_losses": [10.4, 9.9, 9.5, 9.1]},
+             "replicated": {"replicated": "x" * 64},
+             "elems": {"param_elems": cs.BASE_LM_ELEMS}}.get(case)
+    ranks = _tp_ranks({1: rank1} if rank1 else None)
+    first = ranks[0]["first"]
+    if case == "loss":
+        first["dense_loss"] = 10.401
+    elif case == "mlp_control":
+        first["controls"]["mlp_out_partial_dropped"] = 1e-4
+    elif case == "max_control":
+        first["controls"]["vocab_max_local"] = 0.0
+    elif case == "launch":
+        ranks[1]["steps"][2]["launches"] = dict(
+            ranks[1]["steps"][2]["launches"], adam_fp32=2)
+    world1 = ({"digest": "e" * 64, "step": 4, "restore_s": 1.0}
+              if case == "restore" else None)
+    with pytest.raises(SystemExit):
+        _tp_gates(ranks, world1)
+    assert "lm_world" in capsys.readouterr().err
+
+
+def test_tp_loss_controls_read_both_faults_on_the_cpu():
+    """tp_loss_controls on two in-process tp shards of a small dense
+    model: the unfaulted loss is the whole model's, each fault moves it,
+    and rank 1's mlp_out slices are put back."""
+    import copy
+    import threading
+
+    from edl_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  lm_loss_fn)
+    from edl_tpu_torch.parallel import distributed
+    from edl_tpu_torch.parallel.mesh import Mesh
+    from edl_tpu_torch.parallel.sharding import shard_module
+
+    model = Transformer(TransformerConfig(
+        vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+        max_len=8, dtype=torch.float32, attention="dense"), device="cpu",
+        seed=3)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(
+        0, 64, (4, 8)).astype(np.int32))}
+    with torch.no_grad():
+        whole = float(lm_loss_fn(model, batch)[0])
+    ex = distributed.LocalExchange(2)
+    shards, out = [], {}
+    for t in range(2):
+        m = copy.deepcopy(model)
+        shard_module(m, Mesh(np.arange(2), ("tp",), rank=t,
+                             groups={"tp": distributed.LocalComm(ex, t)}))
+        shards.append(m)
+    before = shards[1].block0.mlp_out.weight.detach().clone()
+
+    def run(t):
+        out[t] = cs.tp_loss_controls(shards[t], batch)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert out[0] == out[1]
+    assert out[0]["loss"] == pytest.approx(whole, abs=1e-5)
+    assert out[0]["mlp_out_partial_dropped"] > 1e-3
+    assert out[0]["vocab_max_local"] > 1e-4
+    assert torch.equal(shards[1].block0.mlp_out.weight.detach(), before)
+
+
+def test_tp_topk_check_reads_clear_and_tied_ranks():
+    ref = torch.tensor([[5.0, 4.0, 3.9, 1.0, 0.0, -1.0]])
+    idx = torch.tensor([[0, 2, 1, 3]])
+    val = torch.tensor([[5.0, 3.9, 4.0, 1.0]])
+    out = cs.tp_topk_check(ref, idx, val, bound=0.5)
+    # ranks 1 and 2 lie within the bound of each other: not checked
+    assert out["indices_checked"] == 2 and out["indices_wrong"] == 0
+    assert out["val_max_abs_err"] == pytest.approx(0.1)
+    out = cs.tp_topk_check(ref, torch.tensor([[3, 1, 2, 0]]), val, 0.5)
+    assert out["indices_wrong"] == 2
+
+
+def test_phase_17_runs_tp_and_phase_4_the_tp_teacher():
+    import inspect
+
+    lm = inspect.getsource(cs.phase_lm_world)
+    assert '("lm_tp", {"data_dir"' in lm
+    assert "lm_world_tp_gates(" in lm and '"tp", world1_tp' in lm
+    assert "lm_tp_train(**" in inspect.getsource(cs.world_worker)
+    train = inspect.getsource(cs.lm_tp_train)
+    assert "make_train_step(loss_fn, mesh=mesh)" in train
+    assert "MeshSpec(TP_MESH)" in train and cs.TP_MESH == {"tp": 2}
+    assert "sharding.shard_module(model, mesh)" in inspect.getsource(
+        cs.lm_tp_state)
+    src = inspect.getsource(cs.main)
+    assert (src.index("phase_serve(fa)") < src.index("phase_serve_tp(")
+            < src.index('clock.lap("4_serve")'))
+    assert cs.TP_TEACHER_MESH == {"dp": 1, "tp": 2}
+    serve = inspect.getsource(cs.phase_serve_tp)
+    assert "[torch.device(\"cuda\", 0)] * shards" in serve
+    assert "serve_topk=TOPK" in serve
+    assert "phase 4" not in cs.__doc__ or "tp teacher" in cs.__doc__
+
+
 def test_state_checksum_tells_states_apart():
     from edl_tpu_torch.models.transformer import (Transformer,
                                                   TransformerConfig)

@@ -182,24 +182,90 @@ def test_shard_module_keeps_sp_out_of_the_parameters():
     assert len(specs[0]) == 6 * SMALL["n_layers"] + 2
 
 
-@pytest.mark.parametrize("axes", [{"fsdp": 2, "tp": 2}, {"fsdp": 2, "ep": 2}])
-def test_tp_and_ep_sharded_parameters_name_item_14d(axes):
+@pytest.mark.parametrize("axes", [{"tp": 2, "dp": 2}, {"fsdp": 2, "ep": 2}])
+def test_expert_tables_over_tp_and_ep_name_item_14d(axes):
+    """MoE expert tables split over ep, or over tp, are the ep half of
+    item 14(d): shard_module refuses them and leaves the module whole."""
     model = Transformer(TransformerConfig(**SMALL, dtype=torch.float32,
-                                          moe="ep" in axes, n_experts=4),
+                                          moe=True, n_experts=4),
                         device="cpu")
+    shapes = {n: p.shape for n, p in model.named_parameters()}
     grid = np.arange(4).reshape(2, 2)
     with pytest.raises(NotImplementedError, match=r"item 14\(d\)"):
         tshd.shard_module(model, tmesh.Mesh(grid, tuple(axes)))
+    assert {n: p.shape for n, p in model.named_parameters()} == shapes
 
 
-def test_the_world_step_takes_sp_and_refuses_tp():
+@pytest.mark.parametrize("axes", [{"tp": 2}, {"fsdp": 2, "tp": 2},
+                                  {"dp": 2, "tp": 2},
+                                  {"dp": 2, "fsdp": 2, "tp": 2}], ids=str)
+def test_tp_slices_are_the_bridged_jax_shards(boxed, host, axes):
+    """shard_module over meshes with tp (the tp slice, then the fsdp
+    slice of it) leaves on each rank the bridge's conversion of the JAX
+    shards on that rank's device; a tp rank's specs, the chunk writers
+    (replica 0) and the bridge's sharded round trip."""
+    jm, grid, names = _meshes(axes)
+    placed = jax.tree.map(jax.device_put, host, nn.unbox(
+        jshd.param_shardings(jm, boxed)))
+    full = bridge.flax_to_torch(host)
+    state_dicts = []
+    for rank in range(grid.size):
+        tm = tmesh.Mesh(grid, names, rank=rank)
+        model = Transformer(TransformerConfig(**SMALL, dtype=torch.float32),
+                            device="cpu")
+        model.load_state_dict(full)
+        specs = tshd.shard_module(model, tm)
+        on_device = jax.tree.map(
+            lambda a: next(np.asarray(s.data) for s in a.addressable_shards
+                           if s.device.id == rank), placed)
+        want = bridge.flax_to_torch(on_device)
+        sd = {k: v.detach() for k, v in model.named_parameters()}
+        assert sd.keys() == want.keys()
+        for k in sd:
+            assert torch.equal(sd[k], want[k]), k
+            p = model.get_parameter(k)
+            assert tshd.whole_shape(p) == tuple(full[k].shape), k
+            assert (tshd.tp_spec(p) is None) == (k.startswith(
+                ("pos_embed", "ln_final")) or ".ln_" in k), k
+            split = {a for a in axes if axes[a] > 1} & {
+                s for s, on in (("tp", tshd.tp_spec(p)),
+                                ("fsdp", tshd.fsdp_spec(p))) if on}
+            if split:
+                coords = tm.coords
+                assert tshd.owns_chunk(p) == all(
+                    coords[a] == 0 for a in axes if a not in split), k
+        # the tp-sharded leaves: the token table, qkv/out, the MLP, lm_head
+        assert len(specs) == 6 * SMALL["n_layers"] + 2 + (
+            1 if axes.get("fsdp", 1) > 1 else 0)
+        if axes.get("fsdp", 1) > 1:
+            mlp_in = model.get_parameter("block0.mlp_in.weight")
+            assert mlp_in.numel() * 4 == full["block0.mlp_in.weight"].numel()
+            assert tshd.fsdp_spec(mlp_in).full_shape == (
+                SMALL["d_ff"] // 2, SMALL["d_model"])
+        for k, v in bridge.flax_to_torch_sharded(host, tm).items():
+            assert torch.equal(v, sd[k]), k
+        state_dicts.append(sd)
+    back = bridge.torch_to_flax_sharded(state_dicts, tmesh.Mesh(grid, names),
+                                        SMALL["n_heads"])
+    for path, arr in jax.tree_util.tree_flatten_with_path(host)[0]:
+        got = back
+        for k in path:
+            got = got[k.key]
+        np.testing.assert_array_equal(got, arr)
+
+
+def test_the_world_step_takes_sp_and_tp_and_refuses_ep():
     from edl_tpu_torch.models.transformer import lm_loss_fn
     from edl_tpu_torch.train.step import WorldTrainStep
 
     grid = np.arange(4).reshape(2, 2)
     step = WorldTrainStep(lm_loss_fn, mesh=tmesh.Mesh(grid, ("dp", "sp")))
     assert (step.world, step.replicas) == (4, 2)
+    step = WorldTrainStep(lm_loss_fn, mesh=tmesh.Mesh(grid, ("dp", "tp")))
+    assert (step.world, step.replicas, step.cross) == (4, 2, 2)
+    step = WorldTrainStep(lm_loss_fn, mesh=tmesh.Mesh(grid, ("tp", "sp")))
+    assert (step.world, step.replicas, step.cross) == (4, 1, 2)
     with pytest.raises(NotImplementedError, match=r"item 14\(d\)"):
-        WorldTrainStep(lm_loss_fn, mesh=tmesh.Mesh(grid, ("dp", "tp")))
+        WorldTrainStep(lm_loss_fn, mesh=tmesh.Mesh(grid, ("dp", "ep")))
     with pytest.raises(ValueError, match="--fsdp with --mesh sp"):
         WorldTrainStep(lm_loss_fn, mesh=tmesh.Mesh(grid, ("fsdp", "sp")))

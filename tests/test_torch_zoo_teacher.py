@@ -253,7 +253,7 @@ def test_local_mesh_over_cpu_replicas_in_the_builder():
 
 
 @pytest.mark.parametrize("spec,raises,match", [
-    ("dp=2,tp=2", NotImplementedError, r"item 14\(d\)"),
+    ("dp=2,tp=2", None, None),
     ("dp=1,sp=4", NotImplementedError, r"item 14\(d\)"),
     ("dp=3", None, None), ("dp=2,fsdp=2,tp=1", None, None)])
 def test_parse_local_mesh(spec, raises, match):
